@@ -1,0 +1,154 @@
+"""The whole slice: the port's ``DPCEngine(d_cut).fit`` held against the
+JAX package's, plus the port's rules (device default, no JAX, no nvcc on
+CPU tensors, unported axes refused)."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.tuning import pick_dcut
+from repro.data.points import gaussian_mixture, real_proxy
+from repro.engine import DPCEngine as JEngine
+from repro.engine import ExecSpec as JExecSpec
+
+from repro_torch import DPCEngine, ExecSpec
+from repro_torch.core.approxdpc import run_approxdpc
+from repro_torch.core.dpc_api import DPCConfig, cluster
+from repro_torch.kernels import build, ops
+from repro_torch.resilience.sanitize import PoisonedInputError
+
+from _torch_ref import (clear_dcut, f32_d2cut, f32_ulp, near_threshold_rows,
+                        uniform_points)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _assert_same_fit(port, ref, pts, dc, band_margin):
+    """Labels, centers and cluster count equal; rho equal off the
+    threshold band; parent equal and delta to f32 rounding."""
+    tr, jr = port.result, ref.result
+    np.testing.assert_array_equal(port.labels_, ref.labels_)
+    np.testing.assert_array_equal(port.clustering.centers.numpy(),
+                                  np.asarray(ref.clustering.centers))
+    assert int(port.clustering.num_clusters) == \
+        int(ref.clustering.num_clusters) > 0
+    band = near_threshold_rows(pts, pts, f32_d2cut(dc), band_margin)
+    np.testing.assert_array_equal(tr.rho.numpy()[~band],
+                                  np.asarray(jr.rho)[~band])
+    np.testing.assert_array_equal(tr.parent.numpy(), np.asarray(jr.parent))
+    # both sides take sqrt of a direct-difference f32 d2 (or stamp d_cut);
+    # summation order may differ by an ulp
+    np.testing.assert_allclose(tr.delta.numpy(), np.asarray(jr.delta),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("data", ["airline", "gaussian_mixture"])
+def test_fit_matches_jnp_on_realistic_data(data):
+    pts = (real_proxy("airline", 2048)[0] if data == "airline"
+           else gaussian_mixture(4000, d=2)[0])
+    dc = pick_dcut(pts)
+    ref = JEngine(dc, rho_min=8, exec_spec=JExecSpec(backend="jnp")).fit(pts)
+    port = DPCEngine(dc, rho_min=8, device="cpu").fit(pts)
+    # domain 1e5: a pair within 4 f32 ulps of d_cut^2 may round either way
+    thr = f32_d2cut(dc)
+    _assert_same_fit(port, ref, pts, dc, 4 * f32_ulp(thr))
+
+
+def test_fit_matches_pallas_interpret_on_unit_data(monkeypatch):
+    # the reference's plan-time analyzer raises on the installed jax for
+    # every pallas plan (ROADMAP "Reference gaps"); suspend it
+    monkeypatch.setenv("REPRO_ANALYSIS", "suspend")
+    pts = uniform_points(1500, 3, seed=11)
+    dc = clear_dcut(pts, target_rho=25)
+    ref = JEngine(dc, rho_min=15, exec_spec=JExecSpec(
+        backend="pallas-interpret")).fit(pts)
+    port = DPCEngine(dc, rho_min=15, device="cpu").fit(torch.from_numpy(pts))
+    _assert_same_fit(port, ref, pts, dc, 1e-5 * f32_d2cut(dc))
+
+
+def test_fit_without_device_targets_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DPCEngine(1.0).fit(uniform_points(10, 2, seed=0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cluster(uniform_points(10, 2, seed=0), DPCConfig(d_cut=1.0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_approxdpc(uniform_points(10, 2, seed=0), 1.0)
+
+
+def test_drivers_run_on_the_device_of_a_tensor():
+    pts = uniform_points(200, 2, seed=4)
+    res = run_approxdpc(torch.from_numpy(pts), 0.1)
+    assert res.rho.device.type == res.parent.device.type == "cpu"
+    want = cluster(pts, DPCConfig(d_cut=0.1), device="cpu")[1]
+    for got, ref in zip(res, want):
+        assert torch.equal(got, ref)
+
+
+def test_cpu_fit_never_invokes_nvcc(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("nvcc must not run on a CPU fit")
+    monkeypatch.setattr(build, "build", refuse)
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(subprocess, "run", refuse)
+    ops.reset_launch_counts()
+    eng = DPCEngine(0.1, device="cpu").fit(uniform_points(500, 2, seed=1))
+    assert eng.clustering.labels.device.type == "cpu"
+    assert ops.launch_counts() == {"fused_count_topk": 0, "masked_nn": 0}
+
+
+def test_refit_reuses_plan_and_decision_graph():
+    pts = uniform_points(300, 2, seed=2)
+    eng = DPCEngine(0.1, rho_min=3, device="cpu")
+    with pytest.raises(ValueError):
+        eng.result
+    plan = eng.fit(pts).plan
+    assert eng.fit(pts + 1.0).plan is plan
+    dg = eng.decision_graph()
+    assert dg.shape == (300, 2)
+    assert torch.isinf(dg[:, 1]).sum() == 1      # the global density peak
+
+
+def test_unported_axes_and_entry_points_raise():
+    pts = uniform_points(50, 2, seed=3)
+    for algo in ("scan", "exdpc", "sapproxdpc", "lsh_ddp", "cfsfdp_a"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DPCEngine(0.1, algorithm=algo, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DPCConfig(d_cut=0.1, algorithm=algo)
+    with pytest.raises(ValueError):
+        DPCEngine(0.1, algorithm="kmeans", device="cpu")
+    for spec in (ExecSpec(layout="block-sparse"), ExecSpec(precision="bf16")):
+        with pytest.raises(NotImplementedError):
+            DPCEngine(0.1, exec_spec=spec, device="cpu").fit(pts)
+    eng = DPCEngine(0.1, device="cpu").fit(pts)
+    with pytest.raises(NotImplementedError):
+        eng.partial_fit(pts)
+    with pytest.raises(NotImplementedError):
+        eng.predict(pts)
+    with pytest.raises(PoisonedInputError):
+        eng.fit(np.array([[0.0, np.inf]] * 4, np.float32))
+    with pytest.raises(ValueError):
+        DPCEngine(0.1, delta_min=0.05, device="cpu")
+
+
+def test_port_imports_no_jax():
+    mods = sorted(p.relative_to(SRC).with_suffix("").as_posix()
+                  .replace("/", ".").removesuffix(".__init__")
+                  for p in (SRC / "repro_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(" + repr(mods) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout) == len(mods) >= 20
