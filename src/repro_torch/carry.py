@@ -1,10 +1,11 @@
 """Carry the JAX package's state across into the port's objects.
 
-DPC has no weights: its state is the point table, the execution spec and
-the intermediate results.  These functions take that state as numpy arrays
-and plain dicts — what ``np.asarray`` and ``dataclasses.asdict`` give for
-the reference's objects — and build the port's counterparts, so one
-stage's reference output can feed the port's next stage.  Backend names map
+DPC has no weights: its state is the point table, the execution spec, the
+block-sparse worklists and the intermediate results.  These functions take
+that state as numpy arrays and plain dicts — what ``np.asarray`` and
+``dataclasses.asdict`` give for the reference's objects — and build the
+port's counterparts, so one stage's reference output can feed the port's
+next stage.  Backend names map
 ``pallas``/``pallas-interpret`` -> ``cuda``; ``jnp`` is refused until the
 port has a reference backend.
 """
@@ -18,8 +19,9 @@ import torch
 from .core.dpc_types import DPCResult
 from .core.grid import Grid
 from .engine.spec import ExecSpec
+from .kernels.blocksparse import Worklist
 
-__all__ = ["dpc_result", "grid", "exec_spec"]
+__all__ = ["dpc_result", "grid", "exec_spec", "flat_worklist"]
 
 _BACKENDS = {None: None, "auto": None, "pallas": "cuda",
              "pallas-interpret": "cuda", "cuda": "cuda"}
@@ -71,3 +73,23 @@ def exec_spec(fields: Mapping) -> ExecSpec:
                     precision=fields.get("precision"),
                     block=fields.get("block"),
                     data_axis=fields.get("data_axis", "data"))
+
+
+def flat_worklist(meta, lb, n_kept: int, n_total: int, *,
+                  device="cpu") -> Worklist:
+    """A ``Worklist`` from the reference's ``FlatWorklist``: ``meta`` (4, W)
+    rows (row tile, column tile, first visit, in_cut), sorted by row tile,
+    and ``lb`` (W,).  It must have been built at the port's tile shape
+    (``blocksparse.BLOCK_N`` x ``BLOCK_M``, 256 x 512)."""
+    meta = np.asarray(meta)
+    wi = meta[0].astype(np.int64)
+    if wi.size and np.any(np.diff(wi) < 0):
+        raise ValueError("worklist entries must be sorted by row tile")
+    nbr = int(wi.max()) + 1 if wi.size else 0
+    row_ptr = np.zeros(nbr + 1, np.int64)
+    row_ptr[1:] = np.cumsum(np.bincount(wi, minlength=nbr))
+    return Worklist(row_ptr=_tensor(row_ptr, torch.int32, device),
+                    col_tile=_tensor(meta[1], torch.int32, device),
+                    in_cut=_tensor(meta[3] != 0, torch.bool, device),
+                    lb=_tensor(lb, torch.float32, device),
+                    n_kept=int(n_kept), n_total=int(n_total))

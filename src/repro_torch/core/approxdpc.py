@@ -9,11 +9,14 @@ diameter < d_cut):
 3. otherwise (a cell maximum with no denser point within d_cut): the exact
    nearest denser point and its distance — the "stem" roots, |roots| << n.
 
-This is the reference's engine branch (``repro/core/approxdpc.py:81-135``):
+This is the reference's engine branch (``repro/core/approxdpc.py:60-135``):
 one fused ``rho_delta`` call counts every row's density and answers Def. 2
-for the cell maxima, whose nearest denser point decides rules 2 and 3.  The
-stencil branch, which the reference takes on its ``jnp`` backend, comes with
-the reference-backend slice (ROADMAP Queue A).
+for the cell maxima, whose nearest denser point decides rules 2 and 3.
+Under the block-sparse layout that call runs on the grid-sorted table (its
+tiles are compact, so the worklist prunes) and its answers map back through
+``unsort_dpc`` (``exdpc.fused_dpc``, shared with Ex-DPC and Scan).  The
+stencil branch, which the reference takes on its ``jnp`` backend, comes
+with the reference-backend slice (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 from .. import obs
 from ..engine.planner import as_plan
 from .device import as_points
-from .dpc_types import DPCResult, density_jitter
+from .dpc_types import DPCResult
+from .exdpc import fused_dpc
 from .grid import Grid, build_grid
 
 
@@ -63,10 +67,9 @@ def run_approxdpc(points, d_cut: float, *, g: int | None = None,
 
     # one engine invocation answers Def. 1 for every row AND Def. 2 for the
     # rows that will need it: only cell maxima consume it (rules 2 + 3)
-    with obs.span("approxdpc.rho_delta", n=n, layout=pl.layout) as sp:
-        rho, rho_key, nn_delta_all, nn_parent_all = sp.sync(pl.rho_delta(
-            points, points, d_cut, jitter=density_jitter(n, dev),
-            fallback_interest=lambda rk: _maxima_mask(grid, seg, rk)))
+    rho, rho_key, nn_delta_all, nn_parent_all = fused_dpc(
+        points, d_cut, pl, phase="approxdpc", grid=grid,
+        fallback_interest=lambda rk: _maxima_mask(grid, seg, rk))
     rk_sorted = rho_key[grid.order]
 
     # --- rule 1: in-cell O(1) dependents via segment argmax ---

@@ -1,8 +1,8 @@
 """Public DPC API: one config, one entry point.
 
-The port of ``repro/core/dpc_api.py``.  Its dispatch table holds Approx-DPC
-only; the other algorithm names stay valid and raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The port of ``repro/core/dpc_api.py``.  Its dispatch table holds Scan,
+Ex-DPC and Approx-DPC; the other algorithm names stay valid and raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -14,7 +14,9 @@ from repro_torch.engine.spec import ExecSpec
 from .approxdpc import run_approxdpc
 from .device import as_points, resolve_device
 from .dpc_types import DPCResult
+from .exdpc import run_exdpc
 from .labels import Clustering, assign_labels, decision_graph
+from .scan import run_scan
 
 Algorithm = Literal["scan", "exdpc", "approxdpc", "sapproxdpc",
                     "lsh_ddp", "cfsfdp_a"]
@@ -23,13 +25,14 @@ _ALGORITHMS = ("scan", "exdpc", "approxdpc", "sapproxdpc", "lsh_ddp",
                "cfsfdp_a")
 
 _RUNNERS = {
+    "scan": lambda p, c, x: run_scan(p, c.d_cut, exec_spec=x),
+    "exdpc": lambda p, c, x: run_exdpc(p, c.d_cut, g=c.grid_dims,
+                                       exec_spec=x),
     "approxdpc": lambda p, c, x: run_approxdpc(p, c.d_cut, g=c.grid_dims,
                                                exec_spec=x),
 }
 
 _UNPORTED = {
-    "scan": "ROADMAP Queue A item 4 (core/scan.py)",
-    "exdpc": "ROADMAP Queue A item 4 (core/exdpc.py)",
     "sapproxdpc": "ROADMAP Queue A item 4 (core/sapproxdpc.py)",
     "lsh_ddp": "ROADMAP Queue A item 4 (core/lsh_ddp.py)",
     "cfsfdp_a": "ROADMAP Queue A item 4 (core/cfsfdp_a.py)",

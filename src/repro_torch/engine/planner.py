@@ -2,14 +2,17 @@
 
 The port of ``repro/engine/planner.py``.  ``plan(points_spec, exec_spec)``
 resolves the execution axes a single time — the
-:class:`~repro_torch.kernels.backend.KernelBackend` instance, the layout and
-the precision — and memoizes the plan on ``(PointsSpec, ExecSpec)``, so a
-re-fit on same-shaped input gets the same plan object back.
+:class:`~repro_torch.kernels.backend.KernelBackend` instance, the layout
+(``grid_sort`` tells drivers to lay the points out grid-sorted, which the
+block-sparse layout's pruning needs) and the precision — and memoizes
+the plan on ``(PointsSpec, ExecSpec)``, so a re-fit on same-shaped input
+gets the same plan object back.
 
 Not ported: the jaxpr analyzer gate (``_plan_check``), the fault-injection
-sites, and ``resolve_backend``'s ``pallas -> interpret -> jnp`` degradation
-chain — a fallback would hide the kernel, and a CUDA tensor reaches the
-kernel or the call raises.
+sites, the worklist cache and strategy (every block-sparse call builds its
+worklist on the device), and ``resolve_backend``'s
+``pallas -> interpret -> jnp`` degradation chain — a fallback would hide
+the kernel, and a CUDA tensor reaches the kernel or the call raises.
 """
 from __future__ import annotations
 
@@ -44,10 +47,6 @@ class DPCPlan:
     wrappers for the two driver-facing primitives."""
 
     def __init__(self, pspec: PointsSpec | None, spec: ExecSpec):
-        if spec.sparse:
-            raise NotImplementedError(
-                "layout='block-sparse' (grid-pruned worklists) is not ported "
-                "yet: ROADMAP Queue A item 5 / Queue B A3")
         if spec.resolved_precision == "bf16":
             raise NotImplementedError(
                 "precision='bf16' is not ported yet: the CUDA kernels compute "
@@ -57,6 +56,7 @@ class DPCPlan:
         self.backend: KernelBackend = get_backend(spec.backend)
         self.backend_name: str = self.backend.name
         self.layout: str = spec.resolved_layout
+        self.grid_sort: bool = spec.sparse
         self.precision: str = spec.resolved_precision
 
     def describe(self) -> str:
@@ -72,9 +72,11 @@ class DPCPlan:
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None):
+        """The backend's fused rho + delta in the plan's layout."""
         return self.backend.rho_delta(x, y, float(d_cut), jitter=jitter,
                                       y_sel_slots=y_sel_slots,
-                                      fallback_interest=fallback_interest)
+                                      fallback_interest=fallback_interest,
+                                      layout=self.layout)
 
 
 _PLANS: OrderedDict = OrderedDict()

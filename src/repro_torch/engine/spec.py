@@ -6,10 +6,9 @@ The port of ``repro/engine/spec.py``: the *how-to-execute* axes
 
 validated eagerly at construction and resolved once by
 :func:`repro_torch.engine.planner.plan`.  Names and values are the
-reference's, so a spec carries across (``repro_torch.carry``).  The axes
-this slice does not run — ``layout="block-sparse"``, ``precision="bf16"`` —
-are valid names here and refused at plan time with the ROADMAP item that
-ports them.  ``block`` and ``data_axis`` are carried for the slices that
+reference's, so a spec carries across (``repro_torch.carry``).  The axis
+value the port does not run yet, ``precision="bf16"``, is a valid name here
+and refused at plan time with the ROADMAP item that ports it.  ``block`` and ``data_axis`` are carried for the slices that
 read them (the CUDA kernels' row tile is fixed; no mesh exists yet).  The
 legacy ``merge_legacy`` shims are not ported.
 """

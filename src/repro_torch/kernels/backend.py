@@ -6,11 +6,12 @@ registered so far:
 * ``cuda`` — the hand-written Hopper kernels of ``csrc/sweep.cu`` (the
   counterpart of the reference's ``pallas``).  Its primitives run on the
   device of the tensors they are given: CUDA tensors launch the kernels,
-  CPU tensors run the kernels' plain versions.
+  CPU tensors run the kernels' plain versions.  ``rho_delta`` takes the
+  ``dense`` or the ``block-sparse`` layout.
 
 The direct-difference reference backend (the counterpart of ``jnp``) and
-the halo, streaming and block-sparse primitives come with later slices
-(ROADMAP Queue A).
+the halo and streaming primitives come with later slices (ROADMAP
+Queue A).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from .. import obs
 from ..core.dpc_types import density_jitter
-from . import ops
+from . import blocksparse, ops
 
 __all__ = ["KernelBackend", "CudaBackend", "available_backends",
            "default_backend_name", "get_backend"]
@@ -38,12 +39,13 @@ class KernelBackend:
         raise NotImplementedError
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
-                  fallback_interest=None):
+                  fallback_interest=None, layout=None):
         """Fused Def. 1 + Def. 2: per x-row range count over y AND the
         nearest strictly-denser y row.  Returns (rho, rho_key, delta,
         parent) with rho_key = rho + jitter.  ``fallback_interest``: optional
         ``rho_key -> (n,) bool`` naming the rows whose Def.-2 answer the
-        caller reads; other rows may come back as (inf, -1)."""
+        caller reads; other rows may come back as (inf, -1).  ``layout``:
+        ``"dense"`` (default) or ``"block-sparse"`` (x and y grid-sorted)."""
         raise NotImplementedError
 
 
@@ -75,9 +77,14 @@ class CudaBackend(KernelBackend):
         return ops.dependent_masked(x, x_key, y, y_key)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
-                  fallback_interest=None):
+                  fallback_interest=None, layout=None):
         """One sweep (count + unmasked kept-8), the denser-mask resolution,
         then one masked-NN pass for the unresolved tail.
+
+        ``layout="block-sparse"`` builds the tile-pair worklist of x over y
+        (``blocksparse.build_flat_worklist``) and sweeps only its pairs
+        (K3); the result is the dense sweep's, since the pruning is exact.
+        The unresolved tail stays dense, as the reference's does.
 
         The kept-k resolution is exact: if any kept candidate is strictly
         denser, every candidate nearer than it was kept too, so the nearest
@@ -93,10 +100,18 @@ class CudaBackend(KernelBackend):
                 "rho_delta(y_sel_slots=...) gates the kept-k to S-Approx "
                 "representatives; it is ported with the S-Approx slice "
                 "(ROADMAP Queue A item 4)")
+        if layout not in (None, "dense", "block-sparse"):
+            raise ValueError(f"unknown layout {layout!r}")
         if jitter is None:
             jitter = density_jitter(x.shape[0], x.device)
+        wl = None
+        if layout == "block-sparse":
+            with obs.span("rho_delta.worklist", n=x.shape[0]) as sp:
+                wl = blocksparse.build_flat_worklist(x, y, d_cut)
+                sp.sync(wl.lb)
         with obs.span("rho_delta.sweep", n=x.shape[0]) as sp:
-            rho, topv, topi = sp.sync(ops.fused_sweep(x, y, d_cut))
+            rho, topv, topi = sp.sync(ops.fused_sweep(x, y, d_cut,
+                                                      worklist=wl))
         with obs.span("rho_delta.resolve") as sp:
             rho_key = rho + jitter
             col_key = rho_key

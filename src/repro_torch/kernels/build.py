@@ -73,6 +73,9 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p]
     lib.repro_fused_count_topk.restype = i
+    lib.repro_worklist_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p,
+                                              p, p, p, p, p]
+    lib.repro_worklist_count_topk.restype = i
     lib.repro_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p]
     lib.repro_masked_nn.restype = i
     lib.repro_error_string.argtypes = [i]

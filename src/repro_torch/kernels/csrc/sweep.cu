@@ -1,12 +1,16 @@
-// Hand-written Hopper (sm_90a) kernels for the dense Approx-DPC path.
+// Hand-written Hopper (sm_90a) kernels for the Approx-DPC, Ex-DPC and Scan
+// paths, dense and block-sparse.
 //
-// Two kernels, each with a plain C entry point bound through ctypes
+// Three kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
-//   repro_fused_count_topk  per query row, the count of y rows within d_cut
-//                           and the 8 nearest (d2, index) pairs
-//   repro_masked_nn         per query row, the nearest strictly denser y row
+//   repro_fused_count_topk     per query row, the count of y rows within
+//                              d_cut and the 8 nearest (d2, index) pairs
+//   repro_worklist_count_topk  the same, over the tile pairs of a worklist
+//                              (kernels/blocksparse.py)
+//   repro_masked_nn            per query row, the nearest strictly denser
+//                              y row
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -28,6 +32,9 @@ constexpr int kRows = 128;          // query rows per block, one per thread
 constexpr int kTileFloats = 8192;   // y coordinates staged per tile (32 KB)
 constexpr int kMaxTileCols = 2048;  // columns per tile (K2 keys: 8 KB)
 constexpr int kTopK = 8;            // FUSED_TOPK in kernels/sweep.py
+constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
+                                    // kernels/blocksparse.py
+constexpr int kWlCols = 512;        // K3 columns per column tile: BLOCK_M
 
 __device__ __forceinline__ int tile_cols(int d) {
   const int c = kTileFloats / d;
@@ -72,11 +79,12 @@ __device__ __forceinline__ void keep(float (&tv)[kTopK], int (&ti)[kTopK],
   }
 }
 
-// Stage y[j0 : j0+cols) (row-major, d floats each) into shared memory.
+// Stage y[j0 : j0+cols) (row-major, d floats each) into shared memory,
+// every thread of the block taking a share.
 __device__ __forceinline__ void stage(float* tile, const float* y, int j0,
                                       int cols, int d) {
   const float* src = y + static_cast<size_t>(j0) * d;
-  for (int t = threadIdx.x; t < cols * d; t += kRows) tile[t] = src[t];
+  for (int t = threadIdx.x; t < cols * d; t += blockDim.x) tile[t] = src[t];
 }
 
 // K1 — replaces the reference's ops.fused_sweep, i.e. sweep.tile_sweep with
@@ -139,6 +147,123 @@ __global__ void __launch_bounds__(kRows)
     }
   }
 
+  if (!live) return;
+  count[i] = cnt;
+  const size_t o = static_cast<size_t>(i) * kTopK;
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) {
+    topv[o + s] = tv[s];
+    topi[o + s] = ti[s] == INT_MAX ? -1 : ti[s];
+  }
+}
+
+// K3 — replaces the reference's ops.fused_sweep on a worklist, i.e.
+// sweep.tile_sweep with SweepSpec(count=True, nn="topk", k=8) over the
+// PrefetchScalarGridSpec worklist grid (repro/kernels/sweep.py:432, body
+// _make_sweep_kernel at :208, liveness at :250-258).
+//
+// Bound: f32 CUDA-core issue on the *live* pairs, about 3d+1 operations each,
+// as K1; the worklist and the tiles it stages are small next to that.  Most
+// kept entries are dead by the time a row tile reaches them, so the design
+// decides liveness per entry before any staging: the block walks its CSR
+// segment row_ptr[t] .. row_ptr[t+1] in the stored order (ascending lb),
+// reading (column tile, in_cut, lb) from a shared-memory copy of 256 entries
+// at a time, and each thread votes whether the entry can still change its
+// row: the count if in_cut, the kept-k if lb <= the row's worst kept d2.
+// Only if some thread votes yes (__syncthreads_or) does the block stage the
+// 512-column tile (in chunks of kTileFloats floats, so the 48 KB static limit
+// holds for any d) and compute.  The skip is exact: a pair's d2 >= lb, so
+// with lb > the row's worst kept d2 it cannot enter the row's kept set; an
+// entry that is not in_cut holds no pair within d_cut.  The per-row vote is
+// at least as tight as the reference's tile-wide lb <= max(topv).
+//
+// Column tiles arrive in ring order, not index order, so an equal-d2 pair of
+// a lower index can come later: the insertion guard is lexicographic on
+// (d2, index), and the kept set equals K1's.  The count adds integers, so
+// its order does not matter.  One block owns one row tile and its whole
+// segment, which replaces the TPU's 1-D worklist grid and its `first` flag.
+// `live` (optional) gets the number of entries each block computed.
+template <int D>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_count_topk_kernel(const float* __restrict__ x,
+                               const float* __restrict__ y, int n, int m,
+                               int d, float d2cut,
+                               const int* __restrict__ row_ptr,
+                               const int* __restrict__ col_tile,
+                               const unsigned char* __restrict__ in_cut,
+                               const float* __restrict__ lb,
+                               int* __restrict__ count,
+                               float* __restrict__ topv,
+                               int* __restrict__ topi,
+                               int* __restrict__ live_out) {
+  __shared__ float tile[kTileFloats];
+  __shared__ int s_col[kWlRows];
+  __shared__ float s_lb[kWlRows];
+  __shared__ int s_cut[kWlRows];
+  if constexpr (D > 0) d = D;
+  const int per_chunk = min(kWlCols, kTileFloats / d);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never vote
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  float tv[kTopK];
+  int ti[kTopK];
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) {
+    tv[s] = CUDART_INF_F;
+    ti[s] = INT_MAX;
+  }
+  int cnt = 0;
+  int visited = 0;
+
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_lb[threadIdx.x] = lb[base + threadIdx.x];
+      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      const int cut = s_cut[e];
+      const bool nn_live = live && s_lb[e] <= tv[kTopK - 1];
+      if (!__syncthreads_or(cut || nn_live)) continue;
+      ++visited;
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, m);
+      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
+        const int cols = min(per_chunk, j1 - c0);
+        if (c0 != j0) __syncthreads();
+        stage(tile, y, c0, cols, d);
+        __syncthreads();
+        for (int c = 0; c < cols; ++c) {
+          float d2;
+          if constexpr (D > 0) {
+            d2 = pair_d2<D>(xr, tile + c * D, D);
+          } else {
+            d2 = pair_d2<0>(xg, tile + c * d, d);
+          }
+          cnt += cut & (d2 < d2cut);
+          const int j = c0 + c;
+          if (d2 < tv[kTopK - 1] || (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]))
+            keep(tv, ti, d2, j);
+        }
+      }
+    }
+  }
+
+  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
   if (!live) return;
   count[i] = cnt;
   const size_t o = static_cast<size_t>(i) * kTopK;
@@ -239,6 +364,24 @@ extern "C" int repro_fused_count_topk(const float* x, const float* y, int n,
 #define REPRO_LAUNCH(D)                                                  \
   fused_count_topk_kernel<D><<<grid, kRows, 0, s>>>(x, y, n, m, d, d2cut, \
                                                     count, topv, topi)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_worklist_count_topk(
+    const float* x, const float* y, int n, int m, int d, float d2cut,
+    const int* row_ptr, const int* col_tile, const unsigned char* in_cut,
+    const float* lb, int* count, float* topv, int* topi, int* live,
+    void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                 \
+  worklist_count_topk_kernel<D><<<grid, kWlRows, 0, s>>>(               \
+      x, y, n, m, d, d2cut, row_ptr, col_tile, in_cut, lb, count, topv, \
+      topi, live)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }

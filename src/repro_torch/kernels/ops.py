@@ -1,4 +1,4 @@
-"""Wrappers around the two CUDA kernels of ``csrc/sweep.cu``.
+"""Wrappers around the CUDA kernels of ``csrc/sweep.cu``.
 
 A CUDA tensor goes to the kernel, a CPU tensor to the kernel's plain
 version in ``kernels/sweep.py``; there is no other route and no fallback.
@@ -14,15 +14,17 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_plain,
-                    masked_nn_plain)
+                    masked_nn_plain, worklist_count_topk_plain)
 
 __all__ = ["fused_sweep", "dependent_masked", "launch_counts",
            "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
 
-_LAUNCHES = {"fused_count_topk": 0, "masked_nn": 0}
+_LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
+             "masked_nn": 0}
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -58,10 +60,38 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None):
+def _check_worklist(x: torch.Tensor, y: torch.Tensor, wl) -> None:
+    """A worklist K3 takes: one entry range per row tile of x, column
+    tiles of y, on x's device."""
+    if not isinstance(wl, Worklist):
+        raise TypeError(f"fused_sweep: worklist must be a Worklist, got "
+                        f"{type(wl).__name__}")
+    nbr = -(-x.shape[0] // BLOCK_N)
+    if wl.num_row_tiles != nbr:
+        raise ValueError(f"fused_sweep: worklist of {wl.num_row_tiles} row "
+                         f"tiles for {x.shape[0]} rows")
+    for t, dtype in ((wl.row_ptr, torch.int32), (wl.col_tile, torch.int32),
+                     (wl.in_cut, torch.bool), (wl.lb, torch.float32)):
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"fused_sweep: worklist arrays must be "
+                             f"contiguous {dtype} on {x.device}")
+    if wl.col_tile.numel() and int(wl.col_tile.max()) * BLOCK_M >= \
+            max(y.shape[0], 1):
+        raise ValueError("fused_sweep: worklist names a column tile past y")
+
+
+def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
+                worklist: Worklist | None = None,
+                live: torch.Tensor | None = None):
     """Per x-row: the range count over y within ``d_cut`` AND the 8 nearest
     y rows, unmasked by density (the caller resolves the denser mask once
     the counts are complete).
+
+    ``worklist`` (``blocksparse.build_flat_worklist``) restricts the sweep
+    to its tile pairs: K3 on a CUDA tensor, its plain version on a CPU one;
+    without it, K1 / its plain version sweep all of y.  ``live`` (CUDA
+    only, (row tiles,) int32) receives the number of entries K3 computed
+    in each row tile.
 
     Returns (count (n,) f32, topv (n, 8) f32 direct-difference d2,
     topi (n, 8) int32 y-row index, -1 where m < 8).
@@ -71,9 +101,22 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None):
             "fused_sweep(nn_sel=...) is S-Approx-DPC's kept-k gate; it is "
             "ported with the S-Approx slice (ROADMAP Queue A item 4)")
     _check("fused_sweep", x, y)
+    if worklist is not None:
+        _check_worklist(x, y, worklist)
+    if live is not None and (
+            worklist is None or x.device.type != "cuda"
+            or live.dtype != torch.int32 or live.device != x.device
+            or live.shape != (worklist.num_row_tiles,)):
+        raise ValueError("fused_sweep: live counts come from the CUDA "
+                         "worklist kernel, into (row tiles,) int32 on x's "
+                         "device")
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
-        count, topv, topi = fused_count_topk_plain(x, y, d2cut)
+        if worklist is None:
+            count, topv, topi = fused_count_topk_plain(x, y, d2cut)
+        else:
+            count, topv, topi = worklist_count_topk_plain(x, y, d2cut,
+                                                          worklist)
         return count.to(torch.float32), topv, topi
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     count = torch.empty((n,), dtype=torch.int32, device=x.device)
@@ -82,11 +125,22 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None):
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_fused_count_topk(
-                x.data_ptr(), y.data_ptr(), n, m, d, d2cut, count.data_ptr(),
-                topv.data_ptr(), topi.data_ptr(), _stream(x))
-        build.check(lib, "fused_count_topk", code)
-        _LAUNCHES["fused_count_topk"] += 1
+            if worklist is None:
+                name = "fused_count_topk"
+                code = lib.repro_fused_count_topk(
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+                    _stream(x))
+            else:
+                name = "worklist_count_topk"
+                code = lib.repro_worklist_count_topk(
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
+                    worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
+                    count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+                    0 if live is None else live.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        _LAUNCHES[name] += 1
     return count.to(torch.float32), topv, topi
 
 

@@ -1,12 +1,12 @@
-"""Sweep constants and the plain PyTorch versions of the two hand-written
-CUDA kernels in ``csrc/sweep.cu``.
+"""Sweep constants and the plain PyTorch versions of the hand-written CUDA
+kernels in ``csrc/sweep.cu``.
 
 The reference (``repro/kernels/sweep.py``) builds every DPC primitive from
 one Pallas tile sweep over expanded-form distances |x|^2+|y|^2-2x.y fed to
 the TPU's matrix unit, then re-ranks candidates in direct-difference form to
 repair the expanded form's f32 cancellation.  On Hopper the f32 contract
 rules out TF32 and the inner dimension is d = 2..8, so the matrix unit buys
-nothing: both kernels compute **direct-difference** f32 distances on the CUDA
+nothing: the kernels compute **direct-difference** f32 distances on the CUDA
 cores, and no re-rank is needed.
 
 Arithmetic contract shared by the kernels and the plain versions here: the
@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .blocksparse import BLOCK_M, BLOCK_N
 
 # The admission bound: a real point at or beyond it is refused at the
 # boundary (resilience.sanitize).  The CUDA kernels mask ragged edges
@@ -77,6 +79,70 @@ def fused_count_topk_plain(x: torch.Tensor, y: torch.Tensor, d2cut: float,
         v, idx = torch.sort(d2, dim=1, stable=True)
         topv[r0:r1, :kk] = v[:, :kk]
         topi[r0:r1, :kk] = idx[:, :kk].to(torch.int32)
+    return count, topv, topi
+
+
+def _lex_smallest(d2: torch.Tensor, cols: torch.Tensor, k: int):
+    """Per row of d2 (R, C), the k smallest (d2, column) pairs in
+    lexicographic order, columns named by ``cols`` (C,) ascending; slots past
+    C hold (+inf, -1).  The k-th smallest value bounds the answer, so only
+    the columns at or below it are sorted."""
+    R, C = d2.shape
+    topv = torch.full((R, k), float("inf"), dtype=torch.float32,
+                      device=d2.device)
+    topi = torch.full((R, k), -1, dtype=torch.int32, device=d2.device)
+    kk = min(k, C)
+    if kk == 0 or R == 0:
+        return topv, topi
+    kth = torch.topk(d2, kk, dim=1, largest=False).values.amax(1)
+    r, c = torch.nonzero(d2 <= kth[:, None], as_tuple=True)   # row-major
+    v = d2[r, c]
+    o = torch.sort(v, stable=True).indices          # by d2, ties by column
+    o = o[torch.sort(r[o], stable=True).indices]    # then by row
+    r, c, v = r[o], c[o], v[o]
+    first = torch.searchsorted(r, torch.arange(R, device=r.device))
+    slot = torch.arange(r.numel(), device=r.device) - first[r]
+    ok = slot < kk
+    topv[r[ok], slot[ok]] = v[ok]
+    topi[r[ok], slot[ok]] = cols[c[ok]].to(torch.int32)
+    return topv, topi
+
+
+def worklist_count_topk_plain(x: torch.Tensor, y: torch.Tensor,
+                              d2cut: float, wl, k: int = FUSED_TOPK):
+    """The fused count + kept-k over a tile-pair worklist
+    (``blocksparse.Worklist``): per row tile, the count of y rows with
+    d2 < d2cut over the ``in_cut`` entries' columns, and the k nearest
+    (d2, index) pairs over the columns of every kept entry, lexicographic.
+
+    Skips nothing by liveness (the kernel's skip is exact), so on a
+    worklist from ``build_flat_worklist`` the result equals
+    ``fused_count_topk_plain`` over all of y.
+    """
+    n, m = x.shape[0], y.shape[0]
+    bn, bm = BLOCK_N, BLOCK_M
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    topv = torch.full((n, k), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    topi = torch.full((n, k), -1, dtype=torch.int32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    lane = torch.arange(bm, device=x.device)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * bn, min(n, (t + 1) * bn)
+        tiles = wl.col_tile[ptr[t]:ptr[t + 1]].long()
+        cut = wl.in_cut[ptr[t]:ptr[t + 1]]
+        o = torch.argsort(tiles)                      # index-ordered columns
+        cols = (tiles[o, None] * bm + lane).flatten()
+        cut = cut[o, None].expand(-1, bm).flatten()
+        real = cols < m
+        cols, cut = cols[real], cut[real]
+        yc = y[cols]
+        step = _row_block(cols.numel())
+        for q0 in range(r0, r1, step):
+            q1 = min(r1, q0 + step)
+            d2 = direct_d2(x[q0:q1, None, :], yc[None, :, :])
+            count[q0:q1] = ((d2 < d2cut) & cut).sum(dim=1, dtype=torch.int32)
+            topv[q0:q1], topi[q0:q1] = _lex_smallest(d2, cols, k)
     return count, topv, topi
 
 

@@ -6,9 +6,10 @@
 what is computed.
 """
 from . import metrics, tracer
-from .metrics import counter
+from .metrics import counter, gauge
 from .metrics import reset as reset_metrics
 from .tracer import LEVELS, NULL_SPAN, configure, reset_spans, span, spans
 
 __all__ = ["LEVELS", "NULL_SPAN", "configure", "span", "spans",
-           "reset_spans", "counter", "reset_metrics", "metrics", "tracer"]
+           "reset_spans", "counter", "gauge", "reset_metrics", "metrics",
+           "tracer"]

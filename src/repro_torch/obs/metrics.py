@@ -1,15 +1,16 @@
-"""Named counters with labels: the part of ``repro/obs/metrics.py`` that the
-ported drivers increment (plan-cache traffic, quarantined points).
+"""Named counters and gauges with labels: the part of
+``repro/obs/metrics.py`` that the ported drivers write (plan-cache
+traffic, quarantined points, worklist builds and sizes).
 
-Counters are plain host-side Python, incremented from driver code, never
-from device code.
+They are plain host-side Python, written from driver code, never from
+device code.
 """
 from __future__ import annotations
 
 import threading
 from typing import Any
 
-__all__ = ["Counter", "counter", "reset"]
+__all__ = ["Counter", "Gauge", "counter", "gauge", "reset"]
 
 _LOCK = threading.RLock()
 _REGISTRY: dict[str, "Counter"] = {}
@@ -41,13 +42,32 @@ class Counter:
             self._vals.clear()
 
 
-def counter(name: str, help: str = "") -> Counter:
-    """Get-or-register the counter family ``name``."""
+class Gauge(Counter):
+    """Last value set, per label set."""
+
+    def set(self, v: float, **labels: Any) -> None:
+        with _LOCK:
+            self._vals[_label_key(labels)] = v
+
+
+def _register(cls, name: str, help: str):
     with _LOCK:
         m = _REGISTRY.get(name)
         if m is None:
-            m = _REGISTRY[name] = Counter(name, help)
+            m = _REGISTRY[name] = cls(name, help)
+        if type(m) is not cls:
+            raise TypeError(f"metric {name!r} is a {type(m).__name__}")
         return m
+
+
+def counter(name: str, help: str = "") -> Counter:
+    """Get-or-register the counter family ``name``."""
+    return _register(Counter, name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    """Get-or-register the gauge family ``name``."""
+    return _register(Gauge, name, help)
 
 
 def reset() -> None:

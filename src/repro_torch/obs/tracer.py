@@ -11,7 +11,12 @@ Levels (``configure(level=...)``):
 * ``"metrics"`` — spans record host wall-time only.
 * ``"trace"``   — ``sync`` fences with ``torch.cuda.synchronize()`` when the
   value holds a CUDA tensor, and the span records the start-to-last-fence
-  window as ``device_s``; per-phase times then sum to the wall time.
+  window as ``device_s``; per-phase times then sum to the wall time.  Once
+  CUDA is initialized, each span also records ``peak_bytes``, the most
+  device memory allocated while it was open (its children's peaks
+  included): the span resets the allocator's peak statistic at its start,
+  so a caller's own ``torch.cuda.max_memory_allocated`` reading spans only
+  the time since the last span opened.
 
 Closed spans are kept in memory (:func:`spans`); the report CLI and the
 JSON-lines sink of the reference are not ported.
@@ -53,6 +58,12 @@ def _on_cuda(value: Any) -> bool:
     return False
 
 
+def _tracks_memory() -> bool:
+    """Peak memory is recorded at trace level once CUDA is initialized
+    (never initializing it here)."""
+    return _STATE["level"] == "trace" and torch.cuda.is_initialized()
+
+
 class _NullSpan:
     """Shared no-op span for the off path."""
 
@@ -73,7 +84,7 @@ NULL_SPAN = _NullSpan()
 
 class Span:
     __slots__ = ("name", "attrs", "id", "parent", "depth", "path", "_t0",
-                 "_mark", "_fence_s")
+                 "_mark", "_fence_s", "_peak")
 
     def __init__(self, name: str, attrs: dict) -> None:
         self.name = name
@@ -84,6 +95,7 @@ class Span:
         self.path = name
         self._t0 = self._mark = 0.0
         self._fence_s = 0.0
+        self._peak = None
 
     def sync(self, value: Any = None) -> Any:
         """At trace level, wait for the device work behind ``value`` (a
@@ -106,6 +118,12 @@ class Span:
             self.parent = top.id
             self.depth = top.depth + 1
             self.path = f"{top.path}/{self.name}"
+        if _tracks_memory():
+            peak = torch.cuda.max_memory_allocated()
+            if stack:
+                stack[-1]._peak = max(stack[-1]._peak or 0, peak)
+            torch.cuda.reset_peak_memory_stats()
+            self._peak = 0
         stack.append(self)
         self._t0 = self._mark = time.perf_counter()
         return self
@@ -115,12 +133,18 @@ class Span:
         stack = getattr(_TLS, "stack", None)
         if stack and stack[-1] is self:
             stack.pop()
+        if self._peak is not None:
+            self._peak = max(self._peak, torch.cuda.max_memory_allocated())
+            if stack and stack[-1]._peak is not None:
+                stack[-1]._peak = max(stack[-1]._peak, self._peak)
         rec: dict[str, Any] = {
             "name": self.name, "path": self.path, "id": self.id,
             "parent": self.parent, "depth": self.depth,
             "host_s": t1 - self._t0,
             "device_s": self._fence_s if _STATE["level"] == "trace" else None,
         }
+        if self._peak is not None:
+            rec["peak_bytes"] = self._peak
         if self.attrs:
             rec["attrs"] = self.attrs
         if exc_type is not None:

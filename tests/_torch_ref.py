@@ -57,3 +57,23 @@ def clear_dcut(pts: np.ndarray, target_rho: float = 20.0,
 def uniform_points(n: int, d: int, seed: int) -> np.ndarray:
     """Unit-scale uniform points, f32: where the expanded form is exact."""
     return np.random.default_rng(seed).uniform(size=(n, d)).astype(np.float32)
+
+
+def assert_same_fit(port, ref, pts, dc, band_margin):
+    """Two fitted engines agree: labels, centers and cluster count equal;
+    rho equal off the threshold band; parent equal; delta to f32 rounding
+    (both sides take sqrt of a direct-difference f32 d2, or stamp d_cut,
+    and may sum the dims in another order)."""
+    tr, jr = port.result, ref.result
+    np.testing.assert_array_equal(port.labels_, np.asarray(ref.labels_))
+    np.testing.assert_array_equal(np.asarray(port.clustering.centers),
+                                  np.asarray(ref.clustering.centers))
+    assert int(port.clustering.num_clusters) == \
+        int(ref.clustering.num_clusters) > 0
+    band = near_threshold_rows(pts, pts, f32_d2cut(dc), band_margin)
+    np.testing.assert_array_equal(np.asarray(tr.rho)[~band],
+                                  np.asarray(jr.rho)[~band])
+    np.testing.assert_array_equal(np.asarray(tr.parent),
+                                  np.asarray(jr.parent))
+    np.testing.assert_allclose(np.asarray(tr.delta), np.asarray(jr.delta),
+                               rtol=1e-6)

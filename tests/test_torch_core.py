@@ -129,6 +129,10 @@ def test_exec_spec_carries_across():
         backend="pallas-interpret", block=128)))
     assert got == ExecSpec(backend="cuda", block=128)
     assert carry.exec_spec(dataclasses.asdict(JExecSpec())) == ExecSpec()
+    sparse = carry.exec_spec(dataclasses.asdict(JExecSpec(
+        backend="pallas", layout="block-sparse")))
+    assert sparse == ExecSpec(backend="cuda", layout="block-sparse")
+    assert planner.plan((10, 2), sparse).grid_sort
     with pytest.raises(NotImplementedError):
         carry.exec_spec(dataclasses.asdict(JExecSpec(backend="jnp")))
 
@@ -176,8 +180,9 @@ def test_planner_memoizes_and_refuses_unported_axes():
     delta, parent = a.denser_nn(x, key, x, key)
     assert parent[-1] == -1 and torch.isinf(delta[-1])
     assert (key[parent[:-1].long()] > key[:-1]).all()
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        planner.plan((100, 3), ExecSpec(layout="block-sparse"))
+    bs = planner.plan((100, 3), ExecSpec(layout="block-sparse"))
+    assert bs.grid_sort and not a.grid_sort
+    assert bs.describe() == "DPCPlan[cuda:block-sparse:f32 n=100 d=3]"
     with pytest.raises(NotImplementedError, match="bf16"):
         planner.plan((100, 3), ExecSpec(precision="bf16"))
     with pytest.raises(TypeError):
@@ -221,3 +226,37 @@ def test_spans_record_only_when_enabled():
     assert inner["device_s"] is not None and outer["attrs"] == {"n": 1}
     with pytest.raises(ValueError):
         obs.configure("loud")
+
+
+def test_spans_record_peak_device_memory(monkeypatch):
+    """At trace level on the card, a span's ``peak_bytes`` is the most
+    memory allocated while it was open, its children's peaks included."""
+    mem = {"cur": 100, "peak": 100}
+
+    def alloc(nbytes):
+        mem["cur"] += nbytes
+        mem["peak"] = max(mem["peak"], mem["cur"])
+
+    def reset():
+        mem["peak"] = mem["cur"]
+
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a: mem["peak"])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: reset())
+    obs.reset_spans()
+    obs.configure("trace")
+    try:
+        with obs.span("fit"):
+            alloc(50)
+            with obs.span("build"):
+                alloc(400)
+                alloc(-400)
+            with obs.span("sweep"):
+                alloc(30)
+            alloc(-80)
+    finally:
+        obs.configure("off")
+    got = {r["name"]: r["peak_bytes"] for r in obs.spans()}
+    assert got == {"build": 550, "sweep": 180, "fit": 550}

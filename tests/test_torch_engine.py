@@ -21,29 +21,10 @@ from repro_torch.core.dpc_api import DPCConfig, cluster
 from repro_torch.kernels import build, ops
 from repro_torch.resilience.sanitize import PoisonedInputError
 
-from _torch_ref import (clear_dcut, f32_d2cut, f32_ulp, near_threshold_rows,
+from _torch_ref import (assert_same_fit, clear_dcut, f32_d2cut, f32_ulp,
                         uniform_points)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
-
-
-def _assert_same_fit(port, ref, pts, dc, band_margin):
-    """Labels, centers and cluster count equal; rho equal off the
-    threshold band; parent equal and delta to f32 rounding."""
-    tr, jr = port.result, ref.result
-    np.testing.assert_array_equal(port.labels_, ref.labels_)
-    np.testing.assert_array_equal(port.clustering.centers.numpy(),
-                                  np.asarray(ref.clustering.centers))
-    assert int(port.clustering.num_clusters) == \
-        int(ref.clustering.num_clusters) > 0
-    band = near_threshold_rows(pts, pts, f32_d2cut(dc), band_margin)
-    np.testing.assert_array_equal(tr.rho.numpy()[~band],
-                                  np.asarray(jr.rho)[~band])
-    np.testing.assert_array_equal(tr.parent.numpy(), np.asarray(jr.parent))
-    # both sides take sqrt of a direct-difference f32 d2 (or stamp d_cut);
-    # summation order may differ by an ulp
-    np.testing.assert_allclose(tr.delta.numpy(), np.asarray(jr.delta),
-                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("data", ["airline", "gaussian_mixture"])
@@ -55,7 +36,7 @@ def test_fit_matches_jnp_on_realistic_data(data):
     port = DPCEngine(dc, rho_min=8, device="cpu").fit(pts)
     # domain 1e5: a pair within 4 f32 ulps of d_cut^2 may round either way
     thr = f32_d2cut(dc)
-    _assert_same_fit(port, ref, pts, dc, 4 * f32_ulp(thr))
+    assert_same_fit(port, ref, pts, dc, 4 * f32_ulp(thr))
 
 
 def test_fit_matches_pallas_interpret_on_unit_data(monkeypatch):
@@ -67,7 +48,7 @@ def test_fit_matches_pallas_interpret_on_unit_data(monkeypatch):
     ref = JEngine(dc, rho_min=15, exec_spec=JExecSpec(
         backend="pallas-interpret")).fit(pts)
     port = DPCEngine(dc, rho_min=15, device="cpu").fit(torch.from_numpy(pts))
-    _assert_same_fit(port, ref, pts, dc, 1e-5 * f32_d2cut(dc))
+    assert_same_fit(port, ref, pts, dc, 1e-5 * f32_d2cut(dc))
 
 
 def test_fit_without_device_targets_the_card(monkeypatch):
@@ -96,9 +77,12 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
     monkeypatch.setattr(build, "load_library", refuse)
     monkeypatch.setattr(subprocess, "run", refuse)
     ops.reset_launch_counts()
-    eng = DPCEngine(0.1, device="cpu").fit(uniform_points(500, 2, seed=1))
-    assert eng.clustering.labels.device.type == "cpu"
-    assert ops.launch_counts() == {"fused_count_topk": 0, "masked_nn": 0}
+    for layout in ("dense", "block-sparse"):
+        eng = DPCEngine(0.1, device="cpu", exec_spec=ExecSpec(
+            layout=layout)).fit(uniform_points(500, 2, seed=1))
+        assert eng.clustering.labels.device.type == "cpu"
+    assert ops.launch_counts() == {"fused_count_topk": 0,
+                                   "worklist_count_topk": 0, "masked_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -115,14 +99,15 @@ def test_refit_reuses_plan_and_decision_graph():
 
 def test_unported_axes_and_entry_points_raise():
     pts = uniform_points(50, 2, seed=3)
-    for algo in ("scan", "exdpc", "sapproxdpc", "lsh_ddp", "cfsfdp_a"):
+    for algo in ("sapproxdpc", "lsh_ddp", "cfsfdp_a"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DPCEngine(0.1, algorithm=algo, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DPCConfig(d_cut=0.1, algorithm=algo)
     with pytest.raises(ValueError):
         DPCEngine(0.1, algorithm="kmeans", device="cpu")
-    for spec in (ExecSpec(layout="block-sparse"), ExecSpec(precision="bf16")):
+    for spec in (ExecSpec(precision="bf16"),
+                 ExecSpec(layout="block-sparse", precision="bf16")):
         with pytest.raises(NotImplementedError):
             DPCEngine(0.1, exec_spec=spec, device="cpu").fit(pts)
     eng = DPCEngine(0.1, device="cpu").fit(pts)
