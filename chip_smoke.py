@@ -45,9 +45,33 @@ Phases, each of which raises on failure (nothing is caught):
    against all columns; K2 against its plain version on a slice of the
    fit's rows; a traced fit for the phase times and each phase's peak
    device memory.
+9. The stream's kernels vs plain at check shapes: K4 ``range_count``, K5
+   ``range_count_signed`` and K6 ``gather_masked_nn`` bit for bit against
+   their plain versions (Airline 65,536 with 4,096 query rows, a 512-row
+   batch of mixed signs and 4,096 slots with padding slots and the global
+   peak; mixtures n = 1,000 at d = 2, 4, 8; a 128 x 128 lattice of exact
+   ties with three key levels); K6 also against K2 on the gathered rows.
+10. The stream main path, the workload of ``benchmarks/stream_bench.py``
+   at the card's size: ``DPCEngine(2000.0, window_capacity=2**20,
+   batch_cap=4096, exec_spec=ExecSpec(layout="block-sparse"))`` on
+   ``gaussian_mixture(k=15, d=2, seed=0)``: ``fit`` on 2^20 points, a
+   first ``partial_fit`` that seeds the window, one traced tick (phase
+   times and peaks), 32 counted ticks (launch counts zeroed just before
+   them and read just after; each tick must launch K4, K5 and K6; their
+   inputs kept and each tick's kernels held against the plain versions
+   on a slice, the last tick's K4/K5 on all rows and K6 on 2,048 slots),
+   the final state against a from-scratch block-sparse fit of the window
+   (rho, rho_key, delta bit for bit, parents up to counted exact ties),
+   rho against float64 on 4,096 rows, re-queried maxima against a float64
+   masked search, the full recompute's time, and ``predict`` on 65,536
+   queries (stream points, far rows that must fall back to a center, NaN
+   rows that must be quarantined; HIT labels against a float64 nearest
+   window point on 1,024 of them).
+11. The same on the Airline proxy, d_cut of phase 3, 8 counted ticks.
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
-path, K2 and K3 from the main path), and as its last line
+path, K2 and K3 from the main path, K4-K6 from the mixture stream), and as
+its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, where
 no CUDA device is present.  ``--out`` also writes the full record
 (check-shape times, issue-rate bounds, worklist statistics with K3's
@@ -84,6 +108,16 @@ K1_PLAIN_ROWS = 65536            # rows of the dense path's plain K1 check
 TILES_CHECK = 256                # row tiles of the full path's K3 check
 K2_PLAIN_ROWS = 2048             # rows of the full path's plain K2 check
 REPS = 5
+
+N_WINDOW = 1 << 20               # the stream phases' window
+STREAM_BATCH = 4096              # points per stream tick
+MIX_TICKS = 32                   # counted ticks of the mixture stream
+AIR_TICKS = 8                    # counted ticks of the Airline stream
+N_PREDICT = 65536                # predict's queries
+N_FAR = N_NAN = 16               # of them: far outside coverage, and NaN
+TICK_PLAIN_ROWS = 256            # rows of each counted tick's plain checks
+K5_PLAIN_ROWS = 32768            # window rows of each tick's plain K5 check
+K6_PLAIN_ROWS = 2048             # slots of the last tick's plain K6 check
 
 
 def smi(fields: str) -> str:
@@ -301,6 +335,427 @@ def same_up_to_ties(x, a, b, lab_a, lab_b, what: str):
     assert torch.equal(lab_a[~tied], lab_b[~tied]), \
         f"{what}: labels differ away from tie-decided parents"
     return rows.numel(), int(tied.sum()), int((lab_a != lab_b).sum())
+
+
+def k4_work(n: int, m: int, d: int) -> tuple[float, float]:
+    """Bytes and operations of range_count: x and y read once, the counts
+    written once; 3d+1 operations per pair."""
+    return 4 * (n * d + m * d) + 4 * n, float(n) * m * (3 * d + 1)
+
+
+def k5_work(n: int, m: int, d: int) -> tuple[float, float]:
+    """Bytes and operations of range_count_signed: x, the batch and its
+    signs read once, the sums written once; 3d+1 operations per pair."""
+    return 4 * (n * d + m * d + m) + 4 * n, float(n) * m * (3 * d + 1)
+
+
+def k6_work(keys, slots, d: int) -> tuple[float, float]:
+    """Bytes and operations of gather_masked_nn on these keys and slots:
+    the table, its keys and the slots read once, (d2, parent) written
+    once; a key test per pair of a live slot and 3d+1 operations for each
+    pair whose column is denser."""
+    m, q = keys.numel(), slots.numel()
+    live = slots[(slots >= 0) & (slots < m)]
+    ks = torch.sort(keys).values
+    denser = float((m - torch.searchsorted(ks, keys[live], right=True)).sum())
+    nbytes = 4 * (m * d + m) + 8 * q + 8 * q
+    return nbytes, float(live.numel()) * m + denser * (3 * d + 1)
+
+
+def stream_kernels():
+    """K4, K5, K6 and their plain versions, as the checks call them."""
+    from repro_torch.kernels import ops, sweep
+
+    def k4(x, y, d_cut):
+        return ops.local_density_xy(x, y, d_cut)
+
+    def k4_plain(x, y, d_cut):
+        return sweep.range_count_plain(x, y, sweep.d2cut_of(d_cut)).float()
+
+    def k5(x, y, signs, d_cut):
+        return ops.local_density_delta(x, y, signs, d_cut)
+
+    def k5_plain(x, y, signs, d_cut):
+        return sweep.range_count_signed_plain(x, y, signs,
+                                              sweep.d2cut_of(d_cut))
+
+    def k6(table, keys, slots):
+        return ops.dependent_masked_gather(table, keys, slots)
+
+    def k6_plain(table, keys, slots):
+        best, arg = sweep.gather_masked_nn_plain(table, keys, slots)
+        return torch.sqrt(best), arg
+
+    return k4, k4_plain, k5, k5_plain, k6, k6_plain
+
+
+def stream_check_shapes(cases, card: str) -> dict:
+    """K4/K5/K6 bit for bit against their plain versions at check shapes:
+    K4 on up to 4,096 rows against all, K5 on all rows against a 512-row
+    batch of mixed signs, K6 on up to 4,096 slots (the global peak among
+    them, padding slots past and before the table at the end); K6 also
+    against K2 on the gathered rows.  Times on the first case."""
+    from repro_torch.core.dpc_types import density_jitter
+    from repro_torch.kernels import ops
+    k4, k4_plain, k5, k5_plain, k6, k6_plain = stream_kernels()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    times = {}
+    for label, pts, dc, tie_keys in cases:
+        x = torch.from_numpy(pts).to(dev)
+        n = len(pts)
+        q = x[:min(Q_CHECK, n)].contiguous()
+        check_equal(f"range_count [{label}]", [k4(q, x, dc)],
+                    [k4_plain(q, x, dc)])
+        batch = x[torch.from_numpy(rng.permutation(n)[:512]).to(dev)]
+        signs = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], len(batch))
+                                 .astype(np.float32)).to(dev)
+        check_equal(f"range_count_signed [{label}]", [k5(x, batch, signs, dc)],
+                    [k5_plain(x, batch, signs, dc)])
+        if tie_keys:        # a few key levels: many exact distance ties
+            keys = torch.from_numpy((np.arange(n) % 3).astype(np.float32))
+            keys = keys.to(dev)
+        else:
+            keys = k4(x, x, dc) + density_jitter(n, dev)
+        real = np.concatenate([[int(torch.argmax(keys))],
+                               rng.permutation(n)[:min(Q_CHECK, n) - 1]])
+        pad = [n, n + 7, -1, 2**40]
+        slots = torch.from_numpy(np.concatenate([real, pad]).astype(
+            np.int64)).to(dev)
+        got = k6(x, keys, slots)
+        check_equal(f"gather_masked_nn [{label}]", got,
+                    k6_plain(x, keys, slots))
+        rows = slots[:len(real)]
+        check_equal(f"gather_masked_nn [{label}]",
+                    [t[:len(real)] for t in got],
+                    ops.dependent_masked(x[rows], keys[rows].contiguous(), x,
+                                         keys), "masked_nn on the rows")
+        none = int((got[1][:len(real)] == -1).sum())
+        assert none >= 1 and bool((got[1][len(real):] == -1).all()), \
+            f"gather_masked_nn [{label}]: peak or padding slots not (inf, -1)"
+        print(f"range_count, range_count_signed, gather_masked_nn == plain, "
+              f"bit for bit: {label}, n={n} d={pts.shape[1]} ({none} slots "
+              f"with no denser row, {len(pad)} padding slots; "
+              f"gather_masked_nn == masked_nn on the gathered rows)",
+              flush=True)
+        if not times:
+            times = {
+                "range_count": {
+                    "shape": f"{q.shape[0]} x {n}, d={pts.shape[1]}",
+                    "ms": time_ms(lambda: k4(q, x, dc)),
+                    "plain_ms": time_ms(lambda: k4_plain(q, x, dc))},
+                "range_count_signed": {
+                    "shape": f"{n} x {len(batch)}, d={pts.shape[1]}",
+                    "ms": time_ms(lambda: k5(x, batch, signs, dc)),
+                    "plain_ms": time_ms(lambda: k5_plain(x, batch, signs,
+                                                         dc))},
+                "gather_masked_nn": {
+                    "shape": f"{slots.numel()} slots x {n}, "
+                             f"d={pts.shape[1]}",
+                    "ms": time_ms(lambda: k6(x, keys, slots)),
+                    "plain_ms": time_ms(lambda: k6_plain(x, keys, slots))}}
+            for name, t in times.items():
+                print(f"{name} [{t['shape']}]: kernel {t['ms']:.3f} ms, "
+                      f"plain {t['plain_ms']:.3f} ms  ({card})", flush=True)
+    return times
+
+
+def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
+               card: str) -> dict:
+    """The stream main path: ``fit`` on the first N_WINDOW points seeds
+    the window at the first ``partial_fit``; one traced tick; then
+    ``ticks`` counted ticks of STREAM_BATCH points, whose kernel inputs are
+    kept; then the checks and ``predict``.  Returns the record, with each
+    kernel's launches, times and bound at this stream's shapes."""
+    from repro_torch import DPCEngine, ExecSpec, obs
+    from repro_torch.kernels import ops, sweep
+    from repro_torch.resilience.sanitize import AdmissionConfig
+    from repro_torch.stream import QueryStatus, incremental
+    k4, k4_plain, k5, k5_plain, k6, k6_plain = stream_kernels()
+    dev = torch.device("cuda")
+    n, B, d = N_WINDOW, STREAM_BATCH, pts.shape[1]
+    batches = [pts[n + i * B:n + (i + 1) * B] for i in range(ticks + 2)]
+    spec = ExecSpec(layout="block-sparse")
+    eng = DPCEngine(d_cut, rho_min=10, window_capacity=n, batch_cap=B,
+                    exec_spec=spec, admission=AdmissionConfig(policy="drop"))
+    t0 = time.perf_counter()
+    eng.fit(pts[:n])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.partial_fit(batches[0])       # seeds the window: a full recompute,
+    torch.cuda.synchronize()          # then a tick re-querying all maxima
+    seed_s = time.perf_counter() - t0
+    s = eng.stream
+    seeded = s.stats()
+
+    # one traced tick: phase times and each phase's peak device memory
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    obs.configure("trace")
+    obs.reset_spans()
+    try:
+        eng.partial_fit(batches[1])
+    finally:
+        obs.configure("off")
+    phases: dict[str, float] = {}
+    peaks: dict[str, float] = {}
+    for sp in obs.spans():
+        phases[sp["name"]] = phases.get(sp["name"], 0.0) + sp["host_s"]
+        peaks[sp["name"]] = max(peaks.get(sp["name"], 0.0),
+                                sp.get("peak_bytes", 0) / 1e9)
+
+    # the counted ticks: counts zeroed just before, read just after; each
+    # kernel's inputs kept (the window table is updated in place, so the
+    # inputs hold a clone of it per tick)
+    names = ("range_count", "range_count_signed", "gather_masked_nn")
+    given: dict[str, list] = {k: [] for k in names}
+    launch = (ops.local_density_xy, ops.local_density_delta,
+              ops.dependent_masked_gather)
+    frozen: dict = {}
+
+    def keep(t):
+        if t.data_ptr() == s.window.device.data_ptr():
+            return frozen.setdefault("window", t.clone())
+        return t
+
+    def rec_k4(x, y, dc):
+        given["range_count"].append((x, keep(y), dc))
+        return launch[0](x, y, dc)
+
+    def rec_k5(x, y, signs, dc):
+        given["range_count_signed"].append((keep(x), y, signs, dc))
+        return launch[1](x, y, signs, dc)
+
+    def rec_k6(table, keys, slots):
+        given["gather_masked_nn"].append((keep(table), keys, slots))
+        return launch[2](table, keys, slots)
+
+    # dirty_near's inputs on the last counted tick: the cell maxima's
+    # coords and the cells the batch touched, for timing its two routes
+    near_in: dict = {}
+    near_fn = incremental.IncrementalGrid.dirty_near
+
+    def rec_near(grid, coords, rc):
+        near_in.update(coords=coords, rc=rc, touched=grid.last_touched)
+        return near_fn(grid, coords, rc)
+
+    per_tick = []
+    (ops.local_density_xy, ops.local_density_delta,
+     ops.dependent_masked_gather) = rec_k4, rec_k5, rec_k6
+    incremental.IncrementalGrid.dirty_near = rec_near
+    try:
+        ops.reset_launch_counts()
+        for i in range(2, ticks + 2):
+            frozen.clear()
+            before = s.stats()
+            seen = {k: len(v) for k, v in given.items()}
+            t0 = time.perf_counter()
+            tick = eng.partial_fit(batches[i])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = s.stats()
+            for k in names:
+                assert len(given[k]) > seen[k], \
+                    f"{label}: tick {i} never launched {k}"
+            per_tick.append({
+                "ms": 1e3 * dt, "rebuilt": bool(tick.rebuilt),
+                "maxima": after["nn_maxima_total"] - before["nn_maxima_total"],
+                "queried": after["nn_queries"] - before["nn_queries"],
+                "live_cells": after["live_cells"]})
+        launches = ops.launch_counts()
+    finally:
+        (ops.local_density_xy, ops.local_density_delta,
+         ops.dependent_masked_gather) = launch
+        incremental.IncrementalGrid.dirty_near = near_fn
+    for k in names:
+        assert launches[k] == len(given[k]) >= ticks, (k, launches[k])
+    median_ms = statistics.median(t["ms"] for t in per_tick)
+    print(f"{label} stream: window {n}, d={d}, d_cut={d_cut!r}, {ticks} "
+          f"ticks of {B}: median tick {median_ms:.2f} ms (first tick after "
+          f"the seeding fit {1e3 * seed_s:.1f} ms with the full recompute; "
+          f"fit {1e3 * fit_s:.1f} ms); launches {launches}  ({card})",
+          flush=True)
+    print(f"  maxima re-queried/total per tick "
+          f"{[(t['queried'], t['maxima']) for t in per_tick]}; live cells "
+          f"{per_tick[-1]['live_cells']}; rebuilds "
+          f"{sum(t['rebuilt'] for t in per_tick)}", flush=True)
+    for name in ("engine.partial_fit", "stream.snapshot", "stream.tick",
+                 "stream.push", "stream.grid_apply", "stream.rho_repair",
+                 "stream.maxima", "stream.nn_update", "stream.assemble",
+                 "labels.assign", "stream.continuity"):
+        print(f"  phase {name}: {1e3 * phases.get(name, 0.0):.2f} ms, peak "
+              f"{peaks.get(name, 0.0):.3f} GB")
+    print(f"  traced tick: {held_gb:.3f} GB held before it", flush=True)
+
+    # each counted tick's kernels against their plain versions on a slice;
+    # the last tick's in full (K6: its first K6_PLAIN_ROWS slots)
+    r = TICK_PLAIN_ROWS
+    for i, ((x4, y4, c4), (x5, y5, s5, c5), (t6, k6k, s6)) in enumerate(zip(
+            given["range_count"], given["range_count_signed"],
+            given["gather_masked_nn"])):
+        check_equal(f"range_count [{label} tick {i}]", [k4(x4[:r], y4, c4)],
+                    [k4_plain(x4[:r], y4, c4)])
+        xs = x5[:K5_PLAIN_ROWS]
+        check_equal(f"range_count_signed [{label} tick {i}]",
+                    [k5(xs, y5, s5, c5)], [k5_plain(xs, y5, s5, c5)])
+        check_equal(f"gather_masked_nn [{label} tick {i}]",
+                    k6(t6, k6k, s6[:r]), k6_plain(t6, k6k, s6[:r]))
+    (x4, y4, c4), = given["range_count"][-1:]
+    (x5, y5, s5, c5), = given["range_count_signed"][-1:]
+    (t6, k6k, s6), = given["gather_masked_nn"][-1:]
+    errs, times, bounds = {}, {}, {}
+    want, p4 = timed_once(lambda: k4_plain(x4, y4, c4))
+    errs["range_count"] = check_equal(f"range_count [{label} last tick]",
+                                      [k4(x4, y4, c4)], [want])
+    want, p5 = timed_once(lambda: k5_plain(x5, y5, s5, c5))
+    errs["range_count_signed"] = check_equal(
+        f"range_count_signed [{label} last tick]", [k5(x5, y5, s5, c5)],
+        [want])
+    sl = s6[:K6_PLAIN_ROWS]
+    want, p6 = timed_once(lambda: k6_plain(t6, k6k, sl))
+    errs["gather_masked_nn"] = check_equal(
+        f"gather_masked_nn [{label} last tick]",
+        [v[:sl.numel()] for v in k6(t6, k6k, s6)], want)
+    times["range_count"] = {"ms": time_ms(lambda: k4(x4, y4, c4)),
+                            "plain_ms": p4, "shape": f"{x4.shape[0]} x "
+                            f"{y4.shape[0]}"}
+    times["range_count_signed"] = {
+        "ms": time_ms(lambda: k5(x5, y5, s5, c5)), "plain_ms": p5,
+        "shape": f"{x5.shape[0]} x {y5.shape[0]}"}
+    rows6 = t6[s6]
+    times["gather_masked_nn"] = {
+        "ms": time_ms(lambda: k6(t6, k6k, s6)), "plain_ms": p6,
+        "plain_rows": sl.numel(),
+        "shape": f"{s6.numel()} slots x {t6.shape[0]}",
+        # K2 on the same rows, gathered: the one-pass grid K6 replaces
+        "masked_nn_ms": time_ms(lambda: ops.dependent_masked(
+            rows6, k6k[s6].contiguous(), t6, k6k))}
+    bounds["range_count"] = k4_work(x4.shape[0], y4.shape[0], d)
+    bounds["range_count_signed"] = k5_work(x5.shape[0], y5.shape[0], d)
+    bounds["gather_masked_nn"] = k6_work(k6k, s6, d)
+    kernels = {}
+    for k in names:
+        b_ms, by = bound_ms(*bounds[k])
+        kernels[k] = {**times[k], "launches": launches[k],
+                      "launches_per_tick": launches[k] / ticks,
+                      "max_abs_err": errs[k], "bound_ms": b_ms,
+                      "bound_by": by}
+        print(f"  {k} [{times[k]['shape']}]: kernel {times[k]['ms']:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({by}), plain {times[k]['plain_ms']:.1f} "
+              f"ms{' on ' + str(sl.numel()) + ' slots' if k == names[2] else ''}"
+              f", {launches[k] / ticks:.2f} launches per tick  ({card})",
+              flush=True)
+    print(f"  masked_nn on the same {s6.numel()} rows, gathered: "
+          f"{times['gather_masked_nn']['masked_nn_ms']:.3f} ms  ({card})",
+          flush=True)
+    print(f"  every counted tick: the three kernels == plain, bit for bit, "
+          f"on {r} rows ({K5_PLAIN_ROWS} window rows for K5); the last tick's "
+          f"K4 and K5 on all rows, K6 on {sl.numel()} slots", flush=True)
+    del given, frozen
+
+    # dirty_near's two routes on the last tick's maxima and touched cells:
+    # dilated touched-cell keys looked up in a sorted set, and chunked
+    # Chebyshev differences (the only route where (2 rc + 1)^d is large)
+    near_rec = None
+    if near_in.get("touched") is not None:
+        q = torch.as_tensor(near_in["coords"], dtype=torch.int64, device=dev)
+        t = torch.unique(torch.from_numpy(near_in["touched"].astype(
+            np.int64)).to(dev), dim=0)
+        rc = near_in["rc"]
+        routes = {"dilated": incremental._near_dilated,
+                  "pairwise": incremental._near_pairwise}
+        got = {k: f(q, t, rc) for k, f in routes.items()}
+        assert torch.equal(got["dilated"], got["pairwise"]), \
+            f"{label}: dirty_near's routes disagree"
+        near_rec = {"maxima": q.shape[0], "touched": t.shape[0], "rc": rc,
+                    "near": int(got["dilated"].sum()),
+                    **{f"{k}_ms": time_ms(lambda f=f: f(q, t, rc))
+                       for k, f in routes.items()}}
+        print(f"  dirty_near [{q.shape[0]} maxima x {t.shape[0]} touched "
+              f"cells, radius {rc}]: dilated keys "
+              f"{near_rec['dilated_ms']:.3f} ms, pairwise "
+              f"{near_rec['pairwise_ms']:.3f} ms, equal ({near_rec['near']} "
+              f"near)  ({card})", flush=True)
+
+    # the end of the stream against a from-scratch fit of its window
+    res = s.result
+    wpts = s.window_points()
+    fresh = DPCEngine(d_cut, rho_min=10, exec_spec=spec)
+    fresh.fit(wpts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.fit(wpts)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    w = torch.from_numpy(wpts).to(dev)
+    ties, tied, lab_diff = same_up_to_ties(
+        w, fresh.result, res, fresh.clustering.labels, s.clustering.labels,
+        f"{label} stream vs from-scratch fit")
+    pts64 = w.double()
+    gen = torch.Generator().manual_seed(1)
+    rows = torch.randperm(n, generator=gen)[:Q_CHECK].to(dev)
+    _, clear = float64_rho_check(pts64, res.rho, sweep.d2cut_of(d_cut), rows)
+    requeried = s6[torch.randperm(s6.numel(), generator=gen)[:Q_CHECK]
+                   .to(dev)]
+    n_rule2 = float64_dependent_check(pts64, res, requeried, d_cut)
+    print(f"  stream == from-scratch block-sparse fit of its window: rho, "
+          f"rho_key, delta bit for bit; {ties} parents decided by exact "
+          f"ties ({tied} rows downstream, {lab_diff} labels differ); rho == "
+          f"float64 on {Q_CHECK} rows ({clear} clear of the band); "
+          f"parent/delta == float64 on {requeried.numel()} re-queried "
+          f"maxima ({n_rule2} rule 2); full recompute {1e3 * full_s:.1f} ms "
+          f"= {full_s * 1e3 / median_ms:.2f} x the median tick  ({card})",
+          flush=True)
+    del fresh
+
+    # predict: the next points of the stream, far rows, NaN rows
+    rng = np.random.default_rng(2)
+    tail = pts[n + (ticks + 2) * B:][:N_PREDICT - N_FAR - N_NAN]
+    far = rng.uniform(4e8, 5e8, (N_FAR, d)).astype(np.float32)
+    nan = np.full((N_NAN, d), np.nan, np.float32)
+    order = rng.permutation(N_PREDICT)
+    queries = np.concatenate([tail, far, nan])[order]
+    kind = np.concatenate([np.zeros(len(tail)), np.ones(N_FAR),
+                           np.full(N_NAN, 2)])[order]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.predict(queries)
+    predict_s = time.perf_counter() - t0
+    assert (out.status[kind == 1] == QueryStatus.MISS_FALLBACK).all(), \
+        "far queries must fall back to the nearest center"
+    assert (out.status[kind == 2] == QueryStatus.QUARANTINED).all() and \
+        (out.labels[kind == 2] == -1).all(), "NaN queries must be quarantined"
+    hit = np.nonzero(out.status == QueryStatus.HIT)[0]
+    assert len(hit) > 0, "no query landed within d_cut of the window"
+    labels_w = torch.from_numpy(eng.labels_).to(dev)
+    pick = hit[rng.permutation(len(hit))[:1024]]
+    qq = torch.from_numpy(queries[pick]).to(dev, torch.float64)
+    got = torch.from_numpy(out.labels[pick]).to(dev)
+    for c0 in range(0, len(pick), 16):
+        d2 = ((qq[c0:c0 + 16, None, :] - pts64[None]) ** 2).sum(-1)
+        best = d2.min(1).values
+        assert bool((best.sqrt() < d_cut * (1 + 1e-6)).all()), \
+            "a HIT query has no window point within d_cut"
+        near = d2 <= best[:, None] * (1 + 1e-6)
+        ok = (near & (labels_w[None, :] == got[c0:c0 + 16, None])).any(1)
+        assert bool(ok.all()), "a HIT label is not its nearest point's"
+    counts = {st.name: int((out.status == st).sum()) for st in QueryStatus}
+    print(f"  predict: {N_PREDICT} queries in {1e3 * predict_s:.1f} ms: "
+          f"{counts}; HIT labels == float64 nearest window point on "
+          f"{len(pick)} queries  ({card})", flush=True)
+    return {"n": n, "d": d, "d_cut": d_cut, "batch": B, "ticks": ticks,
+            "fit_ms": 1e3 * fit_s, "seed_tick_ms": 1e3 * seed_s,
+            "seeded_stats": seeded, "per_tick": per_tick,
+            "median_tick_ms": median_ms, "launches": launches,
+            "phases_ms": {k: 1e3 * v for k, v in phases.items()},
+            "phases_peak_gb": peaks, "held_gb": held_gb,
+            "kernels": kernels, "full_recompute_ms": 1e3 * full_s,
+            "full_over_tick": full_s * 1e3 / median_ms,
+            "parent_ties": ties, "rule2_requeried": n_rule2,
+            "predict_ms": 1e3 * predict_s, "predict_status": counts,
+            "dirty_near": near_rec,
+            "stats": s.stats()}
 
 
 def main() -> int:
@@ -777,6 +1232,33 @@ def main() -> int:
           f"held by the script before the fit; fallback rows "
           f"{k2_rows_full}  ({card})", flush=True)
 
+    # ---------------------- 9. stream kernels vs plain, check shapes
+    n_clusters_full = int(fcl.num_clusters)
+    del engine, fres, fcl
+    torch.cuda.empty_cache()
+    stream_cases = [("airline", cases[0][1], pick_dcut(cases[0][1],
+                                                       target_rho=30), False)]
+    for label, pts_c in cases[1:4]:
+        stream_cases.append((label, pts_c, pick_dcut(pts_c, target_rho=30),
+                             False))
+    stream_cases.append(("lattice 128x128",
+                         lattice.reshape(-1, 2).astype(np.float32), 2.5,
+                         True))
+    stream_check = stream_check_shapes(stream_cases, card)
+
+    # ------------------ 10. the stream main path: mixture, 2^20 window
+    mix, _ = gaussian_mixture(N_WINDOW + (MIX_TICKS + 2) * STREAM_BATCH
+                              + N_PREDICT, k=15, d=2, seed=0)
+    streams = {"mixture": run_stream("mixture", mix, 2000.0, MIX_TICKS, card)}
+    del mix
+    torch.cuda.empty_cache()
+
+    # ---- 11. the Airline stream, 2^20 window, the dense path's d_cut
+    air, _ = real_proxy("airline", N_WINDOW + (AIR_TICKS + 2) * STREAM_BATCH
+                        + N_PREDICT, seed=0)
+    streams["airline"] = run_stream("airline", air, d_cut, AIR_TICKS, card)
+    del air
+
     # --------------------------------------------------------- the record
     kernels = []
     for name, launched in (("fused_count_topk", launches_dense),
@@ -796,10 +1278,23 @@ def main() -> int:
         record.setdefault("bounds", {})[name] = {
             "bound_ms": b_ms, "bound_by": by,
             "issue_bound_ms": 1e3 * bounds[name][1] / issue_rate}
+    replaces = {"range_count": "src/repro/kernels/sweep.py:432",
+                "range_count_signed": "src/repro/kernels/sweep.py:432",
+                "gather_masked_nn": "src/repro/kernels/sweep.py:510"}
+    for name, where in replaces.items():
+        k = streams["mixture"]["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sweep.cu",
+            "replaces": where, "launches": k["launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None})
+    record.update(streams=streams, stream_check_shapes=stream_check)
     record.update(kernels=kernels, main_times=main_times,
                   check_shapes=check_times, k3_checks=k3_checks,
                   main={"fit_ms": full_s * 1e3, "n": N_FULL, "d_cut": d_full,
-                        "clusters": int(fcl.num_clusters),
+                        "clusters": n_clusters_full,
                         "cell_maxima": fmax.numel(), "k2_rows": k2_rows_full,
                         "worklist": wl_full,
                         "phases_ms": {k: 1e3 * v for k, v in phases.items()},

@@ -1,6 +1,6 @@
 """Synthetic point-set generators mirroring the paper's datasets (§6); a
 numpy copy of ``repro/data/points.py``'s ``gaussian_mixture``,
-``random_walk`` and ``real_proxy``.
+``random_walk``, ``drifting_batches`` and ``real_proxy``.
 
 ``real_proxy`` differs in one place: the reference offsets the seed by
 ``hash(name)``, which Python salts per process, so its data changes from
@@ -52,6 +52,30 @@ def random_walk(n: int, k: int = 13, d: int = 2, seed: int = 0,
     y = np.concatenate(labels).astype(np.int32)
     p = rng.permutation(len(x))
     return np.clip(x[p], 0, domain), y[p]
+
+
+def drifting_batches(batch: int, ticks: int, k: int = 13, d: int = 2,
+                     seed: int = 0, domain: float = DOMAIN,
+                     step: float = 0.18, sigma: float = 0.025,
+                     drift: float = 0.01):
+    """Streaming variant of ``random_walk``: yields one micro-batch per tick
+    while the cluster centers keep random-walking (``drift`` * domain per
+    tick).  Yields ``(points (batch, d), labels (batch,), centers (k, d))``.
+    """
+    rng = np.random.default_rng(seed)
+    centers = [rng.uniform(0.2 * domain, 0.8 * domain, size=d)]
+    for _ in range(k - 1):
+        nxt = centers[-1] + rng.normal(0, step * domain, size=d)
+        centers.append(np.clip(nxt, 0.1 * domain, 0.9 * domain))
+    centers = np.stack(centers)
+    for _ in range(ticks):
+        centers = np.clip(centers + rng.normal(0, drift * domain,
+                                               centers.shape),
+                          0.05 * domain, 0.95 * domain)
+        idx = rng.integers(0, k, size=batch)
+        pts = centers[idx] + rng.normal(0, sigma * domain, size=(batch, d))
+        yield (np.clip(pts, 0, domain).astype(np.float32),
+               idx.astype(np.int32), centers.copy())
 
 
 _REAL_PROXIES = {

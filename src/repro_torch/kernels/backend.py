@@ -9,9 +9,11 @@ registered so far:
   CPU tensors run the kernels' plain versions.  ``rho_delta`` takes the
   ``dense`` or the ``block-sparse`` layout.
 
-The direct-difference reference backend (the counterpart of ``jnp``) and
-the halo and streaming primitives come with later slices (ROADMAP
-Queue A).
+The streaming primitives (``range_count``, ``range_count_delta``,
+``denser_nn_update``) run dense: kernels K4, K5 and K6.  The
+direct-difference reference backend (the counterpart of ``jnp``), the halo
+primitives and the worklist forms of the streaming ones come with later
+slices (ROADMAP Queues A and B).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from .. import obs
 from ..core.dpc_types import density_jitter
-from . import blocksparse, ops
+from . import blocksparse, density, dependent, ops
 
 __all__ = ["KernelBackend", "CudaBackend", "available_backends",
            "default_backend_name", "get_backend"]
@@ -28,10 +30,25 @@ _INT32_MAX = 2**31 - 1
 
 
 class KernelBackend:
-    """The DPC primitives: Def. 2 (``denser_nn``) and the fused Def. 1 +
-    Def. 2 (``rho_delta``)."""
+    """The DPC primitives: Def. 1 (``range_count``), Def. 2
+    (``denser_nn``), the fused Def. 1 + Def. 2 (``rho_delta``) and the
+    stream's batched forms (``range_count_delta``, ``denser_nn_update``)."""
 
     name: str = "abstract"
+
+    def range_count(self, x, y, d_cut, *, layout=None):
+        """(n,) f32: |{j : ||x_i - y_j|| < d_cut}| per row of x."""
+        raise NotImplementedError
+
+    def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
+        """(n,) f32: sum_b signs[b] * [||x_i - batch_b|| < d_cut] — the
+        sliding-window rho repair (+1 inserted, -1 evicted, 0 padding)."""
+        raise NotImplementedError
+
+    def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
+        """Def. 2 for the row subset ``q_slots`` of ``points`` against all
+        of them; slots >= len(points) are padding and return (inf, -1)."""
+        raise NotImplementedError
 
     def denser_nn(self, x, x_key, y, y_key):
         """(delta, parent): NN among y rows with y_key strictly greater.
@@ -68,13 +85,40 @@ def _fused_resolve(rho_key, col_key, topv, topi):
     return torch.sqrt(best), parent.to(torch.int32), resolved
 
 
+def _dense_only(primitive: str, layout) -> None:
+    """The streaming primitives' worklist forms are not ported."""
+    if layout not in (None, "dense", "block-sparse"):
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "block-sparse":
+        raise NotImplementedError(
+            f"{primitive}(layout='block-sparse') needs the worklist form of "
+            f"its kernel, still to be ported (ROADMAP Queue B, A3 for "
+            f"A4-A6); the stream calls it dense")
+
+
 class CudaBackend(KernelBackend):
-    """The Hopper kernels: ``fused_count_topk`` then ``masked_nn``."""
+    """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
+    then ``masked_nn`` for the fit; ``range_count``, ``range_count_signed``
+    and ``gather_masked_nn`` for the stream."""
 
     name = "cuda"
 
     def denser_nn(self, x, x_key, y, y_key):
-        return ops.dependent_masked(x, x_key, y, y_key)
+        return dependent.masked_min_dist(x, x_key, y, y_key)
+
+    def range_count(self, x, y, d_cut, *, layout=None):
+        _dense_only("range_count", layout)
+        return density.range_count(x, y, d_cut)
+
+    def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
+        _dense_only("range_count_delta", layout)
+        return density.range_count_signed(x, batch, signs, d_cut)
+
+    def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
+        """The fused-gather kernel: the query rows are read from ``points``
+        inside it, so the gathered subset never exists as a tensor."""
+        _dense_only("denser_nn_update", layout)
+        return dependent.masked_min_dist_gather(points, rho_key, q_slots)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None, layout=None):

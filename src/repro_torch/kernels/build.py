@@ -78,6 +78,12 @@ def load_library() -> ctypes.CDLL:
     lib.repro_worklist_count_topk.restype = i
     lib.repro_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p]
     lib.repro_masked_nn.restype = i
+    lib.repro_range_count.argtypes = [p, p, i, i, i, f, p, p]
+    lib.repro_range_count.restype = i
+    lib.repro_range_count_signed.argtypes = [p, p, p, i, i, i, f, p, p]
+    lib.repro_range_count_signed.restype = i
+    lib.repro_gather_masked_nn.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.repro_gather_masked_nn.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the Approx-DPC, Ex-DPC and Scan
-// paths, dense and block-sparse.
+// paths, dense and block-sparse, and for the sliding-window stream.
 //
-// Three kernels, each with a plain C entry point bound through ctypes
+// Six kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
@@ -11,6 +11,12 @@
 //                              (kernels/blocksparse.py)
 //   repro_masked_nn            per query row, the nearest strictly denser
 //                              y row
+//   repro_range_count          per query row, the count of y rows within
+//                              d_cut (the stream's fresh counts)
+//   repro_range_count_signed   per query row, the sum of the signs of the
+//                              y rows within d_cut (the stream's rho repair)
+//   repro_gather_masked_nn     per slot, the nearest strictly denser table
+//                              row to table[slot] (the stream's maxima)
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -35,10 +41,25 @@ constexpr int kTopK = 8;            // FUSED_TOPK in kernels/sweep.py
 constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
                                     // kernels/blocksparse.py
 constexpr int kWlCols = 512;        // K3 columns per column tile: BLOCK_M
+constexpr int kSplitBlocks = 2048;  // K4/K6 split the columns until about
+                                    // this many blocks fill the card
 
-__device__ __forceinline__ int tile_cols(int d) {
+__host__ __device__ __forceinline__ int tile_cols(int d) {
   const int c = kTileFloats / d;
   return c < kMaxTileCols ? c : kMaxTileCols;
+}
+
+// Columns per block of a column-split grid (K4, K6): a whole number of
+// staged tiles, few enough that rows x column chunks make about
+// kSplitBlocks blocks, so a few thousand query rows still fill 132 SMs.
+int split_chunk(int rows, int m, int d) {
+  const int per_tile = tile_cols(d);
+  const int tiles = (m + per_tile - 1) / per_tile;
+  const int row_blocks = (rows + kRows - 1) / kRows;
+  int chunks = (kSplitBlocks + row_blocks - 1) / row_blocks;
+  if (chunks > tiles) chunks = tiles;
+  if (chunks < 1) chunks = 1;
+  return (tiles + chunks - 1) / chunks * per_tile;
 }
 
 // Squared distance of one pair.  D > 0: the query row sits in registers
@@ -338,6 +359,202 @@ __global__ void __launch_bounds__(kRows)
   arg_out[i] = arg;
 }
 
+// K4 — replaces the reference's density.range_count, i.e. sweep.tile_sweep
+// with SweepSpec(count=True) (repro/kernels/density.py:27, pallas_call at
+// repro/kernels/sweep.py:432), reached through ops.local_density_xy.
+//
+// Bound: f32 CUDA-core issue, about 3d+1 operations per pair; the stream
+// calls it with a few thousand inserted rows against the whole window, so
+// a one-block-per-128-rows grid would hold 32 blocks on 132 SMs.  The
+// design splits the columns too (split_chunk): each block owns 128 rows
+// and one column chunk, stages it tile by tile in shared memory, counts in
+// a register and adds its partial count with one integer atomicAdd, which
+// is exact and independent of the order in which blocks finish.
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    range_count_kernel(const float* __restrict__ x,
+                       const float* __restrict__ y, int n, int m, int d,
+                       float d2cut, int chunk, int* __restrict__ count) {
+  __shared__ float tile[kTileFloats];
+  if constexpr (D > 0) d = D;
+  const int per_tile = tile_cols(d);
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never write
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  const int c_begin = blockIdx.y * chunk;
+  const int c_end = min(c_begin + chunk, m);
+  int cnt = 0;
+  for (int j0 = c_begin; j0 < c_end; j0 += per_tile) {
+    const int cols = min(per_tile, c_end - j0);
+    __syncthreads();
+    stage(tile, y, j0, cols, d);
+    __syncthreads();
+    for (int c = 0; c < cols; ++c) {
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, tile + c * D, D);
+      } else {
+        d2 = pair_d2<0>(xg, tile + c * d, d);
+      }
+      cnt += d2 < d2cut;
+    }
+  }
+  if (live && cnt) atomicAdd(count + i, cnt);
+}
+
+// K5 — replaces the reference's density.range_count_signed, i.e.
+// sweep.tile_sweep with SweepSpec(count=True, signed=True)
+// (repro/kernels/density.py:46, pallas_call at repro/kernels/sweep.py:432),
+// reached through ops.local_density_delta.
+//
+// Bound: f32 CUDA-core issue, about 3d+1 operations per pair.  The stream
+// calls it with the whole window as rows (2^20) against the insert/evict
+// batch (a few thousand columns with their signs), so one thread per row
+// already fills the card: no column split.  Each block stages a tile of the
+// batch and its signs in shared memory and adds sign_j to a register sum
+// for each column within d_cut, in column order.  The signs are +1, -1 or
+// 0, so every partial sum is an integer below 2^24 and exact in f32: the
+// order of the sum does not change its bits.
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    range_count_signed_kernel(const float* __restrict__ x,
+                              const float* __restrict__ y,
+                              const float* __restrict__ signs, int n, int m,
+                              int d, float d2cut, float* __restrict__ out) {
+  __shared__ float tile[kTileFloats];
+  __shared__ float stile[kMaxTileCols];
+  if constexpr (D > 0) d = D;
+  const int per_tile = tile_cols(d);
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  float acc = 0.0f;
+  for (int j0 = 0; j0 < m; j0 += per_tile) {
+    const int cols = min(per_tile, m - j0);
+    __syncthreads();
+    stage(tile, y, j0, cols, d);
+    for (int t = threadIdx.x; t < cols; t += kRows) stile[t] = signs[j0 + t];
+    __syncthreads();
+    for (int c = 0; c < cols; ++c) {
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, tile + c * D, D);
+      } else {
+        d2 = pair_d2<0>(xg, tile + c * d, d);
+      }
+      if (d2 < d2cut) acc = __fadd_rn(acc, stile[c]);
+    }
+  }
+  if (live) out[i] = acc;
+}
+
+// K6 — replaces the reference's sweep.gather_nn (repro/kernels/sweep.py:491,
+// pallas_call at :510), reached through ops.dependent_masked_gather.
+//
+// Bound: f32 CUDA-core issue, as K2: a key test per pair and about 3d+1
+// operations for each pair whose column is denser.  The stream calls it
+// with the dirty cell maxima as rows (a few hundred to a few hundred
+// thousand) against the whole window.  The TPU kernel gathers its query
+// rows with one-hot matrix products on a doubled column grid; here each
+// thread loads table[slot] and keys[slot] directly.  Since a few hundred
+// rows fill only a few blocks, the columns are split across blocks
+// (split_chunk), and each block's per-row (best d2, index) merges with one
+// 64-bit atomicMin on (d2's bits << 32 | index).  A d2 is a sum of squares,
+// never negative, and non-negative floats order as their bits do, so the
+// merge takes the lexicographic (d2, index) minimum: inside a chunk the
+// update is a strict `<` over ascending columns, so the lowest index wins
+// among equal distances, and across chunks the atomic keeps the lowest
+// (d2, index) in any order.  Slots outside [0, m) are padding: their key is
+// +inf, so no column is denser, and they decode to (inf, -1).
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    gather_masked_nn_kernel(const float* __restrict__ table,
+                            const float* __restrict__ keys,
+                            const int* __restrict__ slots, int q, int m,
+                            int d, int chunk,
+                            unsigned long long* __restrict__ packed) {
+  __shared__ float tile[kTileFloats];
+  __shared__ float ktile[kMaxTileCols];
+  if constexpr (D > 0) d = D;
+  const int per_tile = tile_cols(d);
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  const int slot = i < q ? slots[i] : -1;
+  const bool live = slot >= 0 && slot < m;
+  const int row = live ? slot : 0;
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = table + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+  const float key = live ? keys[row] : CUDART_INF_F;
+
+  const int c_begin = blockIdx.y * chunk;
+  const int c_end = min(c_begin + chunk, m);
+  float best = CUDART_INF_F;
+  int arg = -1;
+  for (int j0 = c_begin; j0 < c_end; j0 += per_tile) {
+    const int cols = min(per_tile, c_end - j0);
+    __syncthreads();
+    stage(tile, table, j0, cols, d);
+    for (int t = threadIdx.x; t < cols; t += kRows) ktile[t] = keys[j0 + t];
+    __syncthreads();
+    for (int c = 0; c < cols; ++c) {
+      if (!(ktile[c] > key)) continue;
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, tile + c * D, D);
+      } else {
+        d2 = pair_d2<0>(xg, tile + c * d, d);
+      }
+      if (d2 < best) {
+        best = d2;
+        arg = j0 + c;
+      }
+    }
+  }
+  if (arg >= 0) {
+    const unsigned long long p =
+        (static_cast<unsigned long long>(__float_as_uint(best)) << 32) |
+        static_cast<unsigned int>(arg);
+    atomicMin(packed + i, p);
+  }
+}
+
+// K6's epilogue: (d2 bits << 32 | index) -> (best d2, index); the all-ones
+// initial value (no denser row, or a padding slot) -> (inf, -1).
+__global__ void gather_nn_decode_kernel(
+    const unsigned long long* __restrict__ packed, int q,
+    float* __restrict__ best, int* __restrict__ arg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= q) return;
+  const unsigned long long p = packed[i];
+  if (p == ~0ULL) {
+    best[i] = CUDART_INF_F;
+    arg[i] = -1;
+  } else {
+    best[i] = __uint_as_float(static_cast<unsigned int>(p >> 32));
+    arg[i] = static_cast<int>(p & 0xffffffffULL);
+  }
+}
+
 }  // namespace
 
 // d = 1..8 get a register-resident query row; any other d takes the
@@ -400,6 +617,62 @@ extern "C" int repro_masked_nn(const float* x, const float* x_key,
                                              best, arg)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_range_count(const float* x, const float* y, int n, int m,
+                                 int d, float d2cut, int* count,
+                                 void* stream) {
+  if (n > 0 && m > 0) {
+    const int chunk = split_chunk(n, m, d);
+    const dim3 grid((n + kRows - 1) / kRows, (m + chunk - 1) / chunk);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                 \
+  range_count_kernel<D><<<grid, kRows, 0, s>>>(x, y, n, m, d, d2cut, chunk, \
+                                               count)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_range_count_signed(const float* x, const float* y,
+                                        const float* signs, int n, int m,
+                                        int d, float d2cut, float* out,
+                                        void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kRows - 1) / kRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                   \
+  range_count_signed_kernel<D><<<grid, kRows, 0, s>>>(x, y, signs, n, m, d, \
+                                                      d2cut, out)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_gather_masked_nn(const float* table, const float* keys,
+                                      const int* slots, int q, int m, int d,
+                                      unsigned long long* packed, float* best,
+                                      int* arg, void* stream) {
+  if (q > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t set = cudaMemsetAsync(
+        packed, 0xFF, static_cast<size_t>(q) * sizeof(*packed), s);
+    if (set != cudaSuccess) return static_cast<int>(set);
+    if (m > 0) {
+      const int chunk = split_chunk(q, m, d);
+      const dim3 grid((q + kRows - 1) / kRows, (m + chunk - 1) / chunk);
+#define REPRO_LAUNCH(D)                                                 \
+  gather_masked_nn_kernel<D><<<grid, kRows, 0, s>>>(table, keys, slots, q, \
+                                                    m, d, chunk, packed)
+      REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+    }
+    gather_nn_decode_kernel<<<(q + 255) / 256, 256, 0, s>>>(packed, q, best,
+                                                            arg);
   }
   return static_cast<int>(cudaGetLastError());
 }

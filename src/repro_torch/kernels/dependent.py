@@ -3,8 +3,11 @@
 ``masked_min_dist`` is the rectangular strictly-denser NN (the reference's
 ``repro/kernels/dependent.py::masked_min_dist``), a thin form over
 ``ops.dependent_masked``: the CUDA kernel ``masked_nn`` on CUDA tensors,
-its plain version on CPU tensors.  The triangular ``prefix_min_dist`` and
-the halo variant are still to be ported (ROADMAP Queue B).
+its plain version on CPU tensors.  ``masked_min_dist_gather`` is the same
+NN for a row subset of one table, gathered inside the kernel (the
+reference's ``sweep.gather_nn``): ``ops.dependent_masked_gather``, the CUDA
+kernel ``gather_masked_nn``.  The triangular ``prefix_min_dist`` and the
+halo variant are still to be ported (ROADMAP Queue B).
 """
 from __future__ import annotations
 
@@ -15,3 +18,11 @@ def masked_min_dist(x, x_key, y, y_key):
     """NN among y rows with ``y_key > x_key``, per x row.  Returns
     (delta (n,), parent (n,) int32); (inf, -1) where none qualifies."""
     return ops.dependent_masked(x, x_key, y, y_key)
+
+
+def masked_min_dist_gather(table, keys, q_slots):
+    """NN among table rows with a key strictly greater than
+    ``keys[q_slots]``, per slot; slots outside [0, len(table)) are padding.
+    Returns (delta (q,), parent (q,) int32); (inf, -1) where none
+    qualifies."""
+    return ops.dependent_masked_gather(table, keys, q_slots)

@@ -16,15 +16,19 @@ import torch
 from . import build
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_plain,
-                    masked_nn_plain, worklist_count_topk_plain)
+                    gather_masked_nn_plain, masked_nn_plain,
+                    range_count_plain, range_count_signed_plain,
+                    worklist_count_topk_plain)
 
-__all__ = ["fused_sweep", "dependent_masked", "launch_counts",
+__all__ = ["fused_sweep", "dependent_masked", "local_density_xy",
+           "local_density_delta", "dependent_masked_gather", "launch_counts",
            "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
 
 _LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
-             "masked_nn": 0}
+             "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
+             "gather_masked_nn": 0}
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -166,6 +170,87 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                 n, m, d, best.data_ptr(), arg.data_ptr(), _stream(x))
         build.check(lib, "masked_nn", code)
         _LAUNCHES["masked_nn"] += 1
+    return torch.sqrt(best), arg
+
+
+def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut):
+    """Per x-row: the count of y rows within ``d_cut`` (Def. 1 with query
+    rows apart from the candidates), as (n,) f32."""
+    _check("local_density_xy", x, y)
+    d2cut = d2cut_of(d_cut)
+    if x.device.type == "cpu":
+        return range_count_plain(x, y, d2cut).to(torch.float32)
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    if n:
+        lib = build.load_library()
+        with torch.cuda.device(x.device):
+            code = lib.repro_range_count(x.data_ptr(), y.data_ptr(), n, m, d,
+                                         d2cut, count.data_ptr(), _stream(x))
+        build.check(lib, "range_count", code)
+        if m:                         # the entry launches nothing for m == 0
+            _LAUNCHES["range_count"] += 1
+    return count.to(torch.float32)
+
+
+def local_density_delta(x: torch.Tensor, batch: torch.Tensor,
+                        signs: torch.Tensor, d_cut):
+    """Per x-row: the sum of ``signs[b]`` over the batch rows within
+    ``d_cut``, as (n,) f32 — the sliding-window rho repair, with +1 for an
+    inserted row, -1 for an evicted one and 0 for padding.  The signs must
+    be +1, -1 or 0: the sum is then exact in any order."""
+    _check("local_density_delta", batch, x, signs)   # signs: one per batch row
+    d2cut = d2cut_of(d_cut)
+    if x.device.type == "cpu":
+        return range_count_signed_plain(x, batch, signs, d2cut)
+    n, m, d = x.shape[0], batch.shape[0], x.shape[1]
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if n:
+        lib = build.load_library()
+        with torch.cuda.device(x.device):
+            code = lib.repro_range_count_signed(
+                x.data_ptr(), batch.data_ptr(), signs.data_ptr(), n, m, d,
+                d2cut, out.data_ptr(), _stream(x))
+        build.check(lib, "range_count_signed", code)
+        _LAUNCHES["range_count_signed"] += 1
+    return out
+
+
+def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
+                            q_slots: torch.Tensor):
+    """Per slot s of ``q_slots``: the nearest table row with a key strictly
+    greater than ``keys[s]`` (Def. 2 for the row subset ``table[q_slots]``,
+    the rows gathered inside the kernel).  Slots outside [0, len(table))
+    are padding.
+
+    Returns (delta (q,) f32, parent (q,) int32); (inf, -1) where no row is
+    strictly denser and for padding slots.
+    """
+    _check("dependent_masked_gather", table, table, keys)
+    if not isinstance(q_slots, torch.Tensor) or q_slots.dim() != 1 \
+            or q_slots.dtype not in (torch.int32, torch.int64) \
+            or q_slots.device != table.device:
+        raise ValueError("dependent_masked_gather: q_slots must be a 1-D "
+                         f"int32/int64 tensor on {table.device}")
+    if table.device.type == "cpu":
+        best, arg = gather_masked_nn_plain(table, keys, q_slots)
+        return torch.sqrt(best), arg
+    q, m, d = q_slots.numel(), table.shape[0], table.shape[1]
+    # any slot past the table is padding: clamp into int32 range first
+    slots = q_slots.clamp(-1, m).to(torch.int32).contiguous()
+    packed = torch.empty((q,), dtype=torch.int64, device=table.device)
+    best = torch.empty((q,), dtype=torch.float32, device=table.device)
+    arg = torch.empty((q,), dtype=torch.int32, device=table.device)
+    if q:
+        lib = build.load_library()
+        with torch.cuda.device(table.device):
+            code = lib.repro_gather_masked_nn(
+                table.data_ptr(), keys.data_ptr(), slots.data_ptr(), q, m, d,
+                packed.data_ptr(), best.data_ptr(), arg.data_ptr(),
+                _stream(table))
+        build.check(lib, "gather_masked_nn", code)
+        if m:                # for m == 0 only the decode epilogue runs
+            _LAUNCHES["gather_masked_nn"] += 1
     return torch.sqrt(best), arg
 
 

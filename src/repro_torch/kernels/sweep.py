@@ -169,3 +169,45 @@ def masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         best[r0:r1] = b
         arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
     return best, arg
+
+
+def range_count_plain(x: torch.Tensor, y: torch.Tensor, d2cut: float):
+    """Per x-row: the count of y rows with d2 < d2cut (i32)."""
+    n = x.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    step = _row_block(y.shape[0])
+    for r0 in range(0, n, step):
+        d2 = direct_d2(x[r0:r0 + step, None, :], y[None, :, :])
+        count[r0:r0 + step] = (d2 < d2cut).sum(dim=1, dtype=torch.int32)
+    return count
+
+
+def range_count_signed_plain(x: torch.Tensor, y: torch.Tensor,
+                             signs: torch.Tensor, d2cut: float):
+    """Per x-row: the sum of ``signs[j]`` over the y rows with d2 < d2cut
+    (f32).  With signs in {+1, -1, 0} every partial sum is an integer below
+    2^24, so the kernel's column-order sum and this one agree bit for bit."""
+    n = x.shape[0]
+    out = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    step = _row_block(y.shape[0])
+    for r0 in range(0, n, step):
+        d2 = direct_d2(x[r0:r0 + step, None, :], y[None, :, :])
+        out[r0:r0 + step] = torch.where(d2 < d2cut, signs[None, :],
+                                        0.0).sum(dim=1)
+    return out
+
+
+def gather_masked_nn_plain(table: torch.Tensor, keys: torch.Tensor,
+                           q_slots: torch.Tensor):
+    """Per slot s: the nearest table row j with ``keys[j] > keys[s]`` as
+    (best d2 f32, index i32), the lowest index among equal distances;
+    (+inf, -1) where no row qualifies and for slots outside [0, m)."""
+    m, q = table.shape[0], q_slots.numel()
+    if m == 0:
+        return (torch.full((q,), float("inf"), device=table.device),
+                torch.full((q,), -1, dtype=torch.int32, device=table.device))
+    slots = q_slots.long()
+    live = (slots >= 0) & (slots < m)
+    rows = torch.where(live, slots, 0)
+    qk = torch.where(live, keys[rows], float("inf"))
+    return masked_nn_plain(table[rows], qk, table, keys)

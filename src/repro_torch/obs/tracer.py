@@ -1,7 +1,7 @@
 """Phase-scoped span tracer with host wall-time and device fencing.
 
 The port's counterpart of ``repro/obs/tracer.py``, cut to what the drivers
-call: ``with span("rho") as sp: ...; sp.sync(out)``.
+call: ``with span("rho") as sp: ...; sp.sync(out); sp.set(rows=...)``.
 
 Levels (``configure(level=...)``):
 
@@ -78,6 +78,9 @@ class _NullSpan:
     def sync(self, value: Any = None) -> Any:
         return value
 
+    def set(self, **attrs: Any) -> None:
+        pass
+
 
 NULL_SPAN = _NullSpan()
 
@@ -108,6 +111,10 @@ class Span:
             self._fence_s += now - self._mark
             self._mark = now
         return value
+
+    def set(self, **attrs: Any) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
 
     def __enter__(self) -> "Span":
         stack = getattr(_TLS, "stack", None)

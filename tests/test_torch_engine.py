@@ -19,7 +19,9 @@ from repro_torch import DPCEngine, ExecSpec
 from repro_torch.core.approxdpc import run_approxdpc
 from repro_torch.core.dpc_api import DPCConfig, cluster
 from repro_torch.kernels import build, ops
+from repro_torch.kernels.backend import get_backend
 from repro_torch.resilience.sanitize import PoisonedInputError
+from repro_torch.stream import StreamDPC, StreamDPCConfig
 
 from _torch_ref import (assert_same_fit, clear_dcut, f32_d2cut, f32_ulp,
                         uniform_points)
@@ -81,8 +83,9 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
         eng = DPCEngine(0.1, device="cpu", exec_spec=ExecSpec(
             layout=layout)).fit(uniform_points(500, 2, seed=1))
         assert eng.clustering.labels.device.type == "cpu"
-    assert ops.launch_counts() == {"fused_count_topk": 0,
-                                   "worklist_count_topk": 0, "masked_nn": 0}
+    assert ops.launch_counts() == {
+        "fused_count_topk": 0, "worklist_count_topk": 0, "masked_nn": 0,
+        "range_count": 0, "range_count_signed": 0, "gather_masked_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -111,10 +114,22 @@ def test_unported_axes_and_entry_points_raise():
         with pytest.raises(NotImplementedError):
             DPCEngine(0.1, exec_spec=spec, device="cpu").fit(pts)
     eng = DPCEngine(0.1, device="cpu").fit(pts)
-    with pytest.raises(NotImplementedError):
-        eng.partial_fit(pts)
-    with pytest.raises(NotImplementedError):
-        eng.predict(pts)
+    cfg = StreamDPCConfig(d_cut=0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        StreamDPC(cfg, mesh=object(), device="cpu")
+    for call in (lambda: StreamDPC(cfg, device="cpu").save("ckpt"),
+                 lambda: StreamDPC.restore("ckpt")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+    x, be = torch.from_numpy(pts), get_backend("cuda")
+    for call in (lambda: be.range_count(x, x, 0.1, layout="block-sparse"),
+                 lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
+                                              layout="block-sparse"),
+                 lambda: be.denser_nn_update(x, torch.rand(50),
+                                             torch.arange(5),
+                                             layout="block-sparse")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
     with pytest.raises(PoisonedInputError):
         eng.fit(np.array([[0.0, np.inf]] * 4, np.float32))
     with pytest.raises(ValueError):
@@ -125,6 +140,9 @@ def test_port_imports_no_jax():
     mods = sorted(p.relative_to(SRC).with_suffix("").as_posix()
                   .replace("/", ".").removesuffix(".__init__")
                   for p in (SRC / "repro_torch").rglob("*.py"))
+    assert {"repro_torch.stream", "repro_torch.stream.stream_dpc",
+            "repro_torch.stream.service", "repro_torch.kernels.density",
+            "repro_torch.carry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -136,4 +154,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) == len(mods) >= 20
+    assert int(out.stdout) == len(mods) >= 30

@@ -211,5 +211,6 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
     x = _t(uniform_points(100, 3, seed=0))
     CudaBackend().rho_delta(x, x, 0.1)
     CudaBackend().rho_delta(x, x, 0.1, layout="block-sparse")
-    assert ops.launch_counts() == {"fused_count_topk": 0,
-                                   "worklist_count_topk": 0, "masked_nn": 0}
+    assert ops.launch_counts() == {
+        "fused_count_topk": 0, "worklist_count_topk": 0, "masked_nn": 0,
+        "range_count": 0, "range_count_signed": 0, "gather_masked_nn": 0}
