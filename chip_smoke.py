@@ -68,10 +68,45 @@ Phases, each of which raises on failure (nothing is caught):
    rows that must be quarantined; HIT labels against a float64 nearest
    window point on 1,024 of them).
 11. The same on the Airline proxy, d_cut of phase 3, 8 counted ticks.
+12. S-Approx-DPC's kernels at check shapes: the gated K1 and K3
+   ``fused_sweep(nn_sel=...)`` bit for bit against their plain versions
+   and gated K3 against gated K1 (the phase 2 cases and the lattice of
+   exact ties; gates all ones, which must equal the ungated sweep, all
+   zeros, 40 % at random, 5 columns, and the representatives at eps 0.8
+   with their rows as the queries; K1 on ragged row counts); the gated
+   K3's computed entries; K7 ``prefix_nn`` on each case's table sorted by
+   descending key, bit for bit against its plain version and against K2
+   with key -position.
+13. S-Approx-DPC at full width, the slice's main path:
+   ``DPCEngine(d_cut, algorithm="sapproxdpc", eps=0.8, rho_min=10,
+   exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy
+   at n = 5,810,462, d_cut of phase 8, run twice and the second counted
+   and timed (gated K3 and K2 must launch, ungated K1/K3 and gated K1 must
+   not); every member's rho, parent and delta from its representative;
+   rho on 4,096 random representatives against float64, and their
+   phase-1/phase-2 delta and parent against a float64 masked search among
+   the representatives; gated K3 against its plain version, the fit's own
+   sweep and gated K1 on 256 row tiles; K2 on the rows the fit sent it; a
+   traced fit for the phase times and each phase's peak.
+14. The eps sweep at 2^20 (paper Table 5, ``benchmarks/eps_sweep.py``'s
+   eps 0.2, 0.4, 0.6, 0.8, 1.0): each block-sparse fit's time and its Rand
+   index against phase 7's Ex-DPC labels (at least 0.9); at eps 0.8 the
+   dense fit too (counted: gated K1 and K2 must launch), whose rho, rho_key
+   and delta must equal the block-sparse fit's and whose parents must
+   equal it up to counted exact ties; gated K1 on the dense fit's inputs
+   against its plain version on 8,192 rows.
+15. K7 at 2^20 through ``CudaBackend.prefix_nn`` (counts zeroed just
+   before, read just after) on phase 7's Ex-DPC table sorted by
+   descending ``rho_key``: its delta equal to the Ex-DPC fit's bit for bit
+   and its parents up to counted exact distance ties, on every row whose
+   nearest earlier row is strictly denser; the rows whose nearest earlier
+   row has an equal f32 key are counted (there K7 may be nearer); against
+   its plain version on the first 65,536 rows; its time and bound.
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
-path, K2 and K3 from the main path, K4-K6 from the mixture stream), and as
-its last line
+path, K2 and K3 from the main path, K4-K6 from the mixture stream, gated
+K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15),
+and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, where
 no CUDA device is present.  ``--out`` also writes the full record
 (check-shape times, issue-rate bounds, worklist statistics with K3's
@@ -118,6 +153,11 @@ N_FAR = N_NAN = 16               # of them: far outside coverage, and NaN
 TICK_PLAIN_ROWS = 256            # rows of each counted tick's plain checks
 K5_PLAIN_ROWS = 32768            # window rows of each tick's plain K5 check
 K6_PLAIN_ROWS = 2048             # slots of the last tick's plain K6 check
+
+SAPPROX_EPS = 0.8                # S-Approx-DPC's main path (paper default)
+EPS_SWEEP = (0.2, 0.4, 0.6, 0.8, 1.0)   # benchmarks/eps_sweep.py
+SEL_PLAIN_ROWS = 8192            # rows of the dense fit's plain gated K1
+PREFIX_PLAIN_ROWS = 65536        # leading rows of K7's plain check at 2^20
 
 
 def smi(fields: str) -> str:
@@ -758,6 +798,283 @@ def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
             "stats": s.stats()}
 
 
+def sapprox_kernels():
+    """Gated K1, gated K3 and K7 and their plain versions, as the checks
+    call them."""
+    from repro_torch.kernels import ops, sweep
+
+    def k1s(x, y, d_cut, sel):
+        return ops.fused_sweep(x, y, d_cut, nn_sel=sel)
+
+    def k1s_plain(x, y, d_cut, sel):
+        c, v, i = sweep.fused_count_topk_plain(x, y, sweep.d2cut_of(d_cut),
+                                               sel=sel.bool())
+        return c.to(torch.float32), v, i
+
+    def k3s(x, y, d_cut, wl, sel, live=None):
+        return ops.fused_sweep(x, y, d_cut, nn_sel=sel, worklist=wl,
+                               live=live)
+
+    def k3s_plain(x, y, d_cut, wl, sel):
+        c, v, i = sweep.worklist_count_topk_plain(
+            x, y, sweep.d2cut_of(d_cut), wl, sel=sel.bool())
+        return c.to(torch.float32), v, i
+
+    def k7(pts):
+        return ops.dependent_prefix(pts)
+
+    def k7_plain(pts):
+        best, arg = sweep.prefix_nn_plain(pts)
+        return torch.sqrt(best), arg
+
+    return k1s, k1s_plain, k3s, k3s_plain, k7, k7_plain
+
+
+def sel_counts(sel: torch.Tensor) -> torch.Tensor:
+    """Per column tile, the columns a gate lets into the kept k."""
+    from repro_torch.kernels.blocksparse import BLOCK_M
+    nbc = -(-sel.numel() // BLOCK_M)
+    return torch.bincount(torch.nonzero(sel).flatten() // BLOCK_M,
+                          minlength=nbc)
+
+
+def sapprox_check_shapes(cases, card: str) -> dict:
+    """Gated K1/K3 bit for bit against their plain versions and gated K3
+    against gated K1, under each gate; the all-ones gate against the
+    ungated sweep; K7 against its plain version and K2 with key -position.
+    Times on the first case, with the representatives' gate."""
+    from repro_torch.core.dpc_types import density_jitter
+    from repro_torch.core.grid import build_grid
+    from repro_torch.core.sapproxdpc import representatives
+    from repro_torch.kernels import blocksparse, ops
+    k1s, k1s_plain, k3s, k3s_plain, k7, k7_plain = sapprox_kernels()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    out: dict = {"live": {}}
+    for label, pts, dc in cases:
+        x = torch.from_numpy(pts).to(dev)
+        n, d = x.shape
+        grid = build_grid(x, dc) if d <= 8 else None
+        gs = x if grid is None else grid.points
+        few = torch.zeros(n, dtype=torch.bool, device=dev)
+        few[torch.from_numpy(rng.permutation(n)[:5]).to(dev)] = True
+        gates = {"ones": torch.ones(n, dtype=torch.bool, device=dev),
+                 "zeros": torch.zeros(n, dtype=torch.bool, device=dev),
+                 "random": torch.from_numpy(rng.uniform(size=n) < 0.4)
+                 .to(dev), "few": few}
+        queries = dict.fromkeys(gates, gs)
+        if grid is not None:
+            reps, _ = representatives(grid, dc, SAPPROX_EPS)
+            sel = torch.zeros(n, dtype=torch.bool, device=dev)
+            sel[reps] = True
+            gates["reps"], queries["reps"] = sel, gs[reps].contiguous()
+        for gname, sel in gates.items():
+            q = queries[gname]
+            qr = q[:min(q.shape[0], Q_CHECK + 37)].contiguous()  # ragged
+            got = k1s(qr, gs, dc, sel)
+            check_equal(f"fused_count_topk_sel [{label}, {gname}]", got,
+                        k1s_plain(qr, gs, dc, sel))
+            if gname == "ones":
+                check_equal(f"fused_count_topk_sel [{label}, ones]", got,
+                            ops.fused_sweep(qr, gs, dc), "the ungated K1")
+            wl = blocksparse.build_flat_worklist(
+                q, gs, dc, nn_col_counts=sel_counts(sel))
+            got = k3s(q, gs, dc, wl, sel)
+            check_equal(f"worklist_count_topk_sel [{label}, {gname}]", got,
+                        k3s_plain(q, gs, dc, wl, sel))
+            check_equal(f"worklist_count_topk_sel [{label}, {gname}]", got,
+                        k1s(q, gs, dc, sel), "gated fused_count_topk")
+            live = torch.zeros(wl.num_row_tiles, dtype=torch.int32,
+                               device=dev)
+            k3s(q, gs, dc, wl, sel, live=live)
+            out["live"][f"{label}, {gname}"] = {
+                "rows": q.shape[0], "kept": wl.n_kept, "total": wl.n_total,
+                "live": int(live.sum())}
+        key = ops.fused_sweep(x, x, dc)[0] + density_jitter(n, dev)
+        tbl = x[torch.argsort(key, descending=True, stable=True)]
+        got = k7(tbl)
+        check_equal(f"prefix_nn [{label}]", got, k7_plain(tbl))
+        pos = -torch.arange(n, dtype=torch.float32, device=dev)
+        check_equal(f"prefix_nn [{label}]", got,
+                    ops.dependent_masked(tbl, pos, tbl, pos),
+                    "masked_nn with key -position")
+        print(f"fused_count_topk_sel, worklist_count_topk_sel == plain "
+              f"(and == each other), prefix_nn == plain == masked_nn with "
+              f"key -position, bit for bit: {label}, n={n} d={d}, gates "
+              f"{list(gates)}", flush=True)
+        if "times" not in out and "reps" in gates:
+            sel, q = gates["reps"], queries["reps"]
+            wl = blocksparse.build_flat_worklist(
+                q, gs, dc, nn_col_counts=sel_counts(sel))
+            out["times"] = {
+                "fused_count_topk_sel": {
+                    "shape": f"{q.shape[0]} reps x {n}, d={d}",
+                    "ms": time_ms(lambda: k1s(q, gs, dc, sel)),
+                    "plain_ms": time_ms(lambda: k1s_plain(q, gs, dc, sel)),
+                    "ungated_ms": time_ms(lambda: ops.fused_sweep(q, gs,
+                                                                  dc))},
+                "worklist_count_topk_sel": {
+                    "shape": f"{q.shape[0]} reps x {n}, d={d}, "
+                             f"{wl.n_kept} entries",
+                    "ms": time_ms(lambda: k3s(q, gs, dc, wl, sel)),
+                    "plain_ms": time_ms(lambda: k3s_plain(q, gs, dc, wl,
+                                                          sel))},
+                "prefix_nn": {
+                    "shape": f"n={n} d={d}",
+                    "ms": time_ms(lambda: k7(tbl)),
+                    "plain_ms": time_ms(lambda: k7_plain(tbl))}}
+            for name, t in out["times"].items():
+                print(f"{name} [{t['shape']}]: kernel {t['ms']:.3f} ms, "
+                      f"plain {t['plain_ms']:.3f} ms  ({card})", flush=True)
+    one = torch.zeros((1, 3), device=dev)
+    d1, p1 = k7(one)
+    assert bool(torch.isinf(d1).all()) and int(p1[0]) == -1, \
+        "prefix_nn of one row must be (inf, -1)"
+    return out
+
+
+def float64_sapprox_check(pts64, res, rep_ids, is_rep, rows,
+                          d_cut: float) -> tuple[int, int]:
+    """S-Approx-DPC's representatives ``rows`` (original ids) against a
+    float64 masked search among the representatives ``rep_ids``: the
+    parent is a nearest strictly denser representative ((inf, -1) at the
+    peak); the delta is d_cut where that one is within d_cut (phase 1)
+    and its distance beyond (phase 2).  Returns the rows of each phase."""
+    dc32 = float(np.float32(d_cut))
+    key64 = res.rho_key.to(torch.float64)
+    rp, rk = pts64[rep_ids], key64[rep_ids]
+    n1 = n2 = 0
+    step = max(1, (1 << 25) // rep_ids.numel())
+    for r0 in range(0, rows.numel(), step):
+        rr = rows[r0:r0 + step]
+        d2 = ((pts64[rr, None, :] - rp[None]) ** 2).sum(-1)
+        d2 = torch.where(rk[None, :] > key64[rr, None], d2, float("inf"))
+        best = d2.min(1).values
+        par, dl = res.parent[rr].long(), res.delta[rr]
+        peak = torch.isinf(best)
+        assert bool((par[peak] == -1).all() and torch.isinf(dl[peak]).all()), \
+            "a representative with no denser one must get (inf, -1)"
+        pc = par.clamp_min(0)
+        got = ((pts64[rr] - pts64[pc]) ** 2).sum(-1)
+        assert bool((is_rep[pc] & (key64[pc] > key64[rr]))[~peak].all()), \
+            "a representative's parent is not a denser representative"
+        assert bool((got[~peak] <= best[~peak] * (1 + 1e-6)).all()), \
+            "a representative's parent is not its nearest denser one"
+        ph1 = ~peak & (best.sqrt() < dc32 * (1 - 1e-6))
+        ph2 = ~peak & (best.sqrt() > dc32 * (1 + 1e-6))
+        assert bool((dl[ph1] == dc32).all()), \
+            "a representative with a denser one within d_cut must get d_cut"
+        torch.testing.assert_close(dl[ph2].double(), best[ph2].sqrt(),
+                                   rtol=1e-6, atol=0)
+        n1, n2 = n1 + int(ph1.sum()), n2 + int(ph2.sum())
+    return n1, n2
+
+
+def k3_row_tile_check(x, y, d_cut, wl, sel, name: str, card: str):
+    """K3 (gated where ``sel`` is given) on TILES_CHECK row tiles spread
+    over a fit's table, against all columns: equal to the fit's full
+    sweep, to dense K1 (gated alike) and to its plain version.  Returns
+    (max abs err, times, the work for the bound, the worklist record)."""
+    from repro_torch.kernels import ops, sweep
+    from repro_torch.kernels.blocksparse import BLOCK_N
+    dev = x.device
+    gate = {} if sel is None else {"nn_sel": sel}
+    nbr = wl.num_row_tiles
+    tiles = torch.linspace(0, nbr - 2, TILES_CHECK).round().long().unique()
+    tiles = tiles.to(dev)
+    sub = sub_worklist(wl, tiles)
+    rows = (tiles[:, None] * BLOCK_N
+            + torch.arange(BLOCK_N, device=dev)).flatten()
+    sx = x[rows].contiguous()
+    got = ops.fused_sweep(sx, y, d_cut, worklist=sub, **gate)
+    fit_out = ops.fused_sweep(x, y, d_cut, worklist=wl, **gate)
+    what = f"{name} [main path, row tiles]"
+    check_equal(what, got, [t[rows] for t in fit_out], "the fit's full sweep")
+    check_equal(what, got, ops.fused_sweep(sx, y, d_cut, **gate),
+                "dense K1")
+    plain_sel = None if sel is None else sel.bool()
+    want, plain_ms = timed_once(lambda: sweep.worklist_count_topk_plain(
+        sx, y, sweep.d2cut_of(d_cut), sub, sel=plain_sel))
+    err = check_equal(what, got, (want[0].to(torch.float32), *want[1:]))
+    live = torch.zeros(nbr, dtype=torch.int32, device=dev)
+    ops.fused_sweep(x, y, d_cut, worklist=wl, live=live, **gate)
+    needed = k3_needed_pairs(wl, y.shape[0], fit_out[1])
+    times = {"ms": time_ms(lambda: ops.fused_sweep(x, y, d_cut, worklist=wl,
+                                                   **gate)),
+             "plain_ms": plain_ms, "plain_row_tiles": tiles.numel()}
+    rec = {"kept": wl.n_kept, "total": wl.n_total,
+           "in_cut": int(wl.in_cut.sum()), "live": int(live.sum()),
+           "needed_pairs": needed, "pruned_frac": wl.pruned_frac,
+           "live_frac_of_dense": int(live.sum()) / wl.n_total}
+    print(f"{name} == plain == the fit's sweep == dense K1, bit for bit, on "
+          f"{tiles.numel()} row tiles x {y.shape[0]} columns; worklist "
+          f"{wl.n_kept} of {wl.n_total} tile pairs ({rec['in_cut']} in "
+          f"d_cut), {rec['live']} computed, {needed} pairs needed; kernel "
+          f"{times['ms']:.3f} ms, plain {plain_ms:.1f} ms on the row tiles  "
+          f"({card})", flush=True)
+    return err, times, k3_work(x, y, wl, needed), rec
+
+
+def k2_fit_check(calls, what: str, card: str):
+    """K2 on the calls a fit made: each against its plain version on its
+    first K2_PLAIN_ROWS rows, timed on all.  Returns (max abs err, times,
+    the work for the bound)."""
+    from repro_torch.kernels import ops, sweep
+    err, ms, plain_ms, nbytes, nops = 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, (xq, xk, y, yk) in enumerate(calls):
+        r = min(K2_PLAIN_ROWS, xq.shape[0])
+        want, p_ms = timed_once(lambda: sweep.masked_nn_plain(
+            xq[:r], xk[:r], y, yk))
+        err = max(err, check_equal(
+            f"masked_nn [{what}, call {i}]",
+            [t[:r] for t in ops.dependent_masked(xq, xk, y, yk)],
+            (torch.sqrt(want[0]), want[1])))
+        ms += time_ms(lambda: ops.dependent_masked(xq, xk, y, yk))
+        plain_ms += p_ms
+        nb, no = k2_work(xk, yk, xq.shape[1])
+        nbytes, nops = nbytes + nb, nops + no
+    rows = [c[0].shape[0] for c in calls]
+    b_ms, by = bound_ms(nbytes, nops)
+    print(f"masked_nn == plain, bit for bit, on the first {K2_PLAIN_ROWS} of "
+          f"{rows} rows x {calls[0][2].shape[0]} ({what}); kernel {ms:.3f} "
+          f"ms on all rows, bound {b_ms:.3f} ms ({by}), plain "
+          f"{plain_ms:.3f} ms on the slice  ({card})", flush=True)
+    return err, {"ms": ms, "plain_ms": plain_ms, "rows": rows,
+                 "plain_rows": K2_PLAIN_ROWS, "bound_ms": b_ms,
+                 "bound_by": by}, (nbytes, nops)
+
+
+def traced(fit, names, card: str, what: str):
+    """Phase times and each phase's peak device memory of one traced
+    ``fit()`` (a span records the most allocated while it was open, the
+    script's own tensors included: ``held_gb`` of them at the start)."""
+    from repro_torch import obs
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    obs.configure("trace")
+    obs.reset_spans()
+    try:
+        with obs.span("smoke.traced_fit"):
+            fit()
+    finally:
+        obs.configure("off")
+    phases: dict[str, float] = {}
+    peaks: dict[str, float] = {}
+    for sp in obs.spans():
+        phases[sp["name"]] = phases.get(sp["name"], 0.0) + sp["host_s"]
+        peaks[sp["name"]] = max(peaks.get(sp["name"], 0.0),
+                                sp.get("peak_bytes", 0) / 1e9)
+    for name in names:
+        print(f"  phase {name}: {1e3 * phases.get(name, 0.0):.2f} ms, peak "
+              f"{peaks.get(name, 0.0):.3f} GB")
+    print(f"  {what}: peak device memory {peaks['smoke.traced_fit']:.3f} "
+          f"GB, of which {held_gb:.3f} GB held by the script before the fit"
+          f"  ({card})", flush=True)
+    return {"phases_ms": {k: 1e3 * v for k, v in phases.items()},
+            "phases_peak_gb": peaks, "held_gb": held_gb,
+            "peak_gb": peaks["smoke.traced_fit"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -768,13 +1085,16 @@ def main() -> int:
               "needs one CUDA device", file=sys.stderr)
         return 2
 
-    from repro_torch import DPCEngine, ExecSpec, obs
+    from repro_torch import DPCEngine, ExecSpec
     from repro_torch.core.approxdpc import _group_segments, _maxima_mask
     from repro_torch.core.dpc_types import density_jitter
     from repro_torch.core.grid import build_grid
+    from repro_torch.core.metrics import rand_index
+    from repro_torch.core.sapproxdpc import representatives
     from repro_torch.core.tuning import pick_dcut
     from repro_torch.data.points import gaussian_mixture, real_proxy
     from repro_torch.kernels import blocksparse, build, ops, sweep
+    from repro_torch.kernels.backend import get_backend
 
     dev = torch.device("cuda")
     record: dict = {}
@@ -919,7 +1239,9 @@ def main() -> int:
     def recording_sweep(*a, **kw):
         kind = ("worklist_count_topk" if kw.get("worklist") is not None
                 else "fused_count_topk")
-        given[kind].append((*a, kw.get("worklist")))
+        if kw.get("nn_sel") is not None:
+            kind += "_sel"
+        given[kind].append((*a, kw.get("worklist"), kw.get("nn_sel")))
         return launch_sweep(*a, **kw)
 
     def recording_nn(*a):
@@ -961,7 +1283,7 @@ def main() -> int:
     main_times: dict[str, dict] = {}
     errs: dict[str, float] = {}
     bounds: dict[str, tuple] = {}
-    (mx, my, mdc, _), = dense_given["fused_count_topk"]
+    (mx, my, mdc, _, _), = dense_given["fused_count_topk"]
     full = k1(mx, my, mdc)
     assert torch.equal(res.rho, full[0]), "the fit's rho differs from K1's"
     want, plain_ms = timed_once(lambda: k1_plain(mx[:K1_PLAIN_ROWS], my, mdc))
@@ -1100,6 +1422,7 @@ def main() -> int:
     del pts64
     exact_rec["dense_ties"] = ties
     record["exact_2e20"] = exact_rec
+    ex_res, ex_labels = ex.result, ex.clustering.labels   # phases 14, 15
     print(f"Ex-DPC block-sparse == Scan block-sparse, bit for bit; == Ex-DPC "
           f"dense except {ties} exact distance ties ({tied} rows downstream, "
           f"{lab_diff} labels differ); rho == Approx-DPC's; delta/parent == "
@@ -1142,95 +1465,23 @@ def main() -> int:
           f"({n_rule2_full} rule 2, {pick.numel() - n_rule2_full} rule 3 "
           f"or peak); {int(fcl.num_clusters)} clusters", flush=True)
 
-    # K3 against its plain version and dense K1 on 256 row tiles
-    (fxs, fys, fdc, fwl), = given["worklist_count_topk"]
-    nbr = fwl.num_row_tiles
-    tiles = torch.linspace(0, nbr - 2, TILES_CHECK).round().long().unique()
-    tiles = tiles.to(dev)
-    sub = sub_worklist(fwl, tiles)
-    bn = blocksparse.BLOCK_N
-    sub_rows = (tiles[:, None] * bn
-                + torch.arange(bn, device=dev)).flatten()
-    sx = fxs[sub_rows].contiguous()
-    got = k3(sx, fys, fdc, sub)
-    fit_out = k3(fxs, fys, fdc, fwl)
-    check_equal("worklist_count_topk [main path, row tiles]", got,
-                [t[sub_rows] for t in fit_out], "the fit's full sweep")
-    check_equal("worklist_count_topk [main path, row tiles]", got,
-                k1(sx, fys, fdc), "dense fused_count_topk")
-    want, k3_plain_full_ms = timed_once(lambda: k3_plain(sx, fys, fdc, sub))
-    errs["worklist_count_topk"] = check_equal(
-        "worklist_count_topk [main path, row tiles]", got, want)
-    live = torch.zeros(nbr, dtype=torch.int32, device=dev)
-    k3(fxs, fys, fdc, fwl, live=live)
-    live_full = int(live.sum())
-    main_times["worklist_count_topk"] = {
-        "ms": time_ms(lambda: k3(fxs, fys, fdc, fwl)),
-        "plain_ms": k3_plain_full_ms, "plain_row_tiles": tiles.numel()}
-    needed_full = k3_needed_pairs(fwl, fys.shape[0], fit_out[1])
-    bounds["worklist_count_topk"] = k3_work(fxs, fys, fwl, needed_full)
-    wl_full = {"kept": fwl.n_kept, "total": fwl.n_total,
-               "in_cut": int(fwl.in_cut.sum()), "live": live_full,
-               "needed_pairs": needed_full,
-               "pruned_frac": fwl.pruned_frac,
-               "live_frac_of_dense": live_full / fwl.n_total}
-    print(f"worklist_count_topk == plain == dense K1, bit for bit, on "
-          f"{tiles.numel()} row tiles x {fys.shape[0]} columns; worklist "
-          f"{fwl.n_kept} of {fwl.n_total} tile pairs ({wl_full['in_cut']} "
-          f"in d_cut), {live_full} computed, {needed_full} pairs needed; K3 "
-          f"{main_times['worklist_count_topk']['ms']:.3f} ms, plain "
-          f"{k3_plain_full_ms:.1f} ms on the row tiles  ({card})", flush=True)
-    del got, want, fit_out, sub, sx
+    # K3 against its plain version and dense K1 on 256 row tiles; K2 on
+    # the fit's unresolved cell maxima, plain on a slice of them
+    (fxs, fys, fdc, fwl, _), = given["worklist_count_topk"]
+    (errs["worklist_count_topk"], main_times["worklist_count_topk"],
+     bounds["worklist_count_topk"], wl_full) = k3_row_tile_check(
+        fxs, fys, fdc, fwl, None, "worklist_count_topk", card)
+    errs["masked_nn"], main_times["masked_nn"], bounds["masked_nn"] = \
+        k2_fit_check(given["masked_nn"], "main path", card)
 
-    # K2 on the fit's unresolved cell maxima; plain on a slice of them
-    k2_ms, k2_plain_ms, k2_bytes, k2_ops = 0.0, 0.0, 0.0, 0.0
-    errs["masked_nn"] = 0.0
-    for i, (xq, xk, y, yk) in enumerate(given["masked_nn"]):
-        r = min(K2_PLAIN_ROWS, xq.shape[0])
-        want, p_ms = timed_once(lambda: k2_plain(xq[:r], xk[:r], y, yk))
-        errs["masked_nn"] = max(errs["masked_nn"], check_equal(
-            f"masked_nn [main path, call {i}]",
-            [t[:r] for t in k2(xq, xk, y, yk)], want))
-        k2_ms += time_ms(lambda: k2(xq, xk, y, yk))
-        k2_plain_ms += p_ms
-        nb, no = k2_work(xk, yk, xq.shape[1])
-        k2_bytes, k2_ops = k2_bytes + nb, k2_ops + no
-    main_times["masked_nn"] = {"ms": k2_ms, "plain_ms": k2_plain_ms,
-                               "plain_rows": K2_PLAIN_ROWS}
-    bounds["masked_nn"] = (k2_bytes, k2_ops)
-    print(f"masked_nn == plain, bit for bit, on the first {K2_PLAIN_ROWS} of "
-          f"{k2_rows_full} rows x {N_FULL}; kernel {k2_ms:.3f} ms on all "
-          f"rows, plain {k2_plain_ms:.3f} ms on the slice  ({card})",
-          flush=True)
-
-    # traced fit: phase times and each phase's peak device memory (a span
-    # records the most allocated while it was open, the script's own
-    # tensors included: ``held_gb`` of them when the fit starts)
+    # traced fit: phase times and each phase's peak device memory
     del given, fxs, fys, fwl, fx, fgrid
-    torch.cuda.synchronize()
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    obs.configure("trace")
-    obs.reset_spans()
-    try:
-        with obs.span("smoke.traced_fit"):
-            engine.fit(full_pts)
-    finally:
-        obs.configure("off")
-    phases: dict[str, float] = {}
-    peaks: dict[str, float] = {}
-    for sp in obs.spans():
-        phases[sp["name"]] = phases.get(sp["name"], 0.0) + sp["host_s"]
-        peaks[sp["name"]] = max(peaks.get(sp["name"], 0.0),
-                                sp["peak_bytes"] / 1e9)
-    peak_gb = peaks["smoke.traced_fit"]
-    for name in ("engine.fit", "approxdpc.grid", "approxdpc.rho_delta",
-                 "rho_delta.worklist", "rho_delta.sweep", "rho_delta.resolve",
-                 "rho_delta.fallback", "approxdpc.rules", "labels.assign"):
-        print(f"  phase {name}: {1e3 * phases.get(name, 0.0):.2f} ms, peak "
-              f"{peaks.get(name, 0.0):.3f} GB")
-    print(f"  peak device memory {peak_gb:.3f} GB, of which {held_gb:.3f} GB "
-          f"held by the script before the fit; fallback rows "
-          f"{k2_rows_full}  ({card})", flush=True)
+    trace_full = traced(
+        lambda: engine.fit(full_pts),
+        ("engine.fit", "approxdpc.grid", "approxdpc.rho_delta",
+         "rho_delta.worklist", "rho_delta.sweep", "rho_delta.resolve",
+         "rho_delta.fallback", "approxdpc.rules", "labels.assign"),
+        card, f"traced Approx-DPC fit, fallback rows {k2_rows_full}")
 
     # ---------------------- 9. stream kernels vs plain, check shapes
     n_clusters_full = int(fcl.num_clusters)
@@ -1258,18 +1509,213 @@ def main() -> int:
                         + N_PREDICT, seed=0)
     streams["airline"] = run_stream("airline", air, d_cut, AIR_TICKS, card)
     del air
+    torch.cuda.empty_cache()
+
+    # ------------------- 12. S-Approx-DPC's kernels vs plain, check shapes
+    k1s, k1s_plain, _, _, k7, k7_plain = sapprox_kernels()
+    sapprox_check = sapprox_check_shapes(
+        [(label, p, pick_dcut(p, target_rho=30)) for label, p in cases]
+        + [("lattice 128x128", lattice.reshape(-1, 2).astype(np.float32),
+            2.5)], card)
+
+    # ------------- 13. S-Approx-DPC at full width (5.8M): the main path
+    member_delta = float(np.float32(min(SAPPROX_EPS, 1.0) * d_full))
+    sa_engine = DPCEngine(d_full, algorithm="sapproxdpc", eps=SAPPROX_EPS,
+                          rho_min=10, exec_spec=ExecSpec(layout="block-sparse"))
+    sa_engine.fit(full_pts)                                # warm-up
+    torch.cuda.synchronize()
+    given = {}
+    sa_s, sa_launches = counted_fit(sa_engine, full_pts)
+    sres, scl = sa_engine.result, sa_engine.clustering
+    sa_k2_rows = [a[0].shape[0] for a in given["masked_nn"]]
+    assert sa_launches["worklist_count_topk_sel"] >= 1 and \
+        sa_launches["masked_nn"] >= 1, sa_launches
+    for name in ("fused_count_topk", "worklist_count_topk",
+                 "fused_count_topk_sel"):
+        assert sa_launches[name] == 0, \
+            f"the S-Approx-DPC main path launched {name}: {sa_launches}"
+    fx = torch.from_numpy(full_pts).to(dev)
+    fgrid = build_grid(fx, d_full)
+    rep_slots, seg = representatives(fgrid, d_full, SAPPROX_EPS)
+    rep_ids = fgrid.order[rep_slots]
+    n_reps = rep_ids.numel()
+    print(f"S-Approx-DPC fit: n={N_FULL} d=3 d_cut={d_full!r} eps="
+          f"{SAPPROX_EPS} block-sparse: {sa_s * 1e3:.1f} ms, {n_reps} "
+          f"representatives ({100 * n_reps / N_FULL:.1f} %), launches "
+          f"{sa_launches}, masked_nn rows {sa_k2_rows}, "
+          f"{int(scl.num_clusters)} clusters  ({card})", flush=True)
+    is_rep = torch.zeros(N_FULL, dtype=torch.bool, device=dev)
+    is_rep[rep_ids] = True
+    rep_of = fgrid.order[rep_slots[seg]][fgrid.inv_order]
+    member = ~is_rep
+    assert torch.equal(sres.rho, sres.rho[rep_of]), \
+        "a member's rho is not its representative's"
+    assert bool((sres.parent[member].long() == rep_of[member]).all()), \
+        "a member's parent is not its representative"
+    assert bool((sres.delta[member] == member_delta).all()), \
+        "a member's delta is not min(eps, 1) * d_cut"
+    pts64 = fx.double()
+    pick = rep_ids[torch.randperm(n_reps, generator=gen)[:Q_CHECK].to(dev)]
+    _, sa_clear = float64_rho_check(pts64, sres.rho, sweep.d2cut_of(d_full),
+                                    pick)
+    n_ph1, n_ph2 = float64_sapprox_check(pts64, sres, rep_ids, is_rep, pick,
+                                         d_full)
+    del pts64
+    print(f"members: rho, parent, delta from their representative, all "
+          f"{int(member.sum())}; rho == float64 count on {Q_CHECK} random "
+          f"representatives ({sa_clear} clear of the band); parent/delta == "
+          f"float64 masked search among the representatives on them "
+          f"({n_ph1} phase 1, {n_ph2} phase 2, "
+          f"{Q_CHECK - n_ph1 - n_ph2} peak or at d_cut)", flush=True)
+
+    (sxs, sys_, sdc, swl, ssel), = given["worklist_count_topk_sel"]
+    (errs["worklist_count_topk_sel"], main_times["worklist_count_topk_sel"],
+     bounds["worklist_count_topk_sel"], sa_wl) = k3_row_tile_check(
+        sxs, sys_, sdc, swl, ssel, "worklist_count_topk_sel", card)
+    del sxs, sys_, swl, ssel
+    _, sa_k2, _ = k2_fit_check(given["masked_nn"],
+                               "S-Approx-DPC main path, members keyed -inf",
+                               card)
+    del given, fx, fgrid, rep_of, is_rep, member
+    trace_sa = traced(
+        lambda: sa_engine.fit(full_pts),
+        ("engine.fit", "sapproxdpc.grid", "sapproxdpc.reps",
+         "sapproxdpc.rep_sweep", "rho_delta.worklist", "rho_delta.sweep",
+         "rho_delta.resolve", "rho_delta.fallback", "sapproxdpc.assemble",
+         "labels.assign"),
+        card, f"traced S-Approx-DPC fit, fallback rows {sa_k2_rows}")
+    record["sapprox_full"] = {
+        "fit_ms": sa_s * 1e3, "n": N_FULL, "d_cut": d_full,
+        "eps": SAPPROX_EPS, "reps": n_reps, "launches": sa_launches,
+        "clusters": int(scl.num_clusters), "phase1_rows": n_ph1,
+        "phase2_rows": n_ph2, "k2": sa_k2, "worklist": sa_wl, **trace_sa}
+    del sa_engine, sres, scl
+    torch.cuda.empty_cache()
+
+    # --------------------------- 14. the eps sweep at 2^20 (Table 5)
+    ex_lab = ex_labels.cpu().numpy()
+    eps_rec = {}
+    for eps in EPS_SWEEP:
+        eng = DPCEngine(d_cut, algorithm="sapproxdpc", eps=eps, rho_min=10,
+                        exec_spec=ExecSpec(layout="block-sparse"))
+        eng.fit(main_pts)                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.fit(main_pts)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ri = rand_index(eng.clustering.labels, ex_lab)
+        n_r = representatives(grid, d_cut, eps)[0].numel()
+        eps_rec[eps] = {"fit_ms": secs * 1e3, "reps": n_r, "rand_index": ri,
+                        "clusters": int(eng.clustering.num_clusters)}
+        assert ri >= 0.9, f"eps {eps}: Rand index {ri} against Ex-DPC"
+        line = (f"eps {eps}: block-sparse fit n={N_MAIN} {secs * 1e3:.1f} "
+                f"ms, {n_r} representatives, Rand index vs Ex-DPC {ri:.6f}, "
+                f"{eps_rec[eps]['clusters']} clusters")
+        if eps == SAPPROX_EPS:
+            dense = DPCEngine(d_cut, algorithm="sapproxdpc", eps=eps,
+                              rho_min=10, exec_spec=ExecSpec(layout="dense"))
+            dense.fit(main_pts)                            # warm-up
+            torch.cuda.synchronize()
+            given = {}
+            dsecs, sel_launches = counted_fit(dense, main_pts)
+            assert sel_launches["fused_count_topk_sel"] >= 1 and \
+                sel_launches["masked_nn"] >= 1 and \
+                sel_launches["worklist_count_topk_sel"] == 0 and \
+                sel_launches["fused_count_topk"] == 0, sel_launches
+            ties, tied, lab_diff = same_up_to_ties(
+                xs, dense.result, eng.result, dense.clustering.labels,
+                eng.clustering.labels, "S-Approx-DPC dense vs block-sparse")
+            (dx, dy, ddc, _, dsel), = given["fused_count_topk_sel"]
+            r = min(SEL_PLAIN_ROWS, dx.shape[0])
+            full_out = k1s(dx, dy, ddc, dsel)
+            want, p_ms = timed_once(lambda: k1s_plain(dx[:r], dy, ddc, dsel))
+            errs["fused_count_topk_sel"] = check_equal(
+                "fused_count_topk_sel [dense S-Approx-DPC fit]",
+                [t[:r] for t in full_out], want)
+            main_times["fused_count_topk_sel"] = {
+                "ms": time_ms(lambda: k1s(dx, dy, ddc, dsel)),
+                "plain_ms": p_ms, "plain_rows": r}
+            bounds["fused_count_topk_sel"] = k1_work(dx.shape[0],
+                                                     dy.shape[0], dx.shape[1])
+            eps_rec["dense"] = {"fit_ms": dsecs * 1e3,
+                                "launches": sel_launches,
+                                "parent_ties": ties}
+            line += (f"; dense fit {dsecs * 1e3:.1f} ms, launches "
+                     f"{sel_launches}, == block-sparse (rho, rho_key, delta "
+                     f"bit for bit; {ties} parents decided by exact ties, "
+                     f"{tied} rows downstream, {lab_diff} labels differ); "
+                     f"gated K1 {main_times['fused_count_topk_sel']['ms']:.3f}"
+                     f" ms on {dx.shape[0]} x {dy.shape[0]}, == plain on {r} "
+                     f"rows ({p_ms:.1f} ms)")
+            del dense, given, full_out, want, dx, dy, dsel
+        print(line + f"  ({card})", flush=True)
+        del eng
+    record["eps_sweep_2e20"] = eps_rec
+
+    # ---------------------------------------------- 15. K7 at 2^20
+    rk = ex_res.rho_key
+    order = torch.argsort(rk, descending=True, stable=True)
+    tbl = xs[order].contiguous()
+    ops.reset_launch_counts()
+    d7, p7 = get_backend("cuda").prefix_nn(tbl)
+    torch.cuda.synchronize()
+    k7_launches = ops.launch_counts()["prefix_nn"]
+    assert k7_launches == 1, f"prefix_nn launched {k7_launches} times"
+    want_d, want_p = ex_res.delta[order], ex_res.parent[order].long()
+    has = p7 >= 0
+    par = torch.where(has, order[p7.clamp_min(0).long()], -1)
+    key_tie = has & (rk[par.clamp_min(0)] == rk[order])
+    assert bool((rk[par[has]] >= rk[order][has]).all()), \
+        "prefix_nn's parent is not an earlier row"
+    ok = ~key_tie
+    assert torch.equal(d7[ok], want_d[ok]), \
+        "prefix_nn's delta differs from the Ex-DPC fit's"
+    differ = torch.nonzero(ok & (par != want_p)).flatten()
+    assert bool(torch.equal(
+        sweep.direct_d2(tbl[differ], xs[par[differ]]),
+        sweep.direct_d2(tbl[differ], xs[want_p[differ]]))), \
+        "prefix_nn's parent differs from Ex-DPC's without a distance tie"
+    assert bool((d7[key_tie] <= want_d[key_tie]).all()), \
+        "prefix_nn is farther than Ex-DPC on a row with an equal-key parent"
+    want, k7_plain_ms = timed_once(lambda: k7_plain(
+        tbl[:PREFIX_PLAIN_ROWS]))
+    errs["prefix_nn"] = check_equal(
+        "prefix_nn [2^20]", [d7[:PREFIX_PLAIN_ROWS], p7[:PREFIX_PLAIN_ROWS]],
+        want)
+    main_times["prefix_nn"] = {"ms": time_ms(lambda: k7(tbl)),
+                               "plain_ms": k7_plain_ms,
+                               "plain_rows": PREFIX_PLAIN_ROWS}
+    bounds["prefix_nn"] = (4 * N_MAIN * 3 + 8 * N_MAIN,
+                           N_MAIN * (N_MAIN - 1) / 2 * (3 * 3 + 1))
+    record["prefix_2e20"] = {"key_tie_rows": int(key_tie.sum()),
+                             "parent_ties": differ.numel(),
+                             "launches": k7_launches}
+    print(f"prefix_nn on the Ex-DPC table sorted by rho_key, n={N_MAIN}: "
+          f"delta == the Ex-DPC fit's bit for bit on {int(ok.sum())} rows, "
+          f"parents equal but {differ.numel()} exact distance ties; "
+          f"{int(key_tie.sum())} rows whose nearest earlier row has an "
+          f"equal f32 key (there K7 is as near or nearer); == plain on the "
+          f"first {PREFIX_PLAIN_ROWS} rows; kernel "
+          f"{main_times['prefix_nn']['ms']:.3f} ms, plain "
+          f"{k7_plain_ms:.1f} ms on the rows  ({card})", flush=True)
+    del want, d7, p7, tbl
 
     # --------------------------------------------------------- the record
     kernels = []
-    for name, launched in (("fused_count_topk", launches_dense),
-                           ("masked_nn", launches),
-                           ("worklist_count_topk", launches)):
+    for name, launched, where in (
+            ("fused_count_topk", launches_dense, "sweep.py:432"),
+            ("masked_nn", launches, "sweep.py:432"),
+            ("worklist_count_topk", launches, "sweep.py:432"),
+            ("fused_count_topk_sel", sel_launches, "sweep.py:432"),
+            ("worklist_count_topk_sel", sa_launches, "sweep.py:432"),
+            ("prefix_nn", {"prefix_nn": k7_launches}, "dependent.py:28")):
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sweep.cu",
-            "replaces": "src/repro/kernels/sweep.py:432",
+            "replaces": f"src/repro/kernels/{where}",
             "launches": launched[name],
             "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1290,16 +1736,14 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
-    record.update(streams=streams, stream_check_shapes=stream_check)
+    record.update(streams=streams, stream_check_shapes=stream_check,
+                  sapprox_check_shapes=sapprox_check)
     record.update(kernels=kernels, main_times=main_times,
                   check_shapes=check_times, k3_checks=k3_checks,
                   main={"fit_ms": full_s * 1e3, "n": N_FULL, "d_cut": d_full,
                         "clusters": n_clusters_full,
                         "cell_maxima": fmax.numel(), "k2_rows": k2_rows_full,
-                        "worklist": wl_full,
-                        "phases_ms": {k: 1e3 * v for k, v in phases.items()},
-                        "phases_peak_gb": peaks, "held_gb": held_gb,
-                        "peak_gb": peak_gb},
+                        "worklist": wl_full, **trace_full},
                   issue_rate=issue_rate,
                   seconds=time.perf_counter() - t_start,
                   clocks_after=smi("clocks.sm,power.draw,temperature.gpu"))

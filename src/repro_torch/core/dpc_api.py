@@ -1,8 +1,8 @@
 """Public DPC API: one config, one entry point.
 
 The port of ``repro/core/dpc_api.py``.  Its dispatch table holds Scan,
-Ex-DPC and Approx-DPC; the other algorithm names stay valid and raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+Ex-DPC, Approx-DPC and S-Approx-DPC; the two baselines' names stay valid
+and raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from .device import as_points, resolve_device
 from .dpc_types import DPCResult
 from .exdpc import run_exdpc
 from .labels import Clustering, assign_labels, decision_graph
+from .sapproxdpc import run_sapproxdpc
 from .scan import run_scan
 
 Algorithm = Literal["scan", "exdpc", "approxdpc", "sapproxdpc",
@@ -30,18 +31,23 @@ _RUNNERS = {
                                        exec_spec=x),
     "approxdpc": lambda p, c, x: run_approxdpc(p, c.d_cut, g=c.grid_dims,
                                                exec_spec=x),
+    "sapproxdpc": lambda p, c, x: run_sapproxdpc(p, c.d_cut, eps=c.eps,
+                                                 g=c.grid_dims, exec_spec=x),
 }
 
+# the baselines wait for the reference backend (their stencil and LSH
+# routes run on it)
 _UNPORTED = {
-    "sapproxdpc": "ROADMAP Queue A item 4 (core/sapproxdpc.py)",
-    "lsh_ddp": "ROADMAP Queue A item 4 (core/lsh_ddp.py)",
-    "cfsfdp_a": "ROADMAP Queue A item 4 (core/cfsfdp_a.py)",
+    "lsh_ddp": "it waits for ROADMAP Queue A item 1, the reference "
+               "backend (then item 4, core/lsh_ddp.py)",
+    "cfsfdp_a": "it waits for ROADMAP Queue A item 1, the reference "
+                "backend (then item 4, core/cfsfdp_a.py)",
 }
 
 
-def check_algorithm(algorithm: str) -> None:
-    """ValueError for an unknown name, NotImplementedError for a known one
-    that is not ported yet."""
+def check_algorithm(algorithm: str, eps: float = 0.8) -> None:
+    """ValueError for an unknown name or S-Approx-DPC with eps <= 0,
+    NotImplementedError for a known name that is not ported yet."""
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; "
                          f"expected one of {_ALGORITHMS}")
@@ -49,6 +55,9 @@ def check_algorithm(algorithm: str) -> None:
         raise NotImplementedError(
             f"algorithm {algorithm!r} is not ported yet: "
             f"{_UNPORTED[algorithm]}")
+    if algorithm == "sapproxdpc" and not eps > 0.0:
+        raise ValueError(f"S-Approx-DPC needs eps > 0 (coarse-grid side "
+                         f"eps*d_cut/sqrt(d)); got {eps!r}")
 
 
 @dataclass(frozen=True)
@@ -64,7 +73,7 @@ class DPCConfig:
     exec_spec: ExecSpec | None = None
 
     def __post_init__(self):
-        check_algorithm(self.algorithm)
+        check_algorithm(self.algorithm, self.eps)
         if not self.d_cut > 0.0:
             raise ValueError(f"d_cut must be positive, got {self.d_cut!r}")
         if self.exec_spec is None:

@@ -52,7 +52,7 @@ class DPCEngine:
                  device=None):
         if not d_cut > 0.0:
             raise ValueError(f"d_cut must be positive, got {d_cut!r}")
-        check_algorithm(algorithm)
+        check_algorithm(algorithm, eps)
         if delta_min is not None and delta_min <= d_cut:
             raise ValueError("delta_min must exceed d_cut (Def. 5)")
         if exec_spec is not None and not isinstance(exec_spec, ExecSpec):

@@ -10,10 +10,11 @@ registered so far:
   ``dense`` or the ``block-sparse`` layout.
 
 The streaming primitives (``range_count``, ``range_count_delta``,
-``denser_nn_update``) run dense: kernels K4, K5 and K6.  The
-direct-difference reference backend (the counterpart of ``jnp``), the halo
-primitives and the worklist forms of the streaming ones come with later
-slices (ROADMAP Queues A and B).
+``denser_nn_update``) run dense: kernels K4, K5 and K6.  ``rho_delta``'s
+``y_sel_slots`` (S-Approx-DPC) runs the gated forms of K1/K3;
+``prefix_nn`` is K7.  The direct-difference reference backend (the
+counterpart of ``jnp``), the halo primitives and the worklist forms of the
+streaming ones come with later slices (ROADMAP Queues A and B).
 """
 from __future__ import annotations
 
@@ -55,6 +56,12 @@ class KernelBackend:
         delta = +inf, parent = -1 where no such row exists."""
         raise NotImplementedError
 
+    def prefix_nn(self, pts_sorted_desc):
+        """(delta, parent): per row, the NN among the rows before it in a
+        table sorted by descending density key (Def. 2 as a triangle);
+        (inf, -1) for row 0."""
+        raise NotImplementedError
+
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None, layout=None):
         """Fused Def. 1 + Def. 2: per x-row range count over y AND the
@@ -62,7 +69,10 @@ class KernelBackend:
         parent) with rho_key = rho + jitter.  ``fallback_interest``: optional
         ``rho_key -> (n,) bool`` naming the rows whose Def.-2 answer the
         caller reads; other rows may come back as (inf, -1).  ``layout``:
-        ``"dense"`` (default) or ``"block-sparse"`` (x and y grid-sorted)."""
+        ``"dense"`` (default) or ``"block-sparse"`` (x and y grid-sorted).
+        ``y_sel_slots`` (len(x) y rows, x's rows in order): Def. 2 only
+        among them — the kept-k is gated to those columns and the others
+        are never denser (S-Approx-DPC's representatives)."""
         raise NotImplementedError
 
 
@@ -98,13 +108,17 @@ def _dense_only(primitive: str, layout) -> None:
 
 class CudaBackend(KernelBackend):
     """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
-    then ``masked_nn`` for the fit; ``range_count``, ``range_count_signed``
-    and ``gather_masked_nn`` for the stream."""
+    (gated or not) then ``masked_nn`` for the fit; ``range_count``,
+    ``range_count_signed`` and ``gather_masked_nn`` for the stream;
+    ``prefix_nn``."""
 
     name = "cuda"
 
     def denser_nn(self, x, x_key, y, y_key):
         return dependent.masked_min_dist(x, x_key, y, y_key)
+
+    def prefix_nn(self, pts_sorted_desc):
+        return dependent.prefix_min_dist(pts_sorted_desc)
 
     def range_count(self, x, y, d_cut, *, layout=None):
         _dense_only("range_count", layout)
@@ -138,27 +152,48 @@ class CudaBackend(KernelBackend):
         reads (Approx-DPC: the cell maxima).  The reference pads the
         unresolved rows to a power of two to bound its retraces; the kernel
         takes its row count at run time, so only the real rows are launched.
+
+        ``y_sel_slots`` (S-Approx-DPC, the reference's ``backend.py:653-727``
+        branch): ``nn_sel`` is 1 at those y rows, so the kept-k holds only
+        them (the gated K1/K3); the worklist's k-NN ring counts only them
+        per column tile; ``col_key`` is ``rho_key`` at them and -inf
+        elsewhere, so the resolution and the dense K2 pass over all of y
+        reject every other column by its key before its distance.
         """
-        if y_sel_slots is not None:
-            raise NotImplementedError(
-                "rho_delta(y_sel_slots=...) gates the kept-k to S-Approx "
-                "representatives; it is ported with the S-Approx slice "
-                "(ROADMAP Queue A item 4)")
         if layout not in (None, "dense", "block-sparse"):
             raise ValueError(f"unknown layout {layout!r}")
         if jitter is None:
             jitter = density_jitter(x.shape[0], x.device)
+        nn_sel = sel_counts = slots = None
+        if y_sel_slots is not None:
+            slots = torch.as_tensor(y_sel_slots, device=y.device).long()
+            if slots.shape != (x.shape[0],):
+                raise ValueError(f"rho_delta: y_sel_slots of shape "
+                                 f"{tuple(slots.shape)} for {x.shape[0]} "
+                                 f"query rows")
+            nn_sel = torch.zeros((y.shape[0],), dtype=torch.bool,
+                                 device=y.device)
+            nn_sel[slots] = True
+            nbc = -(-y.shape[0] // blocksparse.BLOCK_M)
+            sel_counts = torch.bincount(slots // blocksparse.BLOCK_M,
+                                        minlength=nbc)
         wl = None
         if layout == "block-sparse":
             with obs.span("rho_delta.worklist", n=x.shape[0]) as sp:
-                wl = blocksparse.build_flat_worklist(x, y, d_cut)
+                wl = blocksparse.build_flat_worklist(
+                    x, y, d_cut, nn_col_counts=sel_counts)
                 sp.sync(wl.lb)
         with obs.span("rho_delta.sweep", n=x.shape[0]) as sp:
-            rho, topv, topi = sp.sync(ops.fused_sweep(x, y, d_cut,
-                                                      worklist=wl))
+            rho, topv, topi = sp.sync(ops.fused_sweep(
+                x, y, d_cut, nn_sel=nn_sel, worklist=wl))
         with obs.span("rho_delta.resolve") as sp:
             rho_key = rho + jitter
-            col_key = rho_key
+            if slots is None:
+                col_key = rho_key
+            else:
+                col_key = torch.full((y.shape[0],), float("-inf"),
+                                     dtype=torch.float32, device=y.device)
+                col_key[slots] = rho_key
             delta, parent, resolved = _fused_resolve(rho_key, col_key, topv,
                                                      topi)
             unres = ~resolved

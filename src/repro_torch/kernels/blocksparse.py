@@ -116,21 +116,39 @@ def pair_bounds(rlo, rhi, clo, chi):
 def knn_radius(ub: torch.Tensor, col_counts: torch.Tensor,
                k: int) -> torch.Tensor:
     """Per row tile, the smallest upper bound v such that the column tiles
-    with ub <= v hold at least k points (+inf if all of y holds fewer): a
-    pair whose lb exceeds it has k strictly closer candidates and never
+    with ub <= v hold at least k candidates (+inf if all of y holds fewer):
+    a pair whose lb exceeds it has k strictly closer candidates and never
     enters the row's kept k.
 
-    The reference sorts ub and walks the cumulative counts
-    (``_knn_radius``).  Where every column tile but the last holds at least
-    k points (``BLOCK_M >= k``) that walk stops at the first tile that holds
-    k alone, so the radius is the least ub over such tiles, with no sort.
+    The reference sorts ub per row tile and walks the cumulative counts
+    (``_knn_radius``; ``_knn_walk`` here).  Where the tiles holding fewer
+    than k candidates hold fewer than k together (all of y: only the last
+    tile is short, since ``BLOCK_M >= k``), that walk stops at the first
+    tile that holds k alone, so the radius is the least ub over such
+    tiles, with no sort.  A gate's per-tile counts (S-Approx-DPC) take the
+    walk.
     """
-    full = col_counts >= k
-    return torch.where(full[None, :], ub, float("inf")).amin(1)
+    small = col_counts < k
+    if int(col_counts[small].sum()) >= k:
+        return _knn_walk(ub, col_counts, k)
+    return torch.where(small[None, :], float("inf"), ub).amin(1)
+
+
+def _knn_walk(ub: torch.Tensor, col_counts: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """The reference's walk: sort ub per row tile, sum the counts in that
+    order, take the ub of the first prefix that holds k."""
+    ub_sorted, o = torch.sort(ub, dim=1)
+    cum = torch.cumsum(col_counts[o], dim=1)
+    reach = (cum < k).sum(1, keepdim=True).clamp(max=ub.shape[1] - 1)
+    radius = ub_sorted.gather(1, reach)[:, 0]
+    return torch.where(cum[:, -1] >= k, radius, float("inf"))
 
 
 def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
-                        k: int = 8) -> Worklist:
+                        k: int = 8,
+                        nn_col_counts: torch.Tensor | None = None
+                        ) -> Worklist:
     """The fused count + kept-k worklist of x's ``BLOCK_N``-row tiles over
     y's ``BLOCK_M``-row column tiles (the reference's
     ``build_flat_worklist(count=True, nn="topk")`` at that tile shape),
@@ -139,7 +157,9 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
     Kept: ``lb <= d_cut^2`` (``in_cut``) or ``lb <= knn_radius``, plus the
     least-lb pair of every row tile, so every row tile has an entry.  The
     threshold is ``float(d_cut) ** 2`` rounded once to f32, as the
-    reference compares it with its f32 bounds.
+    reference compares it with its f32 bounds.  ``nn_col_counts`` ((column
+    tiles,) int) counts the columns of each tile that may enter the kept k
+    (a gated sweep's selected columns); by default every column may.
     """
     if BLOCK_M < k:
         raise ValueError(f"BLOCK_M={BLOCK_M} must hold the kept k={k}")
@@ -152,8 +172,15 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
     rlo, rhi = tile_bounds(x, BLOCK_N)
     clo, chi = tile_bounds(y, BLOCK_M)
     thr = float(np.float32(float(d_cut) ** 2))
-    col_counts = (m - torch.arange(nbc, device=dev) * BLOCK_M).clamp(
-        0, BLOCK_M)
+    if nn_col_counts is None:
+        col_counts = (m - torch.arange(nbc, device=dev) * BLOCK_M).clamp(
+            0, BLOCK_M)
+    else:
+        col_counts = torch.as_tensor(nn_col_counts, device=dev).long()
+        if col_counts.shape != (nbc,):
+            raise ValueError(f"nn_col_counts of shape "
+                             f"{tuple(col_counts.shape)} for {nbc} column "
+                             f"tiles")
 
     per_row, cols, cuts, lbs = [], [], [], []
     step = max(1, _CHUNK_PAIRS // max(nbc, 1))

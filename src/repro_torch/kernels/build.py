@@ -71,10 +71,10 @@ def load_library() -> ctypes.CDLL:
     """The built library with every entry point's signature declared."""
     lib = ctypes.CDLL(str(build().path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p]
+    lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p, p]
     lib.repro_fused_count_topk.restype = i
     lib.repro_worklist_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p,
-                                              p, p, p, p, p]
+                                              p, p, p, p, p, p]
     lib.repro_worklist_count_topk.restype = i
     lib.repro_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p]
     lib.repro_masked_nn.restype = i
@@ -84,6 +84,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_range_count_signed.restype = i
     lib.repro_gather_masked_nn.argtypes = [p, p, p, i, i, i, p, p, p, p]
     lib.repro_gather_masked_nn.restype = i
+    lib.repro_prefix_nn.argtypes = [p, i, i, p, p, p]
+    lib.repro_prefix_nn.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,12 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels for the Approx-DPC, Ex-DPC and Scan
-// paths, dense and block-sparse, and for the sliding-window stream.
+// Hand-written Hopper (sm_90a) kernels for the Approx-DPC, Ex-DPC, Scan and
+// S-Approx-DPC paths, dense and block-sparse, and for the sliding-window
+// stream.
 //
-// Six kernels, each with a plain C entry point bound through ctypes
+// Seven kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
 //   repro_fused_count_topk     per query row, the count of y rows within
-//                              d_cut and the 8 nearest (d2, index) pairs
+//                              d_cut and the 8 nearest (d2, index) pairs,
+//                              optionally among the selected columns only
 //   repro_worklist_count_topk  the same, over the tile pairs of a worklist
 //                              (kernels/blocksparse.py)
 //   repro_masked_nn            per query row, the nearest strictly denser
@@ -17,6 +19,8 @@
 //                              y rows within d_cut (the stream's rho repair)
 //   repro_gather_masked_nn     per slot, the nearest strictly denser table
 //                              row to table[slot] (the stream's maxima)
+//   repro_prefix_nn            per row of a table sorted by descending
+//                              key, the nearest earlier row
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -122,13 +126,21 @@ __device__ __forceinline__ void stage(float* tile, const float* y, int j0,
 // after the first columns is rare.  One block owns 128 rows and loops over
 // all column tiles, which replaces the TPU's sequential grid and its
 // `first` flag: nothing is carried between blocks.
-template <int D>
+//
+// kSel (S-Approx-DPC's nn_sel gate, repro/kernels/sweep.py:296-297): a
+// column whose sel byte is 0 never enters the kept 8; the count ignores the
+// gate.  The gate's bytes are staged with each tile and tested before the
+// insertion; without it (kSel false) the kernel is the ungated code.
+template <int D, bool kSel>
 __global__ void __launch_bounds__(kRows)
     fused_count_topk_kernel(const float* __restrict__ x,
                             const float* __restrict__ y, int n, int m, int d,
-                            float d2cut, int* __restrict__ count,
+                            float d2cut,
+                            const unsigned char* __restrict__ sel,
+                            int* __restrict__ count,
                             float* __restrict__ topv, int* __restrict__ topi) {
   __shared__ float tile[kTileFloats];
+  __shared__ unsigned char stile[kSel ? kMaxTileCols : 1];
   if constexpr (D > 0) d = D;
   const int per_tile = tile_cols(d);
   const int i = blockIdx.x * kRows + threadIdx.x;
@@ -155,6 +167,9 @@ __global__ void __launch_bounds__(kRows)
     const int cols = min(per_tile, m - j0);
     __syncthreads();
     stage(tile, y, j0, cols, d);
+    if constexpr (kSel) {
+      for (int t = threadIdx.x; t < cols; t += kRows) stile[t] = sel[j0 + t];
+    }
     __syncthreads();
     for (int c = 0; c < cols; ++c) {
       float d2;
@@ -164,7 +179,11 @@ __global__ void __launch_bounds__(kRows)
         d2 = pair_d2<0>(xg, tile + c * d, d);
       }
       cnt += d2 < d2cut;
-      if (d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      if constexpr (kSel) {
+        if (stile[c] && d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      } else {
+        if (d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      }
     }
   }
 
@@ -204,11 +223,18 @@ __global__ void __launch_bounds__(kRows)
 // its order does not matter.  One block owns one row tile and its whole
 // segment, which replaces the TPU's 1-D worklist grid and its `first` flag.
 // `live` (optional) gets the number of entries each block computed.
-template <int D>
+//
+// kSel gates the kept 8 as in K1.  The per-row vote stays exact: a gated
+// column never enters, so lb <= tv[7] still bounds what can change a row,
+// and until a row has seen 8 selected columns its tv[7] is +inf and every
+// entry stays live for it (the worklist's k-NN ring is built on the
+// selected columns' counts, kernels/blocksparse.py).
+template <int D, bool kSel>
 __global__ void __launch_bounds__(kWlRows)
     worklist_count_topk_kernel(const float* __restrict__ x,
                                const float* __restrict__ y, int n, int m,
                                int d, float d2cut,
+                               const unsigned char* __restrict__ sel,
                                const int* __restrict__ row_ptr,
                                const int* __restrict__ col_tile,
                                const unsigned char* __restrict__ in_cut,
@@ -218,6 +244,7 @@ __global__ void __launch_bounds__(kWlRows)
                                int* __restrict__ topi,
                                int* __restrict__ live_out) {
   __shared__ float tile[kTileFloats];
+  __shared__ unsigned char stile[kSel ? kWlCols : 1];
   __shared__ int s_col[kWlRows];
   __shared__ float s_lb[kWlRows];
   __shared__ int s_cut[kWlRows];
@@ -267,6 +294,10 @@ __global__ void __launch_bounds__(kWlRows)
         const int cols = min(per_chunk, j1 - c0);
         if (c0 != j0) __syncthreads();
         stage(tile, y, c0, cols, d);
+        if constexpr (kSel) {
+          for (int t = threadIdx.x; t < cols; t += kWlRows)
+            stile[t] = sel[c0 + t];
+        }
         __syncthreads();
         for (int c = 0; c < cols; ++c) {
           float d2;
@@ -277,8 +308,13 @@ __global__ void __launch_bounds__(kWlRows)
           }
           cnt += cut & (d2 < d2cut);
           const int j = c0 + c;
-          if (d2 < tv[kTopK - 1] || (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]))
-            keep(tv, ti, d2, j);
+          const bool better = d2 < tv[kTopK - 1] ||
+                              (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]);
+          if constexpr (kSel) {
+            if (stile[c] && better) keep(tv, ti, d2, j);
+          } else {
+            if (better) keep(tv, ti, d2, j);
+          }
         }
       }
     }
@@ -555,6 +591,71 @@ __global__ void gather_nn_decode_kernel(
   }
 }
 
+// K7 — replaces the reference's dependent.prefix_min_dist, i.e.
+// sweep.tile_sweep with SweepSpec(nn="best1", prefix=True)
+// (repro/kernels/dependent.py:28, the j < i mask at sweep.py:288-291, the
+// triangular worklist at sweep.py:324-339), reached through
+// ops.dependent_prefix.
+//
+// Per row i of a table sorted by descending key, the nearest row j < i: Def. 2
+// with "denser" read as "earlier".  Bound: f32 CUDA-core issue, about 3d+1
+// operations for each of the n(n-1)/2 pairs, and almost no memory traffic.
+// The design is K2's without the key: one thread per row, kRows rows per
+// block, the columns staged tile by tile in shared memory, (best d2, index)
+// in registers, ascending columns and a strict `<`, so the lowest index
+// wins among equal distances.  A block stops at the columns before its last
+// row, so the work is the triangle; the blocks are scheduled heaviest first
+// (a reversed blockIdx), so the last wave is not one long tail block.  Only
+// the diagonal tile diverges (each thread stops at its own row).  The delta
+// is the correctly rounded square root, as torch.sqrt computes it.
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    prefix_nn_kernel(const float* __restrict__ x, int n, int d,
+                     float* __restrict__ delta_out, int* __restrict__ arg_out) {
+  __shared__ float tile[kTileFloats];
+  if constexpr (D > 0) d = D;
+  const int per_tile = tile_cols(d);
+  const int b = gridDim.x - 1 - blockIdx.x;  // heaviest blocks first
+  const int i = b * kRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never write
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  // columns before the block's last row: min(n, (b + 1) * kRows) - 1
+  const int m = min(n, (b + 1) * kRows) - 1;
+  float best = CUDART_INF_F;
+  int arg = -1;
+  for (int j0 = 0; j0 < m; j0 += per_tile) {
+    const int cols = min(per_tile, m - j0);
+    __syncthreads();
+    stage(tile, x, j0, cols, d);
+    __syncthreads();
+    const int lim = min(cols, row - j0);  // this row's columns j < row
+    for (int c = 0; c < lim; ++c) {
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, tile + c * D, D);
+      } else {
+        d2 = pair_d2<0>(xg, tile + c * d, d);
+      }
+      if (d2 < best) {
+        best = d2;
+        arg = j0 + c;
+      }
+    }
+  }
+
+  if (!live) return;
+  delta_out[i] = __fsqrt_rn(best);
+  arg_out[i] = arg;
+}
+
 }  // namespace
 
 // d = 1..8 get a register-resident query row; any other d takes the
@@ -572,15 +673,22 @@ __global__ void gather_nn_decode_kernel(
     default: LAUNCH(0); break;      \
   }
 
+// sel: null for the ungated sweep, else m bytes, nonzero where a column
+// may enter the kept 8 (K1 and K3).
 extern "C" int repro_fused_count_topk(const float* x, const float* y, int n,
-                                      int m, int d, float d2cut, int* count,
+                                      int m, int d, float d2cut,
+                                      const unsigned char* sel, int* count,
                                       float* topv, int* topi, void* stream) {
   if (n > 0) {
     const dim3 grid((n + kRows - 1) / kRows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                  \
-  fused_count_topk_kernel<D><<<grid, kRows, 0, s>>>(x, y, n, m, d, d2cut, \
-                                                    count, topv, topi)
+#define REPRO_LAUNCH(D)                                                    \
+  if (sel != nullptr)                                                      \
+    fused_count_topk_kernel<D, true><<<grid, kRows, 0, s>>>(               \
+        x, y, n, m, d, d2cut, sel, count, topv, topi);                     \
+  else                                                                     \
+    fused_count_topk_kernel<D, false><<<grid, kRows, 0, s>>>(              \
+        x, y, n, m, d, d2cut, sel, count, topv, topi)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }
@@ -589,16 +697,21 @@ extern "C" int repro_fused_count_topk(const float* x, const float* y, int n,
 
 extern "C" int repro_worklist_count_topk(
     const float* x, const float* y, int n, int m, int d, float d2cut,
-    const int* row_ptr, const int* col_tile, const unsigned char* in_cut,
-    const float* lb, int* count, float* topv, int* topi, int* live,
-    void* stream) {
+    const unsigned char* sel, const int* row_ptr, const int* col_tile,
+    const unsigned char* in_cut, const float* lb, int* count, float* topv,
+    int* topi, int* live, void* stream) {
   if (n > 0) {
     const dim3 grid((n + kWlRows - 1) / kWlRows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                 \
-  worklist_count_topk_kernel<D><<<grid, kWlRows, 0, s>>>(               \
-      x, y, n, m, d, d2cut, row_ptr, col_tile, in_cut, lb, count, topv, \
-      topi, live)
+#define REPRO_LAUNCH(D)                                                    \
+  if (sel != nullptr)                                                      \
+    worklist_count_topk_kernel<D, true><<<grid, kWlRows, 0, s>>>(          \
+        x, y, n, m, d, d2cut, sel, row_ptr, col_tile, in_cut, lb, count,   \
+        topv, topi, live);                                                 \
+  else                                                                     \
+    worklist_count_topk_kernel<D, false><<<grid, kWlRows, 0, s>>>(         \
+        x, y, n, m, d, d2cut, sel, row_ptr, col_tile, in_cut, lb, count,   \
+        topv, topi, live)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }
@@ -673,6 +786,19 @@ extern "C" int repro_gather_masked_nn(const float* table, const float* keys,
     }
     gather_nn_decode_kernel<<<(q + 255) / 256, 256, 0, s>>>(packed, q, best,
                                                             arg);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_prefix_nn(const float* x, int n, int d, float* delta,
+                               int* arg, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kRows - 1) / kRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D) \
+  prefix_nn_kernel<D><<<grid, kRows, 0, s>>>(x, n, d, delta, arg)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());
 }

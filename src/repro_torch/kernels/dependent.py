@@ -6,12 +6,20 @@
 its plain version on CPU tensors.  ``masked_min_dist_gather`` is the same
 NN for a row subset of one table, gathered inside the kernel (the
 reference's ``sweep.gather_nn``): ``ops.dependent_masked_gather``, the CUDA
-kernel ``gather_masked_nn``.  The triangular ``prefix_min_dist`` and the
-halo variant are still to be ported (ROADMAP Queue B).
+kernel ``gather_masked_nn``.  ``prefix_min_dist`` is the triangular
+form, the NN among earlier rows of a density-sorted table:
+``ops.dependent_prefix``, the CUDA kernel ``prefix_nn``.  The halo variant
+is still to be ported (ROADMAP Queue B).
 """
 from __future__ import annotations
 
 from . import ops
+
+
+def prefix_min_dist(pts_sorted_desc):
+    """min_{j<i} ||p_i - p_j|| and its argmin, rows sorted by descending
+    key.  Returns (delta (n,), parent (n,) int32); (inf, -1) for row 0."""
+    return ops.dependent_prefix(pts_sorted_desc)
 
 
 def masked_min_dist(x, x_key, y, y_key):

@@ -16,19 +16,22 @@ import torch
 from . import build
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_plain,
-                    gather_masked_nn_plain, masked_nn_plain,
+                    gather_masked_nn_plain, masked_nn_plain, prefix_nn_plain,
                     range_count_plain, range_count_signed_plain,
                     worklist_count_topk_plain)
 
-__all__ = ["fused_sweep", "dependent_masked", "local_density_xy",
-           "local_density_delta", "dependent_masked_gather", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
+           "local_density_xy", "local_density_delta",
+           "dependent_masked_gather", "launch_counts", "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
 
+# the gated forms of K1 and K3 count apart from the ungated ones, so a run
+# shows which form launched
 _LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
+             "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
              "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
-             "gather_masked_nn": 0}
+             "gather_masked_nn": 0, "prefix_nn": 0}
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -84,6 +87,17 @@ def _check_worklist(x: torch.Tensor, y: torch.Tensor, wl) -> None:
         raise ValueError("fused_sweep: worklist names a column tile past y")
 
 
+def _check_sel(y: torch.Tensor, nn_sel) -> torch.Tensor:
+    """The kept-k gate the kernels take: (m,) bool or uint8 on y's device,
+    contiguous (one byte per column, nonzero where it may enter)."""
+    if not isinstance(nn_sel, torch.Tensor) or nn_sel.dtype not in (
+            torch.bool, torch.uint8) or nn_sel.shape != (y.shape[0],) \
+            or nn_sel.device != y.device:
+        raise ValueError(f"fused_sweep: nn_sel must be a ({y.shape[0]},) "
+                         f"bool or uint8 tensor on {y.device}")
+    return nn_sel.contiguous()
+
+
 def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                 worklist: Worklist | None = None,
                 live: torch.Tensor | None = None):
@@ -91,20 +105,19 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     y rows, unmasked by density (the caller resolves the denser mask once
     the counts are complete).
 
-    ``worklist`` (``blocksparse.build_flat_worklist``) restricts the sweep
-    to its tile pairs: K3 on a CUDA tensor, its plain version on a CPU one;
-    without it, K1 / its plain version sweep all of y.  ``live`` (CUDA
-    only, (row tiles,) int32) receives the number of entries K3 computed
-    in each row tile.
+    ``nn_sel`` ((m,) bool or uint8 on y's device) gates the kept 8 to the
+    columns where it is nonzero (S-Approx-DPC's representatives); the count
+    ignores it.  ``worklist`` (``blocksparse.build_flat_worklist``)
+    restricts the sweep to its tile pairs: K3 on a CUDA tensor, its plain
+    version on a CPU one; without it, K1 / its plain version sweep all of
+    y.  ``live`` (CUDA only, (row tiles,) int32) receives the number of
+    entries K3 computed in each row tile.
 
     Returns (count (n,) f32, topv (n, 8) f32 direct-difference d2,
-    topi (n, 8) int32 y-row index, -1 where m < 8).
+    topi (n, 8) int32 y-row index, -1 past the columns that may enter).
     """
-    if nn_sel is not None:
-        raise NotImplementedError(
-            "fused_sweep(nn_sel=...) is S-Approx-DPC's kept-k gate; it is "
-            "ported with the S-Approx slice (ROADMAP Queue A item 4)")
     _check("fused_sweep", x, y)
+    sel = None if nn_sel is None else _check_sel(y, nn_sel)
     if worklist is not None:
         _check_worklist(x, y, worklist)
     if live is not None and (
@@ -116,11 +129,12 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                          "device")
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
+        gate = None if sel is None else sel.bool()
         if worklist is None:
-            count, topv, topi = fused_count_topk_plain(x, y, d2cut)
+            count, topv, topi = fused_count_topk_plain(x, y, d2cut, sel=gate)
         else:
             count, topv, topi = worklist_count_topk_plain(x, y, d2cut,
-                                                          worklist)
+                                                          worklist, sel=gate)
         return count.to(torch.float32), topv, topi
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     count = torch.empty((n,), dtype=torch.int32, device=x.device)
@@ -128,22 +142,25 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     topi = torch.empty((n, FUSED_TOPK), dtype=torch.int32, device=x.device)
     if n:
         lib = build.load_library()
+        sel_ptr = 0 if sel is None else sel.data_ptr()
         with torch.cuda.device(x.device):
             if worklist is None:
                 name = "fused_count_topk"
                 code = lib.repro_fused_count_topk(
-                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
                     _stream(x))
             else:
                 name = "worklist_count_topk"
                 code = lib.repro_worklist_count_topk(
-                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
                     worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
                     0 if live is None else live.data_ptr(), _stream(x))
         build.check(lib, name, code)
+        if sel is not None:
+            name += "_sel"
         _LAUNCHES[name] += 1
     return count.to(torch.float32), topv, topi
 
@@ -171,6 +188,31 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         build.check(lib, "masked_nn", code)
         _LAUNCHES["masked_nn"] += 1
     return torch.sqrt(best), arg
+
+
+def dependent_prefix(points_sorted_desc: torch.Tensor):
+    """Per row of a table sorted by descending density key: the nearest
+    earlier row (Def. 2 with "denser" read as "earlier"), the lowest index
+    among equal distances.
+
+    Returns (delta (n,) f32, parent (n,) int32); (inf, -1) for row 0.
+    """
+    x = points_sorted_desc
+    _check("dependent_prefix", x, x)
+    if x.device.type == "cpu":
+        best, arg = prefix_nn_plain(x)
+        return torch.sqrt(best), arg
+    n, d = x.shape
+    delta = torch.empty((n,), dtype=torch.float32, device=x.device)
+    arg = torch.empty((n,), dtype=torch.int32, device=x.device)
+    if n:
+        lib = build.load_library()
+        with torch.cuda.device(x.device):
+            code = lib.repro_prefix_nn(x.data_ptr(), n, d, delta.data_ptr(),
+                                       arg.data_ptr(), _stream(x))
+        build.check(lib, "prefix_nn", code)
+        _LAUNCHES["prefix_nn"] += 1
+    return delta, arg
 
 
 def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut):

@@ -59,10 +59,15 @@ def _row_block(m: int) -> int:
 
 
 def fused_count_topk_plain(x: torch.Tensor, y: torch.Tensor, d2cut: float,
-                           k: int = FUSED_TOPK):
+                           k: int = FUSED_TOPK,
+                           sel: torch.Tensor | None = None):
     """Per x-row: the count of y rows with d2 < d2cut (i32), and the k
     nearest (d2, index) pairs, lexicographic on (d2, index) — a stable sort
-    over index-ordered columns.  Slots past m hold (+inf, -1)."""
+    over index-ordered columns.  Slots past m hold (+inf, -1).
+
+    ``sel`` ((m,) bool) gates the kept-k: a column whose gate is 0 never
+    enters it (slots past the selected columns hold (+inf, -1)); the count
+    ignores the gate."""
     n, m = x.shape[0], y.shape[0]
     count = torch.zeros((n,), dtype=torch.int32, device=x.device)
     topv = torch.full((n, k), float("inf"), dtype=torch.float32,
@@ -71,11 +76,15 @@ def fused_count_topk_plain(x: torch.Tensor, y: torch.Tensor, d2cut: float,
     kk = min(k, m)
     if m == 0:
         return count, topv, topi
+    cols = None if sel is None else torch.nonzero(sel).flatten()
     step = _row_block(m)
     for r0 in range(0, n, step):
         r1 = min(n, r0 + step)
         d2 = direct_d2(x[r0:r1, None, :], y[None, :, :])
         count[r0:r1] = (d2 < d2cut).sum(dim=1, dtype=torch.int32)
+        if cols is not None:
+            topv[r0:r1], topi[r0:r1] = _lex_smallest(d2[:, cols], cols, k)
+            continue
         v, idx = torch.sort(d2, dim=1, stable=True)
         topv[r0:r1, :kk] = v[:, :kk]
         topi[r0:r1, :kk] = idx[:, :kk].to(torch.int32)
@@ -109,15 +118,17 @@ def _lex_smallest(d2: torch.Tensor, cols: torch.Tensor, k: int):
 
 
 def worklist_count_topk_plain(x: torch.Tensor, y: torch.Tensor,
-                              d2cut: float, wl, k: int = FUSED_TOPK):
+                              d2cut: float, wl, k: int = FUSED_TOPK,
+                              sel: torch.Tensor | None = None):
     """The fused count + kept-k over a tile-pair worklist
     (``blocksparse.Worklist``): per row tile, the count of y rows with
     d2 < d2cut over the ``in_cut`` entries' columns, and the k nearest
-    (d2, index) pairs over the columns of every kept entry, lexicographic.
+    (d2, index) pairs over the columns of every kept entry, lexicographic;
+    ``sel`` gates the kept-k as in ``fused_count_topk_plain``.
 
     Skips nothing by liveness (the kernel's skip is exact), so on a
-    worklist from ``build_flat_worklist`` the result equals
-    ``fused_count_topk_plain`` over all of y.
+    worklist from ``build_flat_worklist`` (with ``nn_col_counts`` from the
+    same gate) the result equals ``fused_count_topk_plain`` over all of y.
     """
     n, m = x.shape[0], y.shape[0]
     bn, bm = BLOCK_N, BLOCK_M
@@ -136,13 +147,18 @@ def worklist_count_topk_plain(x: torch.Tensor, y: torch.Tensor,
         cut = cut[o, None].expand(-1, bm).flatten()
         real = cols < m
         cols, cut = cols[real], cut[real]
+        kept = None if sel is None else sel[cols]
         yc = y[cols]
         step = _row_block(cols.numel())
         for q0 in range(r0, r1, step):
             q1 = min(r1, q0 + step)
             d2 = direct_d2(x[q0:q1, None, :], yc[None, :, :])
             count[q0:q1] = ((d2 < d2cut) & cut).sum(dim=1, dtype=torch.int32)
-            topv[q0:q1], topi[q0:q1] = _lex_smallest(d2, cols, k)
+            if kept is None:
+                topv[q0:q1], topi[q0:q1] = _lex_smallest(d2, cols, k)
+            else:
+                topv[q0:q1], topi[q0:q1] = _lex_smallest(d2[:, kept],
+                                                         cols[kept], k)
     return count, topv, topi
 
 
@@ -168,6 +184,29 @@ def masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         a = torch.where(d2 == b[:, None], cols, m).min(dim=1).values
         best[r0:r1] = b
         arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
+    return best, arg
+
+
+def prefix_nn_plain(pts: torch.Tensor):
+    """Per row i of a table sorted by descending key: the nearest earlier
+    row j < i as (best d2 f32, index i32), the lowest index among equal
+    distances; (+inf, -1) for row 0.  Each row block reads only the
+    columns before its last row (the triangle)."""
+    n = pts.shape[0]
+    best = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=pts.device)
+    arg = torch.full((n,), -1, dtype=torch.int32, device=pts.device)
+    step = _row_block(n)
+    for r0 in range(1, n, step):
+        r1 = min(n, r0 + step)
+        d2 = direct_d2(pts[r0:r1, None, :], pts[None, :r1 - 1, :])
+        cols = torch.arange(r1 - 1, device=pts.device)
+        rows = torch.arange(r0, r1, device=pts.device)
+        d2 = torch.where(cols[None, :] < rows[:, None], d2, float("inf"))
+        b = d2.min(dim=1).values
+        a = torch.where(d2 == b[:, None], cols, n).min(dim=1).values
+        best[r0:r1] = b
+        arg[r0:r1] = a.to(torch.int32)
     return best, arg
 
 

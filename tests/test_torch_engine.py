@@ -18,6 +18,7 @@ from repro.engine import ExecSpec as JExecSpec
 from repro_torch import DPCEngine, ExecSpec
 from repro_torch.core.approxdpc import run_approxdpc
 from repro_torch.core.dpc_api import DPCConfig, cluster
+from repro_torch.core.sapproxdpc import run_sapproxdpc
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.backend import get_backend
 from repro_torch.resilience.sanitize import PoisonedInputError
@@ -61,6 +62,8 @@ def test_fit_without_device_targets_the_card(monkeypatch):
         cluster(uniform_points(10, 2, seed=0), DPCConfig(d_cut=1.0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_approxdpc(uniform_points(10, 2, seed=0), 1.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sapproxdpc(uniform_points(10, 2, seed=0), 1.0)
 
 
 def test_drivers_run_on_the_device_of_a_tensor():
@@ -80,12 +83,16 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
     monkeypatch.setattr(subprocess, "run", refuse)
     ops.reset_launch_counts()
     for layout in ("dense", "block-sparse"):
-        eng = DPCEngine(0.1, device="cpu", exec_spec=ExecSpec(
-            layout=layout)).fit(uniform_points(500, 2, seed=1))
-        assert eng.clustering.labels.device.type == "cpu"
+        for algo in ("approxdpc", "sapproxdpc"):
+            eng = DPCEngine(0.1, algorithm=algo, device="cpu",
+                            exec_spec=ExecSpec(layout=layout)).fit(
+                                uniform_points(500, 2, seed=1))
+            assert eng.clustering.labels.device.type == "cpu"
     assert ops.launch_counts() == {
-        "fused_count_topk": 0, "worklist_count_topk": 0, "masked_nn": 0,
-        "range_count": 0, "range_count_signed": 0, "gather_masked_nn": 0}
+        "fused_count_topk": 0, "worklist_count_topk": 0,
+        "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
+        "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
+        "gather_masked_nn": 0, "prefix_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -102,11 +109,15 @@ def test_refit_reuses_plan_and_decision_graph():
 
 def test_unported_axes_and_entry_points_raise():
     pts = uniform_points(50, 2, seed=3)
-    for algo in ("sapproxdpc", "lsh_ddp", "cfsfdp_a"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for algo in ("lsh_ddp", "cfsfdp_a"):
+        with pytest.raises(NotImplementedError, match="Queue A item 1"):
             DPCEngine(0.1, algorithm=algo, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="Queue A item 1"):
             DPCConfig(d_cut=0.1, algorithm=algo)
+    with pytest.raises(ValueError, match="eps"):
+        DPCEngine(0.1, algorithm="sapproxdpc", eps=0.0, device="cpu")
+    with pytest.raises(ValueError, match="eps"):
+        DPCConfig(d_cut=0.1, algorithm="sapproxdpc", eps=0.0)
     with pytest.raises(ValueError):
         DPCEngine(0.1, algorithm="kmeans", device="cpu")
     for spec in (ExecSpec(precision="bf16"),

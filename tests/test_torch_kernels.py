@@ -18,7 +18,7 @@ from repro.kernels.backend import get_backend as jget_backend
 from repro_torch.core.dpc_types import density_jitter
 from repro_torch.kernels import build, ops, sweep
 from repro_torch.kernels.backend import CudaBackend, get_backend
-from repro_torch.kernels.dependent import masked_min_dist
+from repro_torch.kernels.dependent import masked_min_dist, prefix_min_dist
 
 from _torch_ref import (clear_dcut, f32_d2cut, f32_ulp, near_threshold_rows,
                         pair_d2, uniform_points)
@@ -173,10 +173,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         ops.fused_sweep(torch.zeros((3, 8)).t(), x, 1.0)
     with pytest.raises(ValueError):
         ops.dependent_masked(x, torch.zeros(7), x, torch.zeros(8))
-    with pytest.raises(NotImplementedError):
-        ops.fused_sweep(x, x, 1.0, nn_sel=torch.ones(8))
-    with pytest.raises(NotImplementedError):
-        CudaBackend().rho_delta(x, x, 1.0, y_sel_slots=torch.arange(8))
+    with pytest.raises(ValueError):
+        ops.fused_sweep(x, x, 1.0, nn_sel=torch.ones(8))      # f32 gate
+    with pytest.raises(TypeError):
+        ops.dependent_prefix(x.double())
+    # the gated sweep and the gated rho_delta run on CPU tensors
+    pts = _t(uniform_points(8, 3, seed=0))
+    sel = torch.tensor([1, 0, 1, 1, 0, 0, 1, 0], dtype=torch.bool)
+    cnt, tv, ti = ops.fused_sweep(pts, pts, 0.5, nn_sel=sel)
+    assert (ti[:, 4:] == -1).all() and torch.isinf(tv[:, 4:]).all()
+    assert set(ti[0, :4].tolist()) == {0, 2, 3, 6}
+    slots = torch.nonzero(sel).flatten()
+    rho = CudaBackend().rho_delta(pts[slots].contiguous(), pts, 0.5,
+                                  y_sel_slots=slots)[0]
+    assert torch.equal(rho, cnt[slots])
 
 
 def test_masked_nn_gets_only_the_unresolved_rows(monkeypatch):
@@ -211,6 +221,63 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
     x = _t(uniform_points(100, 3, seed=0))
     CudaBackend().rho_delta(x, x, 0.1)
     CudaBackend().rho_delta(x, x, 0.1, layout="block-sparse")
+    slots = torch.arange(0, 100, 3)
+    for layout in ("dense", "block-sparse"):
+        CudaBackend().rho_delta(x[slots].contiguous(), x, 0.1,
+                                y_sel_slots=slots, layout=layout)
+    CudaBackend().prefix_nn(x)
     assert ops.launch_counts() == {
-        "fused_count_topk": 0, "worklist_count_topk": 0, "masked_nn": 0,
-        "range_count": 0, "range_count_signed": 0, "gather_masked_nn": 0}
+        "fused_count_topk": 0, "worklist_count_topk": 0,
+        "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
+        "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
+        "gather_masked_nn": 0, "prefix_nn": 0}
+
+
+def _prefix_cases():
+    """Unit-scale rows in a random order; with equal points (row 0 among
+    them) and the lattice of exact distance ties."""
+    unit = uniform_points(700, 3, seed=13)
+    dup = uniform_points(300, 2, seed=14)
+    dup[[0, 7, 40, 41, 299]] = dup[3]
+    g = np.stack(np.meshgrid(np.arange(20), np.arange(20)), -1)
+    lat = g.reshape(-1, 2).astype(np.float32)
+    lat = lat[np.random.default_rng(0).permutation(len(lat))]
+    return {"unit": unit, "equal points": dup, "lattice": lat}
+
+
+@pytest.mark.parametrize("case", ["unit", "equal points", "lattice"])
+def test_prefix_nn_matches_pallas(case):
+    pts = _prefix_cases()[case]
+    jd, jp = (np.asarray(a) for a in jops.dependent_prefix(
+        jnp.asarray(pts), interpret=True))
+    td, tp = (a.numpy() for a in prefix_min_dist(_t(pts)))
+    assert tp[0] == -1 and np.isinf(td[0])
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_allclose(td, jd, rtol=1e-6)
+    # the lowest index wins among equal distances, as a float64 search
+    d2 = pair_d2(pts, pts)
+    d2[np.triu_indices(len(pts))] = np.inf
+    want = d2.argmin(1)
+    np.testing.assert_array_equal(tp[1:], want[1:])
+    if case != "unit":
+        assert (td == 0).sum() >= 4 or case == "lattice"
+
+
+def test_prefix_nn_matches_jnp_on_realistic_data():
+    """Domain 1e5, sorted by descending density: the port against the
+    reference's jnp route (K2's formulation with key -row_index)."""
+    pts, _ = real_proxy("airline", 2048, seed=2)
+    dc = pick_dcut(pts)
+    rho = ops.fused_sweep(_t(pts), _t(pts), dc)[0].numpy()
+    key = rho + np.asarray(density_jitter(2048))
+    pts = np.ascontiguousarray(pts[np.argsort(-key, kind="stable")])
+    jd, jp = (np.asarray(a) for a in jget_backend("jnp").prefix_nn(
+        jnp.asarray(pts)))
+    td, tp = (a.numpy() for a in get_backend("cuda").prefix_nn(_t(pts)))
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_allclose(td, jd, rtol=1e-6)
+    # and K2's plain version with key -position
+    pos = -np.arange(2048, dtype=np.float32)
+    kd, kp = masked_min_dist(_t(pts), _t(pos), _t(pts), _t(pos))
+    assert torch.equal(kd, torch.from_numpy(td))
+    assert torch.equal(kp, torch.from_numpy(tp))
