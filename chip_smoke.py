@@ -103,9 +103,38 @@ Phases, each of which raises on failure (nothing is caught):
    row has an equal f32 key are counted (there K7 may be nearer); against
    its plain version on the first 65,536 rows; its time and bound.
 
+16. The distributed kernels at check shapes: K8 ``worklist_range_count``,
+   K9 ``worklist_masked_nn``, K10 ``halo_range_count`` and K11
+   ``halo_masked_nn`` bit for bit against their plain versions on the
+   phase 2 cases (and the lattice of exact ties), each table split into
+   three shards as `distributed_dpc` splits it (padded 1e9 rows, a
+   shard whose row count is not a multiple of the tile); K8 against dense
+   K4, K9 against dense K2, K10 with spans covering the whole window (and
+   a reversed and a negative span) against K4, K11 so against K2 masked to
+   d_cut; each shard's halo window assembled by the ppermute ring, its
+   empty spans negative.
+17. Distributed Ex-DPC at full width: ``DPCEngine(d_cut, algorithm="exdpc",
+   rho_min=10, mesh=ShardMesh.on("cuda", shards=4), strategy=...,
+   exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy at
+   n = 5,810,462, d_cut of phase 8, strategies ``halo`` (K10, K11, then K9
+   on the unresolved rows) and ``gather`` (K8, K9), each run twice and the
+   second counted and timed; each equal to the single-device block-sparse
+   Ex-DPC fit (measured here too) up to counted exact distance ties, and
+   rho and delta/parent of 4,096 random rows against float64; a traced
+   fit per strategy for the phase times and peaks, the halo window W, its
+   hops and the rows the ring moves against the gather's, the unresolved
+   rows; K8-K11 on every call of the counted runs timed, against their
+   plain versions on a few row tiles or 65,536 rows, their bounds from
+   their inputs.  The four shards are logical shards of one card.
+18. The dense gather strategy at 2^20 (K4 and K2 per shard, four shards):
+   counted (K4 and K2 must launch, K8-K11 must not), equal to phase 7's
+   dense Ex-DPC up to counted exact ties, and against float64 on 4,096
+   rows.
+
 Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
 path, K2 and K3 from the main path, K4-K6 from the mixture stream, gated
-K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15),
+K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
+K8 and K9 from phase 17's gather fit, K10 and K11 from its halo fit),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, where
 no CUDA device is present.  ``--out`` also writes the full record
@@ -158,6 +187,10 @@ SAPPROX_EPS = 0.8                # S-Approx-DPC's main path (paper default)
 EPS_SWEEP = (0.2, 0.4, 0.6, 0.8, 1.0)   # benchmarks/eps_sweep.py
 SEL_PLAIN_ROWS = 8192            # rows of the dense fit's plain gated K1
 PREFIX_PLAIN_ROWS = 65536        # leading rows of K7's plain check at 2^20
+
+DIST_SHARDS = 4                  # logical shards of the distributed phases
+DIST_PLAIN_TILES = 4             # row tiles of K8/K9's plain checks at 5.8M
+DIST_PLAIN_ROWS = 65536          # shard rows of K10/K11's plain checks
 
 
 def smi(fields: str) -> str:
@@ -1075,6 +1108,281 @@ def traced(fit, names, card: str, what: str):
             "peak_gb": peaks["smoke.traced_fit"]}
 
 
+def dist_kernels():
+    """K8-K11 and their plain versions, as the checks call them."""
+    from repro_torch.kernels import ops, sweep
+
+    def k8(x, y, d_cut, wl):
+        return ops.local_density_xy(x, y, d_cut, worklist=wl)
+
+    def k8_plain(x, y, d_cut, wl):
+        return sweep.worklist_range_count_plain(
+            x, y, sweep.d2cut_of(d_cut), wl).float()
+
+    def k9(x, xk, y, yk, wl, live=None):
+        return ops.dependent_masked(x, xk, y, yk, worklist=wl, live=live)
+
+    def k9_plain(x, xk, y, yk, wl):
+        best, arg = sweep.worklist_masked_nn_plain(x, xk, y, yk, wl)
+        return torch.sqrt(best), arg
+
+    def k10(x, win, st, en, d_cut):
+        return ops.halo_density(x, win, st, en, d_cut)
+
+    def k10_plain(x, win, st, en, d_cut):
+        return sweep.halo_range_count_plain(x, win, st, en,
+                                            sweep.d2cut_of(d_cut)).float()
+
+    def k11(x, xk, win, wk, st, en, d_cut):
+        return ops.halo_dependent(x, xk, win, wk, st, en, d_cut)
+
+    def k11_plain(x, xk, win, wk, st, en, d_cut):
+        best, arg = sweep.halo_masked_nn_plain(x, xk, win, wk, st, en,
+                                               sweep.d2cut_of(d_cut))
+        return torch.sqrt(best), arg, torch.isfinite(best)
+
+    return k8, k8_plain, k9, k9_plain, k10, k10_plain, k11, k11_plain
+
+
+def entry_widths(wl, m: int) -> torch.Tensor:
+    """(W,) int64 real columns of each worklist entry's column tile."""
+    from repro_torch.kernels.blocksparse import BLOCK_M
+    return (m - wl.col_tile.long() * BLOCK_M).clamp(max=BLOCK_M)
+
+
+def tile_rows(wl, n: int) -> torch.Tensor:
+    """(row tiles,) int64 real rows of each row tile."""
+    from repro_torch.kernels.blocksparse import BLOCK_N
+    t = torch.arange(wl.num_row_tiles, device=wl.row_ptr.device)
+    return (n - t * BLOCK_N).clamp(max=BLOCK_N)
+
+
+def k8_work(x, y, wl) -> tuple[float, float]:
+    """Bytes and operations of worklist_range_count: x, y and the worklist
+    read once (row_ptr, col_tile, in_cut), the counts written once; 3d+1
+    operations per pair of an in-d_cut entry."""
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    pairs = float((entry_widths(wl, m) * wl.in_cut
+                   * tile_rows(wl, n)[wl.row_tile()]).sum())
+    nbytes = (4 * (n * d + m * d) + 4 * n + 4 * wl.row_ptr.numel()
+              + 5 * wl.n_kept)
+    return nbytes, pairs * (3 * d + 1)
+
+
+def k9_work(x, xk, y, yk, wl, best_d2, sample: int = 2048,
+            gen=None) -> tuple[float, float, dict]:
+    """Bytes and operations of worklist_masked_nn on this run's data.
+    Bytes: x, its keys, y, its keys and the ring (row_ptr, col_tile, lb)
+    read once, (d2, parent) written once.  Operations: per row, a key test
+    for each column of the entries whose lb is at most the row's final
+    best d2 (a prefix of its ring, found by a search on (row tile, lb's
+    bits) as in ``k3_needed_pairs``; rows keyed +inf need none), and 3d+1
+    for each of those columns that is denser: counted on ``sample`` random
+    rows and scaled by their share of the key tests."""
+    from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    dev = x.device
+    width = entry_widths(wl, m)
+    cum = torch.zeros(wl.n_kept + 1, dtype=torch.int64, device=dev)
+    cum[1:] = torch.cumsum(width, 0)
+    key = (wl.row_tile() << 32) | wl.lb.view(torch.int32).long()
+    tile = torch.arange(n, device=dev) // BLOCK_N
+    tau = best_d2.contiguous().view(torch.int32).long()
+    p = torch.searchsorted(key, (tile << 32) | tau, right=True)
+    start = wl.row_ptr.long()[tile]
+    seeks = xk < float("inf")
+    needed = torch.where(seeks, cum[p] - cum[start], 0)
+    total = float(needed.sum())
+    rows = torch.nonzero(seeks).flatten()
+    rows = rows[torch.randperm(rows.numel(), generator=gen)[:sample]
+                .to(dev)]
+    lane = torch.arange(BLOCK_M, device=dev)
+    s_needed = s_denser = 0
+    for r in rows.tolist():
+        tiles = wl.col_tile[int(start[r]):int(p[r])].long()
+        cols = (tiles[:, None] * BLOCK_M + lane).flatten()
+        cols = cols[cols < m]
+        s_needed += cols.numel()
+        s_denser += int((yk[cols] > xk[r]).sum())
+    denser = total * s_denser / max(s_needed, 1)
+    nbytes = (4 * (n * d + n + m * d + m) + 4 * wl.row_ptr.numel()
+              + 8 * wl.n_kept + 8 * n)
+    return nbytes, total + denser * (3 * d + 1), {
+        "key_tests": total, "denser_est": denser, "sample_rows": rows.numel()}
+
+
+def span_pairs(st, en, w: int) -> torch.Tensor:
+    """(n,) int64 window columns inside each row's spans (clipped)."""
+    a = st.long().clamp_min(0)
+    b = en.long().clamp(max=w)
+    return (b - a).clamp_min(0).sum(1)
+
+
+def k10_work(x, win, st, en) -> tuple[float, float]:
+    """Bytes and operations of halo_range_count: x, the window and the
+    spans read once, the counts written once; 3d+1 operations per window
+    column inside a row's spans."""
+    (n, d), w = x.shape, win.shape[0]
+    pairs = float(span_pairs(st, en, w).sum())
+    return 4 * (n * d + w * d) + 8 * st.numel() + 4 * n, pairs * (3 * d + 1)
+
+
+def k11_work(x, xk, win, wk, st, en) -> tuple[float, float]:
+    """Bytes and operations of halo_masked_nn: x, its keys, the window, its
+    keys and the spans read once, (delta, parent, found) written once; a
+    key test per window column inside a row's spans and 3d+1 operations
+    for each denser one (counted exactly, in row blocks)."""
+    from repro_torch.kernels import sweep
+    (n, d), w = x.shape, win.shape[0]
+    pairs = float(span_pairs(st, en, w).sum())
+    denser = 0
+    step = sweep._span_rows(st, en)
+    for r0 in range(0, n, step):
+        idx, valid = sweep._span_candidates(st[r0:r0 + step],
+                                            en[r0:r0 + step], w)
+        denser += int((valid & (wk[idx] > xk[r0:r0 + step, None, None]))
+                      .sum())
+    nbytes = 4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
+    return nbytes, pairs + denser * (3 * d + 1)
+
+
+def dist_check_shapes(cases, card: str) -> dict:
+    """K8-K11 bit for bit against their plain versions at check shapes,
+    and against the dense kernels on the same inputs: for each case the
+    grid-sorted table (d <= 8) split into three shards as
+    ``distributed_dpc`` splits it (rows padded at 1e9, so the last shard
+    ends in padded rows, keyed +inf as queries and -inf in the table),
+    shard 1 cut to a row count that is not a multiple of the tile.  K8 on
+    the count-only worklist == K4, K9 on the best-1 ring == K2 (computed
+    entries counted); for d <= 8 each shard's halo window through the
+    ppermute ring, K10/K11 on its window-local spans (empty spans turn
+    negative), and with spans covering the whole window (plus a reversed
+    and a negative span) K10 == K4 and K11 == K2 masked to d_cut.  Times
+    on the first case."""
+    from repro_torch.core.dpc_types import density_jitter
+    from repro_torch.core.grid import build_grid, point_span_bounds
+    from repro_torch.distributed import dpc as ddpc
+    from repro_torch.kernels import blocksparse, ops, sweep
+    from repro_torch.launch import ShardMesh
+    k8, k8_plain, k9, k9_plain, k10, k10_plain, k11, k11_plain = \
+        dist_kernels()
+    dev = torch.device("cuda")
+    mesh = ShardMesh.on(dev, shards=3)
+    times, computed = {}, {}
+    for label, pts, dc in cases:
+        x = torch.from_numpy(pts).to(dev)
+        halo = pts.shape[1] <= 8
+        grid = build_grid(x, dc) if halo else None
+        xs = grid.points if halo else x
+        n = xs.shape[0]
+        m = -(-n // 3) * 3 + 3                   # three padded rows at least
+        key = ops.local_density_xy(xs, xs, dc) + density_jitter(n, dev)
+        tbl = ddpc._pad_rows(xs, m, sweep.PAD_COORD)
+        tk = ddpc._pad_rows(key, m, float("-inf"))
+        qk_all = ddpc._pad_rows(key, m, float("inf"))
+        per = m // 3
+        cut = per - 37 if per > 300 else per    # shard 1: a ragged count
+        for s in range(3):
+            r0, r1 = s * per, (s * per + cut if s == 1 else (s + 1) * per)
+            q, qk = tbl[r0:r1], qk_all[r0:r1]
+            wl = blocksparse.build_flat_worklist(q, tbl, dc, nn=None)
+            got = k8(q, tbl, dc, wl)
+            check_equal(f"worklist_range_count [{label}, shard {s}]", [got],
+                        [k8_plain(q, tbl, dc, wl)])
+            check_equal(f"worklist_range_count [{label}, shard {s}]", [got],
+                        [ops.local_density_xy(q, tbl, dc)], "dense K4")
+            ring = blocksparse.build_flat_worklist(q, tbl, count=False,
+                                                   nn="best1")
+            live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
+                               device=dev)
+            got = k9(q, qk, tbl, tk, ring, live)
+            check_equal(f"worklist_masked_nn [{label}, shard {s}]", got,
+                        k9_plain(q, qk, tbl, tk, ring))
+            check_equal(f"worklist_masked_nn [{label}, shard {s}]", got,
+                        ops.dependent_masked(q, qk, tbl, tk), "dense K2")
+            computed[f"{label} shard {s}"] = [int(live.sum()), ring.n_kept]
+        line = (f"worklist_range_count == plain == dense K4, "
+                f"worklist_masked_nn == plain == dense K2, bit for bit: "
+                f"{label}, n={n} d={pts.shape[1]}, 3 shards (shard 1 "
+                f"{cut} rows; {m - n} padded rows); K9 computed "
+                f"{[computed[f'{label} shard {s}'][0] for s in range(3)]} "
+                f"of {ring.n_kept} ring entries per shard")
+        if halo:
+            st, en = (ddpc._pad_rows(a, m, 0) for a in point_span_bounds(grid))
+            lo, W, hf, hb = ddpc._window_bounds(st, en, 3)
+            pts_p, rk_p = mesh.shard(tbl), mesh.shard(tk)
+            both = [torch.cat([p, k[:, None]], 1) for p, k in zip(pts_p, rk_p)]
+            wins = ddpc._halo_window(mesh, both, lo, W, hf, hb)
+            neg = 0
+            for s in range(3):
+                q, qk = pts_p[s], mesh.shard(qk_all)[s]
+                win = wins[s][:, :-1].contiguous()
+                wk = wins[s][:, -1].contiguous()
+                sst = (mesh.shard(st)[s] - lo[s]).contiguous()
+                sen = (mesh.shard(en)[s] - lo[s]).contiguous()
+                neg += int((sen < 0).sum())
+                got = k10(q, win, sst, sen, dc)
+                check_equal(f"halo_range_count [{label}, shard {s}]", [got],
+                            [k10_plain(q, win, sst, sen, dc)])
+                got = k11(q, qk, win, wk, sst, sen, dc)
+                check_equal(f"halo_masked_nn [{label}, shard {s}]", got,
+                            k11_plain(q, qk, win, wk, sst, sen, dc))
+                whole = torch.tensor([[0, W], [5, 2], [-9, -3]],
+                                     dtype=torch.int32, device=dev)
+                wst = whole[:, 0].expand(q.shape[0], 3).contiguous()
+                wen = whole[:, 1].expand(q.shape[0], 3).contiguous()
+                check_equal(f"halo_range_count [{label}, shard {s}]",
+                            [k10(q, win, wst, wen, dc)],
+                            [ops.local_density_xy(q, win, dc)],
+                            "dense K4 on the whole window")
+                best, arg = sweep.masked_nn_plain(q, qk, win, wk)
+                within = best < sweep.d2cut_of(dc)
+                k2d, k2p = ops.dependent_masked(q, qk, win, wk)
+                check_equal(f"halo_masked_nn [{label}, shard {s}]",
+                            k11(q, qk, win, wk, wst, wen, dc),
+                            (torch.where(within, k2d, float("inf")),
+                             torch.where(within, k2p, -1), within),
+                            "dense K2 masked to d_cut on the whole window")
+            line += (f"; halo_range_count, halo_masked_nn == plain, and == "
+                     f"K4 / d_cut-masked K2 on whole-window spans: W={W}, "
+                     f"hops {hf} forward {hb} back, {neg} negative span "
+                     f"bounds")
+        print(line, flush=True)
+        if not times:
+            s1 = slice(per, per + cut)
+            q, qk = tbl[s1], qk_all[s1]
+            wl = blocksparse.build_flat_worklist(q, tbl, dc, nn=None)
+            ring = blocksparse.build_flat_worklist(q, tbl, count=False,
+                                                   nn="best1")
+            win = wins[1][:, :-1].contiguous()
+            wk = wins[1][:, -1].contiguous()
+            sst = (st[s1] - lo[1]).contiguous()
+            sen = (en[s1] - lo[1]).contiguous()
+            qh, qhk = pts_p[1][:cut], mesh.shard(qk_all)[1][:cut]
+            times = {
+                "worklist_range_count": {
+                    "ms": time_ms(lambda: k8(q, tbl, dc, wl)),
+                    "plain_ms": time_ms(lambda: k8_plain(q, tbl, dc, wl))},
+                "worklist_masked_nn": {
+                    "ms": time_ms(lambda: k9(q, qk, tbl, tk, ring)),
+                    "plain_ms": time_ms(lambda: k9_plain(q, qk, tbl, tk,
+                                                         ring))},
+                "halo_range_count": {
+                    "ms": time_ms(lambda: k10(qh, win, sst, sen, dc)),
+                    "plain_ms": time_ms(lambda: k10_plain(qh, win, sst, sen,
+                                                          dc))},
+                "halo_masked_nn": {
+                    "ms": time_ms(lambda: k11(qh, qhk, win, wk, sst, sen,
+                                              dc)),
+                    "plain_ms": time_ms(lambda: k11_plain(
+                        qh, qhk, win, wk, sst, sen, dc))}}
+            for name, t in times.items():
+                t["shape"] = f"{cut} shard rows x {n}, d={pts.shape[1]}"
+                print(f"{name} [{t['shape']}]: kernel {t['ms']:.3f} ms, "
+                      f"plain {t['plain_ms']:.3f} ms  ({card})", flush=True)
+    return {"times": times, "k9_computed": computed}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1423,6 +1731,8 @@ def main() -> int:
     exact_rec["dense_ties"] = ties
     record["exact_2e20"] = exact_rec
     ex_res, ex_labels = ex.result, ex.clustering.labels   # phases 14, 15
+    ex_dense_res = ex_dense.result                         # phase 18
+    ex_dense_labels = ex_dense.clustering.labels
     print(f"Ex-DPC block-sparse == Scan block-sparse, bit for bit; == Ex-DPC "
           f"dense except {ties} exact distance ties ({tied} rows downstream, "
           f"{lab_diff} labels differ); rho == Approx-DPC's; delta/parent == "
@@ -1701,6 +2011,277 @@ def main() -> int:
           f"{k7_plain_ms:.1f} ms on the rows  ({card})", flush=True)
     del want, d7, p7, tbl
 
+    # --------------------- 16. the distributed kernels vs plain, check shapes
+    dist_check = dist_check_shapes(
+        [(label, p, pick_dcut(p, target_rho=30)) for label, p in cases]
+        + [("lattice 128x128", lattice.reshape(-1, 2).astype(np.float32),
+            2.5)], card)
+
+    # ------- 17. distributed Ex-DPC at full width (5.8M), four shards
+    from repro_torch import obs
+    from repro_torch.launch import ShardMesh
+    k8, k8_plain, k9, k9_plain, k10, k10_plain, k11, k11_plain = \
+        dist_kernels()
+    dist_names = {"local_density_xy": ("range_count", "worklist_range_count"),
+                  "dependent_masked": ("masked_nn", "worklist_masked_nn"),
+                  "halo_density": ("halo_range_count",) * 2,
+                  "halo_dependent": ("halo_masked_nn",) * 2}
+
+    def counted_dist_fit(eng, points):
+        """(seconds, launch counts, the kernels' inputs by kernel) of one
+        fit, counts zeroed just before it and read just after."""
+        given = {k: [] for names in dist_names.values() for k in names}
+        launch_fns = {f: getattr(ops, f) for f in dist_names}
+
+        def recorder(f):
+            def record(*a, **kw):
+                kind = dist_names[f][kw.get("worklist") is not None]
+                given[kind].append((a, kw))
+                return launch_fns[f](*a, **kw)
+            return record
+
+        for f in dist_names:
+            setattr(ops, f, recorder(f))
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            eng.fit(points)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = ops.launch_counts()
+        finally:
+            for f, fn in launch_fns.items():
+                setattr(ops, f, fn)
+        for name, calls in given.items():
+            assert len(calls) == launched[name], (name, len(calls),
+                                                  launched[name])
+        return seconds, launched, given
+
+    single = DPCEngine(d_full, rho_min=10, algorithm="exdpc",
+                       exec_spec=ExecSpec(layout="block-sparse"))
+    single.fit(full_pts)                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single.fit(full_pts)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    print(f"single-device Ex-DPC, block-sparse: n={N_FULL} d=3 d_cut="
+          f"{d_full!r}: {single_s * 1e3:.1f} ms  ({card})", flush=True)
+    fx = torch.from_numpy(full_pts).to(dev)
+    pts64 = fx.double()
+    dist_rec = {"single_exdpc_ms": single_s * 1e3, "shards": DIST_SHARDS}
+    dist_given, dist_launches = {}, {}
+    for strategy in ("halo", "gather"):
+        eng = DPCEngine(d_full, rho_min=10, algorithm="exdpc",
+                        mesh=ShardMesh.on("cuda", shards=DIST_SHARDS),
+                        strategy=strategy,
+                        exec_spec=ExecSpec(layout="block-sparse"))
+        eng.fit(full_pts)                                  # warm-up
+        torch.cuda.synchronize()
+        # traced before the counted fit, whose kept inputs would count
+        # towards the phases' peaks
+        trace = traced(lambda: eng.fit(full_pts),
+                       ("engine.fit", "dist.grid", "dist.rho", "dist.delta",
+                        "dist.fallback", "labels.assign"), card,
+                       f"traced distributed {strategy} fit (the shards are "
+                       f"logical shards of one card: the times are the "
+                       f"kernels' work split {DIST_SHARDS} ways, not an "
+                       f"interconnect)")
+        attrs = {sp["name"]: sp.get("attrs", {}) for sp in obs.spans()}
+        secs, launched, given = counted_dist_fit(eng, full_pts)
+        if strategy == "halo":
+            swept = ("halo_range_count", "halo_masked_nn",
+                     "worklist_masked_nn")
+        else:
+            swept = ("worklist_range_count", "worklist_masked_nn")
+        for name in ("worklist_range_count", "worklist_masked_nn",
+                     "halo_range_count", "halo_masked_nn", "range_count",
+                     "masked_nn"):
+            assert (launched[name] >= 1) == (name in swept), \
+                f"{strategy}: launches {launched}"
+        ties, tied, lab_diff = same_up_to_ties(
+            fx, single.result, eng.result, single.clustering.labels,
+            eng.clustering.labels, f"distributed {strategy} vs single-device")
+        rows = torch.randperm(N_FULL, generator=gen)[:Q_CHECK].to(dev)
+        _, clear = float64_rho_check(pts64, eng.result.rho,
+                                     sweep.d2cut_of(d_full), rows)
+        float64_dependent_check(pts64, eng.result, rows, None)
+        kl = {k: launched[k] for k in swept + ("masked_nn", "range_count")}
+        print(f"distributed Ex-DPC, {strategy}, {DIST_SHARDS} shards on one "
+              f"card, block-sparse: n={N_FULL}: {secs * 1e3:.1f} ms (single "
+              f"device {single_s * 1e3:.1f} ms), launches {kl}; == the "
+              f"single-device fit (rho, rho_key, delta bit for bit; {ties} "
+              f"parents decided by exact distance ties, {tied} rows "
+              f"downstream, {lab_diff} labels differ); rho == float64 on "
+              f"{Q_CHECK} random rows ({clear} clear of the band), "
+              f"delta/parent == float64 masked search on them  ({card})",
+              flush=True)
+        rec = {"fit_ms": secs * 1e3, "launches": launched,
+               "parent_ties": ties, "labels_differ": lab_diff, **trace}
+        m_rows = -(-N_FULL // DIST_SHARDS)
+        if strategy == "halo":
+            a = attrs["dist.rho"]
+            unres = attrs.get("dist.fallback", {}).get("unresolved", 0)
+            rec.update(window=a["window"], hops_fwd=a["hops_fwd"],
+                       hops_bwd=a["hops_bwd"], unresolved=unres)
+            print(f"  halo window W={a['window']}, hops {a['hops_fwd']} "
+                  f"forward {a['hops_bwd']} back: the ring moves "
+                  f"{(a['hops_fwd'] + a['hops_bwd']) * m_rows} rows per "
+                  f"shard against the gather's {DIST_SHARDS * m_rows}; "
+                  f"{unres} rows unresolved by the stencil go to the "
+                  f"fallback (K9)", flush=True)
+        dist_rec[strategy] = rec
+        dist_given[strategy], dist_launches[strategy] = given, launched
+        del eng
+    del pts64
+    torch.cuda.empty_cache()
+
+    # the kernels at the main path's shapes: times of every call of the
+    # counted runs, plain versions on slices, bounds from their inputs
+    def row_tile_slice(wl, n_rows, count):
+        """A few row tiles spread over a worklist (the last one ragged)."""
+        from repro_torch.kernels.blocksparse import BLOCK_N
+        nbr = wl.num_row_tiles
+        tiles = torch.linspace(0, nbr - 1, count).round().long().unique()
+        tiles = tiles.to(dev)
+        rows = (tiles[:, None] * BLOCK_N
+                + torch.arange(BLOCK_N, device=dev)).flatten()
+        return sub_worklist(wl, tiles), rows[rows < n_rows]
+
+    g8 = dist_given["gather"]["worklist_range_count"]
+    (x8, y8, dc8), kw8 = g8[0]
+    sub, rows = row_tile_slice(kw8["worklist"], x8.shape[0], DIST_PLAIN_TILES)
+    got = k8(x8[rows].contiguous(), y8, dc8, sub)
+    check_equal("worklist_range_count [main path, row tiles]", [got],
+                [k8(x8, y8, dc8, kw8["worklist"])[rows]], "the fit's call")
+    want, p_ms = timed_once(lambda: k8_plain(x8[rows].contiguous(), y8, dc8,
+                                             sub))
+    errs["worklist_range_count"] = check_equal(
+        "worklist_range_count [main path, row tiles]", [got], [want])
+    main_times["worklist_range_count"] = {
+        "ms": sum(time_ms(lambda a=a, kw=kw: k8(*a, kw["worklist"]))
+                  for a, kw in g8), "plain_ms": p_ms,
+        "plain_rows": rows.numel()}
+    works = [k8_work(a[0], a[1], kw["worklist"]) for a, kw in g8]
+    bounds["worklist_range_count"] = (sum(w[0] for w in works),
+                                      sum(w[1] for w in works))
+
+    k9_rec = {}
+    for strategy in ("gather", "halo"):
+        calls = dist_given[strategy]["worklist_masked_nn"]
+        ms, nb, no, comp, ring = 0.0, 0.0, 0.0, 0, 0
+        for (x9, xk9, y9, yk9), kw in calls:
+            wl9 = kw["worklist"]
+            live = torch.zeros(wl9.num_row_tiles, dtype=torch.int32,
+                               device=dev)
+            d9, _ = k9(x9, xk9, y9, yk9, wl9, live)
+            comp, ring = comp + int(live.sum()), ring + wl9.n_kept
+            ms += time_ms(lambda: k9(x9, xk9, y9, yk9, wl9))
+            b, o, info = k9_work(x9, xk9, y9, yk9, wl9, torch.square(d9),
+                                 gen=gen)
+            nb, no = nb + b, no + o
+        k9_rec[strategy] = {"ms": ms, "calls": len(calls),
+                            "rows": [c[0][0].shape[0] for c in calls],
+                            "computed": comp, "ring": ring,
+                            "bound": bound_ms(nb, no), "work": (nb, no)}
+    (x9, xk9, y9, yk9), kw9 = dist_given["gather"]["worklist_masked_nn"][-1]
+    sub, rows = row_tile_slice(kw9["worklist"], x9.shape[0], DIST_PLAIN_TILES)
+    sx, sk = x9[rows].contiguous(), xk9[rows].contiguous()
+    got = k9(sx, sk, y9, yk9, sub)
+    check_equal("worklist_masked_nn [main path, row tiles]", got,
+                [t[rows] for t in k9(x9, xk9, y9, yk9, kw9["worklist"])],
+                "the fit's call")
+    want, p_ms = timed_once(lambda: k9_plain(sx, sk, y9, yk9, sub))
+    errs["worklist_masked_nn"] = check_equal(
+        "worklist_masked_nn [main path, row tiles]", got, want)
+    main_times["worklist_masked_nn"] = {
+        "ms": k9_rec["gather"]["ms"], "plain_ms": p_ms,
+        "plain_rows": rows.numel(), "halo_fallback_ms": k9_rec["halo"]["ms"]}
+    bounds["worklist_masked_nn"] = k9_rec["gather"]["work"]
+
+    for name, kern, plain, work in (
+            ("halo_range_count", k10, k10_plain, k10_work),
+            ("halo_masked_nn", k11, k11_plain, k11_work)):
+        calls = dist_given["halo"][name]
+        a0 = calls[0][0]
+        r = min(DIST_PLAIN_ROWS, a0[0].shape[0])
+        if name == "halo_masked_nn":   # x, x_key, window, w_key, starts, ends
+            sl = [a0[0][:r].contiguous(), a0[1][:r].contiguous(), a0[2],
+                  a0[3], a0[4][:r].contiguous(), a0[5][:r].contiguous()]
+        else:                          # x, window, starts, ends
+            sl = [a0[0][:r].contiguous(), a0[1], a0[2][:r].contiguous(),
+                  a0[3][:r].contiguous()]
+        want, p_ms = timed_once(lambda: plain(*sl, a0[-1]))
+        got = kern(*sl, a0[-1])
+        full = kern(*a0)
+        got = [got] if name == "halo_range_count" else got
+        full = [full] if name == "halo_range_count" else full
+        want = [want] if name == "halo_range_count" else want
+        check_equal(f"{name} [main path, {r} rows]", got,
+                    [t[:r] for t in full], "the fit's call")
+        errs[name] = check_equal(f"{name} [main path, {r} rows]", got, want)
+        main_times[name] = {"ms": sum(time_ms(lambda a=a: kern(*a))
+                                      for a, _ in calls),
+                            "plain_ms": p_ms, "plain_rows": r}
+        if name == "halo_range_count":
+            works = [work(a[0], a[1], a[2], a[3]) for a, _ in calls]
+        else:
+            works = [work(*a[:6]) for a, _ in calls]
+        bounds[name] = (sum(w[0] for w in works), sum(w[1] for w in works))
+    for name in ("worklist_range_count", "worklist_masked_nn",
+                 "halo_range_count", "halo_masked_nn"):
+        t = main_times[name]
+        b_ms, by = bound_ms(*bounds[name])
+        print(f"{name} [main path, all calls]: kernel {t['ms']:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({by}), == plain on {t['plain_rows']} "
+              f"rows ({t['plain_ms']:.1f} ms)  ({card})", flush=True)
+    for strategy, r9 in k9_rec.items():
+        print(f"worklist_masked_nn [{strategy}]: {r9['calls']} calls on "
+              f"{r9['rows']} rows, {r9['ms']:.3f} ms, computed "
+              f"{r9['computed']} of {r9['ring']} ring entries, bound "
+              f"{r9['bound'][0]:.3f} ms ({r9['bound'][1]})  ({card})",
+              flush=True)
+    dist_rec["k9"] = {k: {kk: vv for kk, vv in v.items() if kk != "work"}
+                      for k, v in k9_rec.items()}
+    record["distributed_full"] = dist_rec
+    del dist_given, g8, x8, y8, kw8, sub, x9, xk9, y9, yk9, kw9, sx, sk
+    del single, fx
+    torch.cuda.empty_cache()
+
+    # ------------- 18. the dense gather strategy at 2^20, four shards
+    dense_dist = DPCEngine(d_cut, rho_min=10, algorithm="exdpc",
+                           mesh=ShardMesh.on("cuda", shards=DIST_SHARDS),
+                           strategy="gather")
+    dense_dist.fit(main_pts)                               # warm-up
+    torch.cuda.synchronize()
+    secs, launched, _ = counted_dist_fit(dense_dist, main_pts)
+    assert launched["range_count"] == launched["masked_nn"] == DIST_SHARDS \
+        and not any(launched[k] for k in (
+            "worklist_range_count", "worklist_masked_nn",
+            "halo_range_count", "halo_masked_nn")), launched
+    ties, tied, lab_diff = same_up_to_ties(
+        xs, ex_dense_res, dense_dist.result, ex_dense_labels,
+        dense_dist.clustering.labels, "dense gather vs dense Ex-DPC")
+    pts64 = torch.from_numpy(main_pts).to(dev, torch.float64)
+    rows = torch.randperm(N_MAIN, generator=gen)[:Q_CHECK].to(dev)
+    float64_rho_check(pts64, dense_dist.result.rho, sweep.d2cut_of(d_cut),
+                      rows)
+    float64_dependent_check(pts64, dense_dist.result, rows, None)
+    del pts64
+    record["distributed_dense_2e20"] = {
+        "fit_ms": secs * 1e3, "launches": launched, "parent_ties": ties,
+        "exdpc_dense_ms": exact_rec["exdpc dense"]["fit_ms"]}
+    print(f"distributed Ex-DPC, gather, dense, {DIST_SHARDS} shards: "
+          f"n={N_MAIN}: {secs * 1e3:.1f} ms (single-device dense Ex-DPC "
+          f"{exact_rec['exdpc dense']['fit_ms']:.1f} ms), launches "
+          f"range_count {launched['range_count']}, masked_nn "
+          f"{launched['masked_nn']}; == phase 7's dense Ex-DPC (rho, rho_key, "
+          f"delta bit for bit; {ties} parents decided by exact ties, {tied} "
+          f"rows downstream, {lab_diff} labels differ); rho and delta/parent "
+          f"== float64 on {Q_CHECK} random rows  ({card})", flush=True)
+    del dense_dist
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------------- the record
     kernels = []
     for name, launched, where in (
@@ -1709,7 +2290,12 @@ def main() -> int:
             ("worklist_count_topk", launches, "sweep.py:432"),
             ("fused_count_topk_sel", sel_launches, "sweep.py:432"),
             ("worklist_count_topk_sel", sa_launches, "sweep.py:432"),
-            ("prefix_nn", {"prefix_nn": k7_launches}, "dependent.py:28")):
+            ("prefix_nn", {"prefix_nn": k7_launches}, "dependent.py:28"),
+            ("worklist_range_count", dist_launches["gather"],
+             "sweep.py:432"),
+            ("worklist_masked_nn", dist_launches["gather"], "sweep.py:432"),
+            ("halo_range_count", dist_launches["halo"], "density.py:68"),
+            ("halo_masked_nn", dist_launches["halo"], "dependent.py:56")):
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
         kernels.append({
@@ -1737,7 +2323,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
     record.update(streams=streams, stream_check_shapes=stream_check,
-                  sapprox_check_shapes=sapprox_check)
+                  sapprox_check_shapes=sapprox_check,
+                  dist_check_shapes=dist_check)
     record.update(kernels=kernels, main_times=main_times,
                   check_shapes=check_times, k3_checks=k3_checks,
                   main={"fit_ms": full_s * 1e3, "n": N_FULL, "d_cut": d_full,

@@ -1,7 +1,8 @@
 """Carry the JAX package's state across into the port's objects.
 
 DPC has no weights: its state is the point table, the execution spec, the
-block-sparse worklists, the intermediate results and a live stream.  These
+distributed configuration, the block-sparse worklists, the intermediate
+results and a live stream.  These
 functions take that state as numpy arrays and plain dicts — what
 ``np.asarray`` and ``dataclasses.asdict`` give for the reference's objects
 — and build the port's counterparts, so one stage's reference output can
@@ -21,14 +22,15 @@ import torch
 from .core.dpc_types import DPCResult
 from .core.grid import Grid
 from .core.labels import Clustering
+from .distributed.dpc import DistDPCConfig
 from .engine.spec import ExecSpec
 from .kernels.blocksparse import Worklist
 from .stream.incremental import IncrementalGrid
 from .stream.stream_dpc import StreamDPC, StreamDPCConfig, StreamTick
 from .stream.window import SlidingWindow
 
-__all__ = ["dpc_result", "grid", "exec_spec", "flat_worklist",
-           "stream_state"]
+__all__ = ["dpc_result", "grid", "exec_spec", "dist_config",
+           "flat_worklist", "stream_state"]
 
 _BACKENDS = {None: None, "auto": None, "pallas": "cuda",
              "pallas-interpret": "cuda", "cuda": "cuda"}
@@ -82,12 +84,30 @@ def exec_spec(fields: Mapping) -> ExecSpec:
                     data_axis=fields.get("data_axis", "data"))
 
 
+def dist_config(fields: Mapping) -> DistDPCConfig:
+    """A ``DistDPCConfig`` from the reference config's fields
+    (``dataclasses.asdict``): ``exec_spec`` as a mapping of the spec's
+    fields, or, where it is None, the legacy ``backend`` / ``layout`` /
+    ``block`` / ``data_axis`` fields folded into one spec."""
+    spec = fields.get("exec_spec")
+    if spec is None:
+        spec = {k: fields.get(k) for k in ("backend", "layout", "block")}
+        spec["data_axis"] = fields.get("data_axis") or "data"
+    return DistDPCConfig(d_cut=float(fields["d_cut"]),
+                         fallback_cap_factor=float(
+                             fields.get("fallback_cap_factor", 0.05)),
+                         strategy=fields.get("strategy", "gather"),
+                         exec_spec=exec_spec(spec))
+
+
 def flat_worklist(meta, lb, n_kept: int, n_total: int, *,
                   device="cpu") -> Worklist:
     """A ``Worklist`` from the reference's ``FlatWorklist``: ``meta`` (4, W)
     rows (row tile, column tile, first visit, in_cut), sorted by row tile,
-    and ``lb`` (W,).  It must have been built at the port's tile shape
-    (``blocksparse.BLOCK_N`` x ``BLOCK_M``, 256 x 512)."""
+    and ``lb`` (W,): any of its forms, the fused count + kept-k worklist
+    (K3), the count-only one (K8) or the best-1 ring (K9).  It must have
+    been built at the port's tile shape (``blocksparse.BLOCK_N`` x
+    ``BLOCK_M``, 256 x 512)."""
     meta = np.asarray(meta)
     wi = meta[0].astype(np.int64)
     if wi.size and np.any(np.diff(wi) < 0):

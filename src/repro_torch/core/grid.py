@@ -10,7 +10,8 @@
 Cell boundaries are canonical: coordinates quantize as ``floor(p / side)``
 against the absolute origin.  Keys are int64 and every field equals the
 reference's ``build_grid`` on the same f32 points.  ``point_span_bounds``
-and ``cell_span_bounds`` come with the stencil slice.
+gives each point's candidate spans (the distributed halo strategy's);
+``cell_span_bounds`` comes with the stencil slice.
 """
 from __future__ import annotations
 
@@ -163,6 +164,15 @@ def _span_bounds(coords, offs, extent, strides, cand_sorted, g):
     starts = torch.where(valid, starts, 0).to(torch.int32)
     ends = torch.where(valid, ends, 0).to(torch.int32)
     return starts, torch.maximum(ends, starts)
+
+
+def point_span_bounds(grid: Grid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per sorted-point candidate spans: (n, S) int32 starts and ends of
+    the sorted slots in the 3^(g-1) candidate-cell columns around each
+    point's cell (S = 9 at d = 3)."""
+    offs = torch.as_tensor(prefix_offsets(grid.g), device=grid.points.device)
+    return _span_bounds(grid.cand_coords, offs, grid.cand_extent,
+                        grid.cand_strides, grid.cand_key, grid.g)
 
 
 def unsort_dpc(grid: Grid, rho, rho_key, delta, parent):

@@ -3,7 +3,11 @@
 
 * ``fit(points)`` admits the input, resolves one :class:`ExecSpec` into a
   plan (memoized per input shape) and clusters through
-  :func:`repro_torch.core.dpc_api.cluster`.
+  :func:`repro_torch.core.dpc_api.cluster`, or, when the engine holds a
+  ``mesh`` (a :class:`repro_torch.launch.ShardMesh`), through the
+  distributed phases of :func:`repro_torch.distributed.distributed_dpc`
+  (``strategy="gather"`` or ``"halo"``; exact DPC only: ``exdpc`` and
+  ``scan``).
 * ``partial_fit(batch)`` — sliding-window streaming ingest through
   :class:`repro_torch.stream.StreamDPC`; a ``fit`` of at most
   ``window_capacity`` points seeds the window.
@@ -13,8 +17,8 @@
 
 Everything runs on the card unless the engine was built with
 ``device="cpu"``: ``device=None`` means ``"cuda"`` and raises where no GPU
-is present.  The distributed ``mesh`` comes with the distributed slice
-(ROADMAP Queue A item 9).
+is present, with a mesh too.  ``partial_fit`` with a mesh (the sharded
+stream) is not ported yet (ROADMAP Queue A item 9).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.device import as_points, resolve_device
 from repro_torch.core.dpc_api import DPCConfig, check_algorithm, cluster
+from repro_torch.core.labels import assign_labels
 from repro_torch.core.labels import decision_graph as _decision_graph
 from repro_torch.resilience.sanitize import AdmissionConfig, admit
 
@@ -31,6 +36,8 @@ from .planner import DPCPlan, as_plan
 from .spec import ExecSpec
 
 __all__ = ["DPCEngine"]
+
+_DISTRIBUTED_OK = ("exdpc", "scan")     # distributed_dpc is exact DPC
 
 
 class DPCEngine:
@@ -40,12 +47,15 @@ class DPCEngine:
     The streaming window shape is ``window_capacity`` / ``batch_cap``;
     other :class:`repro_torch.stream.StreamDPCConfig` fields ride in
     ``stream_options`` (checked when the first ``partial_fit`` builds the
-    config).  Validation is fail-fast at construction."""
+    config).  ``mesh`` (a :class:`repro_torch.launch.ShardMesh` on the
+    engine's device type) runs ``fit`` through the distributed phases with
+    ``strategy``.  Validation is fail-fast at construction."""
 
     def __init__(self, d_cut: float, *, algorithm: str = "approxdpc",
                  rho_min: float = 10.0, delta_min: float | None = None,
                  eps: float = 0.8, grid_dims: int | None = None,
-                 exec_spec: ExecSpec | None = None,
+                 exec_spec: ExecSpec | None = None, mesh=None,
+                 strategy: str = "gather",
                  window_capacity: int = 4096, batch_cap: int = 256,
                  stream_options: dict | None = None,
                  admission: AdmissionConfig | None = AdmissionConfig(),
@@ -58,6 +68,9 @@ class DPCEngine:
         if exec_spec is not None and not isinstance(exec_spec, ExecSpec):
             raise TypeError(f"exec_spec must be an ExecSpec, got "
                             f"{type(exec_spec).__name__}")
+        if strategy not in ("gather", "halo"):
+            raise ValueError(f"unknown strategy {strategy!r}; expected "
+                             f"'gather' or 'halo'")
         if batch_cap > window_capacity:
             raise ValueError(f"batch_cap ({batch_cap}) cannot exceed "
                              f"window_capacity ({window_capacity})")
@@ -66,6 +79,16 @@ class DPCEngine:
             raise TypeError(f"admission must be an AdmissionConfig or None, "
                             f"got {type(admission).__name__}")
         self.device = resolve_device(device)
+        if mesh is not None:
+            from repro_torch.launch.mesh import ShardMesh
+            if not isinstance(mesh, ShardMesh):
+                raise TypeError(f"mesh must be a ShardMesh, got "
+                                f"{type(mesh).__name__}")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"mesh {mesh} is not on the engine's "
+                                 f"device type {self.device.type!r}")
+        self.mesh = mesh
+        self.strategy = strategy
         self.admission = admission
         self.d_cut = float(d_cut)
         self.algorithm = algorithm
@@ -120,12 +143,16 @@ class DPCEngine:
             raise ValueError("engine is unfitted: call fit() or "
                              "partial_fit() first")
 
+    def resolved_delta_min(self) -> float:
+        return 2.0 * self.d_cut if self.delta_min is None else self.delta_min
+
     # ---------------------------------------------------------------- fit
     def fit(self, points) -> "DPCEngine":
-        """Batch clustering of ``points`` on the engine's device; re-fitting
-        a same-shaped input reuses the plan.  A ``fit`` replaces any
-        streaming state: the next ``partial_fit`` starts a fresh window
-        seeded from these points (when they fit)."""
+        """Batch (or distributed, when the engine holds a mesh) clustering
+        of ``points`` on the engine's device; re-fitting a same-shaped
+        input reuses the plan.  A ``fit`` replaces any streaming state: the
+        next ``partial_fit`` starts a fresh window seeded from these points
+        (when they fit)."""
         if self.admission is not None:
             admitted = admit(points, self.admission, where="engine.fit")
             if admitted.points.size == 0:
@@ -138,11 +165,26 @@ class DPCEngine:
         with obs.span("engine.fit", n=int(points.shape[0]),
                       algorithm=self.algorithm,
                       plan=self._plan.describe()) as sp:
-            cl, res = cluster(points, DPCConfig(
-                d_cut=self.d_cut, rho_min=self.rho_min,
-                delta_min=self.delta_min, algorithm=self.algorithm,
-                eps=self.eps, grid_dims=self.grid_dims,
-                exec_spec=self._plan.spec))
+            if self.mesh is not None:
+                if self.algorithm not in _DISTRIBUTED_OK:
+                    raise ValueError(
+                        f"distributed fit implements exact DPC "
+                        f"({'/'.join(_DISTRIBUTED_OK)}); algorithm="
+                        f"{self.algorithm!r} is not distributed: drop the "
+                        f"mesh or pick an exact algorithm")
+                from repro_torch.distributed.dpc import distributed_dpc
+                res = distributed_dpc(points, mesh=self.mesh,
+                                      d_cut=self.d_cut,
+                                      exec_spec=self._plan,
+                                      strategy=self.strategy)
+                cl = assign_labels(res, self.rho_min,
+                                   self.resolved_delta_min())
+            else:
+                cl, res = cluster(points, DPCConfig(
+                    d_cut=self.d_cut, rho_min=self.rho_min,
+                    delta_min=self.delta_min, algorithm=self.algorithm,
+                    eps=self.eps, grid_dims=self.grid_dims,
+                    exec_spec=self._plan.spec))
             sp.sync((res.rho, res.delta, cl.labels))
         self._result = res
         self._clustering = cl
@@ -159,6 +201,12 @@ class DPCEngine:
         first and they fit the window."""
         from repro_torch.stream.stream_dpc import StreamDPC, StreamDPCConfig
 
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "partial_fit with a mesh runs the sharded stream "
+                "(stream/sharded.py, StreamDPC(mesh=...)), still to be "
+                "ported (ROADMAP Queue A item 9); the distributed fit is "
+                "ported")
         if self.algorithm != "approxdpc":
             raise ValueError(
                 f"partial_fit maintains Approx-DPC state (the stream parity "

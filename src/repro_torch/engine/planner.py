@@ -58,6 +58,7 @@ class DPCPlan:
         self.layout: str = spec.resolved_layout
         self.grid_sort: bool = spec.sparse
         self.precision: str = spec.resolved_precision
+        self.data_axis: str = spec.data_axis   # the shard mesh's axis
 
     def describe(self) -> str:
         shape = "" if self.pspec is None \

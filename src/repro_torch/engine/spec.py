@@ -8,8 +8,9 @@ validated eagerly at construction and resolved once by
 :func:`repro_torch.engine.planner.plan`.  Names and values are the
 reference's, so a spec carries across (``repro_torch.carry``).  The axis
 value the port does not run yet, ``precision="bf16"``, is a valid name here
-and refused at plan time with the ROADMAP item that ports it.  ``block`` and ``data_axis`` are carried for the slices that
-read them (the CUDA kernels' row tile is fixed; no mesh exists yet).  The
+and refused at plan time with the ROADMAP item that ports it.  ``block`` is carried for the slices that read it (the CUDA
+kernels' row tile is fixed); ``data_axis`` names the axis of the shard mesh
+the distributed phases run over.  The
 legacy ``merge_legacy`` shims are not ported.
 """
 from __future__ import annotations

@@ -9,12 +9,15 @@ registered so far:
   CPU tensors run the kernels' plain versions.  ``rho_delta`` takes the
   ``dense`` or the ``block-sparse`` layout.
 
-The streaming primitives (``range_count``, ``range_count_delta``,
-``denser_nn_update``) run dense: kernels K4, K5 and K6.  ``rho_delta``'s
-``y_sel_slots`` (S-Approx-DPC) runs the gated forms of K1/K3;
-``prefix_nn`` is K7.  The direct-difference reference backend (the
-counterpart of ``jnp``), the halo primitives and the worklist forms of the
-streaming ones come with later slices (ROADMAP Queues A and B).
+The streaming primitives (``range_count_delta``, ``denser_nn_update``)
+run dense: kernels K5 and K6.  ``range_count`` is K4, or K8 on a count-only
+worklist under ``layout="block-sparse"``; ``denser_nn`` is K2, or K9 on a
+best-1 ring.  The halo primitives ``range_count_halo`` / ``denser_nn_halo``
+(the distributed halo strategy) are K10 and K11.  ``rho_delta``'s
+``y_sel_slots`` (S-Approx-DPC) runs the gated forms of K1/K3; ``prefix_nn``
+is K7.  The direct-difference reference backend (the counterpart of
+``jnp``), the worklist forms of K5 and of the halo primitives come with
+later slices (ROADMAP Queues A and B).
 """
 from __future__ import annotations
 
@@ -41,6 +44,23 @@ class KernelBackend:
         """(n,) f32: |{j : ||x_i - y_j|| < d_cut}| per row of x."""
         raise NotImplementedError
 
+    def range_count_halo(self, x, window, starts, ends, d_cut, *, span_cap,
+                         layout=None):
+        """Def. 1 restricted to per-row ragged [start, end) spans into a
+        halo-exchanged window: ``starts``/``ends`` (n, S) window-local
+        bounds, pairwise disjoint per row (the grid's candidate-cell spans
+        are); empty or negative spans count nothing.  ``span_cap``: the
+        longest span (the reference's gather-form backends read it)."""
+        raise NotImplementedError
+
+    def denser_nn_halo(self, x, x_key, window, w_key, starts, ends, d_cut, *,
+                       span_cap, layout=None):
+        """Def. 2 restricted to the row's spans AND to d_cut (stencil
+        semantics): (delta, parent window index, found); rows with no
+        strictly-denser window row within d_cut in their spans report
+        found = False (the caller's global fallback answers them)."""
+        raise NotImplementedError
+
     def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
         """(n,) f32: sum_b signs[b] * [||x_i - batch_b|| < d_cut] — the
         sliding-window rho repair (+1 inserted, -1 evicted, 0 padding)."""
@@ -51,7 +71,7 @@ class KernelBackend:
         of them; slots >= len(points) are padding and return (inf, -1)."""
         raise NotImplementedError
 
-    def denser_nn(self, x, x_key, y, y_key):
+    def denser_nn(self, x, x_key, y, y_key, *, layout=None):
         """(delta, parent): NN among y rows with y_key strictly greater.
         delta = +inf, parent = -1 where no such row exists."""
         raise NotImplementedError
@@ -95,44 +115,78 @@ def _fused_resolve(rho_key, col_key, topv, topi):
     return torch.sqrt(best), parent.to(torch.int32), resolved
 
 
-def _dense_only(primitive: str, layout) -> None:
-    """The streaming primitives' worklist forms are not ported."""
+def _sparse(layout) -> bool:
+    """Resolve a layout name: None/'dense' -> False, 'block-sparse' -> True."""
     if layout not in (None, "dense", "block-sparse"):
         raise ValueError(f"unknown layout {layout!r}")
-    if layout == "block-sparse":
+    return layout == "block-sparse"
+
+
+def _dense_only(primitive: str, layout, who: str) -> None:
+    """The worklist forms of K5, K6 and the halo kernels are not ported."""
+    if _sparse(layout):
         raise NotImplementedError(
             f"{primitive}(layout='block-sparse') needs the worklist form of "
-            f"its kernel, still to be ported (ROADMAP Queue B, A3 for "
-            f"A4-A6); the stream calls it dense")
+            f"its kernel, still to be ported (ROADMAP Queue B); {who} calls "
+            f"it dense")
 
 
 class CudaBackend(KernelBackend):
     """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
     (gated or not) then ``masked_nn`` for the fit; ``range_count``,
     ``range_count_signed`` and ``gather_masked_nn`` for the stream;
-    ``prefix_nn``."""
+    ``prefix_nn``; ``worklist_range_count``, ``worklist_masked_nn``,
+    ``halo_range_count`` and ``halo_masked_nn`` for the distributed
+    phases."""
 
     name = "cuda"
 
-    def denser_nn(self, x, x_key, y, y_key):
-        return dependent.masked_min_dist(x, x_key, y, y_key)
+    def denser_nn(self, x, x_key, y, y_key, *, layout=None):
+        """K2 over all of y, or under ``layout="block-sparse"`` K9 on the
+        best-1 ring of x over y (every tile pair, ascending lb per row
+        tile), built just before the launch and freed with it."""
+        wl = None
+        if _sparse(layout):
+            wl = blocksparse.build_flat_worklist(x, y, count=False,
+                                                 nn="best1")
+        return dependent.masked_min_dist(x, x_key, y, y_key, worklist=wl)
 
     def prefix_nn(self, pts_sorted_desc):
         return dependent.prefix_min_dist(pts_sorted_desc)
 
     def range_count(self, x, y, d_cut, *, layout=None):
-        _dense_only("range_count", layout)
-        return density.range_count(x, y, d_cut)
+        """K4 over all of y, or under ``layout="block-sparse"`` K8 on the
+        count-only worklist of x over y (the in-d_cut tile pairs)."""
+        wl = None
+        if _sparse(layout):
+            wl = blocksparse.build_flat_worklist(x, y, d_cut, nn=None)
+        return density.range_count(x, y, d_cut, worklist=wl)
 
     def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
-        _dense_only("range_count_delta", layout)
+        _dense_only("range_count_delta", layout, "the stream")
         return density.range_count_signed(x, batch, signs, d_cut)
 
     def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
         """The fused-gather kernel: the query rows are read from ``points``
         inside it, so the gathered subset never exists as a tensor."""
-        _dense_only("denser_nn_update", layout)
+        _dense_only("denser_nn_update", layout, "the stream")
         return dependent.masked_min_dist_gather(points, rho_key, q_slots)
+
+    def range_count_halo(self, x, window, starts, ends, d_cut, *, span_cap,
+                         layout=None):
+        """K10: each row walks its spans into the window; ``span_cap`` is
+        unused, as in the reference's pallas backend."""
+        del span_cap
+        _dense_only("range_count_halo", layout, "the halo strategy")
+        return density.range_count_halo(x, window, starts, ends, d_cut)
+
+    def denser_nn_halo(self, x, x_key, window, w_key, starts, ends, d_cut, *,
+                       span_cap, layout=None):
+        """K11: K10's span walk for the strictly-denser NN within d_cut."""
+        del span_cap
+        _dense_only("denser_nn_halo", layout, "the halo strategy")
+        return dependent.masked_min_dist_halo(x, x_key, window, w_key,
+                                              starts, ends, d_cut)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None, layout=None):
@@ -160,8 +214,7 @@ class CudaBackend(KernelBackend):
         elsewhere, so the resolution and the dense K2 pass over all of y
         reject every other column by its key before its distance.
         """
-        if layout not in (None, "dense", "block-sparse"):
-            raise ValueError(f"unknown layout {layout!r}")
+        sparse = _sparse(layout)
         if jitter is None:
             jitter = density_jitter(x.shape[0], x.device)
         nn_sel = sel_counts = slots = None
@@ -178,7 +231,7 @@ class CudaBackend(KernelBackend):
             sel_counts = torch.bincount(slots // blocksparse.BLOCK_M,
                                         minlength=nbc)
         wl = None
-        if layout == "block-sparse":
+        if sparse:
             with obs.span("rho_delta.worklist", n=x.shape[0]) as sp:
                 wl = blocksparse.build_flat_worklist(
                     x, y, d_cut, nn_col_counts=sel_counts)

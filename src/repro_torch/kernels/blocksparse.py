@@ -15,13 +15,16 @@ bounding box bounds every distance a tile pair can produce:
 is within the static k-NN radius (the kept-k needs them), sorted by
 ascending ``lb`` — the ring order in which the CUDA kernel K3 walks them
 and skips, against each row's live k-th distance, the entries that can no
-longer matter.  The reference builds it on the host in numpy; here it is
-built in torch on the points' device, a chunk of row tiles at a time, so
-its peak memory stays small at millions of points.
+longer matter.  Its other two forms: the count-only worklist (the
+``in_cut`` pairs, for K8) and the best-1 ring (every tile pair, for K9,
+which stops its walk where no row can improve).  The reference builds them
+on the host in numpy; here they are built in torch on the points' device,
+a chunk of row tiles at a time, so the build's own peak memory stays small
+at millions of points.
 
 Not ported: the jnp ring walk (the reference backend's form), the halo
-spans (``starts``/``ends``), ``nn="best1"`` and the fingerprint cache
-``worklist_cache``: every fit builds its worklist.
+spans (``starts``/``ends``, with ``nn_dcut``: the halo worklist forms) and
+the fingerprint cache ``worklist_cache``: every call builds its worklist.
 """
 from __future__ import annotations
 
@@ -145,22 +148,32 @@ def _knn_walk(ub: torch.Tensor, col_counts: torch.Tensor,
     return torch.where(cum[:, -1] >= k, radius, float("inf"))
 
 
-def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
+def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
+                        count: bool = True, nn: str | None = "topk",
                         k: int = 8,
                         nn_col_counts: torch.Tensor | None = None
                         ) -> Worklist:
-    """The fused count + kept-k worklist of x's ``BLOCK_N``-row tiles over
-    y's ``BLOCK_M``-row column tiles (the reference's
-    ``build_flat_worklist(count=True, nn="topk")`` at that tile shape),
-    built on the points' device.
+    """A worklist of x's ``BLOCK_N``-row tiles over y's ``BLOCK_M``-row
+    column tiles (the reference's ``build_flat_worklist`` at that tile
+    shape), built on the points' device.  Three forms:
 
-    Kept: ``lb <= d_cut^2`` (``in_cut``) or ``lb <= knn_radius``, plus the
-    least-lb pair of every row tile, so every row tile has an entry.  The
-    threshold is ``float(d_cut) ** 2`` rounded once to f32, as the
-    reference compares it with its f32 bounds.  ``nn_col_counts`` ((column
-    tiles,) int) counts the columns of each tile that may enter the kept k
-    (a gated sweep's selected columns); by default every column may.
+    * ``count=True, nn="topk"`` (default; K3): kept ``lb <= d_cut^2``
+      (``in_cut``) or ``lb <= knn_radius``;
+    * ``count=True, nn=None`` (K8): kept ``in_cut``;
+    * ``count=False, nn="best1"`` (K9, ``d_cut`` unused): every tile pair,
+      ``in_cut`` False.
+
+    The least-lb pair of every row tile is kept too, so every row tile has
+    an entry.  The threshold is ``float(d_cut) ** 2`` rounded once to f32,
+    as the reference compares it with its f32 bounds.  ``nn_col_counts``
+    ((column tiles,) int) counts the columns of each tile that may enter
+    the kept k (a gated sweep's selected columns); by default every column
+    may.
     """
+    if (count, nn) not in ((True, "topk"), (True, None), (False, "best1")):
+        raise ValueError(f"worklist form count={count!r}, nn={nn!r} is not "
+                         f"ported (topk with count, count alone, or best1 "
+                         f"alone)")
     if BLOCK_M < k:
         raise ValueError(f"BLOCK_M={BLOCK_M} must hold the kept k={k}")
     x = x.to(torch.float32)
@@ -171,7 +184,7 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
     _M_BUILDS.inc()
     rlo, rhi = tile_bounds(x, BLOCK_N)
     clo, chi = tile_bounds(y, BLOCK_M)
-    thr = float(np.float32(float(d_cut) ** 2))
+    thr = float(np.float32(float(d_cut) ** 2)) if count else 0.0
     if nn_col_counts is None:
         col_counts = (m - torch.arange(nbc, device=dev) * BLOCK_M).clamp(
             0, BLOCK_M)
@@ -187,8 +200,19 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut, *,
     for r0 in range(0, nbr, step):
         r1 = min(nbr, r0 + step)
         lb, ub = pair_bounds(rlo[r0:r1], rhi[r0:r1], clo, chi)
+        if nn == "best1":
+            # every pair: a per-row sort is np.lexsort((lb, row tile))
+            wl, wj = torch.sort(lb, dim=1, stable=True)
+            per_row.append(torch.full((r1 - r0,), nbc, device=dev))
+            cols.append(wj.flatten().to(torch.int32))
+            cuts.append(torch.zeros((wl.numel(),), dtype=torch.bool,
+                                    device=dev))
+            lbs.append(wl.flatten())
+            continue
         in_cut = lb <= thr
-        keep = in_cut | (lb <= knn_radius(ub, col_counts, k)[:, None])
+        keep = in_cut.clone()
+        if nn == "topk":
+            keep |= lb <= knn_radius(ub, col_counts, k)[:, None]
         rows = torch.arange(r1 - r0, device=dev)
         keep[rows, lb.argmin(1)] = True
         wi, wj = torch.nonzero(keep, as_tuple=True)      # row-major

@@ -86,6 +86,17 @@ def load_library() -> ctypes.CDLL:
     lib.repro_gather_masked_nn.restype = i
     lib.repro_prefix_nn.argtypes = [p, i, i, p, p, p]
     lib.repro_prefix_nn.restype = i
+    lib.repro_worklist_range_count.argtypes = [p, p, i, i, i, f, p, p, p, p,
+                                               p]
+    lib.repro_worklist_range_count.restype = i
+    lib.repro_worklist_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p, p,
+                                             p, p, p]
+    lib.repro_worklist_masked_nn.restype = i
+    lib.repro_halo_range_count.argtypes = [p, p, p, p, i, i, i, i, f, p, p]
+    lib.repro_halo_range_count.restype = i
+    lib.repro_halo_masked_nn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p,
+                                         p, p, p]
+    lib.repro_halo_masked_nn.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

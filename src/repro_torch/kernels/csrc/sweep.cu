@@ -1,8 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the Approx-DPC, Ex-DPC, Scan and
-// S-Approx-DPC paths, dense and block-sparse, and for the sliding-window
-// stream.
+// S-Approx-DPC paths, dense and block-sparse, for the sliding-window stream
+// and for the distributed Ex-DPC shard phases.
 //
-// Seven kernels, each with a plain C entry point bound through ctypes
+// Eleven kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
@@ -21,6 +21,14 @@
 //                              row to table[slot] (the stream's maxima)
 //   repro_prefix_nn            per row of a table sorted by descending
 //                              key, the nearest earlier row
+//   repro_worklist_range_count per query row, the count within d_cut over
+//                              the in-d_cut pairs of a count-only worklist
+//   repro_worklist_masked_nn   per query row, the nearest strictly denser
+//                              y row, walking a best-1 ring worklist
+//   repro_halo_range_count     per query row, the count within d_cut of the
+//                              window rows inside its [start, end) spans
+//   repro_halo_masked_nn       per query row, the nearest strictly denser
+//                              window row within d_cut inside its spans
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -656,6 +664,305 @@ __global__ void __launch_bounds__(kRows)
   arg_out[i] = arg;
 }
 
+// K8 — replaces the reference's density.range_count on a worklist, i.e.
+// sweep.tile_sweep with SweepSpec(count=True) over a count-only FlatWorklist
+// (PallasBackend.range_count(layout="block-sparse"),
+// repro/kernels/backend.py:616-626; pallas_call at sweep.py:432), reached
+// through ops.local_density_xy(worklist=...): the distributed gather
+// strategy's block-sparse rho phase, shard rows against the gathered table.
+//
+// Bound: f32 CUDA-core issue, about 3d+1 operations for each pair of an
+// in-d_cut entry, and little memory: the worklist and one staging of each
+// kept column tile per row tile.  The design is K3's CSR walk with the
+// kept-k taken out: one block per 256-row tile walks its segment, stages the
+// 512-column tile of every in_cut entry in shared memory and counts in a
+// register; an entry that is not in_cut (the force-kept least-lb pair of a
+// tile with none in d_cut) holds no pair within d_cut and is skipped
+// whole.  Nothing is voted, so the walk is the worklist itself.
+template <int D>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_range_count_kernel(const float* __restrict__ x,
+                                const float* __restrict__ y, int n, int m,
+                                int d, float d2cut,
+                                const int* __restrict__ row_ptr,
+                                const int* __restrict__ col_tile,
+                                const unsigned char* __restrict__ in_cut,
+                                int* __restrict__ count) {
+  __shared__ float tile[kTileFloats];
+  __shared__ int s_col[kWlRows];
+  __shared__ int s_cut[kWlRows];
+  if constexpr (D > 0) d = D;
+  const int per_chunk = min(kWlCols, kTileFloats / d);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never write
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  int cnt = 0;
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      if (!s_cut[e]) continue;        // the same for every thread
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, m);
+      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
+        const int cols = min(per_chunk, j1 - c0);
+        __syncthreads();
+        stage(tile, y, c0, cols, d);
+        __syncthreads();
+        for (int c = 0; c < cols; ++c) {
+          float d2;
+          if constexpr (D > 0) {
+            d2 = pair_d2<D>(xr, tile + c * D, D);
+          } else {
+            d2 = pair_d2<0>(xg, tile + c * d, d);
+          }
+          cnt += d2 < d2cut;
+        }
+      }
+    }
+  }
+  if (live) count[i] = cnt;
+}
+
+// K9 — replaces the reference's dependent.masked_min_dist on a worklist,
+// i.e. sweep.tile_sweep with SweepSpec(nn="best1", key=True) over the best-1
+// ring (PallasBackend.denser_nn(layout="block-sparse"),
+// repro/kernels/backend.py:639-647; liveness at sweep.py:250-258, the
+// lexicographic update at :303-311), reached through
+// ops.dependent_masked(worklist=...): the distributed gather strategy's
+// block-sparse delta phase and the unresolved-row fallback of both
+// strategies on a block-sparse plan.
+//
+// Bound: f32 CUDA-core issue: a key test for each pair of an entry the walk
+// computes and about 3d+1 operations for each denser one.  The ring keeps
+// every tile pair, so what bounds the work is where the walk stops.  The
+// design: one block per 256-row tile walks its ring in the stored order
+// (ascending lb, 256 entries at a time through shared memory); each thread
+// keeps (best d2, index) in registers and votes whether the entry can still
+// change its row (lb <= best, since a pair's d2 >= lb and an equal d2 of a
+// lower index may still win).  The first entry no thread votes for ends the
+// walk: every later entry has a larger lb and no best can grow.  Until a row
+// has a candidate its best is +inf, so a tile holding a density peak walks
+// its whole ring; a row keyed +inf (padding) has no denser column and never
+// votes.  A voted entry's 512 columns and keys are staged in shared memory;
+// the key is tested before the distance.  Columns arrive in ring order, so
+// the update is the lexicographic (d2, index) minimum, which equals K2's
+// ascending strict `<`.  `live` (optional) gets the entries each block
+// computed.
+template <int D>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_masked_nn_kernel(const float* __restrict__ x,
+                              const float* __restrict__ x_key,
+                              const float* __restrict__ y,
+                              const float* __restrict__ y_key, int n, int m,
+                              int d, const int* __restrict__ row_ptr,
+                              const int* __restrict__ col_tile,
+                              const float* __restrict__ lb,
+                              float* __restrict__ best_out,
+                              int* __restrict__ arg_out,
+                              int* __restrict__ live_out) {
+  __shared__ float tile[kTileFloats];
+  __shared__ float ktile[kWlCols];
+  __shared__ int s_col[kWlRows];
+  __shared__ float s_lb[kWlRows];
+  if constexpr (D > 0) d = D;
+  const int per_chunk = min(kWlCols, kTileFloats / d);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+  const float key = x_key[row];
+  const bool seeks = live && key < CUDART_INF_F;
+
+  float best = CUDART_INF_F;
+  int arg = INT_MAX;
+  int visited = 0;
+  bool done = false;
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1 && !done; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_lb[threadIdx.x] = lb[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      if (!__syncthreads_or(seeks && s_lb[e] <= best)) {
+        done = true;                  // the same for every thread
+        break;
+      }
+      ++visited;
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, m);
+      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
+        const int cols = min(per_chunk, j1 - c0);
+        __syncthreads();
+        stage(tile, y, c0, cols, d);
+        for (int c = threadIdx.x; c < cols; c += kWlRows)
+          ktile[c] = y_key[c0 + c];
+        __syncthreads();
+        for (int c = 0; c < cols; ++c) {
+          if (!(ktile[c] > key)) continue;
+          float d2;
+          if constexpr (D > 0) {
+            d2 = pair_d2<D>(xr, tile + c * D, D);
+          } else {
+            d2 = pair_d2<0>(xg, tile + c * d, d);
+          }
+          const int j = c0 + c;
+          if (d2 < best || (d2 == best && j < arg)) {
+            best = d2;
+            arg = j;
+          }
+        }
+      }
+    }
+  }
+
+  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
+  if (!live) return;
+  const bool found = best < CUDART_INF_F;
+  best_out[i] = best;
+  arg_out[i] = found ? arg : -1;
+}
+
+// K10 — replaces the reference's density.range_count_halo, i.e.
+// sweep.tile_sweep with SweepSpec(count=True, span=True)
+// (repro/kernels/density.py:68, the span mask at sweep.py:199-205,
+// pallas_call at :432), reached through ops.halo_density: the distributed
+// halo strategy's rho phase, each shard row against its window.
+//
+// Bound: f32 CUDA-core issue, about 3d+1 operations for each column inside
+// a row's spans, and the window columns read once where neighbouring rows
+// share them.  A TPU tile cannot gather, so the TPU kernel masks dense
+// (row tile x window tile) blocks with the spans: rows x W pairs, quadratic
+// in the shard.  Here each thread owns one row and walks its S spans
+// [start, end) directly (clipped to [0, W): empty and negative spans count
+// nothing), reading the window rows from global memory: the work is the
+// spans' lengths.  Rows are grid-sorted, so a warp's rows mostly share one
+// cell and its spans, and the reads coalesce into broadcasts.  The spans of
+// a row are disjoint (distinct candidate-cell prefixes), so the count is the
+// span mask's.
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    halo_range_count_kernel(const float* __restrict__ x,
+                            const float* __restrict__ win,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ ends, int n, int w,
+                            int d, int s, float d2cut,
+                            int* __restrict__ count) {
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  if (i >= n) return;
+  if constexpr (D > 0) d = D;
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(i) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+  int cnt = 0;
+  for (int k = 0; k < s; ++k) {
+    const int a = max(starts[static_cast<size_t>(i) * s + k], 0);
+    const int b = min(ends[static_cast<size_t>(i) * s + k], w);
+    for (int j = a; j < b; ++j) {
+      const float* yc = win + static_cast<size_t>(j) * d;
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, yc, D);
+      } else {
+        d2 = pair_d2<0>(xg, yc, d);
+      }
+      cnt += d2 < d2cut;
+    }
+  }
+  count[i] = cnt;
+}
+
+// K11 — replaces the reference's dependent.masked_min_dist_halo, i.e.
+// sweep.tile_sweep with SweepSpec(nn="best1", key=True, span=True,
+// nn_dcut=True) (repro/kernels/dependent.py:56, the d_cut mask at
+// sweep.py:294-295, pallas_call at :432), reached through
+// ops.halo_dependent: the distributed halo strategy's delta phase.
+//
+// Bound: f32 CUDA-core issue, a key test for each column inside a row's
+// spans and about 3d+1 operations for each denser one.  The design is K10's
+// span walk with three conditions: the window key strictly above the row's,
+// d2 < d_cut^2 (stencil semantics: a row with no such column is left to the
+// caller's global fallback), and the lexicographic (d2, window index)
+// minimum.  It writes delta = __fsqrt_rn(best d2) (torch.sqrt's rounding),
+// the window-local parent (-1 where none) and found.
+template <int D>
+__global__ void __launch_bounds__(kRows)
+    halo_masked_nn_kernel(const float* __restrict__ x,
+                          const float* __restrict__ x_key,
+                          const float* __restrict__ win,
+                          const float* __restrict__ w_key,
+                          const int* __restrict__ starts,
+                          const int* __restrict__ ends, int n, int w, int d,
+                          int s, float d2cut, float* __restrict__ delta_out,
+                          int* __restrict__ arg_out,
+                          unsigned char* __restrict__ found_out) {
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  if (i >= n) return;
+  if constexpr (D > 0) d = D;
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(i) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+  const float key = x_key[i];
+  float best = CUDART_INF_F;
+  int arg = INT_MAX;
+  for (int k = 0; k < s; ++k) {
+    const int a = max(starts[static_cast<size_t>(i) * s + k], 0);
+    const int b = min(ends[static_cast<size_t>(i) * s + k], w);
+    for (int j = a; j < b; ++j) {
+      if (!(w_key[j] > key)) continue;
+      const float* yc = win + static_cast<size_t>(j) * d;
+      float d2;
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, yc, D);
+      } else {
+        d2 = pair_d2<0>(xg, yc, d);
+      }
+      if (d2 < d2cut && (d2 < best || (d2 == best && j < arg))) {
+        best = d2;
+        arg = j;
+      }
+    }
+  }
+  const bool found = best < CUDART_INF_F;
+  delta_out[i] = __fsqrt_rn(best);
+  arg_out[i] = found ? arg : -1;
+  found_out[i] = found;
+}
+
 }  // namespace
 
 // d = 1..8 get a register-resident query row; any other d takes the
@@ -797,6 +1104,79 @@ extern "C" int repro_prefix_nn(const float* x, int n, int d, float* delta,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(D) \
   prefix_nn_kernel<D><<<grid, kRows, 0, s>>>(x, n, d, delta, arg)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_worklist_range_count(const float* x, const float* y,
+                                          int n, int m, int d, float d2cut,
+                                          const int* row_ptr,
+                                          const int* col_tile,
+                                          const unsigned char* in_cut,
+                                          int* count, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  worklist_range_count_kernel<D><<<grid, kWlRows, 0, s>>>(                 \
+      x, y, n, m, d, d2cut, row_ptr, col_tile, in_cut, count)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_worklist_masked_nn(const float* x, const float* x_key,
+                                        const float* y, const float* y_key,
+                                        int n, int m, int d,
+                                        const int* row_ptr,
+                                        const int* col_tile, const float* lb,
+                                        float* best, int* arg, int* live,
+                                        void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  worklist_masked_nn_kernel<D><<<grid, kWlRows, 0, s>>>(                   \
+      x, x_key, y, y_key, n, m, d, row_ptr, col_tile, lb, best, arg, live)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// starts, ends: (n, s) int32, row-major, window-local [start, end) spans.
+extern "C" int repro_halo_range_count(const float* x, const float* win,
+                                      const int* starts, const int* ends,
+                                      int n, int w, int d, int s,
+                                      float d2cut, int* count, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kRows - 1) / kRows);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  halo_range_count_kernel<D><<<grid, kRows, 0, st>>>(x, win, starts, ends, \
+                                                     n, w, d, s, d2cut, count)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_halo_masked_nn(const float* x, const float* x_key,
+                                    const float* win, const float* w_key,
+                                    const int* starts, const int* ends, int n,
+                                    int w, int d, int s, float d2cut,
+                                    float* delta, int* arg,
+                                    unsigned char* found, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kRows - 1) / kRows);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                   \
+  halo_masked_nn_kernel<D><<<grid, kRows, 0, st>>>(                       \
+      x, x_key, win, w_key, starts, ends, n, w, d, s, d2cut, delta, arg,  \
+      found)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }

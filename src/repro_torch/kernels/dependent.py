@@ -8,8 +8,11 @@ NN for a row subset of one table, gathered inside the kernel (the
 reference's ``sweep.gather_nn``): ``ops.dependent_masked_gather``, the CUDA
 kernel ``gather_masked_nn``.  ``prefix_min_dist`` is the triangular
 form, the NN among earlier rows of a density-sorted table:
-``ops.dependent_prefix``, the CUDA kernel ``prefix_nn``.  The halo variant
-is still to be ported (ROADMAP Queue B).
+``ops.dependent_prefix``, the CUDA kernel ``prefix_nn``.  On a best-1
+ring worklist ``masked_min_dist`` is the CUDA kernel
+``worklist_masked_nn`` (K9); ``masked_min_dist_halo`` is the NN within
+d_cut inside per-row spans of a halo window: ``ops.halo_dependent``, the
+CUDA kernel ``halo_masked_nn`` (K11).
 """
 from __future__ import annotations
 
@@ -22,10 +25,20 @@ def prefix_min_dist(pts_sorted_desc):
     return ops.dependent_prefix(pts_sorted_desc)
 
 
-def masked_min_dist(x, x_key, y, y_key):
-    """NN among y rows with ``y_key > x_key``, per x row.  Returns
-    (delta (n,), parent (n,) int32); (inf, -1) where none qualifies."""
-    return ops.dependent_masked(x, x_key, y, y_key)
+def masked_min_dist(x, x_key, y, y_key, *, worklist=None):
+    """NN among y rows with ``y_key > x_key``, per x row, walking a best-1
+    ring worklist when one is given.  Returns (delta (n,), parent (n,)
+    int32); (inf, -1) where none qualifies."""
+    if worklist is None:
+        return ops.dependent_masked(x, x_key, y, y_key)
+    return ops.dependent_masked(x, x_key, y, y_key, worklist=worklist)
+
+
+def masked_min_dist_halo(x, x_key, window, w_key, starts, ends, d_cut):
+    """NN among the window rows inside each x row's spans that are
+    strictly denser and within d_cut.  Returns (delta (n,), parent (n,)
+    int32 window index, found (n,) bool)."""
+    return ops.halo_dependent(x, x_key, window, w_key, starts, ends, d_cut)
 
 
 def masked_min_dist_gather(table, keys, q_slots):

@@ -16,13 +16,16 @@ import torch
 from . import build
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_plain,
-                    gather_masked_nn_plain, masked_nn_plain, prefix_nn_plain,
+                    gather_masked_nn_plain, halo_masked_nn_plain,
+                    halo_range_count_plain, masked_nn_plain, prefix_nn_plain,
                     range_count_plain, range_count_signed_plain,
-                    worklist_count_topk_plain)
+                    worklist_count_topk_plain, worklist_masked_nn_plain,
+                    worklist_range_count_plain)
 
 __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
            "local_density_xy", "local_density_delta",
-           "dependent_masked_gather", "launch_counts", "reset_launch_counts"]
+           "dependent_masked_gather", "halo_density", "halo_dependent",
+           "launch_counts", "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
 
@@ -31,7 +34,9 @@ _INT_MAX = 2**31 - 1
 _LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
              "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
              "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
-             "gather_masked_nn": 0, "prefix_nn": 0}
+             "gather_masked_nn": 0, "prefix_nn": 0,
+             "worklist_range_count": 0, "worklist_masked_nn": 0,
+             "halo_range_count": 0, "halo_masked_nn": 0}
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -67,24 +72,52 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_worklist(x: torch.Tensor, y: torch.Tensor, wl) -> None:
-    """A worklist K3 takes: one entry range per row tile of x, column
-    tiles of y, on x's device."""
+def _check_worklist(name: str, x: torch.Tensor, y: torch.Tensor,
+                    wl) -> None:
+    """A worklist K3, K8 and K9 take: one entry range per row tile of x,
+    column tiles of y, on x's device."""
     if not isinstance(wl, Worklist):
-        raise TypeError(f"fused_sweep: worklist must be a Worklist, got "
+        raise TypeError(f"{name}: worklist must be a Worklist, got "
                         f"{type(wl).__name__}")
     nbr = -(-x.shape[0] // BLOCK_N)
     if wl.num_row_tiles != nbr:
-        raise ValueError(f"fused_sweep: worklist of {wl.num_row_tiles} row "
+        raise ValueError(f"{name}: worklist of {wl.num_row_tiles} row "
                          f"tiles for {x.shape[0]} rows")
     for t, dtype in ((wl.row_ptr, torch.int32), (wl.col_tile, torch.int32),
                      (wl.in_cut, torch.bool), (wl.lb, torch.float32)):
         if t.dtype != dtype or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"fused_sweep: worklist arrays must be "
+            raise ValueError(f"{name}: worklist arrays must be "
                              f"contiguous {dtype} on {x.device}")
     if wl.col_tile.numel() and int(wl.col_tile.max()) * BLOCK_M >= \
             max(y.shape[0], 1):
-        raise ValueError("fused_sweep: worklist names a column tile past y")
+        raise ValueError(f"{name}: worklist names a column tile past y")
+
+
+def _check_live(name: str, x: torch.Tensor, wl, live) -> None:
+    """``live`` counts come from a CUDA worklist kernel, into (row tiles,)
+    int32 on x's device."""
+    if live is not None and (
+            wl is None or x.device.type != "cuda"
+            or live.dtype != torch.int32 or live.device != x.device
+            or live.shape != (wl.num_row_tiles,)):
+        raise ValueError(f"{name}: live counts come from the CUDA "
+                         f"worklist kernel, into (row tiles,) int32 on x's "
+                         f"device")
+
+
+def _check_spans(name: str, x: torch.Tensor, starts, ends) -> None:
+    """Halo spans the kernels take: (n, S) int32, contiguous, on x's
+    device, S >= 1."""
+    for t in (starts, ends):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+                or t.dim() != 2 or t.shape[0] != x.shape[0] \
+                or t.shape[1] < 1 or t.device != x.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: starts and ends must be contiguous "
+                             f"({x.shape[0]}, S) int32 on {x.device}")
+    if starts.shape != ends.shape:
+        raise ValueError(f"{name}: starts {tuple(starts.shape)} and ends "
+                         f"{tuple(ends.shape)}")
 
 
 def _check_sel(y: torch.Tensor, nn_sel) -> torch.Tensor:
@@ -119,14 +152,8 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     _check("fused_sweep", x, y)
     sel = None if nn_sel is None else _check_sel(y, nn_sel)
     if worklist is not None:
-        _check_worklist(x, y, worklist)
-    if live is not None and (
-            worklist is None or x.device.type != "cuda"
-            or live.dtype != torch.int32 or live.device != x.device
-            or live.shape != (worklist.num_row_tiles,)):
-        raise ValueError("fused_sweep: live counts come from the CUDA "
-                         "worklist kernel, into (row tiles,) int32 on x's "
-                         "device")
+        _check_worklist("fused_sweep", x, y, worklist)
+    _check_live("fused_sweep", x, worklist, live)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
         gate = None if sel is None else sel.bool()
@@ -166,15 +193,30 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
 
 
 def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
-                     y_key: torch.Tensor):
+                     y_key: torch.Tensor, *, worklist: Worklist | None = None,
+                     live: torch.Tensor | None = None):
     """Per x-row: the nearest y row with ``y_key > x_key`` (Def. 2).
+
+    ``worklist`` (a best-1 ring, ``blocksparse.build_flat_worklist(
+    nn="best1")``) walks each row tile's tile pairs in ascending lb and
+    stops where no row can improve: K9 on a CUDA tensor, its plain version
+    on a CPU one; without it, K2 / its plain version scan all of y.
+    ``live`` (CUDA only, (row tiles,) int32) receives the number of
+    entries K9 computed in each row tile.
 
     Returns (delta (n,) f32, parent (n,) int32); (inf, -1) where no y row
     is strictly denser.
     """
     _check("dependent_masked", x, y, x_key, y_key)
+    if worklist is not None:
+        _check_worklist("dependent_masked", x, y, worklist)
+    _check_live("dependent_masked", x, worklist, live)
     if x.device.type == "cpu":
-        best, arg = masked_nn_plain(x, x_key, y, y_key)
+        if worklist is None:
+            best, arg = masked_nn_plain(x, x_key, y, y_key)
+        else:
+            best, arg = worklist_masked_nn_plain(x, x_key, y, y_key,
+                                                 worklist)
         return torch.sqrt(best), arg
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     best = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -182,11 +224,22 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_masked_nn(
-                x.data_ptr(), x_key.data_ptr(), y.data_ptr(), y_key.data_ptr(),
-                n, m, d, best.data_ptr(), arg.data_ptr(), _stream(x))
-        build.check(lib, "masked_nn", code)
-        _LAUNCHES["masked_nn"] += 1
+            if worklist is None:
+                name = "masked_nn"
+                code = lib.repro_masked_nn(
+                    x.data_ptr(), x_key.data_ptr(), y.data_ptr(),
+                    y_key.data_ptr(), n, m, d, best.data_ptr(),
+                    arg.data_ptr(), _stream(x))
+            else:
+                name = "worklist_masked_nn"
+                code = lib.repro_worklist_masked_nn(
+                    x.data_ptr(), x_key.data_ptr(), y.data_ptr(),
+                    y_key.data_ptr(), n, m, d, worklist.row_ptr.data_ptr(),
+                    worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
+                    best.data_ptr(), arg.data_ptr(),
+                    0 if live is None else live.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        _LAUNCHES[name] += 1
     return torch.sqrt(best), arg
 
 
@@ -215,23 +268,41 @@ def dependent_prefix(points_sorted_desc: torch.Tensor):
     return delta, arg
 
 
-def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut):
+def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut, *,
+                     worklist: Worklist | None = None):
     """Per x-row: the count of y rows within ``d_cut`` (Def. 1 with query
-    rows apart from the candidates), as (n,) f32."""
+    rows apart from the candidates), as (n,) f32.  ``worklist`` (a
+    count-only worklist, ``blocksparse.build_flat_worklist(nn=None)``)
+    restricts the count to its ``in_cut`` tile pairs: K8 on a CUDA tensor,
+    its plain version on a CPU one; without it, K4 / its plain version."""
     _check("local_density_xy", x, y)
+    if worklist is not None:
+        _check_worklist("local_density_xy", x, y, worklist)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
-        return range_count_plain(x, y, d2cut).to(torch.float32)
+        if worklist is None:
+            return range_count_plain(x, y, d2cut).to(torch.float32)
+        return worklist_range_count_plain(x, y, d2cut,
+                                          worklist).to(torch.float32)
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     count = torch.zeros((n,), dtype=torch.int32, device=x.device)
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_range_count(x.data_ptr(), y.data_ptr(), n, m, d,
-                                         d2cut, count.data_ptr(), _stream(x))
-        build.check(lib, "range_count", code)
-        if m:                         # the entry launches nothing for m == 0
-            _LAUNCHES["range_count"] += 1
+            if worklist is None:
+                name = "range_count"
+                code = lib.repro_range_count(
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    count.data_ptr(), _stream(x))
+            else:
+                name = "worklist_range_count"
+                code = lib.repro_worklist_range_count(
+                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut,
+                    worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
+                    worklist.in_cut.data_ptr(), count.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        if m or worklist is not None:  # K4 launches nothing for m == 0
+            _LAUNCHES[name] += 1
     return count.to(torch.float32)
 
 
@@ -294,6 +365,68 @@ def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
         if m:                # for m == 0 only the decode epilogue runs
             _LAUNCHES["gather_masked_nn"] += 1
     return torch.sqrt(best), arg
+
+
+def halo_density(x: torch.Tensor, window: torch.Tensor,
+                 starts: torch.Tensor, ends: torch.Tensor, d_cut):
+    """Per x-row: the count of window rows within ``d_cut`` inside the
+    row's ``[start, end)`` spans (``starts``/``ends``: (n, S) int32
+    window-local bounds, pairwise disjoint per row; empty, negative and
+    past-the-window parts count nothing), as (n,) f32.  K10 on a CUDA
+    tensor, its plain version on a CPU one."""
+    _check("halo_density", x, window)
+    _check_spans("halo_density", x, starts, ends)
+    d2cut = d2cut_of(d_cut)
+    if x.device.type == "cpu":
+        return halo_range_count_plain(x, window, starts, ends,
+                                      d2cut).to(torch.float32)
+    (n, d), w, s = x.shape, window.shape[0], starts.shape[1]
+    count = torch.empty((n,), dtype=torch.int32, device=x.device)
+    if n:
+        lib = build.load_library()
+        with torch.cuda.device(x.device):
+            code = lib.repro_halo_range_count(
+                x.data_ptr(), window.data_ptr(), starts.data_ptr(),
+                ends.data_ptr(), n, w, d, s, d2cut, count.data_ptr(),
+                _stream(x))
+        build.check(lib, "halo_range_count", code)
+        _LAUNCHES["halo_range_count"] += 1
+    return count.to(torch.float32)
+
+
+def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
+                   window: torch.Tensor, w_key: torch.Tensor,
+                   starts: torch.Tensor, ends: torch.Tensor, d_cut):
+    """Per x-row: the nearest window row inside the row's spans that is
+    strictly denser AND within ``d_cut`` (stencil semantics; the spans as
+    in ``halo_density``).  K11 on a CUDA tensor, its plain version on a
+    CPU one.
+
+    Returns (delta (n,) f32, parent (n,) int32 window index, found (n,)
+    bool); (inf, -1, False) where no window row qualifies.
+    """
+    _check("halo_dependent", x, window, x_key, w_key)
+    _check_spans("halo_dependent", x, starts, ends)
+    d2cut = d2cut_of(d_cut)
+    if x.device.type == "cpu":
+        best, arg = halo_masked_nn_plain(x, x_key, window, w_key, starts,
+                                         ends, d2cut)
+        return torch.sqrt(best), arg, torch.isfinite(best)
+    (n, d), w, s = x.shape, window.shape[0], starts.shape[1]
+    delta = torch.empty((n,), dtype=torch.float32, device=x.device)
+    arg = torch.empty((n,), dtype=torch.int32, device=x.device)
+    found = torch.empty((n,), dtype=torch.bool, device=x.device)
+    if n:
+        lib = build.load_library()
+        with torch.cuda.device(x.device):
+            code = lib.repro_halo_masked_nn(
+                x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
+                w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n, w,
+                d, s, d2cut, delta.data_ptr(), arg.data_ptr(),
+                found.data_ptr(), _stream(x))
+        build.check(lib, "halo_masked_nn", code)
+        _LAUNCHES["halo_masked_nn"] += 1
+    return delta, arg, found
 
 
 def launch_counts() -> dict[str, int]:

@@ -24,7 +24,9 @@ from .blocksparse import BLOCK_M, BLOCK_N
 
 # The admission bound: a real point at or beyond it is refused at the
 # boundary (resilience.sanitize).  The CUDA kernels mask ragged edges
-# themselves and never pad with it.
+# themselves and never pad with it; ``distributed_dpc`` pads its shards'
+# rows with it, as the reference does, so padded rows lie outside every
+# d_cut.
 PAD_COORD = 1e9
 
 # kept candidates per row in the fused count + kept-k sweep (compiled into
@@ -250,3 +252,119 @@ def gather_masked_nn_plain(table: torch.Tensor, keys: torch.Tensor,
     rows = torch.where(live, slots, 0)
     qk = torch.where(live, keys[rows], float("inf"))
     return masked_nn_plain(table[rows], qk, table, keys)
+
+
+def worklist_range_count_plain(x: torch.Tensor, y: torch.Tensor,
+                               d2cut: float, wl):
+    """Per x-row: the count of y rows with d2 < d2cut over the columns of
+    its row tile's ``in_cut`` entries (i32): K8's function.  On a
+    count-only worklist from ``build_flat_worklist`` it equals
+    ``range_count_plain`` over all of y."""
+    n, m = x.shape[0], y.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    lane = torch.arange(BLOCK_M, device=x.device)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        seg = slice(ptr[t], ptr[t + 1])
+        tiles = wl.col_tile[seg][wl.in_cut[seg]].long()
+        cols = (tiles[:, None] * BLOCK_M + lane).flatten()
+        count[r0:r1] = range_count_plain(x[r0:r1], y[cols[cols < m]], d2cut)
+    return count
+
+
+def worklist_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
+                             y: torch.Tensor, y_key: torch.Tensor, wl):
+    """Per x-row: the nearest y row with ``y_key > x_key`` among the
+    columns of every entry of its row tile, as (best d2 f32, index i32),
+    the lowest index among equal distances; (+inf, -1) where none
+    qualifies: K9's function.  Skips nothing by liveness (the kernel's
+    early end is exact), so on a best-1 ring from ``build_flat_worklist``
+    (every tile pair) it equals ``masked_nn_plain`` over all of y."""
+    n, m = x.shape[0], y.shape[0]
+    best = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    arg = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    lane = torch.arange(BLOCK_M, device=x.device)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        tiles = torch.sort(wl.col_tile[ptr[t]:ptr[t + 1]].long()).values
+        cols = (tiles[:, None] * BLOCK_M + lane).flatten()
+        cols = cols[cols < m]
+        b, a = masked_nn_plain(x[r0:r1], x_key[r0:r1], y[cols], y_key[cols])
+        best[r0:r1] = b
+        arg[r0:r1] = torch.where(a >= 0, cols[a.clamp_min(0).long()],
+                                 -1).to(torch.int32)
+    return best, arg
+
+
+def _span_candidates(starts, ends, w: int):
+    """Window columns of each row's spans, gather form: (idx (r, S, L)
+    int64 clamped into the window, valid (r, S, L) bool), L the longest
+    span; a column is valid inside [max(start, 0), min(end, w)), the range
+    the kernels walk."""
+    st, en = starts.long(), ends.long()
+    span_w = int((en - st).clamp_min(0).max()) if st.numel() else 0
+    idx = st[..., None] + torch.arange(span_w, device=st.device)
+    valid = (idx >= 0) & (idx < en[..., None]) & (idx < w)
+    return idx.clamp(0, max(w - 1, 0)), valid
+
+
+def _span_rows(starts, ends) -> int:
+    """Rows per block of the halo plain versions, whose gather holds S x
+    the longest span per row: about _PLAIN_PAIRS candidates a block."""
+    lens = (ends.long() - starts.long()).clamp_min(0)
+    return _row_block(starts.shape[1] * int(lens.max()) if lens.numel()
+                      else 1)
+
+
+def halo_range_count_plain(x: torch.Tensor, window: torch.Tensor,
+                           starts: torch.Tensor, ends: torch.Tensor,
+                           d2cut: float):
+    """Per x-row: the count of window rows with d2 < d2cut inside the row's
+    ``[start, end)`` spans (each clipped to the window), i32: K10's
+    function.  The spans of a row must be disjoint."""
+    n, w = x.shape[0], window.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    if w == 0:
+        return count
+    step = _span_rows(starts, ends)
+    for r0 in range(0, n, step):
+        idx, valid = _span_candidates(starts[r0:r0 + step],
+                                      ends[r0:r0 + step], w)
+        d2 = direct_d2(x[r0:r0 + step, None, None, :], window[idx])
+        count[r0:r0 + step] = ((d2 < d2cut) & valid).sum(
+            dim=(1, 2), dtype=torch.int32)
+    return count
+
+
+def halo_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
+                         window: torch.Tensor, w_key: torch.Tensor,
+                         starts: torch.Tensor, ends: torch.Tensor,
+                         d2cut: float):
+    """Per x-row: the nearest window row inside the row's spans with a key
+    strictly greater and d2 < d2cut, as (best d2 f32, window index i32),
+    the lowest index among equal distances; (+inf, -1) where none
+    qualifies: K11's function."""
+    n, w = x.shape[0], window.shape[0]
+    best = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    arg = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    if w == 0:
+        return best, arg
+    step = _span_rows(starts, ends)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        idx, valid = _span_candidates(starts[r0:r1], ends[r0:r1], w)
+        d2 = direct_d2(x[r0:r1, None, None, :], window[idx])
+        ok = valid & (w_key[idx] > x_key[r0:r1, None, None]) & (d2 < d2cut)
+        d2 = torch.where(ok, d2, float("inf")).flatten(1)
+        if d2.shape[1] == 0:
+            continue
+        b = d2.min(dim=1).values
+        a = torch.where(ok.flatten(1) & (d2 == b[:, None]), idx.flatten(1),
+                        w).min(dim=1).values
+        best[r0:r1] = b
+        arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
+    return best, arg

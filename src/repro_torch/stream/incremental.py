@@ -25,8 +25,9 @@ rho: the port of ``repro/stream/incremental.py``.
 * ``repair_rho``: one signed range count over the insert/evict batch (K5)
   plus fresh counts for the inserted rows (K4).
 
-``make_sharded_repair`` waits for the distributed slice (ROADMAP Queue A
-item 9).
+``make_sharded_repair`` (the sharded stream) waits for the next
+distributed slice (ROADMAP Queue A item 9); the distributed batch phases
+are ported (``repro_torch.distributed``).
 """
 from __future__ import annotations
 

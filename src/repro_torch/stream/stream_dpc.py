@@ -36,8 +36,10 @@ In-place device state: the window table (``SlidingWindow.push``,
 in place, so the transactional snapshot clones both; rho is replaced each
 tick, never modified, and the snapshot keeps a reference to it.
 
-Not ported here: ``mesh=`` (the sharded repair tail, ROADMAP Queue A item
-9), ``save`` / ``restore`` and the fault-injection sites (item 7).
+Not ported here: ``mesh=`` (the sharded repair tail, ``stream/sharded.py``:
+the next distributed slice, ROADMAP Queue A item 9; the distributed batch
+fit is ported, ``repro_torch.distributed``), ``save`` / ``restore`` and the
+fault-injection sites (item 7).
 """
 from __future__ import annotations
 
@@ -168,9 +170,10 @@ class StreamDPC:
     def __init__(self, cfg: StreamDPCConfig, mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "StreamDPC(mesh=...) shards the repair tail over devices; it "
-                "is ported with the distributed slice (ROADMAP Queue A "
-                "item 9)")
+                "StreamDPC(mesh=...) shards the repair tail over a mesh "
+                "(stream/sharded.py); it is still to be ported (ROADMAP "
+                "Queue A item 9), while the distributed fit "
+                "(DPCEngine(mesh=...).fit) is ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = plan(None, cfg.resolved_exec())

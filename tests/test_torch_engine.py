@@ -92,7 +92,8 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
         "fused_count_topk": 0, "worklist_count_topk": 0,
         "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
-        "gather_masked_nn": 0, "prefix_nn": 0}
+        "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
+        "worklist_masked_nn": 0, "halo_range_count": 0, "halo_masked_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -133,11 +134,14 @@ def test_unported_axes_and_entry_points_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     x, be = torch.from_numpy(pts), get_backend("cuda")
-    for call in (lambda: be.range_count(x, x, 0.1, layout="block-sparse"),
-                 lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
+    spans = torch.zeros((50, 3), dtype=torch.int32)
+    for call in (lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
                                               layout="block-sparse"),
                  lambda: be.denser_nn_update(x, torch.rand(50),
                                              torch.arange(5),
+                                             layout="block-sparse"),
+                 lambda: be.range_count_halo(x, x, spans, spans, 0.1,
+                                             span_cap=1,
                                              layout="block-sparse")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -153,7 +157,8 @@ def test_port_imports_no_jax():
                   for p in (SRC / "repro_torch").rglob("*.py"))
     assert {"repro_torch.stream", "repro_torch.stream.stream_dpc",
             "repro_torch.stream.service", "repro_torch.kernels.density",
-            "repro_torch.carry"} <= set(mods)
+            "repro_torch.carry", "repro_torch.distributed.dpc",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

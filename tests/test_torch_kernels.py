@@ -230,7 +230,8 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
         "fused_count_topk": 0, "worklist_count_topk": 0,
         "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
-        "gather_masked_nn": 0, "prefix_nn": 0}
+        "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
+        "worklist_masked_nn": 0, "halo_range_count": 0, "halo_masked_nn": 0}
 
 
 def _prefix_cases():

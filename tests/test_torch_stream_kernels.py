@@ -164,8 +164,11 @@ def test_stream_wrappers_refuse_and_never_build_on_cpu(monkeypatch):
     with pytest.raises(ValueError):
         ops.dependent_masked_gather(x, torch.rand(50),
                                     torch.arange(10).reshape(2, 5))
-    for call in (lambda: be.range_count(x, x, 0.1, layout="block-sparse"),
-                 lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
+    # the count's worklist form (K8) is ported: its plain version runs here
+    assert torch.equal(be.range_count(x, x, 0.1, layout="block-sparse"),
+                       be.range_count(x, x, 0.1))
+    assert set(ops.launch_counts().values()) == {0}
+    for call in (lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
                                               layout="block-sparse"),
                  lambda: be.denser_nn_update(x, torch.rand(50),
                                              torch.arange(3),
