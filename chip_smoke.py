@@ -27,7 +27,8 @@ Phases, each of which raises on failure (nothing is caught):
    and delta of every cell maximum (rules 2 and 3) against a float64 masked
    search over all n.
 6. Block-sparse at 2^20: the worklist of the same input, grid-sorted; K3
-   bit-equal to dense K1 and to its plain version on all 2^20 rows; then
+   bit-equal to dense K1 on all 2^20 rows and to its plain version on 256
+   row tiles spread over the table; then
    the block-sparse fit (counted and timed as the dense one), whose rho,
    rho_key and delta must equal the dense fit's, and whose parent and
    labels must equal them wherever no exact distance tie decides a parent.
@@ -131,11 +132,47 @@ Phases, each of which raises on failure (nothing is caught):
    dense Ex-DPC up to counted exact ties, and against float64 on 4,096
    rows.
 
+19. The bf16 kernels at check shapes: K12 ``fused_sweep(precision=
+   "bf16")`` and K13 (its worklist form), gated and not, on lattices
+   (integers in [0, 256) times 2^s at d = 2, 3, 8, 16, 17; in [0, 16) at
+   d = 64; the 128 x 128 sites) bit for bit against their plain versions,
+   K13 against K12 and K12 against f32 K1; on unit-scale data within the
+   stated tolerance d * 2^-20 * (|x|^2 + |y|^2) per pair, the differing
+   rows counted; K14 ``local_density_delta(worklist=...)`` bit for bit
+   against its plain version and dense K5 on phase 16's shard shapes;
+   their times at 65,536 rows against K1, K3 and K5.
+20. bf16 at full width on exact data: the lattice of 2^20 points with
+   integer coordinates in [0, 256)^3 (seed 0), d_cut = sqrt(30.5):
+   ``DPCEngine(d_cut, rho_min=10, exec_spec=ExecSpec(precision="bf16",
+   layout=...)).fit`` for Approx-DPC and S-Approx-DPC (eps 0.8), dense and
+   block-sparse, and Ex-DPC block-sparse, each run twice and the second
+   counted and timed (the bf16 sweep must launch, no f32 sweep may), each
+   equal to its f32 fit bit for bit (rho, rho_key, delta, parent,
+   labels), block-sparse equal to dense up to counted exact distance
+   ties; K12 and gated K12 on the dense fits' full inputs against f32 K1
+   and their plain versions on 65,536 rows, K13 and gated K13 on the
+   block-sparse fits' inputs against f32 K3 and their plain versions on a
+   few row tiles, each timed against its f32 form.
+21. bf16 on the users' data: Approx-DPC, block-sparse, bf16, on the
+   Airline proxy at n = 5,810,462, d_cut of phase 8, against the f32 fit
+   of the same input (not gated: on domain-1e5 data the bf16 expanded form
+   moves d2 by about 1e8, which is the reference's semantics): both
+   timed, the rows whose rho differs, the Rand index of the labels, the
+   centers of each; K13 against its plain version on a few row tiles
+   within the tolerance; a traced fit.
+22. K14 at the stream's shape: the Airline window of 2^20 and a delta
+   batch of 8,192 (4,096 inserted, 4,096 evicted, signs +-1), both
+   grid-sorted, through ``CudaBackend.range_count_delta(layout=
+   "block-sparse")`` (counts zeroed just before, read just after: K14 must
+   launch, K5 must not), equal to dense K5 bit for bit and to its plain
+   version on a few row tiles; K14, its worklist build and K5 timed.
+
 Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
 path, K2 and K3 from the main path, K4-K6 from the mixture stream, gated
 K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
-K8 and K9 from phase 17's gather fit, K10 and K11 from its halo fit),
-and as its last line
+K8 and K9 from phase 17's gather fit, K10 and K11 from its halo fit, K12
+and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
+phase 21, K14 from phase 22), and as its last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, where
 no CUDA device is present.  ``--out`` also writes the full record
 (check-shape times, issue-rate bounds, worklist statistics with K3's
@@ -163,6 +200,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F32_LANES_PER_SM = 128           # Hopper: 128 f32 lanes per SM
+BF16_TC_OPS_PER_S = 989e12       # bf16 on the tensor cores, dense
 
 N_MAIN = 1 << 20                 # the dense path (quadratic)
 N_FULL = 5_810_462               # Airline's size: the block-sparse main path
@@ -192,6 +230,8 @@ DIST_SHARDS = 4                  # logical shards of the distributed phases
 DIST_PLAIN_TILES = 4             # row tiles of K8/K9's plain checks at 5.8M
 DIST_PLAIN_ROWS = 65536          # shard rows of K10/K11's plain checks
 
+BF16_FULL_REPS = 3               # timed runs of K12 and K1 at 2^20 x 2^20
+
 
 def smi(fields: str) -> str:
     out = subprocess.run(
@@ -200,12 +240,12 @@ def smi(fields: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    """Median of REPS runs after one warm-up, by CUDA events."""
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median of ``reps`` runs after one warm-up, by CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1383,6 +1423,308 @@ def dist_check_shapes(cases, card: str) -> dict:
     return {"times": times, "k9_computed": computed}
 
 
+# ------------------------------------------------------------ bf16 (K12-K14)
+def bf16_kernels():
+    """K12, K13, K14 and their plain versions, as the checks call them
+    (``sel``: a gate, or None for the ungated form)."""
+    from repro_torch.kernels import ops, sweep
+
+    def k12(x, y, d_cut, sel=None):
+        return ops.fused_sweep(x, y, d_cut, nn_sel=sel, precision="bf16")
+
+    def k12_plain(x, y, d_cut, sel=None):
+        c, v, i = sweep.fused_count_topk_bf16_plain(
+            x, y, sweep.d2cut_of(d_cut), sel=None if sel is None
+            else sel.bool())
+        return c.to(torch.float32), v, i
+
+    def k13(x, y, d_cut, wl, sel=None, live=None):
+        return ops.fused_sweep(x, y, d_cut, nn_sel=sel, worklist=wl,
+                               live=live, precision="bf16")
+
+    def k13_plain(x, y, d_cut, wl, sel=None):
+        c, v, i = sweep.worklist_count_topk_bf16_plain(
+            x, y, sweep.d2cut_of(d_cut), wl, sel=None if sel is None
+            else sel.bool())
+        return c.to(torch.float32), v, i
+
+    def k14(x, b, signs, d_cut, wl):
+        return ops.local_density_delta(x, b, signs, d_cut, worklist=wl)
+
+    def k14_plain(x, b, signs, d_cut, wl):
+        return sweep.worklist_range_count_signed_plain(
+            x, b, signs, sweep.d2cut_of(d_cut), wl)
+
+    return k12, k12_plain, k13, k13_plain, k14, k14_plain
+
+
+def bf16_bound_ms(nbytes: float, tc_ops: float,
+                  f32_ops: float) -> tuple[float, str]:
+    """The least time for a bf16 sweep's work: bytes over the memory rate,
+    the cross term's operations over the bf16 tensor-core peak, or the
+    epilogue's over the f32 peak, whichever is largest."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(tc_ops / BF16_TC_OPS_PER_S, f32_ops / F32_OPS_PER_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations")
+
+
+def bf16_work(n: int, m: int, d: int, pairs: float, sel=None,
+              wl=None) -> tuple[float, float, float]:
+    """Bytes, tensor-core operations and f32 operations of K12 (K13 given
+    its worklist): x, y (and the gate) and the worklist read once, the
+    outputs written once; per pair 2 * 16 * ceil(d / 16) operations on the
+    tensor cores (d padded to the MMA's k) and 4 in the epilogue (the norm
+    add, the scale, the subtraction, the compare)."""
+    nbytes = 4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
+    if sel is not None:
+        nbytes += m
+    if wl is not None:
+        nbytes += 4 * wl.row_ptr.numel() + 9 * wl.n_kept
+    return nbytes, pairs * 32 * -(-d // 16), pairs * 4.0
+
+
+def k13_pairs(wl, n: int, m: int, live: torch.Tensor) -> float:
+    """The pairs K13 computed: in each row tile, its real rows times the
+    columns of the entries it computed (``live`` of them; taken as the
+    first, whose lb are the least, since the in-d_cut entries lead and the
+    NN-live ones follow)."""
+    width = entry_widths(wl, m)
+    cum = torch.zeros(wl.n_kept + 1, dtype=torch.int64, device=width.device)
+    cum[1:] = torch.cumsum(width, 0)
+    ptr = wl.row_ptr.long()
+    cols = cum[ptr[:-1] + live.long()] - cum[ptr[:-1]]
+    return float((tile_rows(wl, n) * cols).sum())
+
+
+def bf16_tau(x2, y2, d: int) -> torch.Tensor:
+    """The stated tolerance of a bf16 pair's d2 between a kernel and its
+    plain version, ``d * 2^-20 * (|x|^2 + |y|^2)``: the tensor cores' sum
+    of the exact bf16 products and the in-order f32 sum each stay within
+    about d ulps of sum_k |x_k y_k| <= (|x|^2 + |y|^2) / 2, and d2 takes
+    twice the cross term; 2^-20 leaves a factor of 4 over that."""
+    return d * 2.0 ** -20 * (x2 + y2)
+
+
+def bf16_within_tolerance(name: str, x, y, d_cut, got, want,
+                          sel=None) -> dict:
+    """A bf16 kernel against its plain version on data where the
+    tensor-core sums may round apart: every count that differs has a pair
+    whose plain d2 lies within ``bf16_tau`` of d2cut; every kept index that
+    only one side holds has a plain d2 within twice the tolerance of the
+    row's plain 8th kept value; every kept index both hold has its two d2
+    within the tolerance.  Returns the rows whose count / kept set differ
+    and the max abs error of the kept d2 both hold."""
+    from repro_torch.kernels import sweep
+    d = x.shape[1]
+    thr = sweep.d2cut_of(d_cut)
+    x2, y2 = sweep.sq_norms(x), sweep.sq_norms(y)
+    gc, gv, gi = got
+    wc, wv, wi = want
+    rows_c = torch.nonzero(gc != wc).flatten()
+    for r0 in range(0, rows_c.numel(), 256):
+        rr = rows_c[r0:r0 + 256]
+        d2 = sweep.expanded_d2_bf16(x[rr], y, x2[rr], y2)
+        near = ((d2 - thr).abs() <= bf16_tau(x2[rr, None], y2[None], d))
+        assert bool(near.any(1).all()), \
+            f"{name}: a count differs with no pair within the tolerance"
+    same = (gi == wi).all(1)
+    ok_i = gi >= 0
+    tau = bf16_tau(x2[:, None], y2[gi.clamp_min(0).long()], d)
+    close = ((gv - wv).abs() <= tau) | ~ok_i
+    assert bool(close[same].all()), \
+        f"{name}: a kept d2 differs beyond the tolerance"
+    both = same[:, None] & ok_i
+    err = float((gv - wv)[both].abs().max()) if bool(both.any()) else 0.0
+    rows_k = torch.nonzero(~same).flatten()
+    for r in rows_k.tolist():
+        g = dict(zip(gi[r].tolist(), gv[r].tolist()))
+        w = dict(zip(wi[r].tolist(), wv[r].tolist()))
+        g.pop(-1, None)
+        w.pop(-1, None)
+        for j in set(g) & set(w):
+            t = float(bf16_tau(x2[r], y2[j], d))
+            assert abs(g[j] - w[j]) <= t, \
+                f"{name}: row {r} keeps {j} at d2 apart beyond the tolerance"
+            err = max(err, abs(g[j] - w[j]))
+        only = torch.tensor(sorted(set(g) ^ set(w)), dtype=torch.long,
+                            device=x.device)
+        if only.numel():
+            d2 = sweep.expanded_d2_bf16(x[r:r + 1], y[only], x2[r:r + 1],
+                                        y2[only])[0]
+            t = bf16_tau(x2[r], y2[only], d)
+            assert bool(((d2 - wv[r, -1]).abs() <= 2 * t).all()), \
+                f"{name}: row {r} keeps another column away from a tie"
+    return {"count_rows_differ": rows_c.numel(),
+            "kept_rows_differ": rows_k.numel(), "max_abs_err": err}
+
+
+def bf16_lattice(n: int, d: int, sexp: int, seed: int, high: int = 256):
+    """Integer lattice points in [0, high)^d times 2^sexp, f32, and a d_cut
+    whose square is a half integer times 4^sexp near the 30-neighbour
+    quantile (the reference's ``_lattice`` rule: it never ties an integer
+    d2).  Every norm, product and partial sum of the bf16 expanded form is
+    an exact integer times 4^sexp, so K12/K13 equal their plain versions,
+    and the f32 sweep, bit for bit."""
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, high, (n, d)).astype(np.float64)
+    probe = ints[:min(n, 64)]
+    d2 = ((probe[:, None, :] - ints[None]) ** 2).sum(-1)
+    k = int(np.quantile(d2, min(30.0 / n, 0.5)))
+    pts = (ints * 2.0 ** sexp).astype(np.float32)
+    return pts, float(np.sqrt((k + 0.5) * 4.0 ** sexp))
+
+
+def bf16_gates(m: int, seed: int):
+    """(label, gate) pairs: none, 40 % of the columns, 5 columns."""
+    rng = np.random.default_rng(seed)
+    few = np.zeros(m, bool)
+    few[rng.permutation(m)[:5]] = True
+    return [("ungated", None), ("40%", rng.uniform(size=m) < 0.4),
+            ("5 columns", few)]
+
+
+def bf16_check_shapes(card: str) -> dict:
+    """Phase 19: K12 and K13, gated and not, at check shapes; K14 on shard
+    shapes; their times at 65,536 rows."""
+    from repro_torch.core.grid import build_grid
+    from repro_torch.core.tuning import pick_dcut
+    from repro_torch.data.points import gaussian_mixture, real_proxy
+    from repro_torch.distributed import dpc as ddpc
+    from repro_torch.kernels import blocksparse, ops, sweep
+    k12, k12_plain, k13, k13_plain, k14, k14_plain = bf16_kernels()
+    dev = torch.device("cuda")
+
+    def counts_of(sel):
+        return None if sel is None else sel_counts(sel)
+
+    lat = np.stack(np.meshgrid(np.arange(128), np.arange(128)), -1)
+    lattices = [("128x128 sites", lat.reshape(-1, 2).astype(np.float32), 2.5)]
+    for n, d, sexp, high in ((65536, 3, 3, 256), (1000, 2, -2, 256),
+                             (1000, 8, 0, 256), (1000, 16, 1, 256),
+                             (1000, 17, -1, 256), (300, 64, 0, 16)):
+        pts, dc = bf16_lattice(n, d, sexp, seed=d, high=high)
+        lattices.append((f"ints [0,{high})^{d} x 2^{sexp}", pts, dc))
+    rec: dict = {"lattice": {}, "unit": {}, "k14": {}}
+    for label, pts, dc in lattices:
+        x = torch.from_numpy(pts).to(dev)
+        if pts.shape[1] <= 8:       # the drivers' layout: grid-sorted
+            x = build_grid(x, dc).points
+        n = x.shape[0]
+        gates = bf16_gates(n, seed=n)
+        for glabel, g in gates if n <= 20000 else gates[:2]:
+            sel = None if g is None else torch.from_numpy(g).to(dev)
+            wl = blocksparse.build_flat_worklist(
+                x, x, dc, nn_col_counts=counts_of(sel))
+            what = f"[lattice {label}, n={n}, {glabel}]"
+            dense = k12(x, x, dc, sel)
+            check_equal(f"fused_count_topk_bf16 {what}", dense,
+                        k12_plain(x, x, dc, sel))
+            check_equal(f"fused_count_topk_bf16 {what}", dense,
+                        ops.fused_sweep(x, x, dc, nn_sel=sel), "f32 K1")
+            live = torch.zeros(wl.num_row_tiles, dtype=torch.int32,
+                               device=dev)
+            sparse = k13(x, x, dc, wl, sel, live)
+            check_equal(f"worklist_count_topk_bf16 {what}", sparse,
+                        k13_plain(x, x, dc, wl, sel))
+            check_equal(f"worklist_count_topk_bf16 {what}", sparse, dense,
+                        "K12")
+            rec["lattice"][f"{label} {glabel}"] = {
+                "n": n, "d": pts.shape[1], "kept": wl.n_kept,
+                "total": wl.n_total, "computed": int(live.sum())}
+            print(f"K12 == plain == f32 K1 and K13 == plain == K12, bit for "
+                  f"bit {what}: {int(live.sum())} of {wl.n_kept} entries "
+                  f"computed", flush=True)
+
+    # unit-scale data: within the stated tolerance
+    for n, d in ((4096, 3), (1000, 16), (300, 64)):
+        pts = np.random.default_rng(n + d).uniform(
+            size=(n, d)).astype(np.float32)
+        x = torch.from_numpy(pts).to(dev)
+        if d <= 8:
+            x = build_grid(x, 0.1).points
+        dc = pick_dcut(pts, target_rho=30)
+        for glabel, g in bf16_gates(n, seed=d)[:2]:
+            sel = None if g is None else torch.from_numpy(g).to(dev)
+            wl = blocksparse.build_flat_worklist(
+                x, x, dc, nn_col_counts=counts_of(sel))
+            what = f"[unit n={n} d={d}, {glabel}]"
+            r12 = bf16_within_tolerance(f"fused_count_topk_bf16 {what}", x,
+                                        x, dc, k12(x, x, dc, sel),
+                                        k12_plain(x, x, dc, sel))
+            r13 = bf16_within_tolerance(f"worklist_count_topk_bf16 {what}",
+                                        x, x, dc, k13(x, x, dc, wl, sel),
+                                        k13_plain(x, x, dc, wl, sel))
+            rec["unit"][f"n={n} d={d} {glabel}"] = {"k12": r12, "k13": r13}
+            print(f"K12 and K13 == plain within d*2^-20*(|x|^2+|y|^2) "
+                  f"{what}: K12 {r12}, K13 {r13}", flush=True)
+
+    # K14 on shard shapes: padded 1e9 rows, a ragged shard
+    cases = [("airline", real_proxy("airline", N_CHECK, seed=0)[0]),
+             ("mixture d=2", gaussian_mixture(1000, d=2, seed=2)[0]),
+             ("normal d=64", np.random.default_rng(64).normal(
+                 size=(300, 64)).astype(np.float32))]
+    for label, pts in cases:
+        x = torch.from_numpy(pts).to(dev)
+        dc = pick_dcut(pts, target_rho=30)
+        xs = build_grid(x, dc).points if pts.shape[1] <= 8 else x
+        n = xs.shape[0]
+        m = -(-n // 3) * 3 + 3
+        tbl = ddpc._pad_rows(xs, m, sweep.PAD_COORD)
+        rng = np.random.default_rng(n)
+        pick = torch.from_numpy(np.sort(rng.permutation(n)[:512])).to(dev)
+        batch = xs[pick].contiguous()
+        signs = torch.from_numpy(rng.choice(
+            [-1.0, 0.0, 1.0], pick.numel()).astype(np.float32)).to(dev)
+        per = m // 3
+        cut = per - 37 if per > 300 else per
+        for s in range(3):
+            r0, r1 = s * per, (s * per + cut if s == 1 else (s + 1) * per)
+            q = tbl[r0:r1]
+            wl = blocksparse.build_flat_worklist(q, batch, dc, nn=None)
+            got = k14(q, batch, signs, dc, wl)
+            check_equal(f"worklist_range_count_signed [{label}, shard {s}]",
+                        [got], [k14_plain(q, batch, signs, dc, wl)])
+            check_equal(f"worklist_range_count_signed [{label}, shard {s}]",
+                        [got], [ops.local_density_delta(q, batch, signs, dc)],
+                        "dense K5")
+        print(f"K14 == plain == dense K5, bit for bit: {label}, three "
+              f"shards of {per} rows (1e9 padding, one ragged) x a batch of "
+              f"{pick.numel()}", flush=True)
+
+    # times at 65,536 rows: the Airline proxy, grid-sorted
+    pts = cases[0][1]
+    dc = pick_dcut(pts, target_rho=30)
+    xs = build_grid(torch.from_numpy(pts).to(dev), dc).points
+    wl = blocksparse.build_flat_worklist(xs, xs, dc)
+    batch = xs[torch.randperm(N_CHECK, generator=torch.Generator(
+        ).manual_seed(0))[:4096].sort().values.to(dev)].contiguous()
+    signs = torch.ones(4096, device=dev)
+    signs[1::2] = -1.0
+    wl14 = blocksparse.build_flat_worklist(xs, batch, dc, nn=None)
+    times = {
+        "fused_count_topk_bf16": {
+            "ms": time_ms(lambda: k12(xs, xs, dc)),
+            "plain_ms": timed_once(lambda: k12_plain(xs, xs, dc))[1],
+            "k1_ms": time_ms(lambda: ops.fused_sweep(xs, xs, dc))},
+        "worklist_count_topk_bf16": {
+            "ms": time_ms(lambda: k13(xs, xs, dc, wl)),
+            "plain_ms": timed_once(lambda: k13_plain(xs, xs, dc, wl))[1],
+            "k3_ms": time_ms(lambda: ops.fused_sweep(xs, xs, dc,
+                                                     worklist=wl))},
+        "worklist_range_count_signed": {
+            "ms": time_ms(lambda: k14(xs, batch, signs, dc, wl14)),
+            "plain_ms": timed_once(lambda: k14_plain(xs, batch, signs, dc,
+                                                     wl14))[1],
+            "k5_ms": time_ms(lambda: ops.local_density_delta(xs, batch,
+                                                             signs, dc))}}
+    for name, t in times.items():
+        print(f"{name} [n={N_CHECK} d=3 Airline, grid-sorted]: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in t.items()) + f"  ({card})", flush=True)
+    rec["times"] = times
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1407,8 +1749,15 @@ def main() -> int:
     dev = torch.device("cuda")
     record: dict = {}
     t_start = time.perf_counter()
+    phase_s: dict[int, float] = {}
+
+    def stamp(phase: int) -> None:
+        """Seconds since the start at which a phase begins."""
+        phase_s[phase] = time.perf_counter() - t_start
+        print(f"[{phase_s[phase]:.1f} s] phase {phase}", flush=True)
 
     # ---------------------------------------------------- 1. card and build
+    stamp(1)
     card = smi("name,power.limit")
     clocks = smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
@@ -1429,6 +1778,7 @@ def main() -> int:
     record.update(card=card, clocks=clocks, build_s=b.seconds)
 
     # --------------------------------------- 2. kernels vs plain, check shapes
+    stamp(2)
     def k1(x, y, d_cut):
         return ops.fused_sweep(x, y, d_cut)
 
@@ -1534,6 +1884,7 @@ def main() -> int:
               f"{t['plain_ms']:.3f} ms  ({card})", flush=True)
 
     # ------------------------------------------------- 3. the dense path
+    stamp(3)
     main_pts, _ = real_proxy("airline", N_MAIN, seed=0)
     d_cut = pick_dcut(main_pts, target_rho=30)
     engine = DPCEngine(d_cut, rho_min=10)
@@ -1547,6 +1898,8 @@ def main() -> int:
     def recording_sweep(*a, **kw):
         kind = ("worklist_count_topk" if kw.get("worklist") is not None
                 else "fused_count_topk")
+        if kw.get("precision") == "bf16":
+            kind += "_bf16"
         if kw.get("nn_sel") is not None:
             kind += "_sel"
         given[kind].append((*a, kw.get("worklist"), kw.get("nn_sel")))
@@ -1588,6 +1941,7 @@ def main() -> int:
     dense_given = dict(given)
 
     # ------------------------- 4. kernels vs plain, the dense path's shapes
+    stamp(4)
     main_times: dict[str, dict] = {}
     errs: dict[str, float] = {}
     bounds: dict[str, tuple] = {}
@@ -1623,6 +1977,7 @@ def main() -> int:
           f"({card})", flush=True)
 
     # ---------------------------------------- 5. the dense fit against float64
+    stamp(5)
     pts64 = torch.from_numpy(main_pts).to(dev, torch.float64)
     gen = torch.Generator().manual_seed(0)
     rows = torch.randperm(N_MAIN, generator=gen)[:Q_CHECK].to(dev)
@@ -1647,22 +2002,33 @@ def main() -> int:
                        "k2": dense_k2}
 
     # ------------------------------------------ 6. block-sparse at 2^20
+    stamp(6)
     gs = grid.points
     wl, wl_ms = timed_once(lambda: blocksparse.build_flat_worklist(gs, gs,
                                                                    d_cut))
     got = k3(gs, gs, d_cut, wl)
     check_equal("worklist_count_topk [2^20]", got, k1(gs, gs, d_cut),
                 "dense fused_count_topk")
-    want, k3_plain_ms = timed_once(lambda: k3_plain(gs, gs, d_cut, wl))
-    check_equal("worklist_count_topk [2^20]", got, want)
+    # the plain version on TILES_CHECK row tiles spread over the table (on
+    # all 2^20 rows it took 47.9 s of the script's time limit)
+    tiles = torch.linspace(0, wl.num_row_tiles - 1, TILES_CHECK).round() \
+        .long().unique().to(dev)
+    rows = (tiles[:, None] * blocksparse.BLOCK_N
+            + torch.arange(blocksparse.BLOCK_N, device=dev)).flatten()
+    rows = rows[rows < N_MAIN]
+    want, k3_plain_ms = timed_once(lambda: k3_plain(
+        gs[rows].contiguous(), gs, d_cut, sub_worklist(wl, tiles)))
+    check_equal("worklist_count_topk [2^20, row tiles]",
+                [t[rows] for t in got], want)
     live_2e20 = k3_live(gs, gs, d_cut, wl)
     k3_2e20 = {"kept": wl.n_kept, "total": wl.n_total,
                "in_cut": int(wl.in_cut.sum()), "live": live_2e20,
                "needed_pairs": k3_needed_pairs(wl, N_MAIN, got[1]),
                "build_ms": wl_ms, "ms": time_ms(lambda: k3(gs, gs, d_cut, wl)),
-               "plain_ms": k3_plain_ms}
-    print(f"worklist_count_topk == dense K1 == plain, bit for bit, on all "
-          f"{N_MAIN} rows (grid-sorted): {wl.n_kept} of {wl.n_total} tile "
+               "plain_ms": k3_plain_ms, "plain_rows": rows.numel()}
+    print(f"worklist_count_topk == dense K1 on all {N_MAIN} rows "
+          f"(grid-sorted), == plain on {rows.numel()} rows of {tiles.numel()} "
+          f"row tiles, bit for bit: {wl.n_kept} of {wl.n_total} tile "
           f"pairs kept ({int(wl.in_cut.sum())} in d_cut), {live_2e20} "
           f"computed; K3 {k3_2e20['ms']:.3f} ms, plain {k3_plain_ms:.1f} ms, "
           f"build {wl_ms:.2f} ms  ({card})", flush=True)
@@ -1690,6 +2056,7 @@ def main() -> int:
     del sparse_engine, wl
 
     # ------------------------------ 7. Ex-DPC and Scan at 2^20, both layouts
+    stamp(7)
     exact_fits, exact_rec = {}, {}
     for algo, layout in (("exdpc", "block-sparse"), ("scan", "block-sparse"),
                          ("exdpc", "dense")):
@@ -1740,6 +2107,7 @@ def main() -> int:
     del exact_fits, ex, sc, ex_dense
 
     # ---------------------------- 8. the main path at full width (5.8M)
+    stamp(8)
     full_pts, _ = real_proxy("airline", N_FULL, seed=0)
     d_full = pick_dcut(full_pts, target_rho=30)
     engine = DPCEngine(d_full, rho_min=10,
@@ -1794,6 +2162,7 @@ def main() -> int:
         card, f"traced Approx-DPC fit, fallback rows {k2_rows_full}")
 
     # ---------------------- 9. stream kernels vs plain, check shapes
+    stamp(9)
     n_clusters_full = int(fcl.num_clusters)
     del engine, fres, fcl
     torch.cuda.empty_cache()
@@ -1808,6 +2177,7 @@ def main() -> int:
     stream_check = stream_check_shapes(stream_cases, card)
 
     # ------------------ 10. the stream main path: mixture, 2^20 window
+    stamp(10)
     mix, _ = gaussian_mixture(N_WINDOW + (MIX_TICKS + 2) * STREAM_BATCH
                               + N_PREDICT, k=15, d=2, seed=0)
     streams = {"mixture": run_stream("mixture", mix, 2000.0, MIX_TICKS, card)}
@@ -1815,6 +2185,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. the Airline stream, 2^20 window, the dense path's d_cut
+    stamp(11)
     air, _ = real_proxy("airline", N_WINDOW + (AIR_TICKS + 2) * STREAM_BATCH
                         + N_PREDICT, seed=0)
     streams["airline"] = run_stream("airline", air, d_cut, AIR_TICKS, card)
@@ -1822,6 +2193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------- 12. S-Approx-DPC's kernels vs plain, check shapes
+    stamp(12)
     k1s, k1s_plain, _, _, k7, k7_plain = sapprox_kernels()
     sapprox_check = sapprox_check_shapes(
         [(label, p, pick_dcut(p, target_rho=30)) for label, p in cases]
@@ -1829,6 +2201,7 @@ def main() -> int:
             2.5)], card)
 
     # ------------- 13. S-Approx-DPC at full width (5.8M): the main path
+    stamp(13)
     member_delta = float(np.float32(min(SAPPROX_EPS, 1.0) * d_full))
     sa_engine = DPCEngine(d_full, algorithm="sapproxdpc", eps=SAPPROX_EPS,
                           rho_min=10, exec_spec=ExecSpec(layout="block-sparse"))
@@ -1903,6 +2276,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------- 14. the eps sweep at 2^20 (Table 5)
+    stamp(14)
     ex_lab = ex_labels.cpu().numpy()
     eps_rec = {}
     for eps in EPS_SWEEP:
@@ -1964,6 +2338,7 @@ def main() -> int:
     record["eps_sweep_2e20"] = eps_rec
 
     # ---------------------------------------------- 15. K7 at 2^20
+    stamp(15)
     rk = ex_res.rho_key
     order = torch.argsort(rk, descending=True, stable=True)
     tbl = xs[order].contiguous()
@@ -2012,12 +2387,14 @@ def main() -> int:
     del want, d7, p7, tbl
 
     # --------------------- 16. the distributed kernels vs plain, check shapes
+    stamp(16)
     dist_check = dist_check_shapes(
         [(label, p, pick_dcut(p, target_rho=30)) for label, p in cases]
         + [("lattice 128x128", lattice.reshape(-1, 2).astype(np.float32),
             2.5)], card)
 
     # ------- 17. distributed Ex-DPC at full width (5.8M), four shards
+    stamp(17)
     from repro_torch import obs
     from repro_torch.launch import ShardMesh
     k8, k8_plain, k9, k9_plain, k10, k10_plain, k11, k11_plain = \
@@ -2249,6 +2626,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------- 18. the dense gather strategy at 2^20, four shards
+    stamp(18)
     dense_dist = DPCEngine(d_cut, rho_min=10, algorithm="exdpc",
                            mesh=ShardMesh.on("cuda", shards=DIST_SHARDS),
                            strategy="gather")
@@ -2282,6 +2660,250 @@ def main() -> int:
     del dense_dist
     torch.cuda.empty_cache()
 
+    # ---------------- 19. the bf16 kernels vs plain, check shapes (K12-K14)
+    stamp(19)
+    bf16_check = bf16_check_shapes(card)
+    k12, k12_plain, k13, k13_plain, k14, k14_plain = bf16_kernels()
+
+    # -------------- 20. bf16 at full width on exact data: the 2^20 lattice
+    stamp(20)
+    lat_pts = np.random.default_rng(0).integers(
+        0, 256, (N_MAIN, 3)).astype(np.float32)
+    lat_dc = math.sqrt(30.5)
+    lat_x = torch.from_numpy(lat_pts).to(dev)
+    lat_rec, lat_fits, lat_given, lat_launches = {}, {}, {}, {}
+    f32_sweeps = ("fused_count_topk", "worklist_count_topk",
+                  "fused_count_topk_sel", "worklist_count_topk_sel")
+    for algo, layout in (("approxdpc", "dense"),
+                         ("approxdpc", "block-sparse"),
+                         ("sapproxdpc", "dense"),
+                         ("sapproxdpc", "block-sparse"),
+                         ("exdpc", "block-sparse")):
+        kw = {"eps": SAPPROX_EPS} if algo == "sapproxdpc" else {}
+        ref = DPCEngine(lat_dc, rho_min=10, algorithm=algo,
+                        exec_spec=ExecSpec(layout=layout), **kw)
+        ref_s, _ = counted_fit(ref, lat_pts)
+        eng = DPCEngine(lat_dc, rho_min=10, algorithm=algo, exec_spec=ExecSpec(
+            layout=layout, precision="bf16"), **kw)
+        eng.fit(lat_pts)                                   # warm-up
+        torch.cuda.synchronize()
+        secs, launched = counted_fit(eng, lat_pts)
+        swept = ("worklist_count_topk_bf16" if layout == "block-sparse"
+                 else "fused_count_topk_bf16")
+        swept += "_sel" if algo == "sapproxdpc" else ""
+        assert launched[swept] >= 1 and not any(
+            launched[k] for k in f32_sweeps), (algo, layout, launched)
+        for name in ("rho", "rho_key", "delta", "parent"):
+            assert torch.equal(getattr(eng.result, name),
+                               getattr(ref.result, name)), \
+                f"bf16 {algo} {layout} on the lattice: {name} differs from f32"
+        assert torch.equal(eng.clustering.labels, ref.clustering.labels), \
+            f"bf16 {algo} {layout} on the lattice: labels differ from f32"
+        lat_given[algo, layout] = list(given[swept])
+        lat_launches[algo, layout] = launched
+        lat_fits[algo, layout] = eng
+        lat_rec[f"{algo} {layout}"] = {
+            "fit_ms": secs * 1e3, "f32_fit_ms": ref_s * 1e3,
+            "launches": {k: v for k, v in launched.items() if v},
+            "k2_rows": [a[0].shape[0] for a in given["masked_nn"]],
+            "clusters": int(eng.clustering.num_clusters)}
+        print(f"bf16 {algo} {layout} on the 2^20 lattice: {secs * 1e3:.1f} "
+              f"ms (f32 {ref_s * 1e3:.1f} ms), launches "
+              f"{lat_rec[f'{algo} {layout}']['launches']}; == the f32 fit "
+              f"bit for bit (rho, rho_key, delta, parent, labels), "
+              f"{lat_rec[f'{algo} {layout}']['clusters']} clusters  ({card})",
+              flush=True)
+        del ref
+    for algo in ("approxdpc", "sapproxdpc"):
+        a, b = lat_fits[algo, "dense"], lat_fits[algo, "block-sparse"]
+        ties, tied, lab_diff = same_up_to_ties(
+            lat_x, a.result, b.result, a.clustering.labels,
+            b.clustering.labels, f"bf16 {algo} block-sparse vs dense")
+        lat_rec[f"{algo} layouts"] = {"parent_ties": ties,
+                                      "rows_downstream": tied,
+                                      "labels_differ": lab_diff}
+        print(f"bf16 {algo} block-sparse == dense on the lattice: rho, "
+              f"rho_key, delta bit for bit; {ties} parents decided by exact "
+              f"distance ties ({tied} rows downstream, {lab_diff} labels "
+              f"differ)", flush=True)
+    del lat_fits
+
+    # K12 (gated or not) on the dense fits' full inputs: == f32 K1, == plain
+    # on a slice; K13 (gated or not) on the block-sparse fits' inputs: ==
+    # f32 K3 on them, == plain on row tiles; each timed against its f32 form
+    for algo, gated in (("approxdpc", ""), ("sapproxdpc", "_sel")):
+        (x, y, dc, _, sel), = lat_given[algo, "dense"]
+        name = "fused_count_topk_bf16" + gated
+        full = k12(x, y, dc, sel)
+        check_equal(f"{name} [2^20 lattice]", full,
+                    ops.fused_sweep(x, y, dc, nn_sel=sel), "f32 K1")
+        r = min(K1_PLAIN_ROWS, x.shape[0])
+        want, p_ms = timed_once(lambda: k12_plain(x[:r], y, dc, sel))
+        errs[name] = check_equal(f"{name} [2^20 lattice, {r} rows]",
+                                 [t[:r] for t in full], want)
+        main_times[name] = {
+            "ms": time_ms(lambda: k12(x, y, dc, sel), BF16_FULL_REPS),
+            "rows": x.shape[0], "plain_ms": p_ms, "plain_rows": r,
+            "f32_ms": time_ms(
+                lambda: ops.fused_sweep(x, y, dc, nn_sel=sel),
+                BF16_FULL_REPS)}
+        bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1],
+                                 float(x.shape[0]) * y.shape[0], sel)
+        del full, want
+        (x, y, dc, wl, sel), = lat_given[algo, "block-sparse"]
+        name = "worklist_count_topk_bf16" + gated
+        live = torch.zeros(wl.num_row_tiles, dtype=torch.int32, device=dev)
+        got = k13(x, y, dc, wl, sel, live)
+        check_equal(f"{name} [2^20 lattice]", got,
+                    ops.fused_sweep(x, y, dc, nn_sel=sel, worklist=wl),
+                    "f32 K3")
+        sub, rows = row_tile_slice(wl, x.shape[0], TILES_CHECK // 16)
+        want, p_ms = timed_once(lambda: k13_plain(x[rows].contiguous(), y,
+                                                  dc, sub, sel))
+        errs[name] = check_equal(f"{name} [2^20 lattice, row tiles]",
+                                 [t[rows] for t in got], want)
+        main_times[name] = {
+            "ms": time_ms(lambda: k13(x, y, dc, wl, sel)), "plain_ms": p_ms,
+            "plain_rows": rows.numel(), "f32_ms": time_ms(
+                lambda: ops.fused_sweep(x, y, dc, nn_sel=sel, worklist=wl)),
+            "computed": int(live.sum()), "kept": wl.n_kept}
+        bounds[name] = bf16_work(
+            x.shape[0], y.shape[0], x.shape[1],
+            k13_pairs(wl, x.shape[0], y.shape[0], live), sel, wl)
+        del got, want
+    for name in ("fused_count_topk_bf16", "worklist_count_topk_bf16",
+                 "fused_count_topk_bf16_sel", "worklist_count_topk_bf16_sel"):
+        t = main_times[name]
+        b_ms, by = bf16_bound_ms(*bounds[name])
+        print(f"{name} [2^20 lattice fit's inputs]: kernel {t['ms']:.3f} ms, "
+              f"f32 form {t['f32_ms']:.3f} ms, bound {b_ms:.3f} ms ({by}); "
+              f"== f32 and == plain on {t['plain_rows']} rows "
+              f"({t['plain_ms']:.1f} ms)  ({card})", flush=True)
+    record["bf16_lattice"] = lat_rec
+    del lat_given, lat_x, x, y, wl, sel, sub, rows, live
+
+    # ------------- 21. bf16 on the users' data: Airline at 5.8M, Approx-DPC
+    stamp(21)
+    f32_air = DPCEngine(d_full, rho_min=10,
+                        exec_spec=ExecSpec(layout="block-sparse"))
+    f32_air_s, _ = counted_fit(f32_air, full_pts)
+    bf_air = DPCEngine(d_full, rho_min=10, exec_spec=ExecSpec(
+        layout="block-sparse", precision="bf16"))
+    bf_air.fit(full_pts)                                   # warm-up
+    torch.cuda.synchronize()
+    air_s, air_launches = counted_fit(bf_air, full_pts)
+    assert air_launches["worklist_count_topk_bf16"] >= 1 \
+        and air_launches["masked_nn"] >= 1 and not any(
+            air_launches[k] for k in (*f32_sweeps, "fused_count_topk_bf16")), \
+        air_launches
+    air_k2_rows = [a[0].shape[0] for a in given["masked_nn"]]
+    (x, y, dc, wl, _), = given["worklist_count_topk_bf16"]
+    del given
+    fr, br = f32_air.result, bf_air.result
+    rho_differ = int((fr.rho != br.rho).sum())
+    ri = rand_index(bf_air.clustering.labels, f32_air.clustering.labels)
+    centers = (int(f32_air.clustering.num_clusters),
+               int(bf_air.clustering.num_clusters))
+    sub, rows = row_tile_slice(wl, x.shape[0], DIST_PLAIN_TILES)
+    xr = x[rows].contiguous()
+    got = k13(xr, y, dc, sub)
+    check_equal("worklist_count_topk_bf16 [Airline 5.8M, row tiles]", got,
+                [t[rows] for t in k13(x, y, dc, wl)], "the fit's full sweep")
+    want, p_ms = timed_once(lambda: k13_plain(xr, y, dc, sub))
+    tol = bf16_within_tolerance(
+        "worklist_count_topk_bf16 [Airline 5.8M, row tiles]", xr, y, dc,
+        got, want)
+    live = torch.zeros(wl.num_row_tiles, dtype=torch.int32, device=dev)
+    k13(x, y, dc, wl, live=live)
+    errs["worklist_count_topk_bf16"] = tol["max_abs_err"]
+    main_times["worklist_count_topk_bf16"] = {
+        "ms": time_ms(lambda: k13(x, y, dc, wl)), "plain_ms": p_ms,
+        "plain_rows": rows.numel(), "f32_ms": time_ms(
+            lambda: ops.fused_sweep(x, y, dc, worklist=wl)),
+        "computed": int(live.sum()), "kept": wl.n_kept, "tolerance": tol,
+        "lattice": main_times["worklist_count_topk_bf16"]}
+    bounds["worklist_count_topk_bf16"] = bf16_work(
+        x.shape[0], y.shape[0], x.shape[1],
+        k13_pairs(wl, x.shape[0], y.shape[0], live), None, wl)
+    t = main_times["worklist_count_topk_bf16"]
+    b_ms, by = bf16_bound_ms(*bounds["worklist_count_topk_bf16"])
+    del x, y, wl, xr, got, want, sub, rows, live
+    trace_air = traced(
+        lambda: bf_air.fit(full_pts),
+        ("engine.fit", "approxdpc.rho_delta", "rho_delta.worklist",
+         "rho_delta.sweep", "rho_delta.resolve", "rho_delta.fallback"),
+        card, f"traced bf16 Approx-DPC fit, fallback rows {air_k2_rows}")
+    record["bf16_airline"] = {
+        "fit_ms": air_s * 1e3, "f32_fit_ms": f32_air_s * 1e3,
+        "launches": {k: v for k, v in air_launches.items() if v},
+        "k2_rows": air_k2_rows, "rho_rows_differ": rho_differ,
+        "rand_index_vs_f32": ri, "centers_f32_bf16": centers,
+        "k13": t, **trace_air}
+    print(f"bf16 Approx-DPC block-sparse, Airline n={N_FULL}: "
+          f"{air_s * 1e3:.1f} ms (f32 {f32_air_s * 1e3:.1f} ms), launches "
+          f"{record['bf16_airline']['launches']}, masked_nn rows "
+          f"{air_k2_rows}; rho differs from f32 on {rho_differ} rows, Rand "
+          f"index vs f32 {ri:.6f}, centers f32 {centers[0]} bf16 "
+          f"{centers[1]}; K13 {t['ms']:.3f} ms (f32 K3 {t['f32_ms']:.3f} ms, "
+          f"bound {b_ms:.3f} ms, {by}), {t['computed']} of {t['kept']} "
+          f"entries computed; == plain within d*2^-20*(|x|^2+|y|^2) on "
+          f"{t['plain_rows']} rows: {tol}  ({card})", flush=True)
+    del f32_air, bf_air, fr, br
+    torch.cuda.empty_cache()
+
+    # ------- 22. K14 at the stream's shape: Airline window 2^20, batch 8192
+    stamp(22)
+    air_stream, _ = real_proxy("airline", N_WINDOW + STREAM_BATCH, seed=3)
+    win = build_grid(torch.from_numpy(air_stream[:N_WINDOW]).to(dev),
+                     d_cut).points
+    delta_pts = torch.from_numpy(np.concatenate(
+        [air_stream[N_WINDOW:], air_stream[:STREAM_BATCH]])).to(dev)
+    delta_signs = torch.cat([torch.ones(STREAM_BATCH, device=dev),
+                             -torch.ones(STREAM_BATCH, device=dev)])
+    bgrid = build_grid(delta_pts, d_cut)
+    batch = bgrid.points
+    signs = delta_signs[bgrid.order.long()].contiguous()
+    be = get_backend("cuda")
+    ops.reset_launch_counts()
+    got = be.range_count_delta(win, batch, signs, d_cut,
+                               layout="block-sparse")
+    torch.cuda.synchronize()
+    k14_launches = ops.launch_counts()
+    assert k14_launches["worklist_range_count_signed"] == 1 \
+        and k14_launches["range_count_signed"] == 0, k14_launches
+    dense14 = ops.local_density_delta(win, batch, signs, d_cut)
+    check_equal("worklist_range_count_signed [stream shape]", [got],
+                [dense14], "dense K5")
+    wl14, build_ms = timed_once(lambda: blocksparse.build_flat_worklist(
+        win, batch, d_cut, nn=None))
+    sub, rows = row_tile_slice(wl14, N_WINDOW, DIST_PLAIN_TILES)
+    wr = win[rows].contiguous()
+    want, p_ms = timed_once(lambda: k14_plain(wr, batch, signs, d_cut, sub))
+    errs["worklist_range_count_signed"] = check_equal(
+        "worklist_range_count_signed [stream shape, row tiles]",
+        [k14(wr, batch, signs, d_cut, sub)], [want])
+    main_times["worklist_range_count_signed"] = {
+        "ms": time_ms(lambda: k14(win, batch, signs, d_cut, wl14)),
+        "plain_ms": p_ms, "plain_rows": rows.numel(),
+        "k5_ms": time_ms(lambda: ops.local_density_delta(win, batch, signs,
+                                                         d_cut)),
+        "build_ms": build_ms, "kept": wl14.n_kept, "total": wl14.n_total}
+    nb, no = k8_work(win, batch, wl14)     # K8's work, the signs, one add
+    pairs14 = no / (3 * win.shape[1] + 1)  # per in-d_cut pair
+    bounds["worklist_range_count_signed"] = (nb + 4 * batch.shape[0],
+                                             no + pairs14)
+    t = main_times["worklist_range_count_signed"]
+    b_ms, by = bound_ms(*bounds["worklist_range_count_signed"])
+    print(f"worklist_range_count_signed [window {N_WINDOW} x batch "
+          f"{batch.shape[0]}, grid-sorted]: == dense K5 bit for bit, == plain "
+          f"on {rows.numel()} rows; K14 {t['ms']:.3f} ms + worklist build "
+          f"{build_ms:.3f} ms ({wl14.n_kept} of {wl14.n_total} tile pairs), "
+          f"K5 {t['k5_ms']:.3f} ms, bound {b_ms:.3f} ms ({by})  ({card})",
+          flush=True)
+    record["bf16_check_shapes"] = bf16_check
+    del win, batch, signs, got, dense14, wl14, sub, rows, wr, want
+
+
     # --------------------------------------------------------- the record
     kernels = []
     for name, launched, where in (
@@ -2310,6 +2932,25 @@ def main() -> int:
         record.setdefault("bounds", {})[name] = {
             "bound_ms": b_ms, "bound_by": by,
             "issue_bound_ms": 1e3 * bounds[name][1] / issue_rate}
+    for name, launched in (
+            ("fused_count_topk_bf16", lat_launches["approxdpc", "dense"]),
+            ("worklist_count_topk_bf16", air_launches),
+            ("fused_count_topk_bf16_sel", lat_launches["sapproxdpc", "dense"]),
+            ("worklist_count_topk_bf16_sel",
+             lat_launches["sapproxdpc", "block-sparse"]),
+            ("worklist_range_count_signed", k14_launches)):
+        t = main_times[name]
+        b_ms, by = (bound_ms(*bounds[name]) if len(bounds[name]) == 2
+                    else bf16_bound_ms(*bounds[name]))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sweep.cu",
+            "replaces": "src/repro/kernels/sweep.py:432",
+            "launches": launched[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None})
+        record.setdefault("bounds", {})[name] = {"bound_ms": b_ms,
+                                                 "bound_by": by}
     replaces = {"range_count": "src/repro/kernels/sweep.py:432",
                 "range_count_signed": "src/repro/kernels/sweep.py:432",
                 "gather_masked_nn": "src/repro/kernels/sweep.py:510"}
@@ -2331,7 +2972,7 @@ def main() -> int:
                         "clusters": n_clusters_full,
                         "cell_maxima": fmax.numel(), "k2_rows": k2_rows_full,
                         "worklist": wl_full, **trace_full},
-                  issue_rate=issue_rate,
+                  issue_rate=issue_rate, phase_start_s=phase_s,
                   seconds=time.perf_counter() - t_start,
                   clocks_after=smi("clocks.sm,power.draw,temperature.gpu"))
     if args.out is not None:

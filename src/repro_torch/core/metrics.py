@@ -22,7 +22,9 @@ def rand_index(labels_a, labels_b) -> float:
 
     Computed from the contingency table: RI = 1 - (A + B - 2*AB) / C(n,2)
     where A/B are same-pair counts of each labeling and AB of the
-    intersection.
+    intersection.  The table is kept sparse (its nonzero cells only): two
+    labelings with thousands and hundreds of thousands of labels would
+    make a dense one tens of GB.
     """
     a, b = _host(labels_a), _host(labels_b)
     if a.shape != b.shape:
@@ -32,15 +34,14 @@ def rand_index(labels_a, labels_b) -> float:
         return 1.0
     _, a = np.unique(a, return_inverse=True)
     _, b = np.unique(b, return_inverse=True)
-    ka, kb = a.max() + 1, b.max() + 1
-    cont = np.zeros((ka, kb), dtype=np.int64)
-    np.add.at(cont, (a, b), 1)
+    _, cells = np.unique(a.astype(np.int64) * (b.max() + 1) + b,
+                         return_counts=True)
 
     def comb2(x):
         return (x * (x - 1)) // 2
 
-    sum_ab = comb2(cont).sum()
-    sum_a = comb2(cont.sum(axis=1)).sum()
-    sum_b = comb2(cont.sum(axis=0)).sum()
+    sum_ab = comb2(cells.astype(np.int64)).sum()
+    sum_a = comb2(np.bincount(a).astype(np.int64)).sum()
+    sum_b = comb2(np.bincount(b).astype(np.int64)).sum()
     total = comb2(np.int64(n))
     return float((total + 2 * sum_ab - sum_a - sum_b) / total)

@@ -47,10 +47,6 @@ class DPCPlan:
     wrappers for the two driver-facing primitives."""
 
     def __init__(self, pspec: PointsSpec | None, spec: ExecSpec):
-        if spec.resolved_precision == "bf16":
-            raise NotImplementedError(
-                "precision='bf16' is not ported yet: the CUDA kernels compute "
-                "f32 direct differences (ROADMAP Queue B A1, bf16 path)")
         self.spec = spec
         self.pspec = pspec
         self.backend: KernelBackend = get_backend(spec.backend)
@@ -73,11 +69,13 @@ class DPCPlan:
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None):
-        """The backend's fused rho + delta in the plan's layout."""
+        """The backend's fused rho + delta in the plan's layout and
+        precision."""
         return self.backend.rho_delta(x, y, float(d_cut), jitter=jitter,
                                       y_sel_slots=y_sel_slots,
                                       fallback_interest=fallback_interest,
-                                      layout=self.layout)
+                                      layout=self.layout,
+                                      precision=self.precision)
 
 
 _PLANS: OrderedDict = OrderedDict()

@@ -6,23 +6,23 @@ The port of ``repro/engine/spec.py``: the *how-to-execute* axes
 
 validated eagerly at construction and resolved once by
 :func:`repro_torch.engine.planner.plan`.  Names and values are the
-reference's, so a spec carries across (``repro_torch.carry``).  The axis
-value the port does not run yet, ``precision="bf16"``, is a valid name here
-and refused at plan time with the ROADMAP item that ports it.  ``block`` is carried for the slices that read it (the CUDA
+reference's, so a spec carries across (``repro_torch.carry``).
+``precision="bf16"`` runs the fused sweep's bf16 kernels on the ``cuda``
+backend.  ``block`` is carried for the slices that read it (the CUDA
 kernels' row tile is fixed); ``data_axis`` names the axis of the shard mesh
-the distributed phases run over.  The
-legacy ``merge_legacy`` shims are not ported.
+the distributed phases run over.  The legacy ``merge_legacy`` shims are not
+ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
 from repro_torch.kernels.backend import available_backends
+from repro_torch.kernels.ops import PRECISIONS
 
 __all__ = ["ExecSpec", "LAYOUTS", "PRECISIONS"]
 
 LAYOUTS = ("dense", "block-sparse")
-PRECISIONS = ("f32", "bf16")
 
 
 @dataclass(frozen=True)
@@ -46,6 +46,10 @@ class ExecSpec:
     data_axis: str = "data"
 
     def __post_init__(self):
+        # bf16 is legal on every registered backend: ``cuda`` is the only
+        # one.  The direct-difference reference backend ``torch`` (ROADMAP
+        # Queue A item 1) must refuse it, as the reference refuses bf16 on
+        # ``jnp`` (``repro/engine/spec.py:74-76``).
         if self.backend not in (None, "auto") \
                 and self.backend not in available_backends():
             raise ValueError(

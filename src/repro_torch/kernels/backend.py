@@ -9,15 +9,16 @@ registered so far:
   CPU tensors run the kernels' plain versions.  ``rho_delta`` takes the
   ``dense`` or the ``block-sparse`` layout.
 
-The streaming primitives (``range_count_delta``, ``denser_nn_update``)
-run dense: kernels K5 and K6.  ``range_count`` is K4, or K8 on a count-only
-worklist under ``layout="block-sparse"``; ``denser_nn`` is K2, or K9 on a
-best-1 ring.  The halo primitives ``range_count_halo`` / ``denser_nn_halo``
-(the distributed halo strategy) are K10 and K11.  ``rho_delta``'s
-``y_sel_slots`` (S-Approx-DPC) runs the gated forms of K1/K3; ``prefix_nn``
-is K7.  The direct-difference reference backend (the counterpart of
-``jnp``), the worklist forms of K5 and of the halo primitives come with
-later slices (ROADMAP Queues A and B).
+The streaming primitives are K5 (``range_count_delta``; K14 on a
+count-only worklist under ``layout="block-sparse"``) and K6
+(``denser_nn_update``, dense).  ``range_count`` is K4, or K8 on a
+count-only worklist; ``denser_nn`` is K2, or K9 on a best-1 ring.  The halo
+primitives ``range_count_halo`` / ``denser_nn_halo`` (the distributed halo
+strategy) are K10 and K11.  ``rho_delta`` is K1 (K3 on a worklist), or
+under ``precision="bf16"`` K12 (K13); its ``y_sel_slots`` (S-Approx-DPC)
+runs their gated forms.  ``prefix_nn`` is K7.  The direct-difference
+reference backend (the counterpart of ``jnp``) and the worklist forms of
+the halo primitives come with later slices (ROADMAP Queues A and B).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 from .. import obs
 from ..core.dpc_types import density_jitter
 from . import blocksparse, density, dependent, ops
+from .sweep import direct_d2
 
 __all__ = ["KernelBackend", "CudaBackend", "available_backends",
            "default_backend_name", "get_backend"]
@@ -83,7 +85,7 @@ class KernelBackend:
         raise NotImplementedError
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
-                  fallback_interest=None, layout=None):
+                  fallback_interest=None, layout=None, precision=None):
         """Fused Def. 1 + Def. 2: per x-row range count over y AND the
         nearest strictly-denser y row.  Returns (rho, rho_key, delta,
         parent) with rho_key = rho + jitter.  ``fallback_interest``: optional
@@ -92,20 +94,26 @@ class KernelBackend:
         ``"dense"`` (default) or ``"block-sparse"`` (x and y grid-sorted).
         ``y_sel_slots`` (len(x) y rows, x's rows in order): Def. 2 only
         among them — the kept-k is gated to those columns and the others
-        are never denser (S-Approx-DPC's representatives)."""
+        are never denser (S-Approx-DPC's representatives).  ``precision``:
+        ``"f32"`` (default) or ``"bf16"``, the sweep's distances."""
         raise NotImplementedError
 
 
-def _fused_resolve(rho_key, col_key, topv, topi):
+def _fused_resolve(rho_key, col_key, topv, topi, x=None, y=None):
     """Denser-mask resolution of the kept-k candidates.
 
     Picks, per row, the nearest strictly denser kept candidate —
     lexicographic (d2, y-index), as the reference's ``_fused_resolve``
-    (``repro/kernels/backend.py:573-595``).  The kept d2 are already direct
-    differences, so nothing is re-evaluated.  Rows with no denser kept
+    (``repro/kernels/backend.py:573-595``).  K1's kept d2 are already
+    direct differences and are used as they are; given ``x`` and ``y`` (the
+    bf16 sweep, whose kept d2 are expanded-form), every kept candidate is
+    re-evaluated first in direct-difference f32 (``sweep.direct_d2``, K1's
+    order of operations), as the reference does.  Rows with no denser kept
     candidate report resolved = False.
     """
     ti = topi.clamp_min(0).long()
+    if x is not None:
+        topv = direct_d2(x[:, None, :], y[ti])
     ok = (topi >= 0) & (col_key[ti] > rho_key[:, None])
     cand = torch.where(ok, topv, float("inf"))
     best = cand.min(dim=1).values
@@ -123,7 +131,7 @@ def _sparse(layout) -> bool:
 
 
 def _dense_only(primitive: str, layout, who: str) -> None:
-    """The worklist forms of K5, K6 and the halo kernels are not ported."""
+    """The worklist forms of K6 and the halo kernels are not ported."""
     if _sparse(layout):
         raise NotImplementedError(
             f"{primitive}(layout='block-sparse') needs the worklist form of "
@@ -133,11 +141,12 @@ def _dense_only(primitive: str, layout, who: str) -> None:
 
 class CudaBackend(KernelBackend):
     """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
-    (gated or not) then ``masked_nn`` for the fit; ``range_count``,
-    ``range_count_signed`` and ``gather_masked_nn`` for the stream;
-    ``prefix_nn``; ``worklist_range_count``, ``worklist_masked_nn``,
-    ``halo_range_count`` and ``halo_masked_nn`` for the distributed
-    phases."""
+    (gated or not; their ``_bf16`` forms under ``precision="bf16"``) then
+    ``masked_nn`` for the fit; ``range_count``, ``range_count_signed`` (or
+    ``worklist_range_count_signed``) and ``gather_masked_nn`` for the
+    stream; ``prefix_nn``; ``worklist_range_count``,
+    ``worklist_masked_nn``, ``halo_range_count`` and ``halo_masked_nn`` for
+    the distributed phases."""
 
     name = "cuda"
 
@@ -163,8 +172,14 @@ class CudaBackend(KernelBackend):
         return density.range_count(x, y, d_cut, worklist=wl)
 
     def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
-        _dense_only("range_count_delta", layout, "the stream")
-        return density.range_count_signed(x, batch, signs, d_cut)
+        """K5 over the whole batch, or under ``layout="block-sparse"`` K14
+        on the count-only worklist of x over the batch (the in-d_cut tile
+        pairs; both grid-sorted for it to prune)."""
+        wl = None
+        if _sparse(layout):
+            wl = blocksparse.build_flat_worklist(x, batch, d_cut, nn=None)
+        return density.range_count_signed(x, batch, signs, d_cut,
+                                          worklist=wl)
 
     def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
         """The fused-gather kernel: the query rows are read from ``points``
@@ -189,7 +204,7 @@ class CudaBackend(KernelBackend):
                                               starts, ends, d_cut)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
-                  fallback_interest=None, layout=None):
+                  fallback_interest=None, layout=None, precision=None):
         """One sweep (count + unmasked kept-8), the denser-mask resolution,
         then one masked-NN pass for the unresolved tail.
 
@@ -213,7 +228,17 @@ class CudaBackend(KernelBackend):
         per column tile; ``col_key`` is ``rho_key`` at them and -inf
         elsewhere, so the resolution and the dense K2 pass over all of y
         reject every other column by its key before its distance.
+
+        ``precision="bf16"`` (the reference's ``ExecSpec(precision=
+        "bf16")``): the sweep is K12/K13, whose count and kept 8 come from
+        the expanded form with a bf16 cross term; the resolution then
+        re-evaluates the kept 8 in direct-difference f32 before it picks,
+        and the tail stays f32 K2, as in the reference
+        (``repro/kernels/backend.py:653-727``).  On data where bf16 rounding
+        is material the count, and the worklist's pruning, differ from f32:
+        those are the reference's semantics, kept as they are.
         """
+        precision = precision or "f32"
         sparse = _sparse(layout)
         if jitter is None:
             jitter = density_jitter(x.shape[0], x.device)
@@ -236,9 +261,11 @@ class CudaBackend(KernelBackend):
                 wl = blocksparse.build_flat_worklist(
                     x, y, d_cut, nn_col_counts=sel_counts)
                 sp.sync(wl.lb)
-        with obs.span("rho_delta.sweep", n=x.shape[0]) as sp:
+        with obs.span("rho_delta.sweep", n=x.shape[0],
+                      precision=precision) as sp:
             rho, topv, topi = sp.sync(ops.fused_sweep(
-                x, y, d_cut, nn_sel=nn_sel, worklist=wl))
+                x, y, d_cut, nn_sel=nn_sel, worklist=wl,
+                precision=precision))
         with obs.span("rho_delta.resolve") as sp:
             rho_key = rho + jitter
             if slots is None:
@@ -247,8 +274,9 @@ class CudaBackend(KernelBackend):
                 col_key = torch.full((y.shape[0],), float("-inf"),
                                      dtype=torch.float32, device=y.device)
                 col_key[slots] = rho_key
-            delta, parent, resolved = _fused_resolve(rho_key, col_key, topv,
-                                                     topi)
+            delta, parent, resolved = _fused_resolve(
+                rho_key, col_key, topv, topi,
+                x=x if precision == "bf16" else None, y=y)
             unres = ~resolved
             if fallback_interest is not None:
                 unres &= fallback_interest(rho_key).to(torch.bool)

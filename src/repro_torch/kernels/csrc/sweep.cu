@@ -2,7 +2,7 @@
 // S-Approx-DPC paths, dense and block-sparse, for the sliding-window stream
 // and for the distributed Ex-DPC shard phases.
 //
-// Eleven kernels, each with a plain C entry point bound through ctypes
+// Fourteen kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
@@ -29,6 +29,13 @@
 //                              window rows inside its [start, end) spans
 //   repro_halo_masked_nn       per query row, the nearest strictly denser
 //                              window row within d_cut inside its spans
+//   repro_fused_count_topk_bf16    K1's function on the expanded form with
+//                              a bf16 cross term on the tensor cores
+//   repro_worklist_count_topk_bf16 the same over a worklist, with the
+//                              reference's NN-liveness
+//   repro_worklist_range_count_signed  per query row, the sum of the signs
+//                              of the y rows within d_cut over the in-d_cut
+//                              pairs of a count-only worklist
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -37,12 +44,16 @@
 // Arithmetic: d2 = (x0-y0)^2, then + (xk-yk)^2 for k = 1..d-1 in order,
 // with __fsub_rn / __fmul_rn / __fadd_rn so that nvcc cannot contract the
 // sum into FMAs.  The plain PyTorch versions round the same operations in
-// the same order, so kernel and plain version agree bit for bit.
+// the same order, so kernel and plain version agree bit for bit.  The bf16
+// kernels (K12, K13) are the exception: their cross term is a tensor-core
+// sum, exact only where every partial sum is (see K12).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <climits>
+#include <cstdint>
 
 namespace {
 
@@ -55,6 +66,11 @@ constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
 constexpr int kWlCols = 512;        // K3 columns per column tile: BLOCK_M
 constexpr int kSplitBlocks = 2048;  // K4/K6 split the columns until about
                                     // this many blocks fill the card
+constexpr int kBfCols = 64;         // K12/K13 columns per tensor-core tile
+constexpr int kBfPad = 8;           // bf16 pad of a staged row (16 bytes):
+                                    // fragment loads hit 32 distinct banks
+constexpr int kBfMaxD = 224;        // BF16_MAX_D in kernels/ops.py: K13's
+                                    // staged rows fit 227 KB of shared memory
 
 __host__ __device__ __forceinline__ int tile_cols(int d) {
   const int c = kTileFloats / d;
@@ -679,16 +695,30 @@ __global__ void __launch_bounds__(kRows)
 // register; an entry that is not in_cut (the force-kept least-lb pair of a
 // tile with none in d_cut) holds no pair within d_cut and is skipped
 // whole.  Nothing is voted, so the walk is the worklist itself.
-template <int D>
+//
+// K14 (kSigned) — replaces the reference's density.range_count_signed on a
+// worklist, i.e. sweep.tile_sweep with SweepSpec(count=True, signed=True)
+// over a count-only FlatWorklist (PallasBackend.range_count_delta(
+// layout="block-sparse"), repro/kernels/backend.py:627-637; pallas_call at
+// sweep.py:432), reached through ops.local_density_delta(worklist=...).
+// K8's walk with K5's sum: the signs of each staged chunk go to shared
+// memory beside its columns, and each row adds sign_j for each column within
+// d_cut.  Bound: as K8, plus one add per in-d_cut pair.  The signs are +1,
+// -1 or 0, so every partial sum is an integer below 2^24 and exact in f32:
+// the result equals K5's bit for bit in any order of the walk.
+template <int D, bool kSigned>
 __global__ void __launch_bounds__(kWlRows)
     worklist_range_count_kernel(const float* __restrict__ x,
-                                const float* __restrict__ y, int n, int m,
+                                const float* __restrict__ y,
+                                const float* __restrict__ signs, int n, int m,
                                 int d, float d2cut,
                                 const int* __restrict__ row_ptr,
                                 const int* __restrict__ col_tile,
                                 const unsigned char* __restrict__ in_cut,
-                                int* __restrict__ count) {
+                                int* __restrict__ count,
+                                float* __restrict__ sum_out) {
   __shared__ float tile[kTileFloats];
+  __shared__ float stile[kSigned ? kWlCols : 1];
   __shared__ int s_col[kWlRows];
   __shared__ int s_cut[kWlRows];
   if constexpr (D > 0) d = D;
@@ -706,6 +736,7 @@ __global__ void __launch_bounds__(kWlRows)
   }
 
   int cnt = 0;
+  float acc = 0.0f;
   const int e0 = row_ptr[t];
   const int e1 = row_ptr[t + 1];
   for (int base = e0; base < e1; base += kWlRows) {
@@ -724,6 +755,10 @@ __global__ void __launch_bounds__(kWlRows)
         const int cols = min(per_chunk, j1 - c0);
         __syncthreads();
         stage(tile, y, c0, cols, d);
+        if constexpr (kSigned) {
+          for (int c = threadIdx.x; c < cols; c += kWlRows)
+            stile[c] = signs[c0 + c];
+        }
         __syncthreads();
         for (int c = 0; c < cols; ++c) {
           float d2;
@@ -732,12 +767,21 @@ __global__ void __launch_bounds__(kWlRows)
           } else {
             d2 = pair_d2<0>(xg, tile + c * d, d);
           }
-          cnt += d2 < d2cut;
+          if constexpr (kSigned) {
+            if (d2 < d2cut) acc = __fadd_rn(acc, stile[c]);
+          } else {
+            cnt += d2 < d2cut;
+          }
         }
       }
     }
   }
-  if (live) count[i] = cnt;
+  if (!live) return;
+  if constexpr (kSigned) {
+    sum_out[i] = acc;
+  } else {
+    count[i] = cnt;
+  }
 }
 
 // K9 — replaces the reference's dependent.masked_min_dist on a worklist,
@@ -963,6 +1007,362 @@ __global__ void __launch_bounds__(kRows)
   found_out[i] = found;
 }
 
+// ---------------------------------------------------------------- bf16
+// The bf16 fused sweep (K12, K13) keeps the reference's arithmetic: the
+// expanded form d2 = (|x|^2 + |y|^2) - 2 x.y of tile_d2(precision="bf16")
+// (repro/kernels/sweep.py:104-119).  The norms are f32, summed over dims in
+// order with __fmul_rn/__fadd_rn; x and y are rounded to bf16
+// (__float2bfloat16_rn, jnp's astype) as they are staged in shared memory,
+// zero-padded to the MMA's k of 16, and their product runs on the tensor
+// cores, mma.sync m16n8k16 bf16 x bf16 -> f32, k-step after k-step.  Each
+// bf16 product is exact in f32, but the tensor cores' sum of 16 of them is
+// not an in-order IEEE sum: the plain version (kernels/sweep.py,
+// expanded_d2_bf16) sums in order, so the two agree bit for bit where every
+// partial sum is exact (integer coordinates times a power of two) and
+// within a few ulps of sum_k |x_k y_k| elsewhere.  A d2 may be negative.
+//
+// Shared memory of a block of R rows (dynamic, sized per d): the f32 x.y
+// tile R x (kBfCols + 1) (the +1 spreads a row's reads over the banks), the
+// column norms, the bf16 rows R x ld and columns kBfCols x ld (ld = the
+// padded d + kBfPad), and the gate bytes of the columns.
+__host__ __device__ __forceinline__ int bf_kp(int d) {
+  return (d + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ int bf_ld(int d) {
+  return bf_kp(d) + kBfPad;
+}
+
+size_t bf16_smem_bytes(int rows, int d) {
+  return sizeof(float) * (static_cast<size_t>(rows) * (kBfCols + 1) +
+                          kBfCols) +
+         sizeof(__nv_bfloat16) * static_cast<size_t>(rows + kBfCols) *
+             bf_ld(d) +
+         kBfCols;
+}
+
+struct Bf16Smem {
+  float* xy;             // rows x (kBfCols + 1)
+  float* y2;             // kBfCols
+  __nv_bfloat16* xs;     // rows x ld
+  __nv_bfloat16* ys;     // kBfCols x ld
+  unsigned char* sel;    // kBfCols
+};
+
+__device__ __forceinline__ Bf16Smem bf16_smem(unsigned char* raw, int rows,
+                                              int ld) {
+  Bf16Smem s;
+  s.xy = reinterpret_cast<float*>(raw);
+  s.y2 = s.xy + rows * (kBfCols + 1);
+  s.xs = reinterpret_cast<__nv_bfloat16*>(s.y2 + kBfCols);
+  s.ys = s.xs + rows * ld;
+  s.sel = reinterpret_cast<unsigned char*>(s.ys + kBfCols * ld);
+  return s;
+}
+
+// This thread's query row: its f32 norm, in order, and its bf16 copy in
+// row threadIdx.x of the staged rows, zero past d.
+__device__ __forceinline__ float bf16_stage_row(const float* xg, int d,
+                                                int kp, __nv_bfloat16* xs,
+                                                int ld) {
+  __nv_bfloat16* dst = xs + threadIdx.x * ld;
+  float x2 = 0.0f;
+  for (int k = 0; k < kp; ++k) {
+    const float v = k < d ? xg[k] : 0.0f;
+    if (k < d) x2 = k == 0 ? __fmul_rn(v, v) : __fadd_rn(x2, __fmul_rn(v, v));
+    dst[k] = __float2bfloat16_rn(v);
+  }
+  return x2;
+}
+
+// Stage columns y[j0 : j0+cols) as bf16 (zero past d and past cols), their
+// f32 norms in order and, when given, their gate bytes.
+__device__ __forceinline__ void bf16_stage_cols(const Bf16Smem& s,
+                                                const float* y,
+                                                const unsigned char* sel,
+                                                int j0, int cols, int d,
+                                                int kp, int ld) {
+  for (int t = threadIdx.x; t < kBfCols * kp; t += blockDim.x) {
+    const int c = t / kp;
+    const int k = t - c * kp;
+    const float v = (c < cols && k < d)
+                        ? y[static_cast<size_t>(j0 + c) * d + k] : 0.0f;
+    s.ys[c * ld + k] = __float2bfloat16_rn(v);
+  }
+  for (int c = threadIdx.x; c < kBfCols; c += blockDim.x) {
+    float y2 = 0.0f;
+    if (c < cols) {
+      const float* yc = y + static_cast<size_t>(j0 + c) * d;
+      y2 = __fmul_rn(yc[0], yc[0]);
+      for (int k = 1; k < d; ++k) y2 = __fadd_rn(y2, __fmul_rn(yc[k], yc[k]));
+    }
+    s.y2[c] = y2;
+    if (sel != nullptr) s.sel[c] = c < cols ? sel[j0 + c] : 0;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// x.y of the block's staged rows and columns into the shared f32 tile.
+// Warp w owns rows 32w .. 32w+31 (two m16 tiles) against the kBfCols
+// columns (kBfCols / 8 n8 tiles), accumulating over the k-steps in
+// registers.  Fragments follow the PTX ISA layout of m16n8k16: with g =
+// lane / 4 and q = lane % 4, A holds rows g and g+8 at k = 2q, 2q+1 and
+// 2q+8, 2q+9; B holds column g at the same k; C holds rows g and g+8 at
+// columns 2q, 2q+1.
+__device__ __forceinline__ void bf16_cross(const Bf16Smem& s, int kp,
+                                           int ld) {
+  constexpr int kNt = kBfCols / 8;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  float acc[2][kNt][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const __nv_bfloat16* p = s.xs + (warp * 32 + mt * 16 + g) * ld + k0 +
+                               2 * q;
+      a[mt][0] = ld_bf16x2(p);
+      a[mt][1] = ld_bf16x2(p + 8 * ld);
+      a[mt][2] = ld_bf16x2(p + 8);
+      a[mt][3] = ld_bf16x2(p + 8 * ld + 8);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const __nv_bfloat16* p = s.ys + (nt * 8 + g) * ld + k0 + 2 * q;
+      const uint32_t b[2] = {ld_bf16x2(p), ld_bf16x2(p + 8)};
+      mma_bf16_16816(acc[0][nt], a[0], b);
+      mma_bf16_16816(acc[1][nt], a[1], b);
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = warp * 32 + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      float* o = s.xy + r * (kBfCols + 1) + nt * 8 + 2 * q;
+      o[0] = acc[mt][nt][0];
+      o[1] = acc[mt][nt][1];
+      o[8 * (kBfCols + 1)] = acc[mt][nt][2];
+      o[8 * (kBfCols + 1) + 1] = acc[mt][nt][3];
+    }
+  }
+}
+
+// The expanded-form d2 of this thread's row and staged column c, in the
+// reference's order of operations: (x2 + y2) - 2 xy.
+__device__ __forceinline__ float bf16_d2(const Bf16Smem& s, float x2,
+                                         int c) {
+  return __fsub_rn(__fadd_rn(x2, s.y2[c]),
+                   __fmul_rn(2.0f, s.xy[threadIdx.x * (kBfCols + 1) + c]));
+}
+
+// K12 — replaces the reference's ops.fused_sweep with precision="bf16",
+// i.e. sweep.tile_sweep with SweepSpec(count=True, nn="topk", k=8,
+// precision="bf16") (repro/kernels/sweep.py:432, distances tile_d2 at
+// :104-119), gated by kSel as K1 is.
+//
+// Bound: the larger of the tensor-core work (2 * 16 * ceil(d/16) operations
+// per pair at the bf16 rate) and the CUDA-core epilogue (the norm add, the
+// scale, the subtraction and the compare, about 4 operations per pair at the
+// f32 rate), which is the larger for every d <= 64: about 2.5x fewer
+// operations per pair than K1's 3d+1 at d = 3.  The simple design here is
+// likely bound by neither but by the shared-memory round trip of the x.y
+// tile (one f32 written and read per pair).  One block of 128 threads owns
+// 128 rows and loops over column tiles of kBfCols, as K1 does (nothing is
+// carried between blocks): the columns are staged as bf16 with their norms,
+// the four warps write their x.y fragments to the shared tile, and then each
+// thread owns one row: the count d2 < d2cut and K1's kept-8 insertion.
+// Columns arrive in ascending order, so the strict `<` against the 8th kept
+// value keeps the lexicographic (d2, index) rule.
+template <bool kSel>
+__global__ void __launch_bounds__(kRows)
+    fused_count_topk_bf16_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ y, int n, int m,
+                                 int d, float d2cut,
+                                 const unsigned char* __restrict__ sel,
+                                 int* __restrict__ count,
+                                 float* __restrict__ topv,
+                                 int* __restrict__ topi) {
+  extern __shared__ __align__(16) unsigned char bf_raw[];
+  const int kp = bf_kp(d);
+  const int ld = bf_ld(d);
+  const Bf16Smem s = bf16_smem(bf_raw, kRows, ld);
+  const int i = blockIdx.x * kRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never write
+  const float x2 =
+      bf16_stage_row(x + static_cast<size_t>(row) * d, d, kp, s.xs, ld);
+
+  float tv[kTopK];
+  int ti[kTopK];
+#pragma unroll
+  for (int k = 0; k < kTopK; ++k) {
+    tv[k] = CUDART_INF_F;
+    ti[k] = INT_MAX;
+  }
+  int cnt = 0;
+
+  for (int j0 = 0; j0 < m; j0 += kBfCols) {
+    const int cols = min(kBfCols, m - j0);
+    __syncthreads();
+    bf16_stage_cols(s, y, kSel ? sel : nullptr, j0, cols, d, kp, ld);
+    __syncthreads();
+    bf16_cross(s, kp, ld);
+    __syncthreads();
+    for (int c = 0; c < cols; ++c) {
+      const float d2 = bf16_d2(s, x2, c);
+      cnt += d2 < d2cut;
+      if constexpr (kSel) {
+        if (s.sel[c] && d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      } else {
+        if (d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      }
+    }
+  }
+
+  if (!live) return;
+  count[i] = cnt;
+  const size_t o = static_cast<size_t>(i) * kTopK;
+#pragma unroll
+  for (int k = 0; k < kTopK; ++k) {
+    topv[o + k] = tv[k];
+    topi[o + k] = ti[k] == INT_MAX ? -1 : ti[k];
+  }
+}
+
+// K13 — replaces the reference's ops.fused_sweep with precision="bf16" on a
+// worklist, i.e. sweep.tile_sweep with SweepSpec(count=True, nn="topk",
+// k=8, precision="bf16") over the PrefetchScalarGridSpec worklist grid
+// (repro/kernels/sweep.py:432, liveness at :255-260, the masked kept-k at
+// :312-316), gated by kSel.
+//
+// Bound: K12's per pair, on the pairs of the entries it computes.  The
+// design is K12's arithmetic on K3's CSR walk: one block of 256 threads per
+// 256-row tile walks its segment in the stored order, 256 entries at a time
+// through shared memory, and stages each computed entry's 512 columns
+// kBfCols at a time.  The liveness rule is the reference's, not K3's: K3
+// inserts from every entry it computes, which is exact in f32 because a
+// pair's direct d2 is at least its entry's lb.  A bf16 d2 may lie below the
+// lb of its pair, even below 0, so here an entry is NN-live only when some
+// row of the tile has lb <= its 8th kept d2 (a block vote: the reference's
+// lb <= max(topv) over the tile), and only an NN-live entry enters the kept
+// 8; only an in_cut entry counts; an entry that is neither is skipped.  The
+// insertion is lexicographic on (d2, index), since column tiles arrive in
+// ring order.  Padding rows (past n) do not vote.  `live` (optional) gets
+// the number of entries each block computed.
+template <bool kSel>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_count_topk_bf16_kernel(const float* __restrict__ x,
+                                    const float* __restrict__ y, int n,
+                                    int m, int d, float d2cut,
+                                    const unsigned char* __restrict__ sel,
+                                    const int* __restrict__ row_ptr,
+                                    const int* __restrict__ col_tile,
+                                    const unsigned char* __restrict__ in_cut,
+                                    const float* __restrict__ lb,
+                                    int* __restrict__ count,
+                                    float* __restrict__ topv,
+                                    int* __restrict__ topi,
+                                    int* __restrict__ live_out) {
+  extern __shared__ __align__(16) unsigned char bf_raw[];
+  __shared__ int s_col[kWlRows];
+  __shared__ float s_lb[kWlRows];
+  __shared__ int s_cut[kWlRows];
+  const int kp = bf_kp(d);
+  const int ld = bf_ld(d);
+  const Bf16Smem s = bf16_smem(bf_raw, kWlRows, ld);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;  // dead lanes compute, never vote
+  const float x2 =
+      bf16_stage_row(x + static_cast<size_t>(row) * d, d, kp, s.xs, ld);
+
+  float tv[kTopK];
+  int ti[kTopK];
+#pragma unroll
+  for (int k = 0; k < kTopK; ++k) {
+    tv[k] = CUDART_INF_F;
+    ti[k] = INT_MAX;
+  }
+  int cnt = 0;
+  int visited = 0;
+
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_lb[threadIdx.x] = lb[base + threadIdx.x];
+      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      const int cut = s_cut[e];
+      const bool nn_live =
+          __syncthreads_or(live && s_lb[e] <= tv[kTopK - 1]) != 0;
+      if (!cut && !nn_live) continue;   // the same for every thread
+      ++visited;
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, m);
+      for (int c0 = j0; c0 < j1; c0 += kBfCols) {
+        const int cols = min(kBfCols, j1 - c0);
+        __syncthreads();
+        bf16_stage_cols(s, y, kSel ? sel : nullptr, c0, cols, d, kp, ld);
+        __syncthreads();
+        bf16_cross(s, kp, ld);
+        __syncthreads();
+        for (int c = 0; c < cols; ++c) {
+          const float d2 = bf16_d2(s, x2, c);
+          cnt += cut & (d2 < d2cut);
+          if (!nn_live) continue;
+          const int j = c0 + c;
+          const bool better = d2 < tv[kTopK - 1] ||
+                              (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]);
+          if constexpr (kSel) {
+            if (s.sel[c] && better) keep(tv, ti, d2, j);
+          } else {
+            if (better) keep(tv, ti, d2, j);
+          }
+        }
+      }
+    }
+  }
+
+  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
+  if (!live) return;
+  count[i] = cnt;
+  const size_t o = static_cast<size_t>(i) * kTopK;
+#pragma unroll
+  for (int k = 0; k < kTopK; ++k) {
+    topv[o + k] = tv[k];
+    topi[o + k] = ti[k] == INT_MAX ? -1 : ti[k];
+  }
+}
+
 }  // namespace
 
 // d = 1..8 get a register-resident query row; any other d takes the
@@ -1120,8 +1520,9 @@ extern "C" int repro_worklist_range_count(const float* x, const float* y,
     const dim3 grid((n + kWlRows - 1) / kWlRows);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define REPRO_LAUNCH(D)                                                    \
-  worklist_range_count_kernel<D><<<grid, kWlRows, 0, s>>>(                 \
-      x, y, n, m, d, d2cut, row_ptr, col_tile, in_cut, count)
+  worklist_range_count_kernel<D, false><<<grid, kWlRows, 0, s>>>(          \
+      x, y, nullptr, n, m, d, d2cut, row_ptr, col_tile, in_cut, count,     \
+      nullptr)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }
@@ -1181,6 +1582,77 @@ extern "C" int repro_halo_masked_nn(const float* x, const float* x_key,
 #undef REPRO_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K14: K8's walk summing the f32 signs of the batch rows within d_cut.
+extern "C" int repro_worklist_range_count_signed(
+    const float* x, const float* y, const float* signs, int n, int m, int d,
+    float d2cut, const int* row_ptr, const int* col_tile,
+    const unsigned char* in_cut, float* out, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  worklist_range_count_kernel<D, true><<<grid, kWlRows, 0, s>>>(           \
+      x, y, signs, n, m, d, d2cut, row_ptr, col_tile, in_cut, nullptr, out)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch a bf16 sweep kernel with `bytes` of dynamic shared memory, above
+// the 48 KB default where d needs it.
+template <typename Kernel, typename... Args>
+int bf16_launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
+                cudaStream_t s, Args... args) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<grid, threads, bytes, s>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12.  sel: null for the ungated sweep, else m bytes, nonzero where a
+// column may enter the kept 8.  d must be at most kBfMaxD.
+extern "C" int repro_fused_count_topk_bf16(const float* x, const float* y,
+                                           int n, int m, int d, float d2cut,
+                                           const unsigned char* sel,
+                                           int* count, float* topv,
+                                           int* topi, void* stream) {
+  if (d < 1 || d > kBfMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((n + kRows - 1) / kRows);
+  const size_t bytes = bf16_smem_bytes(kRows, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sel != nullptr)
+    return bf16_launch(fused_count_topk_bf16_kernel<true>, grid, kRows,
+                       bytes, s, x, y, n, m, d, d2cut, sel, count, topv,
+                       topi);
+  return bf16_launch(fused_count_topk_bf16_kernel<false>, grid, kRows, bytes,
+                     s, x, y, n, m, d, d2cut, sel, count, topv, topi);
+}
+
+// K13: K12 on the tile pairs of a worklist; live (optional) gets the
+// entries each row tile computed.
+extern "C" int repro_worklist_count_topk_bf16(
+    const float* x, const float* y, int n, int m, int d, float d2cut,
+    const unsigned char* sel, const int* row_ptr, const int* col_tile,
+    const unsigned char* in_cut, const float* lb, int* count, float* topv,
+    int* topi, int* live, void* stream) {
+  if (d < 1 || d > kBfMaxD) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((n + kWlRows - 1) / kWlRows);
+  const size_t bytes = bf16_smem_bytes(kWlRows, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sel != nullptr)
+    return bf16_launch(worklist_count_topk_bf16_kernel<true>, grid, kWlRows,
+                       bytes, s, x, y, n, m, d, d2cut, sel, row_ptr,
+                       col_tile, in_cut, lb, count, topv, topi, live);
+  return bf16_launch(worklist_count_topk_bf16_kernel<false>, grid, kWlRows,
+                     bytes, s, x, y, n, m, d, d2cut, sel, row_ptr, col_tile,
+                     in_cut, lb, count, topv, topi, live);
 }
 
 extern "C" const char* repro_error_string(int code) {

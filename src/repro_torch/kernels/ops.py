@@ -15,12 +15,14 @@ import torch
 
 from . import build
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
-from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_plain,
-                    gather_masked_nn_plain, halo_masked_nn_plain,
-                    halo_range_count_plain, masked_nn_plain, prefix_nn_plain,
-                    range_count_plain, range_count_signed_plain,
+from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
+                    fused_count_topk_plain, gather_masked_nn_plain,
+                    halo_masked_nn_plain, halo_range_count_plain,
+                    masked_nn_plain, prefix_nn_plain, range_count_plain,
+                    range_count_signed_plain, worklist_count_topk_bf16_plain,
                     worklist_count_topk_plain, worklist_masked_nn_plain,
-                    worklist_range_count_plain)
+                    worklist_range_count_plain,
+                    worklist_range_count_signed_plain)
 
 __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
            "local_density_xy", "local_density_delta",
@@ -29,14 +31,24 @@ __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
 
 _INT_MAX = 2**31 - 1
 
-# the gated forms of K1 and K3 count apart from the ungated ones, so a run
-# shows which form launched
+# the gated forms of K1/K3 and K12/K13 count apart from the ungated ones,
+# so a run shows which form launched
 _LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
              "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
+             "fused_count_topk_bf16": 0, "worklist_count_topk_bf16": 0,
+             "fused_count_topk_bf16_sel": 0,
+             "worklist_count_topk_bf16_sel": 0,
              "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
              "gather_masked_nn": 0, "prefix_nn": 0,
              "worklist_range_count": 0, "worklist_masked_nn": 0,
+             "worklist_range_count_signed": 0,
              "halo_range_count": 0, "halo_masked_nn": 0}
+
+PRECISIONS = ("f32", "bf16")
+
+# K12/K13 stage a block's query rows as bf16 in shared memory: at most this
+# many coordinates (kBfMaxD in csrc/sweep.cu)
+BF16_MAX_D = 224
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -74,8 +86,8 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_worklist(name: str, x: torch.Tensor, y: torch.Tensor,
                     wl) -> None:
-    """A worklist K3, K8 and K9 take: one entry range per row tile of x,
-    column tiles of y, on x's device."""
+    """A worklist K3, K8, K9, K13 and K14 take: one entry range per row
+    tile of x, column tiles of y, on x's device."""
     if not isinstance(wl, Worklist):
         raise TypeError(f"{name}: worklist must be a Worklist, got "
                         f"{type(wl).__name__}")
@@ -133,7 +145,7 @@ def _check_sel(y: torch.Tensor, nn_sel) -> torch.Tensor:
 
 def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                 worklist: Worklist | None = None,
-                live: torch.Tensor | None = None):
+                live: torch.Tensor | None = None, precision: str = "f32"):
     """Per x-row: the range count over y within ``d_cut`` AND the 8 nearest
     y rows, unmasked by density (the caller resolves the denser mask once
     the counts are complete).
@@ -141,15 +153,27 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     ``nn_sel`` ((m,) bool or uint8 on y's device) gates the kept 8 to the
     columns where it is nonzero (S-Approx-DPC's representatives); the count
     ignores it.  ``worklist`` (``blocksparse.build_flat_worklist``)
-    restricts the sweep to its tile pairs: K3 on a CUDA tensor, its plain
-    version on a CPU one; without it, K1 / its plain version sweep all of
-    y.  ``live`` (CUDA only, (row tiles,) int32) receives the number of
-    entries K3 computed in each row tile.
+    restricts the sweep to its tile pairs.  ``live`` (CUDA only, (row
+    tiles,) int32) receives the number of entries the worklist kernel
+    computed in each row tile.
 
-    Returns (count (n,) f32, topv (n, 8) f32 direct-difference d2,
+    ``precision="f32"``: direct-difference d2, K1 (K3 on a worklist) on a
+    CUDA tensor, their plain versions on a CPU one.  ``precision="bf16"``:
+    the reference's expanded form with a bf16 cross term
+    (``sweep.expanded_d2_bf16``), K12 (K13 on a worklist, with the
+    reference's NN-liveness) on a CUDA tensor, their plain versions on a
+    CPU one.
+
+    Returns (count (n,) f32, topv (n, 8) f32 d2 — direct-difference under
+    f32, the bf16 expanded form under bf16, where values may be negative —,
     topi (n, 8) int32 y-row index, -1 past the columns that may enter).
     """
     _check("fused_sweep", x, y)
+    if precision not in PRECISIONS:
+        raise ValueError(f"fused_sweep: precision must be one of "
+                         f"{PRECISIONS}, got {precision!r}")
+    bf16 = precision == "bf16"
+    suffix = "_bf16" if bf16 else ""
     sel = None if nn_sel is None else _check_sel(y, nn_sel)
     if worklist is not None:
         _check_worklist("fused_sweep", x, y, worklist)
@@ -158,12 +182,18 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     if x.device.type == "cpu":
         gate = None if sel is None else sel.bool()
         if worklist is None:
-            count, topv, topi = fused_count_topk_plain(x, y, d2cut, sel=gate)
+            plain = fused_count_topk_bf16_plain if bf16 \
+                else fused_count_topk_plain
+            count, topv, topi = plain(x, y, d2cut, sel=gate)
         else:
-            count, topv, topi = worklist_count_topk_plain(x, y, d2cut,
-                                                          worklist, sel=gate)
+            plain = worklist_count_topk_bf16_plain if bf16 \
+                else worklist_count_topk_plain
+            count, topv, topi = plain(x, y, d2cut, worklist, sel=gate)
         return count.to(torch.float32), topv, topi
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    if bf16 and d > BF16_MAX_D:
+        raise ValueError(f"fused_sweep: the bf16 kernels take at most "
+                         f"{BF16_MAX_D} coordinates, got {d}")
     count = torch.empty((n,), dtype=torch.int32, device=x.device)
     topv = torch.empty((n, FUSED_TOPK), dtype=torch.float32, device=x.device)
     topi = torch.empty((n, FUSED_TOPK), dtype=torch.int32, device=x.device)
@@ -172,14 +202,14 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         sel_ptr = 0 if sel is None else sel.data_ptr()
         with torch.cuda.device(x.device):
             if worklist is None:
-                name = "fused_count_topk"
-                code = lib.repro_fused_count_topk(
+                name = "fused_count_topk" + suffix
+                code = getattr(lib, "repro_" + name)(
                     x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
                     _stream(x))
             else:
-                name = "worklist_count_topk"
-                code = lib.repro_worklist_count_topk(
+                name = "worklist_count_topk" + suffix
+                code = getattr(lib, "repro_" + name)(
                     x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
                     worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
@@ -307,25 +337,44 @@ def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut, *,
 
 
 def local_density_delta(x: torch.Tensor, batch: torch.Tensor,
-                        signs: torch.Tensor, d_cut):
+                        signs: torch.Tensor, d_cut, *,
+                        worklist: Worklist | None = None):
     """Per x-row: the sum of ``signs[b]`` over the batch rows within
     ``d_cut``, as (n,) f32 — the sliding-window rho repair, with +1 for an
     inserted row, -1 for an evicted one and 0 for padding.  The signs must
-    be +1, -1 or 0: the sum is then exact in any order."""
+    be +1, -1 or 0: the sum is then exact in any order.  ``worklist`` (a
+    count-only worklist of x over the batch,
+    ``blocksparse.build_flat_worklist(nn=None)``) restricts the sum to its
+    ``in_cut`` tile pairs: K14 on a CUDA tensor, its plain version on a CPU
+    one; without it, K5 / its plain version."""
     _check("local_density_delta", batch, x, signs)   # signs: one per batch row
+    if worklist is not None:
+        _check_worklist("local_density_delta", x, batch, worklist)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
-        return range_count_signed_plain(x, batch, signs, d2cut)
+        if worklist is None:
+            return range_count_signed_plain(x, batch, signs, d2cut)
+        return worklist_range_count_signed_plain(x, batch, signs, d2cut,
+                                                 worklist)
     n, m, d = x.shape[0], batch.shape[0], x.shape[1]
     out = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_range_count_signed(
-                x.data_ptr(), batch.data_ptr(), signs.data_ptr(), n, m, d,
-                d2cut, out.data_ptr(), _stream(x))
-        build.check(lib, "range_count_signed", code)
-        _LAUNCHES["range_count_signed"] += 1
+            if worklist is None:
+                name = "range_count_signed"
+                code = lib.repro_range_count_signed(
+                    x.data_ptr(), batch.data_ptr(), signs.data_ptr(), n, m,
+                    d, d2cut, out.data_ptr(), _stream(x))
+            else:
+                name = "worklist_range_count_signed"
+                code = lib.repro_worklist_range_count_signed(
+                    x.data_ptr(), batch.data_ptr(), signs.data_ptr(), n, m,
+                    d, d2cut, worklist.row_ptr.data_ptr(),
+                    worklist.col_tile.data_ptr(), worklist.in_cut.data_ptr(),
+                    out.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        _LAUNCHES[name] += 1
     return out
 
 

@@ -14,6 +14,13 @@ squared distance of a pair is ``(x0-y0)^2``, then ``+ (xk-yk)^2`` for
 k = 1..d-1 in order, each subtraction, product and sum rounded once
 (``__fsub_rn``/``__fmul_rn``/``__fadd_rn`` in CUDA, one torch op each here),
 so a kernel and its plain version agree bit for bit on the card.
+
+The exception is ``precision="bf16"`` (K12, K13), which keeps the
+reference's semantics: the expanded form with a bf16 cross term on the
+tensor cores (``expanded_d2_bf16``).  The tensor cores' f32 accumulation is
+not an in-order IEEE sum, so there the kernels equal their plain versions
+bit for bit only where every partial sum is exact (integer coordinates
+times a power of two), and within a few ulps of sum_k |x_k y_k| elsewhere.
 """
 from __future__ import annotations
 
@@ -164,6 +171,120 @@ def worklist_count_topk_plain(x: torch.Tensor, y: torch.Tensor,
     return count, topv, topi
 
 
+def sq_norms(a: torch.Tensor) -> torch.Tensor:
+    """Per row of ``a`` (r, d): sum_k a_k^2 in f32, over dims in order, one
+    rounding per operation (the bf16 kernels' norms)."""
+    out = a[:, 0] * a[:, 0]
+    for k in range(1, a.shape[1]):
+        out = out + a[:, k] * a[:, k]
+    return out
+
+
+def expanded_d2_bf16(x: torch.Tensor, y: torch.Tensor,
+                     x2: torch.Tensor | None = None,
+                     y2: torch.Tensor | None = None) -> torch.Tensor:
+    """(r, c) expanded-form squared distances with a bf16 cross term: the
+    reference's ``tile_d2(precision="bf16")`` (``repro/kernels/sweep.py``)
+    written out.  The norms are f32 (``sq_norms``; pass them to reuse); x
+    and y are rounded to bf16 (round to nearest even, as jnp's ``astype``),
+    their products taken in f32, where they are exact, and summed over dims
+    in order; then ``(x2 + y2) - 2 * xy``.  The result may be negative."""
+    x2 = sq_norms(x) if x2 is None else x2
+    y2 = sq_norms(y) if y2 is None else y2
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    yb = y.to(torch.bfloat16).to(torch.float32)
+    xy = xb[:, None, 0] * yb[None, :, 0]
+    for k in range(1, x.shape[1]):
+        xy = xy + xb[:, None, k] * yb[None, :, k]
+    return (x2[:, None] + y2[None, :]) - 2.0 * xy
+
+
+def fused_count_topk_bf16_plain(x: torch.Tensor, y: torch.Tensor,
+                                d2cut: float, sel: torch.Tensor | None = None,
+                                k: int = FUSED_TOPK):
+    """K12's function: ``fused_count_topk_plain`` on the bf16 expanded-form
+    d2 of ``expanded_d2_bf16`` — per x-row the count of d2 < d2cut (i32) and
+    the k smallest (d2, index) pairs, lexicographic, among the columns that
+    ``sel`` admits (all without it); (+inf, -1) past them."""
+    n, m = x.shape[0], y.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    topv = torch.full((n, k), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    topi = torch.full((n, k), -1, dtype=torch.int32, device=x.device)
+    if m == 0:
+        return count, topv, topi
+    cols = (torch.arange(m, device=x.device) if sel is None
+            else torch.nonzero(sel).flatten())
+    y2 = sq_norms(y)
+    step = _row_block(m)
+    for r0 in range(0, n, step):
+        r1 = min(n, r0 + step)
+        d2 = expanded_d2_bf16(x[r0:r1], y, y2=y2)
+        count[r0:r1] = (d2 < d2cut).sum(dim=1, dtype=torch.int32)
+        topv[r0:r1], topi[r0:r1] = _lex_smallest(d2[:, cols], cols, k)
+    return count, topv, topi
+
+
+def _lex_merge(tv: torch.Tensor, ti: torch.Tensor, v: torch.Tensor,
+               cols: torch.Tensor):
+    """Per row, the k smallest (d2, index) pairs of the kept list (tv, ti)
+    ((R, k), empty slots (+inf, -1)) and the new candidates v (R, C) at
+    columns ``cols`` (C,), lexicographic."""
+    R, k = tv.shape
+    big = torch.iinfo(torch.int64).max
+    idx = torch.cat([torch.where(ti >= 0, ti.long(), big),
+                     cols.long()[None, :].expand(R, -1)], 1)
+    val = torch.cat([tv, v], 1)
+    o = torch.sort(idx, dim=1, stable=True).indices      # by index, then
+    o = o.gather(1, torch.sort(val.gather(1, o), dim=1,  # by value
+                               stable=True).indices)[:, :k]
+    val, idx = val.gather(1, o), idx.gather(1, o)
+    return val, torch.where(idx == big, -1, idx).to(torch.int32)
+
+
+def worklist_count_topk_bf16_plain(x: torch.Tensor, y: torch.Tensor,
+                                   d2cut: float, wl,
+                                   sel: torch.Tensor | None = None,
+                                   k: int = FUSED_TOPK):
+    """K13's function: the bf16 fused count + kept-k over a worklist, with
+    the reference's liveness (``repro/kernels/sweep.py:255-260``).
+
+    Per row tile, the entries in worklist order; an entry is NN-live when
+    its ``lb`` is at most the largest kept k-th d2 of the tile's rows so
+    far (the reference's ``lb <= max(topv)``).  Only ``in_cut`` entries
+    count; only NN-live entries enter the kept k.  Unlike the f32 sweep,
+    this skip is not exact: a bf16 d2 may lie below its pair's true-
+    distance ``lb``, even below 0, so the kept k depends on the walk, and
+    the kernel and this version agree because they skip the same entries.
+    """
+    n, m = x.shape[0], y.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    topv = torch.full((n, k), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    topi = torch.full((n, k), -1, dtype=torch.int32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    ents = zip(wl.col_tile.tolist(), wl.in_cut.tolist(), wl.lb.tolist())
+    x2, y2 = sq_norms(x), sq_norms(y)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        for _ in range(ptr[t], ptr[t + 1]):
+            tile, cut, lb = next(ents)
+            live = lb <= float(topv[r0:r1, k - 1].max())
+            if not (cut or live):
+                continue
+            cols = torch.arange(tile * BLOCK_M, min(m, (tile + 1) * BLOCK_M),
+                                device=x.device)
+            d2 = expanded_d2_bf16(x[r0:r1], y[cols], x2[r0:r1], y2[cols])
+            if cut:
+                count[r0:r1] += (d2 < d2cut).sum(dim=1, dtype=torch.int32)
+            if live:
+                if sel is not None:
+                    d2, cols = d2[:, sel[cols]], cols[sel[cols]]
+                topv[r0:r1], topi[r0:r1] = _lex_merge(
+                    topv[r0:r1], topi[r0:r1], d2, cols)
+    return count, topv, topi
+
+
 def masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                     y_key: torch.Tensor):
     """Per x-row: the nearest y row with ``y_key > x_key`` as (best d2 f32,
@@ -271,6 +392,27 @@ def worklist_range_count_plain(x: torch.Tensor, y: torch.Tensor,
         cols = (tiles[:, None] * BLOCK_M + lane).flatten()
         count[r0:r1] = range_count_plain(x[r0:r1], y[cols[cols < m]], d2cut)
     return count
+
+
+def worklist_range_count_signed_plain(x: torch.Tensor, y: torch.Tensor,
+                                      signs: torch.Tensor, d2cut: float, wl):
+    """Per x-row: the sum of ``signs[j]`` over the y rows with d2 < d2cut
+    among the columns of its row tile's ``in_cut`` entries (f32): K14's
+    function.  On a count-only worklist from ``build_flat_worklist`` it
+    equals ``range_count_signed_plain`` over all of y."""
+    n, m = x.shape[0], y.shape[0]
+    out = torch.zeros((n,), dtype=torch.float32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    lane = torch.arange(BLOCK_M, device=x.device)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        seg = slice(ptr[t], ptr[t + 1])
+        tiles = wl.col_tile[seg][wl.in_cut[seg]].long()
+        cols = (tiles[:, None] * BLOCK_M + lane).flatten()
+        cols = cols[cols < m]
+        out[r0:r1] = range_count_signed_plain(x[r0:r1], y[cols], signs[cols],
+                                              d2cut)
+    return out
 
 
 def worklist_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,

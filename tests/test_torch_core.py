@@ -183,8 +183,12 @@ def test_planner_memoizes_and_refuses_unported_axes():
     bs = planner.plan((100, 3), ExecSpec(layout="block-sparse"))
     assert bs.grid_sort and not a.grid_sort
     assert bs.describe() == "DPCPlan[cuda:block-sparse:f32 n=100 d=3]"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        planner.plan((100, 3), ExecSpec(precision="bf16"))
+    bf = planner.plan((100, 3), ExecSpec(precision="bf16"))
+    assert bf.precision == "bf16" and bf is not a
+    assert bf.describe() == "DPCPlan[cuda:dense:bf16 n=100 d=3]"
+    rho, _, bd, bp = bf.rho_delta(x, x, 0.3)
+    assert rho.shape == (100,) and bool((rho >= 1).all())
+    assert bool((bp[torch.isfinite(bd)] >= 0).all())
     with pytest.raises(TypeError):
         planner.as_plan("cuda")
 

@@ -84,16 +84,21 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
     ops.reset_launch_counts()
     for layout in ("dense", "block-sparse"):
         for algo in ("approxdpc", "sapproxdpc"):
-            eng = DPCEngine(0.1, algorithm=algo, device="cpu",
-                            exec_spec=ExecSpec(layout=layout)).fit(
-                                uniform_points(500, 2, seed=1))
-            assert eng.clustering.labels.device.type == "cpu"
+            for precision in ("f32", "bf16"):
+                eng = DPCEngine(0.1, algorithm=algo, device="cpu",
+                                exec_spec=ExecSpec(layout=layout,
+                                                   precision=precision)).fit(
+                                    uniform_points(500, 2, seed=1))
+                assert eng.clustering.labels.device.type == "cpu"
     assert ops.launch_counts() == {
         "fused_count_topk": 0, "worklist_count_topk": 0,
         "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
+        "fused_count_topk_bf16": 0, "worklist_count_topk_bf16": 0,
+        "fused_count_topk_bf16_sel": 0, "worklist_count_topk_bf16_sel": 0,
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
         "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
-        "worklist_masked_nn": 0, "halo_range_count": 0, "halo_masked_nn": 0}
+        "worklist_masked_nn": 0, "worklist_range_count_signed": 0,
+        "halo_range_count": 0, "halo_masked_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -123,8 +128,10 @@ def test_unported_axes_and_entry_points_raise():
         DPCEngine(0.1, algorithm="kmeans", device="cpu")
     for spec in (ExecSpec(precision="bf16"),
                  ExecSpec(layout="block-sparse", precision="bf16")):
-        with pytest.raises(NotImplementedError):
-            DPCEngine(0.1, exec_spec=spec, device="cpu").fit(pts)
+        bf = DPCEngine(0.1, exec_spec=spec, device="cpu").fit(pts)
+        assert bf.plan.describe().endswith(
+            f"{spec.resolved_layout}:bf16 n=50 d=2]")
+        assert len(bf.labels_) == 50 and bf.result.rho.shape == (50,)
     eng = DPCEngine(0.1, device="cpu").fit(pts)
     cfg = StreamDPCConfig(d_cut=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -135,9 +142,10 @@ def test_unported_axes_and_entry_points_raise():
             call()
     x, be = torch.from_numpy(pts), get_backend("cuda")
     spans = torch.zeros((50, 3), dtype=torch.int32)
-    for call in (lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
-                                              layout="block-sparse"),
-                 lambda: be.denser_nn_update(x, torch.rand(50),
+    assert torch.equal(be.range_count_delta(x, x, torch.ones(50), 0.1,
+                                            layout="block-sparse"),
+                       be.range_count_delta(x, x, torch.ones(50), 0.1))
+    for call in (lambda: be.denser_nn_update(x, torch.rand(50),
                                              torch.arange(5),
                                              layout="block-sparse"),
                  lambda: be.range_count_halo(x, x, spans, spans, 0.1,

@@ -223,15 +223,22 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
     CudaBackend().rho_delta(x, x, 0.1, layout="block-sparse")
     slots = torch.arange(0, 100, 3)
     for layout in ("dense", "block-sparse"):
-        CudaBackend().rho_delta(x[slots].contiguous(), x, 0.1,
-                                y_sel_slots=slots, layout=layout)
+        for precision in ("f32", "bf16"):
+            CudaBackend().rho_delta(x[slots].contiguous(), x, 0.1,
+                                    y_sel_slots=slots, layout=layout,
+                                    precision=precision)
+            CudaBackend().rho_delta(x, x, 0.1, layout=layout,
+                                    precision=precision)
     CudaBackend().prefix_nn(x)
     assert ops.launch_counts() == {
         "fused_count_topk": 0, "worklist_count_topk": 0,
         "fused_count_topk_sel": 0, "worklist_count_topk_sel": 0,
+        "fused_count_topk_bf16": 0, "worklist_count_topk_bf16": 0,
+        "fused_count_topk_bf16_sel": 0, "worklist_count_topk_bf16_sel": 0,
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
         "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
-        "worklist_masked_nn": 0, "halo_range_count": 0, "halo_masked_nn": 0}
+        "worklist_masked_nn": 0, "worklist_range_count_signed": 0,
+        "halo_range_count": 0, "halo_masked_nn": 0}
 
 
 def _prefix_cases():

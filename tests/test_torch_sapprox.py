@@ -377,7 +377,9 @@ def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
     seen = []
     sweep_fn, nn_fn = ops.fused_sweep, ops.dependent_masked
 
-    def rec_sweep(x, y, d_cut, *, nn_sel=None, worklist=None, live=None):
+    def rec_sweep(x, y, d_cut, *, nn_sel=None, worklist=None, live=None,
+                  precision="f32"):
+        assert precision == "f32"
         seen.append(("sweep", nn_sel is not None, worklist is not None))
         return sweep_fn(x, y, d_cut, nn_sel=nn_sel, worklist=worklist)
 

@@ -164,17 +164,19 @@ def test_stream_wrappers_refuse_and_never_build_on_cpu(monkeypatch):
     with pytest.raises(ValueError):
         ops.dependent_masked_gather(x, torch.rand(50),
                                     torch.arange(10).reshape(2, 5))
-    # the count's worklist form (K8) is ported: its plain version runs here
+    # the worklist forms of the count (K8) and of the signed count (K14)
+    # are ported: their plain versions run here
     assert torch.equal(be.range_count(x, x, 0.1, layout="block-sparse"),
                        be.range_count(x, x, 0.1))
+    signs = torch.ones(50)
+    signs[::3] = -1.0
+    assert torch.equal(
+        be.range_count_delta(x, x, signs, 0.1, layout="block-sparse"),
+        be.range_count_delta(x, x, signs, 0.1))
     assert set(ops.launch_counts().values()) == {0}
-    for call in (lambda: be.range_count_delta(x, x, torch.ones(50), 0.1,
-                                              layout="block-sparse"),
-                 lambda: be.denser_nn_update(x, torch.rand(50),
-                                             torch.arange(3),
-                                             layout="block-sparse")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        be.denser_nn_update(x, torch.rand(50), torch.arange(3),
+                            layout="block-sparse")
 
 
 # ------------------------------------------------------------ the window
