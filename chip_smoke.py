@@ -167,14 +167,30 @@ Phases, each of which raises on failure (nothing is caught):
    launch, K5 must not), equal to dense K5 bit for bit and to its plain
    version on a few row tiles; K14, its worklist build and K5 timed.
 
+23. The halo primitives on a span-pruned worklist: K15
+   ``worklist_halo_range_count`` (``halo_density(worklist=...)``) and K16
+   ``worklist_halo_masked_nn`` (``halo_dependent(worklist=...)``) at
+   check shapes bit for bit against their plain versions and against
+   K10/K11 (phase 16's cases: three shards, ragged rows, each shard's halo
+   window through the ppermute ring, negative empty spans plus a reversed
+   and a negative span per row, the lattice of exact ties); then at full
+   width on every shard input phase 17's counted halo fit gave K10/K11
+   (Airline 5,810,462, 4 shards): ``CudaBackend.range_count_halo`` /
+   ``denser_nn_halo(layout="block-sparse")`` with the counts zeroed just
+   before and read just after (K15/K16 must launch, nothing else may),
+   each result equal to K10/K11 bit for bit, K15/K16 against their plain
+   versions on a few row tiles; K15, K16, their worklist builds and
+   K10/K11 timed, kept, in-cut and computed entries, bounds from the
+   inputs.
+
 Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
 path, K2 and K3 from the main path, K4-K6 from the mixture stream, gated
 K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
 K8 and K9 from phase 17's gather fit, K10 and K11 from its halo fit, K12
 and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
-phase 21, K14 from phase 22), and as its last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, where
-no CUDA device is present.  ``--out`` also writes the full record
+phase 21, K14 from phase 22, K15 and K16 from phase 23), and as its last
+line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
+where no CUDA device is present.  ``--out`` also writes the full record
 (check-shape times, issue-rate bounds, worklist statistics with K3's
 computed entries, phase times and peaks) as JSON.
 """
@@ -1725,6 +1741,359 @@ def bf16_check_shapes(card: str) -> dict:
     return rec
 
 
+# ------------------------------------ halo worklist forms (K15, K16)
+def halo_wl_kernels():
+    """K15, K16 and their plain versions, as the checks call them."""
+    from repro_torch.kernels import ops, sweep
+
+    def k15(x, win, st, en, d_cut, wl):
+        return ops.halo_density(x, win, st, en, d_cut, worklist=wl)
+
+    def k15_plain(x, win, st, en, d_cut, wl):
+        return sweep.worklist_halo_range_count_plain(
+            x, win, st, en, sweep.d2cut_of(d_cut), wl).float()
+
+    def k16(x, xk, win, wk, st, en, d_cut, wl, live=None):
+        return ops.halo_dependent(x, xk, win, wk, st, en, d_cut, worklist=wl,
+                                  live=live)
+
+    def k16_plain(x, xk, win, wk, st, en, d_cut, wl):
+        best, arg = sweep.worklist_halo_masked_nn_plain(
+            x, xk, win, wk, st, en, sweep.d2cut_of(d_cut), wl)
+        return torch.sqrt(best), arg, torch.isfinite(best)
+
+    return k15, k15_plain, k16, k16_plain
+
+
+def span_count_worklist(x, win, st, en, d_cut):
+    """K15's span count worklist of x over its window, as
+    ``CudaBackend.range_count_halo`` builds it under the block-sparse
+    layout."""
+    from repro_torch.kernels import blocksparse
+    return blocksparse.build_flat_worklist(x, win, d_cut, nn=None,
+                                           starts=st, ends=en)
+
+
+def halo_ring(x, win, st, en, d_cut):
+    """K16's halo ring of x over its window, as
+    ``CudaBackend.denser_nn_halo`` builds it under the block-sparse
+    layout."""
+    from repro_torch.kernels import blocksparse
+    return blocksparse.build_flat_worklist(x, win, d_cut, count=False,
+                                           nn="best1", nn_dcut=True,
+                                           starts=st, ends=en)
+
+
+def tile_mask(wl, nbc: int, entries: torch.Tensor) -> torch.Tensor:
+    """(row tiles, nbc) bool: the tile pairs of the worklist entries that
+    ``entries`` ((W,) bool) selects."""
+    mask = torch.zeros((wl.num_row_tiles, nbc), dtype=torch.bool,
+                       device=wl.col_tile.device)
+    mask[wl.row_tile()[entries], wl.col_tile.long()[entries]] = True
+    return mask
+
+
+def walked_entries(wl, live: torch.Tensor) -> torch.Tensor:
+    """(W,) bool: the entries a walk computed, the first ``live[t]`` of
+    each row tile's segment."""
+    t = wl.row_tile()
+    pos = torch.arange(wl.n_kept, device=t.device) - wl.row_ptr.long()[t]
+    return pos < live.long()[t]
+
+
+def masked_span_pairs(st, en, w: int, mask: torch.Tensor) -> torch.Tensor:
+    """(n,) int64: per row, the window columns inside its spans (clipped
+    to [0, w)) whose column tile its row tile computes (``mask``, (row
+    tiles, column tiles) bool), from a per-row-tile prefix sum of the
+    computed columns: O(n S), not one term per column."""
+    from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
+    nbr, nbc = mask.shape
+    dev = mask.device
+    width = (w - torch.arange(nbc, device=dev) * BLOCK_M).clamp(max=BLOCK_M)
+    cum = torch.zeros((nbr, nbc + 1), dtype=torch.int64, device=dev)
+    cum[:, 1:] = torch.cumsum(mask * width, 1)
+    t = (torch.arange(st.shape[0], device=dev) // BLOCK_N)[:, None]
+
+    def upto(c):                 # computed columns left of column c
+        j = c // BLOCK_M
+        inside = mask[t, j.clamp(max=nbc - 1)] & (j < nbc)
+        return cum[t, j] + inside * (c % BLOCK_M)
+
+    a = st.long().clamp(0, w)
+    b = torch.maximum(en.long().clamp(0, w), a)
+    return (upto(b) - upto(a)).sum(1)
+
+
+def k15_work(x, win, st, en, wl) -> tuple[float, float]:
+    """Bytes and operations of worklist_halo_range_count: x, the window,
+    the spans and the worklist (row_ptr, col_tile, in_cut) read once, the
+    counts written once; 3d+1 operations per span column inside the in-cut
+    entries, every one of which K15 computes."""
+    from repro_torch.kernels.blocksparse import BLOCK_M
+    (n, d), w = x.shape, win.shape[0]
+    mask = tile_mask(wl, -(-w // BLOCK_M), wl.in_cut)
+    pairs = float(masked_span_pairs(st, en, w, mask).sum())
+    nbytes = (4 * (n * d + w * d) + 8 * st.numel() + 4 * n
+              + 4 * wl.row_ptr.numel() + 5 * wl.n_kept)
+    return nbytes, pairs * (3 * d + 1)
+
+
+def k16_work(x, xk, win, wk, st, en, wl, live, sample: int = 2048,
+             gen=None) -> tuple[float, float, dict]:
+    """Bytes and operations of worklist_halo_masked_nn on this run's data.
+    Bytes: x, its keys, the window, its keys, the spans and the ring
+    (row_ptr, col_tile, lb) read once, (delta, parent, found) written
+    once.  Operations: a key test per span column inside the entries the
+    walk computed (``live``; rows keyed +inf compute none), counted
+    exactly by ``masked_span_pairs``, and 3d+1 for each of those columns
+    that is denser: counted on ``sample`` random rows and scaled by their
+    share of the key tests."""
+    from repro_torch.kernels import sweep
+    from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
+    (n, d), w = x.shape, win.shape[0]
+    mask = tile_mask(wl, -(-w // BLOCK_M), walked_entries(wl, live))
+    seeks = xk < float("inf")
+    per_row = torch.where(seeks, masked_span_pairs(st, en, w, mask), 0)
+    total = float(per_row.sum())
+    rows = torch.nonzero(seeks).flatten()
+    rows = rows[torch.randperm(rows.numel(), generator=gen)[:sample]
+                .to(x.device)]
+    s_tests = s_denser = 0
+    for r0 in range(0, rows.numel(), 256):
+        rr = rows[r0:r0 + 256]
+        idx, valid = sweep._span_candidates(st[rr], en[rr], w)
+        valid &= mask[(rr // BLOCK_N)[:, None, None], idx // BLOCK_M]
+        s_tests += int(valid.sum())
+        s_denser += int((valid & (wk[idx] > xk[rr, None, None])).sum())
+    assert s_tests == int(per_row[rows].sum()), \
+        "the prefix count of span columns disagrees with the gathered one"
+    denser = total * s_denser / max(s_tests, 1)
+    nbytes = (4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
+              + 4 * wl.row_ptr.numel() + 8 * wl.n_kept)
+    return nbytes, total + denser * (3 * d + 1), {
+        "key_tests": total, "denser_est": denser, "sample_rows": rows.numel()}
+
+
+def halo_worklist_check_shapes(cases, card: str) -> dict:
+    """K15/K16 bit for bit against their plain versions and against
+    K10/K11 at check shapes: phase 16's cases with d <= 8 (and its lattice
+    of exact ties), each grid-sorted table split into three shards as
+    ``distributed_dpc`` splits it (rows padded at 1e9, keyed +inf as
+    queries and -inf in the window; shard 1 cut to a ragged row count),
+    each shard's halo window through the ppermute ring, its window-local
+    spans (empty spans negative) plus a reversed and a negative span per
+    row.  Entries kept, in-cut and computed (K16) counted; times on the
+    first case's shard 1."""
+    from repro_torch.core.dpc_types import density_jitter
+    from repro_torch.core.grid import build_grid, point_span_bounds
+    from repro_torch.distributed import dpc as ddpc
+    from repro_torch.kernels import ops, sweep
+    from repro_torch.launch import ShardMesh
+    _, _, _, _, k10, _, k11, _ = dist_kernels()
+    k15, k15_plain, k16, k16_plain = halo_wl_kernels()
+    dev = torch.device("cuda")
+    mesh = ShardMesh.on(dev, shards=3)
+    extra = torch.tensor([[5, 2], [-9, -3]], dtype=torch.int32, device=dev)
+    times, entries = {}, {}
+    for label, pts, dc in cases:
+        if pts.shape[1] > 8:
+            continue
+        grid = build_grid(torch.from_numpy(pts).to(dev), dc)
+        xs = grid.points
+        n = xs.shape[0]
+        m = -(-n // 3) * 3 + 3                   # three padded rows at least
+        key = ops.local_density_xy(xs, xs, dc) + density_jitter(n, dev)
+        tbl = ddpc._pad_rows(xs, m, sweep.PAD_COORD)
+        tk = ddpc._pad_rows(key, m, float("-inf"))
+        qk_p = mesh.shard(ddpc._pad_rows(key, m, float("inf")))
+        per = m // 3
+        cut = per - 37 if per > 300 else per    # shard 1: a ragged count
+        st, en = (ddpc._pad_rows(a, m, 0) for a in point_span_bounds(grid))
+        lo, W, hf, hb = ddpc._window_bounds(st, en, 3)
+        pts_p = mesh.shard(tbl)
+        both = [torch.cat([p, k[:, None]], 1)
+                for p, k in zip(pts_p, mesh.shard(tk))]
+        wins = ddpc._halo_window(mesh, both, lo, W, hf, hb)
+        shard_in = []
+        for s in range(3):
+            r = cut if s == 1 else per
+            q, qk = pts_p[s][:r].contiguous(), qk_p[s][:r].contiguous()
+            win = wins[s][:, :-1].contiguous()
+            wk = wins[s][:, -1].contiguous()
+            sst = torch.cat([mesh.shard(st)[s][:r] - lo[s],
+                             extra[:, 0].expand(r, 2)], 1).contiguous()
+            sen = torch.cat([mesh.shard(en)[s][:r] - lo[s],
+                             extra[:, 1].expand(r, 2)], 1).contiguous()
+            cwl = span_count_worklist(q, win, sst, sen, dc)
+            ring = halo_ring(q, win, sst, sen, dc)
+            got = k15(q, win, sst, sen, dc, cwl)
+            check_equal(f"worklist_halo_range_count [{label}, shard {s}]",
+                        [got], [k15_plain(q, win, sst, sen, dc, cwl)])
+            check_equal(f"worklist_halo_range_count [{label}, shard {s}]",
+                        [got], [k10(q, win, sst, sen, dc)], "K10")
+            live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
+                               device=dev)
+            got = k16(q, qk, win, wk, sst, sen, dc, ring, live)
+            check_equal(f"worklist_halo_masked_nn [{label}, shard {s}]", got,
+                        k16_plain(q, qk, win, wk, sst, sen, dc, ring))
+            check_equal(f"worklist_halo_masked_nn [{label}, shard {s}]", got,
+                        k11(q, qk, win, wk, sst, sen, dc), "K11")
+            entries[f"{label} shard {s}"] = {
+                "count_kept": cwl.n_kept, "in_cut": int(cwl.in_cut.sum()),
+                "ring": ring.n_kept, "k16_computed": int(live.sum()),
+                "total": cwl.n_total}
+            shard_in.append((q, qk, win, wk, sst, sen, cwl, ring))
+        print(f"worklist_halo_range_count == plain == K10, "
+              f"worklist_halo_masked_nn == plain == K11, bit for bit: "
+              f"{label}, n={n} d={pts.shape[1]}, 3 shards (shard 1 {cut} "
+              f"rows), W={W}; per shard (in-cut of kept, K16 computed of "
+              f"ring): " + ", ".join(
+                  f"{e['in_cut']}/{e['count_kept']}, "
+                  f"{e['k16_computed']}/{e['ring']}"
+                  for k, e in entries.items() if k.startswith(label + " ")),
+              flush=True)
+        if not times:
+            q, qk, win, wk, sst, sen, cwl, ring = shard_in[1]
+            times = {
+                "worklist_halo_range_count": {
+                    "ms": time_ms(lambda: k15(q, win, sst, sen, dc, cwl)),
+                    "plain_ms": time_ms(lambda: k15_plain(q, win, sst, sen,
+                                                          dc, cwl)),
+                    "k10_ms": time_ms(lambda: k10(q, win, sst, sen, dc))},
+                "worklist_halo_masked_nn": {
+                    "ms": time_ms(lambda: k16(q, qk, win, wk, sst, sen, dc,
+                                              ring)),
+                    "plain_ms": time_ms(lambda: k16_plain(
+                        q, qk, win, wk, sst, sen, dc, ring)),
+                    "k11_ms": time_ms(lambda: k11(q, qk, win, wk, sst, sen,
+                                                  dc))}}
+            for name, t in times.items():
+                t["shape"] = f"{cut} shard rows, W={W}, d={pts.shape[1]}"
+                print(f"{name} [{t['shape']}]: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in t.items() if k != "shape")
+                    + f"  ({card})", flush=True)
+    return {"times": times, "entries": entries}
+
+
+def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
+                       gen) -> dict:
+    """Phase 23 at full width: every shard input that phase 17's counted
+    halo fit gave K10 (``calls10``) and K11 (``calls11``), through
+    ``CudaBackend.range_count_halo`` / ``denser_nn_halo(layout=
+    "block-sparse")`` with the launch counts zeroed just before and read
+    just after (K15/K16 must launch, nothing else may); each result equal
+    to K10/K11 bit for bit; K15/K16 against their plain versions on a few
+    row tiles of the first shard; medians of five CUDA-event runs of each
+    kernel and of each worklist build, summed over the shards; kept,
+    in-cut and computed entries; bounds from the inputs."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.backend import get_backend
+    _, _, _, _, k10, _, k11, _ = dist_kernels()
+    k15, k15_plain, k16, k16_plain = halo_wl_kernels()
+    be = get_backend("cuda")
+    ops.reset_launch_counts()
+    got15 = [be.range_count_halo(*a, span_cap=0, layout="block-sparse")
+             for a in calls10]
+    got16 = [be.denser_nn_halo(*a, span_cap=0, layout="block-sparse")
+             for a in calls11]
+    torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    assert {k: v for k, v in launched.items() if v} == {
+        "worklist_halo_range_count": len(calls10),
+        "worklist_halo_masked_nn": len(calls11)}, launched
+    for s, (a, g) in enumerate(zip(calls10, got15)):
+        check_equal(f"worklist_halo_range_count [main path, shard {s}]", [g],
+                    [k10(*a)], "K10")
+    for s, (a, g) in enumerate(zip(calls11, got16)):
+        check_equal(f"worklist_halo_masked_nn [main path, shard {s}]", g,
+                    k11(*a), "K11")
+    del got15, got16
+
+    rec = {"launches": launched, "shards": []}
+    tot = {"k15_ms": 0.0, "k16_ms": 0.0, "k15_build_ms": 0.0,
+           "k16_build_ms": 0.0, "k10_ms": 0.0, "k11_ms": 0.0}
+    work15, work16 = [0.0, 0.0], [0.0, 0.0]
+    first = None
+    for a10, a11 in zip(calls10, calls11):
+        x, win, st, en, dc = a10
+        x11, xk, win11, wk, st11, en11, _ = a11
+        cwl = span_count_worklist(*a10)
+        ring = halo_ring(x11, win11, st11, en11, dc)
+        live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
+                           device=x.device)
+        k16(*a11, ring, live)
+        t = {"k15_ms": time_ms(lambda: k15(*a10, cwl)),
+             "k16_ms": time_ms(lambda: k16(*a11, ring)),
+             "k15_build_ms": time_ms(lambda: span_count_worklist(*a10)),
+             "k16_build_ms": time_ms(lambda: halo_ring(x11, win11, st11,
+                                                       en11, dc)),
+             "k10_ms": time_ms(lambda: k10(*a10)),
+             "k11_ms": time_ms(lambda: k11(*a11))}
+        for k, v in t.items():
+            tot[k] += v
+        b15 = k15_work(x, win, st, en, cwl)
+        b16 = k16_work(x11, xk, win11, wk, st11, en11, ring, live, gen=gen)
+        work15 = [work15[0] + b15[0], work15[1] + b15[1]]
+        work16 = [work16[0] + b16[0], work16[1] + b16[1]]
+        rec["shards"].append({
+            "rows": x.shape[0], "window": win.shape[0], "spans": st.shape[1],
+            "count_kept": cwl.n_kept, "in_cut": int(cwl.in_cut.sum()),
+            "ring": ring.n_kept, "k16_computed": int(live.sum()),
+            "total": cwl.n_total, "k16_work": b16[2], **t})
+        if first is None:
+            first = (a10, a11, cwl, ring)
+        del cwl, ring, live
+
+    plain = {}
+    for name in ("worklist_halo_range_count", "worklist_halo_masked_nn"):
+        a10, a11, cwl, ring = first
+        if name == "worklist_halo_range_count":
+            x, win, st, en, dc = a10
+            sub, rows = row_tile_slice(cwl, x.shape[0], DIST_PLAIN_TILES)
+            sl = (x[rows].contiguous(), win, st[rows].contiguous(),
+                  en[rows].contiguous(), dc)
+            got = [k15(*sl, sub)]
+            full = [k15(*a10, cwl)[rows]]
+            want, p_ms = timed_once(lambda: [k15_plain(*sl, sub)])
+        else:
+            x, xk, win, wk, st, en, dc = a11
+            sub, rows = row_tile_slice(ring, x.shape[0], DIST_PLAIN_TILES)
+            sl = (x[rows].contiguous(), xk[rows].contiguous(), win, wk,
+                  st[rows].contiguous(), en[rows].contiguous(), dc)
+            got = k16(*sl, sub)
+            full = [t[rows] for t in k16(*a11, ring)]
+            want, p_ms = timed_once(lambda: k16_plain(*sl, sub))
+        check_equal(f"{name} [main path, row tiles]", got, full,
+                    "the full call")
+        plain[name] = {"err": check_equal(f"{name} [main path, row tiles]",
+                                          got, want),
+                       "plain_ms": p_ms, "plain_rows": rows.numel()}
+    del first
+    rec.update(totals=tot, plain=plain, work={
+        "worklist_halo_range_count": tuple(work15),
+        "worklist_halo_masked_nn": tuple(work16)})
+    sh = rec["shards"]
+    for name, key, bkey, work, ref in (
+            ("worklist_halo_range_count", "k15_ms", "k15_build_ms", work15,
+             "k10_ms"),
+            ("worklist_halo_masked_nn", "k16_ms", "k16_build_ms", work16,
+             "k11_ms")):
+        b_ms, by = bound_ms(*work)
+        kept = [e["count_kept" if key == "k15_ms" else "ring"] for e in sh]
+        comp = [e["in_cut" if key == "k15_ms" else "k16_computed"]
+                for e in sh]
+        print(f"{name} [main path: {len(sh)} shards x "
+              f"{[e['rows'] for e in sh]} rows, W {[e['window'] for e in sh]}"
+              f", S={sh[0]['spans']}]: == {ref[:3].upper()} bit for bit on "
+              f"every shard, == plain on {plain[name]['plain_rows']} rows "
+              f"({plain[name]['plain_ms']:.1f} ms); kernel {tot[key]:.3f} ms "
+              f"+ worklist builds {tot[bkey]:.3f} ms against "
+              f"{ref[:3].upper()} {tot[ref]:.3f} ms; entries computed "
+              f"{comp} of kept {kept} of {sh[0]['total']} tile pairs a "
+              f"shard; bound {b_ms:.3f} ms ({by})  ({card})", flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2401,8 +2770,10 @@ def main() -> int:
         dist_kernels()
     dist_names = {"local_density_xy": ("range_count", "worklist_range_count"),
                   "dependent_masked": ("masked_nn", "worklist_masked_nn"),
-                  "halo_density": ("halo_range_count",) * 2,
-                  "halo_dependent": ("halo_masked_nn",) * 2}
+                  "halo_density": ("halo_range_count",
+                                   "worklist_halo_range_count"),
+                  "halo_dependent": ("halo_masked_nn",
+                                     "worklist_halo_masked_nn")}
 
     def counted_dist_fit(eng, points):
         """(seconds, launch counts, the kernels' inputs by kernel) of one
@@ -2473,7 +2844,8 @@ def main() -> int:
             swept = ("worklist_range_count", "worklist_masked_nn")
         for name in ("worklist_range_count", "worklist_masked_nn",
                      "halo_range_count", "halo_masked_nn", "range_count",
-                     "masked_nn"):
+                     "masked_nn", "worklist_halo_range_count",
+                     "worklist_halo_masked_nn"):
             assert (launched[name] >= 1) == (name in swept), \
                 f"{strategy}: launches {launched}"
         ties, tied, lab_diff = same_up_to_ties(
@@ -2621,6 +2993,12 @@ def main() -> int:
     dist_rec["k9"] = {k: {kk: vv for kk, vv in v.items() if kk != "work"}
                       for k, v in k9_rec.items()}
     record["distributed_full"] = dist_rec
+    # phase 23 runs K15/K16 on the halo fit's K10/K11 inputs: kept in host
+    # memory meanwhile, so they add nothing to later phases' device peaks
+    halo_calls = {name: [tuple(t.cpu() if isinstance(t, torch.Tensor) else t
+                               for t in a)
+                         for a, _ in dist_given["halo"][name]]
+                  for name in ("halo_range_count", "halo_masked_nn")}
     del dist_given, g8, x8, y8, kw8, sub, x9, xk9, y9, yk9, kw9, sx, sk
     del single, fx
     torch.cuda.empty_cache()
@@ -2636,7 +3014,9 @@ def main() -> int:
     assert launched["range_count"] == launched["masked_nn"] == DIST_SHARDS \
         and not any(launched[k] for k in (
             "worklist_range_count", "worklist_masked_nn",
-            "halo_range_count", "halo_masked_nn")), launched
+            "halo_range_count", "halo_masked_nn",
+            "worklist_halo_range_count", "worklist_halo_masked_nn")), \
+        launched
     ties, tied, lab_diff = same_up_to_ties(
         xs, ex_dense_res, dense_dist.result, ex_dense_labels,
         dense_dist.clustering.labels, "dense gather vs dense Ex-DPC")
@@ -2902,6 +3282,32 @@ def main() -> int:
           flush=True)
     record["bf16_check_shapes"] = bf16_check
     del win, batch, signs, got, dense14, wl14, sub, rows, wr, want
+    torch.cuda.empty_cache()
+
+    # ----------- 23. the halo primitives on a span-pruned worklist (K15, K16)
+    stamp(23)
+    halo_wl_check = halo_worklist_check_shapes(
+        [(label, p, pick_dcut(p, target_rho=30)) for label, p in cases]
+        + [("lattice 128x128", lattice.reshape(-1, 2).astype(np.float32),
+            2.5)], card)
+    halo_wl = halo_worklist_full(
+        *([tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in a)
+           for a in halo_calls[name]]
+          for name in ("halo_range_count", "halo_masked_nn")),
+        row_tile_slice, card, gen)
+    del halo_calls
+    for name, key in (("worklist_halo_range_count", "k15_ms"),
+                      ("worklist_halo_masked_nn", "k16_ms")):
+        p = halo_wl["plain"][name]
+        errs[name] = p["err"]
+        main_times[name] = {"ms": halo_wl["totals"][key],
+                            "plain_ms": p["plain_ms"],
+                            "plain_rows": p["plain_rows"]}
+        bounds[name] = halo_wl["work"][name]
+    record["halo_worklist"] = {
+        k: v for k, v in halo_wl.items() if k != "work"}
+    record["halo_worklist_check_shapes"] = halo_wl_check
+    torch.cuda.empty_cache()
 
 
     # --------------------------------------------------------- the record
@@ -2917,7 +3323,11 @@ def main() -> int:
              "sweep.py:432"),
             ("worklist_masked_nn", dist_launches["gather"], "sweep.py:432"),
             ("halo_range_count", dist_launches["halo"], "density.py:68"),
-            ("halo_masked_nn", dist_launches["halo"], "dependent.py:56")):
+            ("halo_masked_nn", dist_launches["halo"], "dependent.py:56"),
+            ("worklist_halo_range_count", halo_wl["launches"],
+             "backend.py:729"),
+            ("worklist_halo_masked_nn", halo_wl["launches"],
+             "backend.py:742")):
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
         kernels.append({

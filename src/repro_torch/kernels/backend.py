@@ -11,16 +11,19 @@ registered so far:
 
 The streaming primitives are K5 (``range_count_delta``; K14 on a
 count-only worklist under ``layout="block-sparse"``) and K6
-(``denser_nn_update``, dense).  ``range_count`` is K4, or K8 on a
-count-only worklist; ``denser_nn`` is K2, or K9 on a best-1 ring.  The halo
-primitives ``range_count_halo`` / ``denser_nn_halo`` (the distributed halo
-strategy) are K10 and K11.  ``rho_delta`` is K1 (K3 on a worklist), or
-under ``precision="bf16"`` K12 (K13); its ``y_sel_slots`` (S-Approx-DPC)
-runs their gated forms.  ``prefix_nn`` is K7.  The direct-difference
-reference backend (the counterpart of ``jnp``) and the worklist forms of
-the halo primitives come with later slices (ROADMAP Queues A and B).
+(``denser_nn_update``, already subset-shaped: it takes either layout).
+``range_count`` is K4, or K8 on a count-only worklist; ``denser_nn`` is
+K2, or K9 on a best-1 ring.  The halo primitives ``range_count_halo`` /
+``denser_nn_halo`` (the distributed halo strategy) are K10 and K11, or
+under ``layout="block-sparse"`` K15 and K16 on the span-pruned worklists.
+``rho_delta`` is K1 (K3 on a worklist), or under ``precision="bf16"`` K12
+(K13); its ``y_sel_slots`` (S-Approx-DPC) runs their gated forms.
+``prefix_nn`` is K7.  The direct-difference reference backend (the
+counterpart of ``jnp``) comes with a later slice (ROADMAP Queue A).
 """
 from __future__ import annotations
+
+import abc
 
 import torch
 
@@ -35,17 +38,18 @@ __all__ = ["KernelBackend", "CudaBackend", "available_backends",
 _INT32_MAX = 2**31 - 1
 
 
-class KernelBackend:
+class KernelBackend(abc.ABC):
     """The DPC primitives: Def. 1 (``range_count``), Def. 2
     (``denser_nn``), the fused Def. 1 + Def. 2 (``rho_delta``) and the
     stream's batched forms (``range_count_delta``, ``denser_nn_update``)."""
 
     name: str = "abstract"
 
+    @abc.abstractmethod
     def range_count(self, x, y, d_cut, *, layout=None):
         """(n,) f32: |{j : ||x_i - y_j|| < d_cut}| per row of x."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def range_count_halo(self, x, window, starts, ends, d_cut, *, span_cap,
                          layout=None):
         """Def. 1 restricted to per-row ragged [start, end) spans into a
@@ -53,37 +57,37 @@ class KernelBackend:
         bounds, pairwise disjoint per row (the grid's candidate-cell spans
         are); empty or negative spans count nothing.  ``span_cap``: the
         longest span (the reference's gather-form backends read it)."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def denser_nn_halo(self, x, x_key, window, w_key, starts, ends, d_cut, *,
                        span_cap, layout=None):
         """Def. 2 restricted to the row's spans AND to d_cut (stencil
         semantics): (delta, parent window index, found); rows with no
         strictly-denser window row within d_cut in their spans report
         found = False (the caller's global fallback answers them)."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
         """(n,) f32: sum_b signs[b] * [||x_i - batch_b|| < d_cut] — the
         sliding-window rho repair (+1 inserted, -1 evicted, 0 padding)."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
         """Def. 2 for the row subset ``q_slots`` of ``points`` against all
         of them; slots >= len(points) are padding and return (inf, -1)."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def denser_nn(self, x, x_key, y, y_key, *, layout=None):
         """(delta, parent): NN among y rows with y_key strictly greater.
         delta = +inf, parent = -1 where no such row exists."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def prefix_nn(self, pts_sorted_desc):
         """(delta, parent): per row, the NN among the rows before it in a
         table sorted by descending density key (Def. 2 as a triangle);
         (inf, -1) for row 0."""
-        raise NotImplementedError
 
+    @abc.abstractmethod
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None, layout=None, precision=None):
         """Fused Def. 1 + Def. 2: per x-row range count over y AND the
@@ -96,7 +100,6 @@ class KernelBackend:
         among them — the kept-k is gated to those columns and the others
         are never denser (S-Approx-DPC's representatives).  ``precision``:
         ``"f32"`` (default) or ``"bf16"``, the sweep's distances."""
-        raise NotImplementedError
 
 
 def _fused_resolve(rho_key, col_key, topv, topi, x=None, y=None):
@@ -130,23 +133,15 @@ def _sparse(layout) -> bool:
     return layout == "block-sparse"
 
 
-def _dense_only(primitive: str, layout, who: str) -> None:
-    """The worklist forms of K6 and the halo kernels are not ported."""
-    if _sparse(layout):
-        raise NotImplementedError(
-            f"{primitive}(layout='block-sparse') needs the worklist form of "
-            f"its kernel, still to be ported (ROADMAP Queue B); {who} calls "
-            f"it dense")
-
-
 class CudaBackend(KernelBackend):
     """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
     (gated or not; their ``_bf16`` forms under ``precision="bf16"``) then
     ``masked_nn`` for the fit; ``range_count``, ``range_count_signed`` (or
     ``worklist_range_count_signed``) and ``gather_masked_nn`` for the
     stream; ``prefix_nn``; ``worklist_range_count``,
-    ``worklist_masked_nn``, ``halo_range_count`` and ``halo_masked_nn`` for
-    the distributed phases."""
+    ``worklist_masked_nn``, ``halo_range_count`` and ``halo_masked_nn``
+    (``worklist_halo_range_count`` and ``worklist_halo_masked_nn`` under
+    the block-sparse layout) for the distributed phases."""
 
     name = "cuda"
 
@@ -183,25 +178,42 @@ class CudaBackend(KernelBackend):
 
     def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
         """The fused-gather kernel: the query rows are read from ``points``
-        inside it, so the gathered subset never exists as a tensor."""
-        _dense_only("denser_nn_update", layout, "the stream")
+        inside it, so the gathered subset never exists as a tensor.  It is
+        already subset-shaped, so ``layout`` is checked and ignored, as in
+        the reference's pallas backend."""
+        _sparse(layout)
         return dependent.masked_min_dist_gather(points, rho_key, q_slots)
 
     def range_count_halo(self, x, window, starts, ends, d_cut, *, span_cap,
                          layout=None):
-        """K10: each row walks its spans into the window; ``span_cap`` is
-        unused, as in the reference's pallas backend."""
+        """K10: each row walks its spans into the window; or under
+        ``layout="block-sparse"`` K15 on the span count worklist of x over
+        the window (the in-d_cut tile pairs a span reaches).  ``span_cap``
+        is unused, as in the reference's pallas backend."""
         del span_cap
-        _dense_only("range_count_halo", layout, "the halo strategy")
-        return density.range_count_halo(x, window, starts, ends, d_cut)
+        if not _sparse(layout):
+            return density.range_count_halo(x, window, starts, ends, d_cut)
+        wl = blocksparse.build_flat_worklist(x, window, d_cut, nn=None,
+                                             starts=starts, ends=ends)
+        return density.range_count_halo(x, window, starts, ends, d_cut,
+                                        worklist=wl)
 
     def denser_nn_halo(self, x, x_key, window, w_key, starts, ends, d_cut, *,
                        span_cap, layout=None):
-        """K11: K10's span walk for the strictly-denser NN within d_cut."""
+        """K11: K10's span walk for the strictly-denser NN within d_cut; or
+        under ``layout="block-sparse"`` K16 on the halo ring (the tile
+        pairs with lb <= d_cut^2 that a span reaches, ascending lb per row
+        tile), built just before the launch."""
         del span_cap
-        _dense_only("denser_nn_halo", layout, "the halo strategy")
+        if not _sparse(layout):
+            return dependent.masked_min_dist_halo(x, x_key, window, w_key,
+                                                  starts, ends, d_cut)
+        wl = blocksparse.build_flat_worklist(
+            x, window, d_cut, count=False, nn="best1", nn_dcut=True,
+            starts=starts, ends=ends)
         return dependent.masked_min_dist_halo(x, x_key, window, w_key,
-                                              starts, ends, d_cut)
+                                              starts, ends, d_cut,
+                                              worklist=wl)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None, layout=None, precision=None):

@@ -15,16 +15,17 @@ bounding box bounds every distance a tile pair can produce:
 is within the static k-NN radius (the kept-k needs them), sorted by
 ascending ``lb`` — the ring order in which the CUDA kernel K3 walks them
 and skips, against each row's live k-th distance, the entries that can no
-longer matter.  Its other two forms: the count-only worklist (the
-``in_cut`` pairs, for K8) and the best-1 ring (every tile pair, for K9,
-which stops its walk where no row can improve).  The reference builds them
+longer matter.  Its other forms: the count-only worklist (the ``in_cut``
+pairs, for K8), the best-1 ring (every tile pair, for K9, which stops its
+walk where no row can improve), and the halo forms of both over per-row
+window spans (``starts``/``ends``: only the tile pairs a span reaches, for
+K15 and K16).  The reference builds them
 on the host in numpy; here they are built in torch on the points' device,
 a chunk of row tiles at a time, so the build's own peak memory stays small
 at millions of points.
 
-Not ported: the jnp ring walk (the reference backend's form), the halo
-spans (``starts``/``ends``, with ``nn_dcut``: the halo worklist forms) and
-the fingerprint cache ``worklist_cache``: every call builds its worklist.
+Not ported: the jnp ring walk (the reference backend's form) and the
+fingerprint cache ``worklist_cache``: every call builds its worklist.
 """
 from __future__ import annotations
 
@@ -148,32 +149,75 @@ def _knn_walk(ub: torch.Tensor, col_counts: torch.Tensor,
     return torch.where(cum[:, -1] >= k, radius, float("inf"))
 
 
+def _span_reach(starts: torch.Tensor, ends: torch.Tensor, n: int,
+                nbr: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row tile, (least start, largest end) of its rows' live spans
+    (end > start), each (nbr,) int64; a tile with none gets (int64 max,
+    int64 min), which reaches no column tile."""
+    if starts is None or ends is None:
+        raise ValueError("the halo forms need both starts and ends")
+    st = torch.as_tensor(starts, device=dev).long()
+    en = torch.as_tensor(ends, device=dev).long()
+    if st.shape != en.shape or st.dim() != 2 or st.shape[0] != n:
+        raise ValueError(f"starts {tuple(st.shape)} and ends "
+                         f"{tuple(en.shape)} for {n} rows: expected (n, S)")
+    live = en > st
+    big = torch.iinfo(torch.int64)
+    # rows past n (the ragged last tile's) have no live span
+    smin = torch.full((nbr * BLOCK_N,), big.max, dtype=torch.int64,
+                      device=dev)
+    emax = torch.full((nbr * BLOCK_N,), big.min, dtype=torch.int64,
+                      device=dev)
+    if st.shape[1]:
+        smin[:n] = torch.where(live, st, big.max).amin(1)
+        emax[:n] = torch.where(live, en, big.min).amax(1)
+    return (smin.view(nbr, BLOCK_N).amin(1), emax.view(nbr, BLOCK_N).amax(1))
+
+
+_FORMS = {(True, "topk", False, False), (True, None, False, False),
+          (False, "best1", False, False), (True, None, False, True),
+          (False, "best1", True, True)}
+
+
 def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
                         count: bool = True, nn: str | None = "topk",
-                        k: int = 8,
-                        nn_col_counts: torch.Tensor | None = None
-                        ) -> Worklist:
+                        k: int = 8, nn_dcut: bool = False,
+                        nn_col_counts: torch.Tensor | None = None,
+                        starts: torch.Tensor | None = None,
+                        ends: torch.Tensor | None = None) -> Worklist:
     """A worklist of x's ``BLOCK_N``-row tiles over y's ``BLOCK_M``-row
     column tiles (the reference's ``build_flat_worklist`` at that tile
-    shape), built on the points' device.  Three forms:
+    shape), built on the points' device.  Five forms:
 
     * ``count=True, nn="topk"`` (default; K3): kept ``lb <= d_cut^2``
       (``in_cut``) or ``lb <= knn_radius``;
     * ``count=True, nn=None`` (K8): kept ``in_cut``;
     * ``count=False, nn="best1"`` (K9, ``d_cut`` unused): every tile pair,
-      ``in_cut`` False.
+      ``in_cut`` False;
+    * the halo forms, with ``starts``/``ends`` ((n, S) window-local
+      [start, end) spans of x's rows into y, the window): a row tile
+      reaches column tile j where the least start and the largest end of
+      its live spans (end > start) give ``smin < (j+1) * BLOCK_M`` and
+      ``emax > j * BLOCK_M``.  ``count=True, nn=None`` (K15) keeps
+      ``in_cut = lb <= d_cut^2`` AND reached; ``count=False,
+      nn="best1", nn_dcut=True`` (K16, the NN within d_cut) keeps the same
+      pairs with ``in_cut`` False.
 
     The least-lb pair of every row tile is kept too, so every row tile has
-    an entry.  The threshold is ``float(d_cut) ** 2`` rounded once to f32,
-    as the reference compares it with its f32 bounds.  ``nn_col_counts``
+    an entry (its ``in_cut`` False where no span reaches it).  Entries are
+    ordered by row tile, then ascending ``lb``, ties in column order.  The
+    threshold is ``float(d_cut) ** 2`` rounded once to f32, as the
+    reference compares it with its f32 bounds.  ``nn_col_counts``
     ((column tiles,) int) counts the columns of each tile that may enter
     the kept k (a gated sweep's selected columns); by default every column
     may.
     """
-    if (count, nn) not in ((True, "topk"), (True, None), (False, "best1")):
-        raise ValueError(f"worklist form count={count!r}, nn={nn!r} is not "
-                         f"ported (topk with count, count alone, or best1 "
-                         f"alone)")
+    halo = starts is not None or ends is not None
+    if (count, nn, bool(nn_dcut), halo) not in _FORMS:
+        raise ValueError(f"worklist form count={count!r}, nn={nn!r}, "
+                         f"nn_dcut={nn_dcut!r}, spans={halo} is not ported "
+                         f"(topk with count, count alone, best1 alone, or "
+                         f"with spans count alone or best1 with nn_dcut)")
     if BLOCK_M < k:
         raise ValueError(f"BLOCK_M={BLOCK_M} must hold the kept k={k}")
     x = x.to(torch.float32)
@@ -184,7 +228,7 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
     _M_BUILDS.inc()
     rlo, rhi = tile_bounds(x, BLOCK_N)
     clo, chi = tile_bounds(y, BLOCK_M)
-    thr = float(np.float32(float(d_cut) ** 2)) if count else 0.0
+    thr = float(np.float32(float(d_cut) ** 2)) if count or nn_dcut else 0.0
     if nn_col_counts is None:
         col_counts = (m - torch.arange(nbc, device=dev) * BLOCK_M).clamp(
             0, BLOCK_M)
@@ -194,13 +238,16 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
             raise ValueError(f"nn_col_counts of shape "
                              f"{tuple(col_counts.shape)} for {nbc} column "
                              f"tiles")
+    if halo:
+        smin, emax = _span_reach(starts, ends, n, nbr, dev)
+        jlo = torch.arange(nbc, device=dev, dtype=torch.int64) * BLOCK_M
 
     per_row, cols, cuts, lbs = [], [], [], []
     step = max(1, _CHUNK_PAIRS // max(nbc, 1))
     for r0 in range(0, nbr, step):
         r1 = min(nbr, r0 + step)
         lb, ub = pair_bounds(rlo[r0:r1], rhi[r0:r1], clo, chi)
-        if nn == "best1":
+        if nn == "best1" and not nn_dcut:
             # every pair: a per-row sort is np.lexsort((lb, row tile))
             wl, wj = torch.sort(lb, dim=1, stable=True)
             per_row.append(torch.full((r1 - r0,), nbc, device=dev))
@@ -213,6 +260,13 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
         keep = in_cut.clone()
         if nn == "topk":
             keep |= lb <= knn_radius(ub, col_counts, k)[:, None]
+        if halo:
+            reach = ((smin[r0:r1, None] < jlo + BLOCK_M)
+                     & (emax[r0:r1, None] > jlo))
+            keep &= reach
+            in_cut &= reach
+        if not count:
+            in_cut.zero_()
         rows = torch.arange(r1 - r0, device=dev)
         keep[rows, lb.argmin(1)] = True
         wi, wj = torch.nonzero(keep, as_tuple=True)      # row-major

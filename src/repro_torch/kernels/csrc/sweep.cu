@@ -2,7 +2,7 @@
 // S-Approx-DPC paths, dense and block-sparse, for the sliding-window stream
 // and for the distributed Ex-DPC shard phases.
 //
-// Fourteen kernels, each with a plain C entry point bound through ctypes
+// Sixteen kernels, each with a plain C entry point bound through ctypes
 // (kernels/build.py) and a plain PyTorch version beside it
 // (kernels/sweep.py) that does the same operations in the same order:
 //
@@ -36,6 +36,11 @@
 //   repro_worklist_range_count_signed  per query row, the sum of the signs
 //                              of the y rows within d_cut over the in-d_cut
 //                              pairs of a count-only worklist
+//   repro_worklist_halo_range_count    K10's count over the in-d_cut pairs
+//                              of a span count worklist
+//   repro_worklist_halo_masked_nn      K11's NN walking a halo ring
+//                              worklist (the pairs within d_cut a span
+//                              reaches), stopping where no row can improve
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -1007,6 +1012,220 @@ __global__ void __launch_bounds__(kRows)
   found_out[i] = found;
 }
 
+// K15 — replaces the reference's density.range_count_halo over a worklist,
+// i.e. sweep.tile_sweep with SweepSpec(count=True, span=True) and wl_meta
+// (repro/kernels/density.py:68-87, the span mask at sweep.py:199-205,
+// pallas_call at :432; PallasBackend.range_count_halo(layout=
+// "block-sparse"), repro/kernels/backend.py:729-740), reached through
+// ops.halo_density(worklist=...) on the span count worklist
+// (blocksparse.build_flat_worklist(nn=None, starts=, ends=)).
+//
+// Bound: f32 CUDA-core issue, about 3d+1 operations for each column of a
+// row's spans inside the row tile's in-d_cut entries.  The design is K8's
+// walk: one block per 256-row tile walks its entries, and each in-cut
+// entry's 512 window columns are staged in shared memory.  Each thread then
+// intersects its S spans with the staged chunk's column range (the chunk
+// lies inside [0, W), so the spans are clipped to the window too) and
+// computes only the columns in that intersection: its work is its spans'
+// lengths inside the in-cut tiles, not 256 x 512 per entry.  The spans stay
+// in global memory, read as K10 reads them (S = 3^(g-1) reaches 2,187 at
+// d = 8), once per staged chunk; the rows are grid-sorted, so a warp's rows
+// mostly share their spans and the reads are broadcasts from L1.  Counts
+// are integers, so K15 equals K10 bit for bit in any order of the walk:
+// every pair within d_cut lies in an in-cut entry, since its tile pair's lb
+// is at most its d2 and a span reaches it.
+template <int D>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_halo_range_count_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ win,
+                                     const int* __restrict__ starts,
+                                     const int* __restrict__ ends, int n,
+                                     int w, int d, int s, float d2cut,
+                                     const int* __restrict__ row_ptr,
+                                     const int* __restrict__ col_tile,
+                                     const unsigned char* __restrict__ in_cut,
+                                     int* __restrict__ count) {
+  __shared__ float tile[kTileFloats];
+  __shared__ int s_col[kWlRows];
+  __shared__ int s_cut[kWlRows];
+  if constexpr (D > 0) d = D;
+  const int per_chunk = min(kWlCols, kTileFloats / d);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;
+  const int ns = live ? s : 0;       // dead lanes stage, never compute
+  const int* st = starts + static_cast<size_t>(row) * s;
+  const int* en = ends + static_cast<size_t>(row) * s;
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+
+  int cnt = 0;
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      if (!s_cut[e]) continue;        // the same for every thread
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, w);
+      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
+        const int c1 = min(c0 + per_chunk, j1);
+        __syncthreads();
+        stage(tile, win, c0, c1 - c0, d);
+        __syncthreads();
+        for (int k = 0; k < ns; ++k) {
+          const int a = max(st[k], c0);
+          const int b = min(en[k], c1);
+          for (int j = a; j < b; ++j) {
+            float d2;
+            if constexpr (D > 0) {
+              d2 = pair_d2<D>(xr, tile + (j - c0) * D, D);
+            } else {
+              d2 = pair_d2<0>(xg, tile + (j - c0) * d, d);
+            }
+            cnt += d2 < d2cut;
+          }
+        }
+      }
+    }
+  }
+  if (live) count[i] = cnt;
+}
+
+// K16 — replaces the reference's dependent.masked_min_dist_halo over a
+// worklist, i.e. sweep.tile_sweep with SweepSpec(nn="best1", key=True,
+// span=True, nn_dcut=True) and wl_meta (repro/kernels/dependent.py:56-77;
+// liveness at sweep.py:250-258, the d_cut mask at :294-295, the
+// lexicographic update at :303-311, pallas_call at :432;
+// PallasBackend.denser_nn_halo(layout="block-sparse"),
+// repro/kernels/backend.py:742-758), reached through
+// ops.halo_dependent(worklist=...) on the halo ring
+// (blocksparse.build_flat_worklist(count=False, nn="best1", nn_dcut=True,
+// starts=, ends=)).
+//
+// Bound: f32 CUDA-core issue: a key test for each span column of the
+// entries the walk computes and about 3d+1 operations for each denser one.
+// The design is K9's walk: the ring in stored (ascending lb) order, 256
+// entries at a time through shared memory, each thread keeping (best d2,
+// index) in registers; the block vote lb <= best (rows keyed +inf never
+// vote) ends the walk at the first entry no row votes for, where every
+// later entry has a larger lb and no row can improve or tie.  A voted
+// entry's 512 columns and keys are staged; each thread computes only the
+// columns of its spans inside the chunk (K15's intersection) under K11's
+// three conditions: the window key strictly above the row's, d2 < d_cut^2,
+// and the lexicographic (d2, window index) minimum, which does not depend
+// on the visit order, so K16 equals K11 bit for bit.  It writes delta =
+// __fsqrt_rn(best d2), the window-local parent (-1 where none) and found;
+// `live` (optional) gets the entries each block computed.
+template <int D>
+__global__ void __launch_bounds__(kWlRows)
+    worklist_halo_masked_nn_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ x_key,
+                                   const float* __restrict__ win,
+                                   const float* __restrict__ w_key,
+                                   const int* __restrict__ starts,
+                                   const int* __restrict__ ends, int n, int w,
+                                   int d, int s, float d2cut,
+                                   const int* __restrict__ row_ptr,
+                                   const int* __restrict__ col_tile,
+                                   const float* __restrict__ lb,
+                                   float* __restrict__ delta_out,
+                                   int* __restrict__ arg_out,
+                                   unsigned char* __restrict__ found_out,
+                                   int* __restrict__ live_out) {
+  __shared__ float tile[kTileFloats];
+  __shared__ float ktile[kWlCols];
+  __shared__ int s_col[kWlRows];
+  __shared__ float s_lb[kWlRows];
+  if constexpr (D > 0) d = D;
+  const int per_chunk = min(kWlCols, kTileFloats / d);
+  const int t = blockIdx.x;
+  const int i = t * kWlRows + threadIdx.x;
+  const bool live = i < n;
+  const int row = live ? i : n - 1;
+  const int* st = starts + static_cast<size_t>(row) * s;
+  const int* en = ends + static_cast<size_t>(row) * s;
+
+  float xr[D > 0 ? D : 1];
+  const float* xg = x + static_cast<size_t>(row) * d;
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  }
+  const float key = x_key[row];
+  const bool seeks = live && key < CUDART_INF_F;
+  const int ns = seeks ? s : 0;
+
+  float best = CUDART_INF_F;
+  int arg = INT_MAX;
+  int visited = 0;
+  bool done = false;
+  const int e0 = row_ptr[t];
+  const int e1 = row_ptr[t + 1];
+  for (int base = e0; base < e1 && !done; base += kWlRows) {
+    const int ne = min(kWlRows, e1 - base);
+    __syncthreads();
+    if (threadIdx.x < ne) {
+      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
+      s_lb[threadIdx.x] = lb[base + threadIdx.x];
+    }
+    __syncthreads();
+    for (int e = 0; e < ne; ++e) {
+      if (!__syncthreads_or(seeks && s_lb[e] <= best)) {
+        done = true;                  // the same for every thread
+        break;
+      }
+      ++visited;
+      const int j0 = s_col[e] * kWlCols;
+      const int j1 = min(j0 + kWlCols, w);
+      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
+        const int c1 = min(c0 + per_chunk, j1);
+        __syncthreads();
+        stage(tile, win, c0, c1 - c0, d);
+        for (int c = threadIdx.x; c < c1 - c0; c += kWlRows)
+          ktile[c] = w_key[c0 + c];
+        __syncthreads();
+        for (int k = 0; k < ns; ++k) {
+          const int a = max(st[k], c0);
+          const int b = min(en[k], c1);
+          for (int j = a; j < b; ++j) {
+            if (!(ktile[j - c0] > key)) continue;
+            float d2;
+            if constexpr (D > 0) {
+              d2 = pair_d2<D>(xr, tile + (j - c0) * D, D);
+            } else {
+              d2 = pair_d2<0>(xg, tile + (j - c0) * d, d);
+            }
+            if (d2 < d2cut && (d2 < best || (d2 == best && j < arg))) {
+              best = d2;
+              arg = j;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
+  if (!live) return;
+  const bool found = best < CUDART_INF_F;
+  delta_out[i] = __fsqrt_rn(best);
+  arg_out[i] = found ? arg : -1;
+  found_out[i] = found;
+}
+
 // ---------------------------------------------------------------- bf16
 // The bf16 fused sweep (K12, K13) keeps the reference's arithmetic: the
 // expanded form d2 = (|x|^2 + |y|^2) - 2 x.y of tile_d2(precision="bf16")
@@ -1578,6 +1797,45 @@ extern "C" int repro_halo_masked_nn(const float* x, const float* x_key,
   halo_masked_nn_kernel<D><<<grid, kRows, 0, st>>>(                       \
       x, x_key, win, w_key, starts, ends, n, w, d, s, d2cut, delta, arg,  \
       found)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K15: K10's count over the in-cut entries of a span count worklist.
+extern "C" int repro_worklist_halo_range_count(
+    const float* x, const float* win, const int* starts, const int* ends,
+    int n, int w, int d, int s, float d2cut, const int* row_ptr,
+    const int* col_tile, const unsigned char* in_cut, int* count,
+    void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  worklist_halo_range_count_kernel<D><<<grid, kWlRows, 0, st>>>(           \
+      x, win, starts, ends, n, w, d, s, d2cut, row_ptr, col_tile, in_cut,  \
+      count)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K16: K11's NN walking a halo ring; live (optional) gets the entries each
+// row tile computed.
+extern "C" int repro_worklist_halo_masked_nn(
+    const float* x, const float* x_key, const float* win, const float* w_key,
+    const int* starts, const int* ends, int n, int w, int d, int s,
+    float d2cut, const int* row_ptr, const int* col_tile, const float* lb,
+    float* delta, int* arg, unsigned char* found, int* live, void* stream) {
+  if (n > 0) {
+    const dim3 grid((n + kWlRows - 1) / kWlRows);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(D)                                                    \
+  worklist_halo_masked_nn_kernel<D><<<grid, kWlRows, 0, st>>>(             \
+      x, x_key, win, w_key, starts, ends, n, w, d, s, d2cut, row_ptr,      \
+      col_tile, lb, delta, arg, found, live)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
   }

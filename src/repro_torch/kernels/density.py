@@ -4,10 +4,10 @@
 Thin forms over ``ops.local_density_xy`` / ``ops.local_density_delta`` /
 ``ops.halo_density``: the CUDA kernels ``range_count`` (K4), its worklist
 form ``worklist_range_count`` (K8), ``range_count_signed`` (K5), its
-worklist form ``worklist_range_count_signed`` (K14) and
-``halo_range_count`` (K10) on CUDA tensors, their plain versions on CPU
-tensors.  The kernels mask their ragged edges, so nothing is padded.  The
-worklist form of K10 is still to be ported (ROADMAP Queue B).
+worklist form ``worklist_range_count_signed`` (K14), ``halo_range_count``
+(K10) and its worklist form ``worklist_halo_range_count`` (K15) on CUDA
+tensors, their plain versions on CPU tensors.  The kernels mask their
+ragged edges, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -32,7 +32,11 @@ def range_count_signed(x, y, signs, d_cut, *, worklist=None):
     return ops.local_density_delta(x, y, signs, d_cut, worklist=worklist)
 
 
-def range_count_halo(x, window, starts, ends, d_cut):
+def range_count_halo(x, window, starts, ends, d_cut, *, worklist=None):
     """For each row of x: the count of window rows within d_cut inside its
-    [start, end) spans ((n, S) int32, window-local), as (n,) f32."""
-    return ops.halo_density(x, window, starts, ends, d_cut)
+    [start, end) spans ((n, S) int32, window-local), as (n,) f32; over a
+    span count worklist's in-d_cut tile pairs when one is given."""
+    if worklist is None:
+        return ops.halo_density(x, window, starts, ends, d_cut)
+    return ops.halo_density(x, window, starts, ends, d_cut,
+                            worklist=worklist)

@@ -12,7 +12,8 @@ form, the NN among earlier rows of a density-sorted table:
 ring worklist ``masked_min_dist`` is the CUDA kernel
 ``worklist_masked_nn`` (K9); ``masked_min_dist_halo`` is the NN within
 d_cut inside per-row spans of a halo window: ``ops.halo_dependent``, the
-CUDA kernel ``halo_masked_nn`` (K11).
+CUDA kernel ``halo_masked_nn`` (K11), or ``worklist_halo_masked_nn`` (K16)
+on a halo ring worklist.
 """
 from __future__ import annotations
 
@@ -34,11 +35,17 @@ def masked_min_dist(x, x_key, y, y_key, *, worklist=None):
     return ops.dependent_masked(x, x_key, y, y_key, worklist=worklist)
 
 
-def masked_min_dist_halo(x, x_key, window, w_key, starts, ends, d_cut):
+def masked_min_dist_halo(x, x_key, window, w_key, starts, ends, d_cut, *,
+                         worklist=None):
     """NN among the window rows inside each x row's spans that are
-    strictly denser and within d_cut.  Returns (delta (n,), parent (n,)
-    int32 window index, found (n,) bool)."""
-    return ops.halo_dependent(x, x_key, window, w_key, starts, ends, d_cut)
+    strictly denser and within d_cut, walking a halo ring worklist when one
+    is given.  Returns (delta (n,), parent (n,) int32 window index, found
+    (n,) bool)."""
+    if worklist is None:
+        return ops.halo_dependent(x, x_key, window, w_key, starts, ends,
+                                  d_cut)
+    return ops.halo_dependent(x, x_key, window, w_key, starts, ends, d_cut,
+                              worklist=worklist)
 
 
 def masked_min_dist_gather(table, keys, q_slots):

@@ -20,7 +20,9 @@ from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
                     halo_masked_nn_plain, halo_range_count_plain,
                     masked_nn_plain, prefix_nn_plain, range_count_plain,
                     range_count_signed_plain, worklist_count_topk_bf16_plain,
-                    worklist_count_topk_plain, worklist_masked_nn_plain,
+                    worklist_count_topk_plain,
+                    worklist_halo_masked_nn_plain,
+                    worklist_halo_range_count_plain, worklist_masked_nn_plain,
                     worklist_range_count_plain,
                     worklist_range_count_signed_plain)
 
@@ -42,7 +44,8 @@ _LAUNCHES = {"fused_count_topk": 0, "worklist_count_topk": 0,
              "gather_masked_nn": 0, "prefix_nn": 0,
              "worklist_range_count": 0, "worklist_masked_nn": 0,
              "worklist_range_count_signed": 0,
-             "halo_range_count": 0, "halo_masked_nn": 0}
+             "halo_range_count": 0, "halo_masked_nn": 0,
+             "worklist_halo_range_count": 0, "worklist_halo_masked_nn": 0}
 
 PRECISIONS = ("f32", "bf16")
 
@@ -86,8 +89,9 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_worklist(name: str, x: torch.Tensor, y: torch.Tensor,
                     wl) -> None:
-    """A worklist K3, K8, K9, K13 and K14 take: one entry range per row
-    tile of x, column tiles of y, on x's device."""
+    """A worklist K3, K8, K9, K13, K14, K15 and K16 take: one entry range
+    per row tile of x, column tiles of y (the halo window for K15/K16), on
+    x's device."""
     if not isinstance(wl, Worklist):
         raise TypeError(f"{name}: worklist must be a Worklist, got "
                         f"{type(wl).__name__}")
@@ -417,49 +421,82 @@ def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
 
 
 def halo_density(x: torch.Tensor, window: torch.Tensor,
-                 starts: torch.Tensor, ends: torch.Tensor, d_cut):
+                 starts: torch.Tensor, ends: torch.Tensor, d_cut, *,
+                 worklist: Worklist | None = None):
     """Per x-row: the count of window rows within ``d_cut`` inside the
     row's ``[start, end)`` spans (``starts``/``ends``: (n, S) int32
     window-local bounds, pairwise disjoint per row; empty, negative and
     past-the-window parts count nothing), as (n,) f32.  K10 on a CUDA
-    tensor, its plain version on a CPU one."""
+    tensor, its plain version on a CPU one.  ``worklist`` (a span count
+    worklist, ``blocksparse.build_flat_worklist(nn=None, starts=,
+    ends=)``) restricts the count to its ``in_cut`` tile pairs: K15 on a
+    CUDA tensor, its plain version on a CPU one."""
     _check("halo_density", x, window)
     _check_spans("halo_density", x, starts, ends)
+    if worklist is not None:
+        _check_worklist("halo_density", x, window, worklist)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
-        return halo_range_count_plain(x, window, starts, ends,
-                                      d2cut).to(torch.float32)
+        if worklist is None:
+            count = halo_range_count_plain(x, window, starts, ends, d2cut)
+        else:
+            count = worklist_halo_range_count_plain(x, window, starts, ends,
+                                                    d2cut, worklist)
+        return count.to(torch.float32)
     (n, d), w, s = x.shape, window.shape[0], starts.shape[1]
     count = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_halo_range_count(
-                x.data_ptr(), window.data_ptr(), starts.data_ptr(),
-                ends.data_ptr(), n, w, d, s, d2cut, count.data_ptr(),
-                _stream(x))
-        build.check(lib, "halo_range_count", code)
-        _LAUNCHES["halo_range_count"] += 1
+            if worklist is None:
+                name = "halo_range_count"
+                code = lib.repro_halo_range_count(
+                    x.data_ptr(), window.data_ptr(), starts.data_ptr(),
+                    ends.data_ptr(), n, w, d, s, d2cut, count.data_ptr(),
+                    _stream(x))
+            else:
+                name = "worklist_halo_range_count"
+                code = lib.repro_worklist_halo_range_count(
+                    x.data_ptr(), window.data_ptr(), starts.data_ptr(),
+                    ends.data_ptr(), n, w, d, s, d2cut,
+                    worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
+                    worklist.in_cut.data_ptr(), count.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        _LAUNCHES[name] += 1
     return count.to(torch.float32)
 
 
 def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
                    window: torch.Tensor, w_key: torch.Tensor,
-                   starts: torch.Tensor, ends: torch.Tensor, d_cut):
+                   starts: torch.Tensor, ends: torch.Tensor, d_cut, *,
+                   worklist: Worklist | None = None,
+                   live: torch.Tensor | None = None):
     """Per x-row: the nearest window row inside the row's spans that is
     strictly denser AND within ``d_cut`` (stencil semantics; the spans as
     in ``halo_density``).  K11 on a CUDA tensor, its plain version on a
-    CPU one.
+    CPU one.  ``worklist`` (a halo ring, ``blocksparse.build_flat_worklist(
+    count=False, nn="best1", nn_dcut=True, starts=, ends=)``) walks each
+    row tile's tile pairs in ascending lb and stops where no row can
+    improve: K16 on a CUDA tensor, its plain version on a CPU one.
+    ``live`` (CUDA only, (row tiles,) int32) receives the number of
+    entries K16 computed in each row tile.
 
     Returns (delta (n,) f32, parent (n,) int32 window index, found (n,)
     bool); (inf, -1, False) where no window row qualifies.
     """
     _check("halo_dependent", x, window, x_key, w_key)
     _check_spans("halo_dependent", x, starts, ends)
+    if worklist is not None:
+        _check_worklist("halo_dependent", x, window, worklist)
+    _check_live("halo_dependent", x, worklist, live)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
-        best, arg = halo_masked_nn_plain(x, x_key, window, w_key, starts,
-                                         ends, d2cut)
+        if worklist is None:
+            best, arg = halo_masked_nn_plain(x, x_key, window, w_key, starts,
+                                             ends, d2cut)
+        else:
+            best, arg = worklist_halo_masked_nn_plain(
+                x, x_key, window, w_key, starts, ends, d2cut, worklist)
         return torch.sqrt(best), arg, torch.isfinite(best)
     (n, d), w, s = x.shape, window.shape[0], starts.shape[1]
     delta = torch.empty((n,), dtype=torch.float32, device=x.device)
@@ -468,13 +505,24 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
     if n:
         lib = build.load_library()
         with torch.cuda.device(x.device):
-            code = lib.repro_halo_masked_nn(
-                x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
-                w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n, w,
-                d, s, d2cut, delta.data_ptr(), arg.data_ptr(),
-                found.data_ptr(), _stream(x))
-        build.check(lib, "halo_masked_nn", code)
-        _LAUNCHES["halo_masked_nn"] += 1
+            if worklist is None:
+                name = "halo_masked_nn"
+                code = lib.repro_halo_masked_nn(
+                    x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
+                    w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n,
+                    w, d, s, d2cut, delta.data_ptr(), arg.data_ptr(),
+                    found.data_ptr(), _stream(x))
+            else:
+                name = "worklist_halo_masked_nn"
+                code = lib.repro_worklist_halo_masked_nn(
+                    x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
+                    w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n,
+                    w, d, s, d2cut, worklist.row_ptr.data_ptr(),
+                    worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
+                    delta.data_ptr(), arg.data_ptr(), found.data_ptr(),
+                    0 if live is None else live.data_ptr(), _stream(x))
+        build.check(lib, name, code)
+        _LAUNCHES[name] += 1
     return delta, arg, found
 
 

@@ -510,3 +510,90 @@ def halo_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
         best[r0:r1] = b
         arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
     return best, arg
+
+
+def _halo_tile_candidates(x, window, starts, ends, r0: int, r1: int):
+    """The span columns of rows [r0, r1) (one row tile): (idx (r, S, L)
+    int64 window columns, valid (r, S, L) bool, d2 (r, S, L) f32)."""
+    idx, valid = _span_candidates(starts[r0:r1], ends[r0:r1],
+                                  window.shape[0])
+    return idx, valid, direct_d2(x[r0:r1, None, None, :], window[idx])
+
+
+def worklist_halo_range_count_plain(x: torch.Tensor, window: torch.Tensor,
+                                    starts: torch.Tensor, ends: torch.Tensor,
+                                    d2cut: float, wl):
+    """Per x-row: the count of window rows with d2 < d2cut inside the row's
+    spans (clipped to the window) and inside its row tile's ``in_cut``
+    entries' column tiles, i32: K15's function.  On a span count worklist
+    from ``build_flat_worklist(count=True, nn=None, starts=, ends=)`` it
+    equals ``halo_range_count_plain``."""
+    n, w = x.shape[0], window.shape[0]
+    count = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    if w == 0:
+        return count
+    ptr = wl.row_ptr.tolist()
+    nbc = -(-w // BLOCK_M)
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        seg = slice(ptr[t], ptr[t + 1])
+        cut = torch.zeros((nbc,), dtype=torch.bool, device=x.device)
+        cut[wl.col_tile[seg][wl.in_cut[seg]].long()] = True
+        idx, valid, d2 = _halo_tile_candidates(x, window, starts, ends, r0,
+                                               r1)
+        valid &= cut[idx // BLOCK_M]
+        count[r0:r1] = ((d2 < d2cut) & valid).sum(dim=(1, 2),
+                                                  dtype=torch.int32)
+    return count
+
+
+def worklist_halo_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
+                                  window: torch.Tensor, w_key: torch.Tensor,
+                                  starts: torch.Tensor, ends: torch.Tensor,
+                                  d2cut: float, wl, live=None):
+    """Per x-row: the nearest window row inside the row's spans with a key
+    strictly greater and d2 < d2cut, as (best d2 f32, window index i32),
+    lexicographic on (d2, index); (+inf, -1) where none qualifies: K16's
+    function.  Each row tile walks its entries in stored (ascending lb)
+    order and stops at the first entry for which no row with a finite key
+    has ``lb <= best``, as the kernel does; ``live`` ((row tiles,) int32,
+    optional) receives the entries walked.  On a halo ring from
+    ``build_flat_worklist(count=False, nn="best1", nn_dcut=True, starts=,
+    ends=)`` it equals ``halo_masked_nn_plain``."""
+    n, w = x.shape[0], window.shape[0]
+    best = torch.full((n,), float("inf"), dtype=torch.float32,
+                      device=x.device)
+    arg = torch.full((n,), -1, dtype=torch.int32, device=x.device)
+    ptr = wl.row_ptr.tolist()
+    for t in range(wl.num_row_tiles):
+        r0, r1 = t * BLOCK_N, min(n, (t + 1) * BLOCK_N)
+        seeks = x_key[r0:r1] < float("inf")
+        b = torch.full((r1 - r0,), float("inf"), dtype=torch.float32,
+                       device=x.device)
+        a = torch.full((r1 - r0,), w, dtype=torch.int64, device=x.device)
+        if w:
+            idx, valid, d2 = _halo_tile_candidates(x, window, starts, ends,
+                                                   r0, r1)
+            ok = (valid & (w_key[idx] > x_key[r0:r1, None, None])
+                  & (d2 < d2cut)).flatten(1)
+            idx, d2 = idx.flatten(1), d2.flatten(1)
+            tile = idx // BLOCK_M
+        walked = 0
+        for col, lb in zip(wl.col_tile[ptr[t]:ptr[t + 1]].tolist(),
+                           wl.lb[ptr[t]:ptr[t + 1]].tolist()):
+            if not bool((seeks & (lb <= b)).any()):
+                break
+            walked += 1
+            if not w or idx.shape[1] == 0:      # no span column at all
+                continue
+            cand = torch.where(ok & (tile == col), d2, float("inf"))
+            cb = cand.min(dim=1).values
+            ca = torch.where(cand == cb[:, None], idx, w).min(dim=1).values
+            upd = (cb < b) | ((cb == b) & torch.isfinite(cb) & (ca < a))
+            b = torch.where(upd, cb, b)
+            a = torch.where(upd, ca, a)
+        if live is not None:
+            live[t] = walked
+        best[r0:r1] = b
+        arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
+    return best, arg

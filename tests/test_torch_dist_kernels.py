@@ -92,9 +92,18 @@ def test_worklist_forms_match_reference(kind, form):
 
 
 def test_worklist_form_refused():
+    """The forms that stay unported: with or without halo spans, only count
+    alone, topk with count, best1 alone and (with spans) best1 with
+    nn_dcut are built."""
     x = _t(uniform_points(300, 2, seed=0))
+    sp = torch.zeros((300, 2), dtype=torch.int32)
     for kw in ({"count": False, "nn": "topk"}, {"count": False, "nn": None},
-               {"count": True, "nn": "best1"}):
+               {"count": True, "nn": "best1"},
+               {"count": False, "nn": "best1", "nn_dcut": True},
+               {"count": True, "nn": "topk", "starts": sp, "ends": sp},
+               {"count": False, "nn": "best1", "starts": sp, "ends": sp},
+               {"count": True, "nn": "best1", "nn_dcut": True, "starts": sp,
+                "ends": sp}):
         with pytest.raises(ValueError, match="not ported"):
             blocksparse.build_flat_worklist(x, x, 0.1, **kw)
 
@@ -299,8 +308,8 @@ def test_point_span_bounds_match_reference(d):
 
 
 def test_backend_layouts():
-    """``range_count`` and ``denser_nn`` under the block-sparse layout equal
-    the dense forms; the halo worklist forms are not ported and raise."""
+    """``range_count``, ``denser_nn`` and the halo pair under the
+    block-sparse layout equal the dense forms."""
     pts = real_proxy("airline", 3000, seed=7)[0]
     dc = pick_dcut(pts, target_rho=30)
     gp = _t(_sorted(pts, dc))
@@ -312,13 +321,19 @@ def test_backend_layouts():
     for g, w in zip(be.denser_nn(x, xk, gp, key, layout="block-sparse"),
                     be.denser_nn(x, xk, gp, key)):
         assert torch.equal(g, w)
-    sp = torch.zeros((len(x), 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.range_count_halo(x, gp, sp, sp, dc, span_cap=1,
-                            layout="block-sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        be.denser_nn_halo(x, xk, gp, key, sp, sp, dc, span_cap=1,
-                          layout="block-sparse")
+    # the halo pair over whole-table spans: K15 and K16 on their span
+    # worklists equal K10 and K11
+    sp = torch.tensor([[0, len(gp)], [7, 3], [-9, -2]], dtype=torch.int32)
+    st = sp[:, 0].expand(len(x), 3).contiguous()
+    en = sp[:, 1].expand(len(x), 3).contiguous()
+    assert torch.equal(be.range_count_halo(x, gp, st, en, dc, span_cap=1,
+                                           layout="block-sparse"),
+                       be.range_count_halo(x, gp, st, en, dc, span_cap=1))
+    for g, w in zip(be.denser_nn_halo(x, xk, gp, key, st, en, dc,
+                                      span_cap=1, layout="block-sparse"),
+                    be.denser_nn_halo(x, xk, gp, key, st, en, dc,
+                                      span_cap=1)):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError):
         be.denser_nn(x, xk, gp, key, layout="sparse")
 

@@ -98,7 +98,8 @@ def test_cpu_fit_never_invokes_nvcc(monkeypatch):
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
         "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
         "worklist_masked_nn": 0, "worklist_range_count_signed": 0,
-        "halo_range_count": 0, "halo_masked_nn": 0}
+        "halo_range_count": 0, "halo_masked_nn": 0,
+        "worklist_halo_range_count": 0, "worklist_halo_masked_nn": 0}
 
 
 def test_refit_reuses_plan_and_decision_graph():
@@ -145,14 +146,16 @@ def test_unported_axes_and_entry_points_raise():
     assert torch.equal(be.range_count_delta(x, x, torch.ones(50), 0.1,
                                             layout="block-sparse"),
                        be.range_count_delta(x, x, torch.ones(50), 0.1))
-    for call in (lambda: be.denser_nn_update(x, torch.rand(50),
-                                             torch.arange(5),
-                                             layout="block-sparse"),
-                 lambda: be.range_count_halo(x, x, spans, spans, 0.1,
-                                             span_cap=1,
-                                             layout="block-sparse")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    keys = torch.rand(50)
+    for g, w in zip(be.denser_nn_update(x, keys, torch.arange(5),
+                                        layout="block-sparse"),
+                    be.denser_nn_update(x, keys, torch.arange(5))):
+        assert torch.equal(g, w)
+    assert torch.equal(be.range_count_halo(x, x, spans, spans, 0.1,
+                                           span_cap=1,
+                                           layout="block-sparse"),
+                       be.range_count_halo(x, x, spans, spans, 0.1,
+                                           span_cap=1))
     with pytest.raises(PoisonedInputError):
         eng.fit(np.array([[0.0, np.inf]] * 4, np.float32))
     with pytest.raises(ValueError):

@@ -229,6 +229,12 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
                                     precision=precision)
             CudaBackend().rho_delta(x, x, 0.1, layout=layout,
                                     precision=precision)
+        st = torch.zeros((100, 1), dtype=torch.int32)
+        CudaBackend().range_count_halo(x, x, st, st + 100, 0.1,
+                                       span_cap=100, layout=layout)
+        CudaBackend().denser_nn_halo(x, torch.rand(100), x, torch.rand(100),
+                                     st, st + 100, 0.1, span_cap=100,
+                                     layout=layout)
     CudaBackend().prefix_nn(x)
     assert ops.launch_counts() == {
         "fused_count_topk": 0, "worklist_count_topk": 0,
@@ -238,7 +244,8 @@ def test_cpu_tensors_never_build_or_count(monkeypatch):
         "masked_nn": 0, "range_count": 0, "range_count_signed": 0,
         "gather_masked_nn": 0, "prefix_nn": 0, "worklist_range_count": 0,
         "worklist_masked_nn": 0, "worklist_range_count_signed": 0,
-        "halo_range_count": 0, "halo_masked_nn": 0}
+        "halo_range_count": 0, "halo_masked_nn": 0,
+        "worklist_halo_range_count": 0, "worklist_halo_masked_nn": 0}
 
 
 def _prefix_cases():
