@@ -9,9 +9,12 @@ Phases, each of which raises on failure (nothing is caught):
    versions, and the seconds ``nvcc`` took to build ``kernels/csrc/sweep.cu``.
 2. Kernels vs plain at check shapes: each CUDA kernel against its plain
    PyTorch version on the same inputs on the card, bit for bit (ragged
-   rows, d = 2..64, equal keys, a lattice of exact distance ties); K3, the
-   worklist sweep, also against dense K1.  Median times of five runs after
-   a warm-up (CUDA events) at 65,536 rows.
+   rows, d = 2..64, equal keys, a lattice of exact distance ties); K1 also
+   on row counts that are not multiples of a block's rows; K2 also on the
+   128 x 128 lattice with three key levels and where every d2 overflows
+   (coordinates near 1e19: (inf, -1)); K3, the worklist sweep, also
+   against dense K1.  Median times of five runs after a warm-up (CUDA
+   events) at 65,536 rows.
 3. The dense path: ``DPCEngine(d_cut, rho_min=10).fit`` on the Airline
    proxy (d = 3) at n = 1,048,576, d_cut from the benchmarks' rule
    ``pick_dcut(target_rho=30)``.  The launch counts are zeroed just before
@@ -20,9 +23,11 @@ Phases, each of which raises on failure (nothing is caught):
 4. Kernels vs plain at the dense path's shapes: K1 on the fit's full
    2^20 x 2^20 against the fit's rho, and on a 65,536-row slice against
    its plain version (the plain sweep over all rows took 145 s); K2 on the
-   fit's unresolved cell maxima against all 2^20 rows.  Kernel times are
-   medians of five CUDA-event runs after a warm-up; a plain time is its one
-   comparison run, timed by CUDA events.
+   fit's unresolved cell maxima against all 2^20 rows, and on 45 and 5,724
+   of the rows against all 2^20 (K2's column split) with the fit's keys,
+   tied integer keys, -inf on 60 % of the columns and NaN keys.  Kernel
+   times are medians of five CUDA-event runs after a warm-up; a plain time
+   is its one comparison run, timed by CUDA events.
 5. The dense fit against float64: rho on 4,096 random rows, and the parent
    and delta of every cell maximum (rules 2 and 3) against a float64 masked
    search over all n.
@@ -44,8 +49,8 @@ Phases, each of which raises on failure (nothing is caught):
    parent/delta of 4,096 random cell maxima against float64; K3 against
    its plain version and dense K1 on 256 row tiles spread over the table,
    against all columns; K2 against its plain version on a slice of the
-   fit's rows; a traced fit for the phase times and each phase's peak
-   device memory.
+   fit's rows, and on all of them against K9 on a best-1 ring worklist; a
+   traced fit for the phase times and each phase's peak device memory.
 9. The stream's kernels vs plain at check shapes: K4 ``range_count``, K5
    ``range_count_signed`` and K6 ``gather_masked_nn`` bit for bit against
    their plain versions (Airline 65,536 with 4,096 query rows, a 512-row
@@ -191,8 +196,10 @@ and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
 phase 21, K14 from phase 22, K15 and K16 from phase 23), and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 where no CUDA device is present.  ``--out`` also writes the full record
-(check-shape times, issue-rate bounds, worklist statistics with K3's
-computed entries, phase times and peaks) as JSON.
+(check-shape times, bounds, worklist statistics with K3's computed
+entries, phase times and peaks) as JSON.  Bounds take f32 operations at
+the card's lane issue rate (SMs x 128 x its maximum SM clock): the
+kernels' direct differences do not contract into FMAs.
 """
 from __future__ import annotations
 
@@ -212,10 +219,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 rate
-# and float32 outside the tensor cores (an FMA counted as two operations).
+# and bf16 on the tensor cores.  The kernels' f32 work is direct differences
+# that may not contract into FMAs, so its floor is one operation per f32
+# lane per cycle: SMs x 128 lanes x the SM clock, 132 x 128 x 1980 MHz on
+# the data sheet's part, and main() sets it from the card's own SM count
+# and maximum clock (the data sheet's 67 TFLOP/s counts an FMA as two).
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 F32_LANES_PER_SM = 128           # Hopper: 128 f32 lanes per SM
+F32_ISSUE_PER_S = 132 * F32_LANES_PER_SM * 1980e6
 BF16_TC_OPS_PER_S = 989e12       # bf16 on the tensor cores, dense
 
 N_MAIN = 1 << 20                 # the dense path (quadratic)
@@ -223,6 +234,8 @@ N_FULL = 5_810_462               # Airline's size: the block-sparse main path
 N_CHECK = 65536
 Q_CHECK = 4096
 K1_PLAIN_ROWS = 65536            # rows of the dense path's plain K1 check
+K1_RAGGED_ROWS = (1, 127, 511, 513, 4103)   # not multiples of R x 128
+K2_SPLIT_ROWS = (45, 5724)       # K2 query rows against 2^20 columns
 TILES_CHECK = 256                # row tiles of the full path's K3 check
 K2_PLAIN_ROWS = 2048             # rows of the full path's plain K2 check
 REPS = 5
@@ -285,9 +298,9 @@ def timed_once(fn):
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time for the work: bytes over the memory rate or
-    operations over the f32 peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    """The least time for the work: bytes over the memory rate or f32
+    operations over the lane issue rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_ISSUE_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -335,13 +348,24 @@ def k3_work(x, y, wl, needed: int) -> tuple[float, float]:
 
 
 def k2_work(x_key, y_key, d: int) -> tuple[float, float]:
-    """Bytes and operations of masked_nn on these keys: a key test per
-    pair, and 3d+1 operations for each pair whose column is denser."""
+    """Bytes and operations of masked_nn on these keys, as its schedule
+    must do them: 3d+1 operations for each pair whose column is denser
+    (the key-sorted prefix leaves no key test); the inputs read once, the
+    outputs written once, and the sort and pack of the columns (keys
+    sorted with their indices, rows gathered into records) and of the
+    rows."""
+    from repro_torch.kernels.packing import record_width
     n, m = x_key.numel(), y_key.numel()
-    ys = torch.sort(y_key).values
-    denser = float((m - torch.searchsorted(ys, x_key, right=True)).sum())
-    nbytes = 4 * (n * d + n + m * d + m) + 8 * n
-    return nbytes, float(n) * m + denser * (3 * d + 1)
+    # counted apart from the wrapper's own key order: #{j : y_key[j] >
+    # x_key[i]}, where a NaN key is never greater and nothing exceeds one
+    neg_inf = torch.tensor(float("-inf"), device=y_key.device)
+    ys = torch.sort(torch.where(torch.isnan(y_key), neg_inf, y_key)).values
+    above = m - torch.searchsorted(ys, x_key, right=True)
+    denser = float(torch.where(torch.isnan(x_key), 0, above).sum())
+    nbytes = (4 * (n * d + n + m * d + m) + 8 * n
+              + 16 * m + 4 * m * (d + record_width(d)) + 16 * n
+              + 4 * n * (2 * d + 1))
+    return nbytes, denser * (3 * d + 1)
 
 
 def check_equal(name: str, got, want, what: str = "its plain version"):
@@ -1478,9 +1502,9 @@ def bf16_bound_ms(nbytes: float, tc_ops: float,
                   f32_ops: float) -> tuple[float, str]:
     """The least time for a bf16 sweep's work: bytes over the memory rate,
     the cross term's operations over the bf16 tensor-core peak, or the
-    epilogue's over the f32 peak, whichever is largest."""
+    epilogue's over the f32 lane issue rate, whichever is largest."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(tc_ops / BF16_TC_OPS_PER_S, f32_ops / F32_OPS_PER_S)
+    t_ops = max(tc_ops / BF16_TC_OPS_PER_S, f32_ops / F32_ISSUE_PER_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations")
 
@@ -2132,6 +2156,8 @@ def main() -> int:
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     issue_rate = sms * F32_LANES_PER_SM * max_sm_mhz * 1e6
+    global F32_ISSUE_PER_S
+    F32_ISSUE_PER_S = issue_rate
     print(f"card: {card}")
     print(f"clocks.sm, clocks.max.sm, power.draw, temperature: {clocks}")
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -2190,6 +2216,15 @@ def main() -> int:
                     k1_plain(x, x, dc))
         print(f"fused_count_topk == plain, bit for bit: {label}, "
               f"n={len(pts)} d={pts.shape[1]}", flush=True)
+    xa = torch.from_numpy(cases[0][1]).to(dev)
+    dca = pick_dcut(cases[0][1], target_rho=30)
+    for r in K1_RAGGED_ROWS:
+        check_equal(f"fused_count_topk [airline, {r} rows]",
+                    k1(xa[:r].contiguous(), xa, dca),
+                    k1_plain(xa[:r].contiguous(), xa, dca))
+    print(f"fused_count_topk == plain, bit for bit: airline rows "
+          f"{K1_RAGGED_ROWS} x {N_CHECK} (not multiples of a block's "
+          f"rows)", flush=True)
 
     k3_checks = {}
     for label, pts, dc in [(lb, p, pick_dcut(p, target_rho=30))
@@ -2228,6 +2263,25 @@ def main() -> int:
         "masked_nn with equal keys must return (inf, -1) everywhere"
     print(f"masked_nn == plain, bit for bit: q={Q_CHECK} m={N_CHECK} d=3, "
           f"and (inf, -1) everywhere for equal keys", flush=True)
+    lat = torch.from_numpy(lattice.reshape(-1, 2).astype(np.float32)).to(dev)
+    lk = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 3, len(lat)).astype(np.float32)).to(dev)        # 3 key levels
+    check_equal("masked_nn [lattice 128x128]", k2(lat, lk, lat, lk),
+                k2_plain(lat, lk, lat, lk))
+    u = torch.from_numpy(np.random.default_rng(19).uniform(
+        size=(600, 3)).astype(np.float32)).to(dev)
+    far_x, far_y = (u[:300] + 1) * 2e19, -(u[300:] + 1) * 2e19
+    far_k = torch.randperm(600, generator=torch.Generator().manual_seed(19)
+                           ).to(dev, torch.float32)
+    fd, fp = k2(far_x, far_k[:300].contiguous(), far_y,
+                far_k[300:].contiguous())
+    check_equal("masked_nn [coordinates near 1e19]", (fd, fp), k2_plain(
+        far_x, far_k[:300].contiguous(), far_y, far_k[300:].contiguous()))
+    assert torch.isinf(fd).all() and (fp == -1).all(), \
+        "masked_nn where every d2 overflows must return (inf, -1)"
+    print("masked_nn == plain, bit for bit: the 128x128 lattice of exact "
+          "ties with three key levels; (inf, -1) where every d2 is inf "
+          "(coordinates near 1e19)", flush=True)
 
     xs_check = build_grid(x, dc).points
     wl_check = blocksparse.build_flat_worklist(xs_check, xs_check, dc)
@@ -2339,6 +2393,31 @@ def main() -> int:
         dense_k2["plain_ms"] += p_ms
     print(f"masked_nn == plain, bit for bit: dense path q={k2_rows} "
           f"m={N_MAIN} d=3", flush=True)
+    # few query rows against 2^20 columns (the column split), with the
+    # callers' key forms: the fit's keys, tied integer keys, S-Approx-DPC's
+    # -inf off a set of columns, NaN keys
+    (_, _, sy, syk), = dense_given["masked_nn"][:1]
+    gen_k = torch.Generator(device=dev).manual_seed(5)
+    off = torch.rand(syk.shape, generator=gen_k, device=dev) < 0.6
+    nan_y = syk.clone()
+    nan_y[::5] = float("nan")
+    split_k2 = {}
+    for r in K2_SPLIT_ROWS:
+        pick = torch.linspace(0, N_MAIN - 1, r, device=dev).round().long()
+        q, qk = sy[pick].contiguous(), syk[pick].contiguous()
+        nan_q = qk.clone()
+        nan_q[::7] = float("nan")
+        for kind, xk_, yk_ in (
+                ("keys", qk, syk), ("tied", qk.floor(), syk.floor()),
+                ("-inf columns", qk,
+                 torch.where(off, float("-inf"), syk)),
+                ("NaN keys", nan_q, nan_y)):
+            check_equal(f"masked_nn [{r} rows x {N_MAIN}, {kind}]",
+                        k2(q, xk_, sy, yk_), k2_plain(q, xk_, sy, yk_))
+        split_k2[r] = time_ms(lambda: k2(q, qk, sy, syk))
+    print(f"masked_nn == plain, bit for bit: {list(K2_SPLIT_ROWS)} rows x "
+          f"{N_MAIN}, the fit's, tied, -inf and NaN keys; kernel "
+          f"{split_k2} ms  ({card})", flush=True)
     print(f"fused_count_topk [dense path]: kernel "
           f"{main_times['fused_count_topk']['ms']:.3f} ms, plain "
           f"{plain_ms:.3f} ms on {K1_PLAIN_ROWS} rows; masked_nn: kernel "
@@ -2368,7 +2447,7 @@ def main() -> int:
     record["dense"] = {"fit_ms": fit_s * 1e3, "n": N_MAIN, "d_cut": d_cut,
                        "clusters": n_clusters, "cell_maxima": maxima.numel(),
                        "rule2_rows": n_rule2, "k2_rows": k2_rows,
-                       "k2": dense_k2}
+                       "k2": dense_k2, "k2_split_ms": split_k2}
 
     # ------------------------------------------ 6. block-sparse at 2^20
     stamp(6)
@@ -2520,6 +2599,15 @@ def main() -> int:
         fxs, fys, fdc, fwl, None, "worklist_count_topk", card)
     errs["masked_nn"], main_times["masked_nn"], bounds["masked_nn"] = \
         k2_fit_check(given["masked_nn"], "main path", card)
+    for i, (kq, kqk, ky, kyk) in enumerate(given["masked_nn"]):
+        ring = blocksparse.build_flat_worklist(kq, ky, count=False,
+                                               nn="best1")
+        check_equal(f"masked_nn [main path, call {i}]", k2(kq, kqk, ky, kyk),
+                    ops.dependent_masked(kq, kqk, ky, kyk, worklist=ring),
+                    "K9 on a best-1 ring")
+        del ring
+    print(f"masked_nn == worklist_masked_nn on a best-1 ring, bit for bit, "
+          f"on all {k2_rows_full} unresolved rows x {N_FULL}", flush=True)
 
     # traced fit: phase times and each phase's peak device memory
     del given, fxs, fys, fwl, fx, fgrid
@@ -3339,9 +3427,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
-        record.setdefault("bounds", {})[name] = {
-            "bound_ms": b_ms, "bound_by": by,
-            "issue_bound_ms": 1e3 * bounds[name][1] / issue_rate}
+        record.setdefault("bounds", {})[name] = {"bound_ms": b_ms,
+                                                 "bound_by": by}
     for name, launched in (
             ("fused_count_topk_bf16", lat_launches["approxdpc", "dense"]),
             ("worklist_count_topk_bf16", air_launches),

@@ -71,13 +71,16 @@ def load_library() -> ctypes.CDLL:
     """The built library with every entry point's signature declared."""
     lib = ctypes.CDLL(str(build().path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p, p]
+    lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, i, f, i, p, p, p,
+                                           p]
     lib.repro_fused_count_topk.restype = i
     lib.repro_worklist_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p,
                                               p, p, p, p, p, p]
     lib.repro_worklist_count_topk.restype = i
-    lib.repro_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p]
+    lib.repro_masked_nn.argtypes = [p, p, p, p, i, p, i, i, i, p, p, p, p]
     lib.repro_masked_nn.restype = i
+    lib.repro_masked_nn_block_rows.argtypes = []
+    lib.repro_masked_nn_block_rows.restype = i
     lib.repro_range_count.argtypes = [p, p, i, i, i, f, p, p]
     lib.repro_range_count.restype = i
     lib.repro_range_count_signed.argtypes = [p, p, p, i, i, i, f, p, p]

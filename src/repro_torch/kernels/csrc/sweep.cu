@@ -9,10 +9,12 @@
 //   repro_fused_count_topk     per query row, the count of y rows within
 //                              d_cut and the 8 nearest (d2, index) pairs,
 //                              optionally among the selected columns only
+//                              (over packed records, kernels/packing.py)
 //   repro_worklist_count_topk  the same, over the tile pairs of a worklist
 //                              (kernels/blocksparse.py)
 //   repro_masked_nn            per query row, the nearest strictly denser
-//                              y row
+//                              y row (over a key-sorted prefix of packed
+//                              records and a chunk work list)
 //   repro_range_count          per query row, the count of y rows within
 //                              d_cut (the stream's fresh counts)
 //   repro_range_count_signed   per query row, the sum of the signs of the
@@ -64,7 +66,7 @@ namespace {
 
 constexpr int kRows = 128;          // query rows per block, one per thread
 constexpr int kTileFloats = 8192;   // y coordinates staged per tile (32 KB)
-constexpr int kMaxTileCols = 2048;  // columns per tile (K2 keys: 8 KB)
+constexpr int kMaxTileCols = 2048;  // columns per tile (K5/K6: 8 KB)
 constexpr int kTopK = 8;            // FUSED_TOPK in kernels/sweep.py
 constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
                                     // kernels/blocksparse.py
@@ -141,88 +143,221 @@ __device__ __forceinline__ void stage(float* tile, const float* y, int j0,
   for (int t = threadIdx.x; t < cols * d; t += blockDim.x) tile[t] = src[t];
 }
 
+// K1 and K2 read the columns as packed records (kernels/packing.py): the d
+// coordinates, one 32-bit slot (K1: the kept-k gate; K2: the column's
+// original index) and zeros up to a whole number of float4s, one float4 for
+// d <= 3.  A block of kNnThreads threads owns R rows per thread (register
+// blocking: one 16-byte shared load per column feeds R distances) and
+// streams the records through a two-stage ring of tiles in dynamic shared
+// memory, filled by 16-byte cp.async: tile t+1 is in flight while tile t is
+// computed, and the one barrier per tile both publishes tile t and retires
+// the buffer of tile t-1.
+// Rows per thread, measured at R = 2 and 4 on an H100 (PERF.md): K1 keeps
+// 16 registers of kept list per row, so at R = 4 it needs 128 registers
+// and an SM holds 4 blocks; R = 2 (68 registers, 7 blocks) is faster.
+// K2 holds 3 per row and is faster at R = 4.
+constexpr int kNnThreads = 128;     // threads per K1/K2 block
+constexpr int kK1R = 2;             // K1 rows per thread
+constexpr int kK2R = 4;             // K2 rows per thread
+constexpr int kStageVecs = 1024;    // float4s per ring stage (16 KB)
+// K1 blocks an SM must hold: lets ptxas use 128 registers a thread at
+// R = 4, where by itself it stopped at 96 and spilled the query rows
+constexpr int kK1MinBlocks = 4;
+
+// float4s per packed record of d coordinates and the slot
+__host__ __device__ constexpr int rec_vecs(int d) { return (d + 4) / 4; }
+
+__host__ __device__ inline int ring_cols(int w4) {
+  const int c = kStageVecs / w4;
+  return c > 1 ? c : 1;
+}
+
+// dynamic shared memory of a two-stage ring of w4-float4 records
+inline size_t ring_bytes(int w4) {
+  return 2 * static_cast<size_t>(ring_cols(w4)) * w4 * sizeof(float4);
+}
+
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Issue (and commit as one group) the copy of records [c0, c0 + cols).
+__device__ __forceinline__ void stage_async(float4* buf, const float4* rec,
+                                            int c0, int cols, int w4) {
+  const float4* src = rec + static_cast<size_t>(c0) * w4;
+  for (int t = threadIdx.x; t < cols * w4; t += blockDim.x)
+    cp_async16(buf + t, src + t);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One column's record in registers (D > 0); D == 0 reads it in place.
+template <int D>
+struct Record {
+  float v[D > 0 ? 4 * rec_vecs(D) : 1];
+  const float* g;
+  __device__ __forceinline__ explicit Record(const float4* rc)
+      : g(reinterpret_cast<const float*>(rc)) {
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int q = 0; q < rec_vecs(D); ++q) {
+        const float4 f = rc[q];
+        v[4 * q] = f.x;
+        v[4 * q + 1] = f.y;
+        v[4 * q + 2] = f.z;
+        v[4 * q + 3] = f.w;
+      }
+    }
+  }
+  __device__ __forceinline__ const float* coords() const {
+    if constexpr (D > 0) {
+      return v;
+    } else {
+      return g;
+    }
+  }
+  __device__ __forceinline__ int slot(int d) const {
+    if constexpr (D > 0) {
+      return __float_as_int(v[D]);
+    } else {
+      return __float_as_int(g[d]);
+    }
+  }
+};
+
+// cnt += d2 < cut as a compare and a predicated add: left to itself, nvcc
+// selects between cnt and cnt + 1 and moves the result, four instructions.
+__device__ __forceinline__ void count_below(int& cnt, float d2, float cut) {
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.f32 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(cnt)
+      : "f"(d2), "f"(cut));
+}
+
+// d2 of one register-blocked row: D > 0 from its registers, D == 0 from x.
+template <int D>
+__device__ __forceinline__ float row_d2(const float (&xr)[D > 0 ? D : 1],
+                                        const float* xg, const float* yc,
+                                        int d) {
+  if constexpr (D > 0) {
+    return pair_d2<D>(xr, yc, D);
+  } else {
+    return pair_d2<0>(xg, yc, d);
+  }
+}
+
 // K1 — replaces the reference's ops.fused_sweep, i.e. sweep.tile_sweep with
 // SweepSpec(count=True, nn="topk", k=8) (repro/kernels/sweep.py:432, body
 // _make_sweep_kernel at :208).
 //
-// Bound: f32 CUDA-core issue.  Each pair costs about 3d+1 operations (d
-// subtractions, d products, d-1 sums, the compare) and moves almost no
-// memory: a block reads each y tile once from L2 into shared memory and
-// every thread then reads it as a broadcast.  The design keeps the query
-// row, the count and the sorted kept list in registers, so the inner loop
-// is the distance, one compare for the count and one compare against the
-// worst kept entry; the insertion runs only when a pair beats it, which
-// after the first columns is rare.  One block owns 128 rows and loops over
-// all column tiles, which replaces the TPU's sequential grid and its
-// `first` flag: nothing is carried between blocks.
+// Bound: f32 CUDA-core issue.  Each pair costs 3d-1 operations of distance
+// (d subtractions, d products, d-1 sums, none of them contracted) and two
+// of count (a compare and a predicated add), and moves almost no memory:
+// a block reads each record tile once from L2 and every thread then reads
+// it as a broadcast.  The floor is pairs x (3d+1) at the card's f32 lane
+// rate (132 SMs x 128 lanes x its clock; no FMA to count twice).  The
+// design keeps each thread's R query rows, counts and sorted kept lists in
+// registers (R x 16 of them for the lists), so the inner loop is one
+// 16-byte shared load per column, R distances, R counts and one guard
+// `d2 <= tv[7]` over the R rows, voted into one warp-uniform branch; the
+// unrolled insertion runs only when some lane's guard passes (under 1 %
+// of a warp's columns on the dense 2^20 fit, so no column order seeds
+// the lists).  Columns arrive in index order, so keep's lexicographic
+// insertion drops an equal d2 of a higher index, as the reference's
+// stable order does.  One block owns R x 128 rows and loops over all
+// column tiles, which replaces the TPU's sequential grid and its `first`
+// flag: nothing is carried between blocks.
 //
 // kSel (S-Approx-DPC's nn_sel gate, repro/kernels/sweep.py:296-297): a
-// column whose sel byte is 0 never enters the kept 8; the count ignores the
-// gate.  The gate's bytes are staged with each tile and tested before the
-// insertion; without it (kSel false) the kernel is the ungated code.
+// column whose record slot is 0 never enters the kept 8; the count ignores
+// the gate.  The gate rides in the record's spare slot, so it costs no
+// load of its own, and it is the column's, the same in every lane.
 template <int D, bool kSel>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kNnThreads, kK1MinBlocks)
     fused_count_topk_kernel(const float* __restrict__ x,
-                            const float* __restrict__ y, int n, int m, int d,
-                            float d2cut,
-                            const unsigned char* __restrict__ sel,
+                            const float4* __restrict__ rec, int w4, int n,
+                            int m, int d, float d2cut,
                             int* __restrict__ count,
                             float* __restrict__ topv, int* __restrict__ topi) {
-  __shared__ float tile[kTileFloats];
-  __shared__ unsigned char stile[kSel ? kMaxTileCols : 1];
-  if constexpr (D > 0) d = D;
-  const int per_tile = tile_cols(d);
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;  // dead lanes compute, never write
-
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
+  extern __shared__ float4 ring[];
   if constexpr (D > 0) {
+    d = D;
+    w4 = rec_vecs(D);
+  }
+  const int base = blockIdx.x * (kK1R * kNnThreads) + threadIdx.x;
+
+  float xr[kK1R][D > 0 ? D : 1];
+  const float* xg[kK1R];
+  float tv[kK1R][kTopK];
+  int ti[kK1R][kTopK];
+  int cnt[kK1R];
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+  for (int r = 0; r < kK1R; ++r) {
+    const int i = base + r * kNnThreads;
+    xg[r] = x + static_cast<size_t>(i < n ? i : n - 1) * d;  // dead rows
+    if constexpr (D > 0) {                                  // never write
+#pragma unroll
+      for (int k = 0; k < D; ++k) xr[r][k] = xg[r][k];
+    }
+#pragma unroll
+    for (int s = 0; s < kTopK; ++s) {
+      tv[r][s] = CUDART_INF_F;
+      ti[r][s] = INT_MAX;
+    }
+    cnt[r] = 0;
   }
 
-  float tv[kTopK];
-  int ti[kTopK];
-#pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
-    tv[s] = CUDART_INF_F;
-    ti[s] = INT_MAX;
-  }
-  int cnt = 0;
-
-  for (int j0 = 0; j0 < m; j0 += per_tile) {
+  const int per_tile = ring_cols(w4);
+  float4* const buf0 = ring;
+  float4* const buf1 = ring + per_tile * w4;
+  const int ntile = (m + per_tile - 1) / per_tile;
+  if (ntile > 0) stage_async(buf0, rec, 0, min(per_tile, m), w4);
+  for (int t = 0; t < ntile; ++t) {
+    const int j0 = t * per_tile;
     const int cols = min(per_tile, m - j0);
+    cp_async_wait_all();
     __syncthreads();
-    stage(tile, y, j0, cols, d);
-    if constexpr (kSel) {
-      for (int t = threadIdx.x; t < cols; t += kRows) stile[t] = sel[j0 + t];
-    }
-    __syncthreads();
+    if (t + 1 < ntile)
+      stage_async((t & 1) ? buf0 : buf1, rec, j0 + per_tile,
+                  min(per_tile, m - j0 - per_tile), w4);
+    const float4* tile = (t & 1) ? buf1 : buf0;
+#pragma unroll 2
     for (int c = 0; c < cols; ++c) {
-      float d2;
-      if constexpr (D > 0) {
-        d2 = pair_d2<D>(xr, tile + c * D, D);
-      } else {
-        d2 = pair_d2<0>(xg, tile + c * d, d);
+      const Record<D> y(tile + c * w4);
+      float d2[kK1R];
+      bool any = false;
+#pragma unroll
+      for (int r = 0; r < kK1R; ++r) {
+        d2[r] = row_d2<D>(xr[r], xg[r], y.coords(), d);
+        count_below(cnt[r], d2[r], d2cut);
+        any |= d2[r] <= tv[r][kTopK - 1];
       }
-      cnt += d2 < d2cut;
-      if constexpr (kSel) {
-        if (stile[c] && d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
-      } else {
-        if (d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+      if constexpr (kSel) any &= y.slot(d) != 0;
+      if (__any_sync(0xffffffffu, any)) {  // a uniform branch
+#pragma unroll
+        for (int r = 0; r < kK1R; ++r)
+          if (d2[r] <= tv[r][kTopK - 1]) keep(tv[r], ti[r], d2[r], j0 + c);
       }
     }
   }
 
-  if (!live) return;
-  count[i] = cnt;
-  const size_t o = static_cast<size_t>(i) * kTopK;
 #pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
-    topv[o + s] = tv[s];
-    topi[o + s] = ti[s] == INT_MAX ? -1 : ti[s];
+  for (int r = 0; r < kK1R; ++r) {
+    const int i = base + r * kNnThreads;
+    if (i >= n) continue;
+    count[i] = cnt[r];
+    const size_t o = static_cast<size_t>(i) * kTopK;
+#pragma unroll
+    for (int s = 0; s < kTopK; ++s) {
+      topv[o + s] = tv[r][s];
+      topi[o + s] = ti[r][s] == INT_MAX ? -1 : ti[r][s];
+    }
   }
 }
 
@@ -360,68 +495,130 @@ __global__ void __launch_bounds__(kWlRows)
   }
 }
 
+// One column of K2 for a thread's R rows.  The hot compare is `d2 <= best`
+// per row, voted into one warp-uniform branch; equal d2 are settled inside
+// it on the original index.  kMask: past the least end of the block's rows, a row
+// skips the columns at or past its own end.
+template <int D, bool kMask>
+__device__ __forceinline__ void nn_column(
+    const float4* rc, int pos, int d, const float (&xr)[kK2R][D > 0 ? D : 1],
+    const float* const (&xg)[kK2R], const int (&e)[kK2R],
+    float (&best)[kK2R], int (&arg)[kK2R]) {
+  const Record<D> y(rc);
+  float d2[kK2R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kK2R; ++r) {
+    d2[r] = row_d2<D>(xr[r], xg[r], y.coords(), d);
+    any |= d2[r] <= best[r] && (!kMask || pos < e[r]);
+  }
+  if (__any_sync(0xffffffffu, any)) {  // a uniform branch
+    const int j = y.slot(d);
+#pragma unroll
+    for (int r = 0; r < kK2R; ++r) {
+      if ((!kMask || pos < e[r]) &&
+          (d2[r] < best[r] || (d2[r] == best[r] && j < arg[r]))) {
+        best[r] = d2[r];
+        arg[r] = j;
+      }
+    }
+  }
+}
+
 // K2 — replaces the reference's dependent.masked_min_dist, i.e.
 // sweep.tile_sweep with SweepSpec(nn="best1", key=True)
 // (repro/kernels/dependent.py:42, lexicographic update at sweep.py:299-311).
 //
-// Bound: f32 CUDA-core issue, as K1: about 3d+1 operations for each pair
-// whose column key is larger, and almost no memory traffic.  The design
-// stages coordinates and keys of a column tile in shared memory, tests the
-// key first and computes the distance only for denser columns, and keeps
-// (best d2, index) in registers.  Columns are visited in ascending order
-// and the update is a strict `<`, so among equal distances the lowest
-// index wins: the reference's lexicographic (d2, col) rule.  Distances are
-// direct differences on every pair, so the reference's top-4 re-rank,
-// which only repaired the expanded form, has no counterpart.
+// Bound: f32 CUDA-core issue on the strictly denser pairs, 3d+1 operations
+// each (3d-1 of distance, the compare and its share of the branch), plus
+// the wrapper's sort and pack of the columns, a few bytes per column.  The
+// design makes the key mask a prefix (kernels/packing.py): the wrapper
+// sorts the columns by key, descending, into packed records carrying their
+// original index, and the rows by the length of their prefix, ends[i] =
+// #{j : y_key[j] > x_key[i]}.  A block of R x 128 consecutive sorted rows
+// then scans only [0, its largest end): no key is loaded or tested, and
+// below the least end of its rows (ends[first], the rows being sorted)
+// every lane takes every column, so the loop is K7's without the
+// divergence, register-blocked; past it a row masks by position.  The hot
+// compare is one `d2 <= best` per row, voted over the R rows and the warp
+// into one uniform branch; inside it the rare equal d2 is settled on the
+// original index, since sorted order is not index order.  Work items (row block, chunk
+// start, chunk end), heaviest first, cut each block's prefix into chunks
+// so a few thousand rows still fill the card; each item merges its rows'
+// (best d2, index) with a 64-bit atomicMin on (d2 bits << 32 | index),
+// which is the lexicographic order since d2 >= 0, into the row's original
+// slot.  A row whose best stays +inf (none denser, or every d2 overflows)
+// never merges and decodes to (inf, -1), as the plain version gives.
+// Distances are direct differences on every pair, so the reference's top-4
+// re-rank, which only repaired the expanded form, has no counterpart.
 template <int D>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kNnThreads)
     masked_nn_kernel(const float* __restrict__ x,
-                     const float* __restrict__ x_key,
-                     const float* __restrict__ y,
-                     const float* __restrict__ y_key, int n, int m, int d,
-                     float* __restrict__ best_out, int* __restrict__ arg_out) {
-  __shared__ float tile[kTileFloats];
-  __shared__ float ktile[kMaxTileCols];
-  if constexpr (D > 0) d = D;
-  const int per_tile = tile_cols(d);
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;
-
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
+                     const int* __restrict__ row_id,
+                     const int* __restrict__ ends,
+                     const float4* __restrict__ rec, int w4,
+                     const int4* __restrict__ items, int n, int d,
+                     unsigned long long* __restrict__ packed) {
+  extern __shared__ float4 ring[];
   if constexpr (D > 0) {
+    d = D;
+    w4 = rec_vecs(D);
+  }
+  const int4 item = items[blockIdx.x];
+  const int first = item.x * (kK2R * kNnThreads);
+  const int c_begin = item.y;
+  const int c_end = item.z;
+  const int lo = ends[first];  // every row of the block takes [0, lo)
+
+  float xr[kK2R][D > 0 ? D : 1];
+  const float* xg[kK2R];
+  int e[kK2R];
+  float best[kK2R];
+  int arg[kK2R];
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  const float key = x_key[row];
-
-  float best = CUDART_INF_F;
-  int arg = -1;
-  for (int j0 = 0; j0 < m; j0 += per_tile) {
-    const int cols = min(per_tile, m - j0);
-    __syncthreads();
-    stage(tile, y, j0, cols, d);
-    for (int t = threadIdx.x; t < cols; t += kRows) ktile[t] = y_key[j0 + t];
-    __syncthreads();
-    for (int c = 0; c < cols; ++c) {
-      if (!(ktile[c] > key)) continue;
-      float d2;
-      if constexpr (D > 0) {
-        d2 = pair_d2<D>(xr, tile + c * D, D);
-      } else {
-        d2 = pair_d2<0>(xg, tile + c * d, d);
-      }
-      if (d2 < best) {
-        best = d2;
-        arg = j0 + c;
-      }
+  for (int r = 0; r < kK2R; ++r) {
+    const int i = first + r * kNnThreads + threadIdx.x;
+    xg[r] = x + static_cast<size_t>(i < n ? i : n - 1) * d;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) xr[r][k] = xg[r][k];
     }
+    e[r] = i < n ? ends[i] : 0;
+    best[r] = CUDART_INF_F;
+    arg[r] = INT_MAX;
   }
 
-  if (!live) return;
-  best_out[i] = best;
-  arg_out[i] = arg;
+  const int per_tile = ring_cols(w4);
+  float4* const buf0 = ring;
+  float4* const buf1 = ring + per_tile * w4;
+  const int ntile = (c_end - c_begin + per_tile - 1) / per_tile;
+  if (ntile > 0)
+    stage_async(buf0, rec, c_begin, min(per_tile, c_end - c_begin), w4);
+  for (int t = 0; t < ntile; ++t) {
+    const int j0 = c_begin + t * per_tile;
+    const int cols = min(per_tile, c_end - j0);
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < ntile)
+      stage_async((t & 1) ? buf0 : buf1, rec, j0 + per_tile,
+                  min(per_tile, c_end - j0 - per_tile), w4);
+    const float4* tile = (t & 1) ? buf1 : buf0;
+    const int open = min(cols, max(0, lo - j0));  // uniform in the block
+    for (int c = 0; c < open; ++c)
+      nn_column<D, false>(tile + c * w4, j0 + c, d, xr, xg, e, best, arg);
+    for (int c = open; c < cols; ++c)
+      nn_column<D, true>(tile + c * w4, j0 + c, d, xr, xg, e, best, arg);
+  }
+
+#pragma unroll
+  for (int r = 0; r < kK2R; ++r) {
+    const int i = first + r * kNnThreads + threadIdx.x;
+    if (i < n && best[r] < CUDART_INF_F)
+      atomicMin(packed + row_id[i],
+                (static_cast<unsigned long long>(__float_as_uint(best[r]))
+                 << 32) |
+                    static_cast<unsigned int>(arg[r]));
+  }
 }
 
 // K4 — replaces the reference's density.range_count, i.e. sweep.tile_sweep
@@ -532,7 +729,7 @@ __global__ void __launch_bounds__(kRows)
 // K6 — replaces the reference's sweep.gather_nn (repro/kernels/sweep.py:491,
 // pallas_call at :510), reached through ops.dependent_masked_gather.
 //
-// Bound: f32 CUDA-core issue, as K2: a key test per pair and about 3d+1
+// Bound: f32 CUDA-core issue: a key test per pair and about 3d+1
 // operations for each pair whose column is denser.  The stream calls it
 // with the dirty cell maxima as rows (a few hundred to a few hundred
 // thousand) against the whole window.  The TPU kernel gathers its query
@@ -629,14 +826,15 @@ __global__ void gather_nn_decode_kernel(
 // Per row i of a table sorted by descending key, the nearest row j < i: Def. 2
 // with "denser" read as "earlier".  Bound: f32 CUDA-core issue, about 3d+1
 // operations for each of the n(n-1)/2 pairs, and almost no memory traffic.
-// The design is K2's without the key: one thread per row, kRows rows per
-// block, the columns staged tile by tile in shared memory, (best d2, index)
-// in registers, ascending columns and a strict `<`, so the lowest index
-// wins among equal distances.  A block stops at the columns before its last
-// row, so the work is the triangle; the blocks are scheduled heaviest first
-// (a reversed blockIdx), so the last wave is not one long tail block.  Only
-// the diagonal tile diverges (each thread stops at its own row).  The delta
-// is the correctly rounded square root, as torch.sqrt computes it.
+// The design is a masked NN without the key: one thread per row, kRows
+// rows per block, the columns staged tile by tile in shared memory, (best
+// d2, index) in registers, ascending columns and a strict `<`, so the
+// lowest index wins among equal distances.  A block stops at the columns
+// before its last row, so the work is the triangle; the blocks are
+// scheduled heaviest first (a reversed blockIdx), so the last wave is not
+// one long tail block.  Only the diagonal tile diverges (each thread stops
+// at its own row).  The delta is the correctly rounded square root, as
+// torch.sqrt computes it.
 template <int D>
 __global__ void __launch_bounds__(kRows)
     prefix_nn_kernel(const float* __restrict__ x, int n, int d,
@@ -1599,26 +1797,43 @@ __global__ void __launch_bounds__(kWlRows)
     default: LAUNCH(0); break;      \
   }
 
-// sel: null for the ungated sweep, else m bytes, nonzero where a column
-// may enter the kept 8 (K1 and K3).
-extern "C" int repro_fused_count_topk(const float* x, const float* y, int n,
-                                      int m, int d, float d2cut,
-                                      const unsigned char* sel, int* count,
-                                      float* topv, int* topi, void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kRows - 1) / kRows);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                    \
-  if (sel != nullptr)                                                      \
-    fused_count_topk_kernel<D, true><<<grid, kRows, 0, s>>>(               \
-        x, y, n, m, d, d2cut, sel, count, topv, topi);                     \
-  else                                                                     \
-    fused_count_topk_kernel<D, false><<<grid, kRows, 0, s>>>(              \
-        x, y, n, m, d, d2cut, sel, count, topv, topi)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
-  }
+// Launch a kernel with `bytes` of dynamic shared memory, above the 48 KB
+// default where d needs it (K1, K2, K12, K13).
+template <typename Kernel, typename... Args>
+int smem_launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
+                cudaStream_t s, Args... args) {
+  const cudaError_t set = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<grid, threads, bytes, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1.  rec: m packed records of w floats (kernels/packing.py), the slot
+// holding the gate when sel is nonzero (a column with slot 0 never enters
+// the kept 8).
+extern "C" int repro_fused_count_topk(const float* x, const float* rec, int w,
+                                      int n, int m, int d, float d2cut,
+                                      int sel, int* count, float* topv,
+                                      int* topi, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (w != 4 * rec_vecs(d)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kK1R * kNnThreads - 1) / (kK1R * kNnThreads));
+  const size_t bytes = ring_bytes(w / 4);
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int code = 0;
+#define REPRO_LAUNCH(D)                                                    \
+  code = sel ? smem_launch(fused_count_topk_kernel<D, true>, grid,         \
+                           kNnThreads, bytes, s, x, r4, w / 4, n, m, d,    \
+                           d2cut, count, topv, topi)                       \
+             : smem_launch(fused_count_topk_kernel<D, false>, grid,        \
+                           kNnThreads, bytes, s, x, r4, w / 4, n, m, d,    \
+                           d2cut, count, topv, topi)
+  REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  return code;
 }
 
 extern "C" int repro_worklist_count_topk(
@@ -1644,19 +1859,40 @@ extern "C" int repro_worklist_count_topk(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_masked_nn(const float* x, const float* x_key,
-                               const float* y, const float* y_key, int n,
-                               int m, int d, float* best, int* arg,
-                               void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kRows - 1) / kRows);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                   \
-  masked_nn_kernel<D><<<grid, kRows, 0, s>>>(x, x_key, y, y_key, n, m, d, \
-                                             best, arg)
+// K2's rows per block: the work list's row blocks (kernels/packing.py).
+extern "C" int repro_masked_nn_block_rows() { return kK2R * kNnThreads; }
+
+// K2.  x: the n query rows sorted by ends (ascending); row_id: each sorted
+// row's original slot; rec: the columns' packed records (w floats, the
+// slot holding the original index) sorted by key, descending; items:
+// n_items (row block, chunk start, chunk end, 0).  packed (n, scratch)
+// gets the merged (d2 bits << 32 | index); best and arg (n) the decoded
+// (d2, index) in the original row order, (inf, -1) where none is denser.
+extern "C" int repro_masked_nn(const float* x, const int* row_id,
+                               const int* ends, const float* rec, int w,
+                               const int* items, int n_items, int n, int d,
+                               unsigned long long* packed, float* best,
+                               int* arg, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (w != 4 * rec_vecs(d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t set = cudaMemsetAsync(
+      packed, 0xFF, static_cast<size_t>(n) * sizeof(*packed), s);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (n_items > 0) {
+    const size_t bytes = ring_bytes(w / 4);
+    const float4* r4 = reinterpret_cast<const float4*>(rec);
+    const int4* it = reinterpret_cast<const int4*>(items);
+    int code = 0;
+#define REPRO_LAUNCH(D)                                                    \
+  code = smem_launch(masked_nn_kernel<D>, dim3(n_items), kNnThreads, bytes, \
+                     s, x, row_id, ends, r4, w / 4, it, n, d, packed)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
+    if (code != 0) return code;
   }
+  gather_nn_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(packed, n, best,
+                                                          arg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1859,19 +2095,6 @@ extern "C" int repro_worklist_range_count_signed(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch a bf16 sweep kernel with `bytes` of dynamic shared memory, above
-// the 48 KB default where d needs it.
-template <typename Kernel, typename... Args>
-int bf16_launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
-                cudaStream_t s, Args... args) {
-  const cudaError_t set = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (set != cudaSuccess) return static_cast<int>(set);
-  kernel<<<grid, threads, bytes, s>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K12.  sel: null for the ungated sweep, else m bytes, nonzero where a
 // column may enter the kept 8.  d must be at most kBfMaxD.
 extern "C" int repro_fused_count_topk_bf16(const float* x, const float* y,
@@ -1885,10 +2108,10 @@ extern "C" int repro_fused_count_topk_bf16(const float* x, const float* y,
   const size_t bytes = bf16_smem_bytes(kRows, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sel != nullptr)
-    return bf16_launch(fused_count_topk_bf16_kernel<true>, grid, kRows,
+    return smem_launch(fused_count_topk_bf16_kernel<true>, grid, kRows,
                        bytes, s, x, y, n, m, d, d2cut, sel, count, topv,
                        topi);
-  return bf16_launch(fused_count_topk_bf16_kernel<false>, grid, kRows, bytes,
+  return smem_launch(fused_count_topk_bf16_kernel<false>, grid, kRows, bytes,
                      s, x, y, n, m, d, d2cut, sel, count, topv, topi);
 }
 
@@ -1905,10 +2128,10 @@ extern "C" int repro_worklist_count_topk_bf16(
   const size_t bytes = bf16_smem_bytes(kWlRows, d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sel != nullptr)
-    return bf16_launch(worklist_count_topk_bf16_kernel<true>, grid, kWlRows,
+    return smem_launch(worklist_count_topk_bf16_kernel<true>, grid, kWlRows,
                        bytes, s, x, y, n, m, d, d2cut, sel, row_ptr,
                        col_tile, in_cut, lb, count, topv, topi, live);
-  return bf16_launch(worklist_count_topk_bf16_kernel<false>, grid, kWlRows,
+  return smem_launch(worklist_count_topk_bf16_kernel<false>, grid, kWlRows,
                      bytes, s, x, y, n, m, d, d2cut, sel, row_ptr, col_tile,
                      in_cut, lb, count, topv, topi, live);
 }

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, packing
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
                     fused_count_topk_plain, gather_masked_nn_plain,
@@ -52,6 +52,11 @@ PRECISIONS = ("f32", "bf16")
 # K12/K13 stage a block's query rows as bf16 in shared memory: at most this
 # many coordinates (kBfMaxD in csrc/sweep.cu)
 BF16_MAX_D = 224
+
+# K2's work list: at least this many column chunks per SM (about 8 waves of
+# the blocks an SM holds), each at least NN_MIN_CHUNK columns long
+NN_ITEMS_PER_SM = 32
+NN_MIN_CHUNK = 4096
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -205,12 +210,19 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         lib = build.load_library()
         sel_ptr = 0 if sel is None else sel.data_ptr()
         with torch.cuda.device(x.device):
-            if worklist is None:
-                name = "fused_count_topk" + suffix
-                code = getattr(lib, "repro_" + name)(
+            if worklist is None and bf16:
+                name = "fused_count_topk_bf16"
+                code = lib.repro_fused_count_topk_bf16(
                     x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
                     _stream(x))
+            elif worklist is None:
+                name = "fused_count_topk"
+                rec = packing.pack_records(y, sel)
+                code = lib.repro_fused_count_topk(
+                    x.data_ptr(), rec.data_ptr(), rec.shape[1], n, m, d,
+                    d2cut, int(sel is not None), count.data_ptr(),
+                    topv.data_ptr(), topi.data_ptr(), _stream(x))
             else:
                 name = "worklist_count_topk" + suffix
                 code = getattr(lib, "repro_" + name)(
@@ -260,10 +272,19 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         with torch.cuda.device(x.device):
             if worklist is None:
                 name = "masked_nn"
+                sms = torch.cuda.get_device_properties(
+                    x.device).multi_processor_count
+                lay = packing.nn_layout(
+                    x, x_key, y, y_key, lib.repro_masked_nn_block_rows(),
+                    NN_ITEMS_PER_SM * sms, NN_MIN_CHUNK)
+                packed = torch.empty((n,), dtype=torch.int64,
+                                     device=x.device)
                 code = lib.repro_masked_nn(
-                    x.data_ptr(), x_key.data_ptr(), y.data_ptr(),
-                    y_key.data_ptr(), n, m, d, best.data_ptr(),
-                    arg.data_ptr(), _stream(x))
+                    lay.x.data_ptr(), lay.row_id.data_ptr(),
+                    lay.ends.data_ptr(), lay.rec.data_ptr(),
+                    lay.rec.shape[1], lay.items.data_ptr(),
+                    lay.items.shape[0], n, d, packed.data_ptr(),
+                    best.data_ptr(), arg.data_ptr(), _stream(x))
             else:
                 name = "worklist_masked_nn"
                 code = lib.repro_worklist_masked_nn(

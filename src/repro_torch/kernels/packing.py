@@ -1,0 +1,113 @@
+"""Host-side layouts of the K1 and K2 kernels (``csrc/sweep.cu``).
+
+Both kernels read the columns as packed records of ``record_width(d)``
+floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
+4 floats, so every record is a whole number of 16-byte vectors and one
+with d <= 3 is a single ``float4``.  K1's slot holds the kept-k gate (0 or
+1), K2's the column's original index.
+
+K2 (``masked_nn``) takes the strictly-denser mask as a prefix: the columns
+sorted by key, descending, so row i's candidates are exactly the first
+``ends[i]`` records; the rows sorted by ``ends``, so a block of consecutive
+rows scans nearly the same prefix and masks by position only past the
+least end of its rows.  The block prefixes are cut into column chunks (a
+work list, heaviest first), so the card fills whatever the row count; the
+chunks of a row merge by the lexicographic (d2, original index) minimum.
+The wrappers build all of this on the tensors' device; the kernels
+allocate nothing.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+def record_width(d: int) -> int:
+    """Floats per packed record: d coordinates and a slot, rounded up to
+    a multiple of 4 (``rec_vecs`` in ``csrc/sweep.cu`` counts its
+    float4s)."""
+    return (d + 4) // 4 * 4
+
+
+def pack_records(y: torch.Tensor, slot: torch.Tensor | None) -> torch.Tensor:
+    """(m, record_width(d)) f32 records of y's rows, with ``slot`` ((m,)
+    int or bool; None: 0) stored as int32 bits after the coordinates."""
+    m, d = y.shape
+    rec = torch.zeros((m, record_width(d)), dtype=torch.float32,
+                      device=y.device)
+    rec[:, :d] = y
+    if slot is not None:
+        rec.view(torch.int32)[:, d] = slot.to(torch.int32)
+    return rec
+
+
+def denser_prefix(x_key: torch.Tensor, y_key: torch.Tensor):
+    """K2's key order: (cols, ends).
+
+    ``cols`` (m,) int64 lists the columns by key, descending, equal keys in
+    index order; ``ends`` (n,) int64 counts the columns strictly denser
+    than each row, so ``cols[:ends[i]]`` is exactly ``{j : y_key[j] >
+    x_key[i]}``.  A NaN is never greater than anything and nothing is
+    greater than a NaN, as ``>`` has it: a NaN column sorts with the
+    ``-inf`` ones, past every prefix, and a NaN row's prefix is empty.
+    """
+    neg_inf = torch.tensor(float("-inf"), device=y_key.device)
+    yk = torch.where(torch.isnan(y_key), neg_inf, y_key)
+    keys, cols = torch.sort(yk, descending=True, stable=True)
+    # #{keys > v} = #{-keys < -v}: a left search of -v in ascending -keys
+    ends = torch.searchsorted(-keys, -x_key)
+    return cols, torch.where(torch.isnan(x_key), 0, ends)
+
+
+def chunk_worklist(ends_sorted: torch.Tensor, block_rows: int,
+                   min_items: int, min_chunk: int) -> torch.Tensor:
+    """K2's work list over rows sorted by ``ends`` (ascending): (k, 4)
+    int32 items (row block, chunk start, chunk end, 0).
+
+    Row block b (rows ``[b * block_rows, (b + 1) * block_rows)``) scans the
+    prefix ``[0, ends of its last row)``, cut into chunks of one length
+    L = max(min_chunk, ceil(total / min_items)) over the blocks' total
+    prefix, so there are about ``min_items`` items or more where the work
+    allows; a block with an empty prefix gets none.  Items are ordered
+    longest first, so the last wave is short.
+    """
+    dev = ends_sorted.device
+    n = ends_sorted.numel()
+    nb = -(-n // block_rows)
+    last = (torch.arange(1, nb + 1, device=dev) * block_rows).clamp(max=n)
+    span = ends_sorted[last - 1].long() if n else last
+    total = int(span.sum())
+    length = max(min_chunk, -(-total // max(min_items, 1)), 1)
+    per_block = (span + length - 1) // length
+    block = torch.repeat_interleave(torch.arange(nb, device=dev), per_block)
+    first = torch.cumsum(per_block, 0) - per_block
+    start = (torch.arange(block.numel(), device=dev) - first[block]) * length
+    end = torch.minimum(start + length, span[block])
+    items = torch.stack([block, start, end, torch.zeros_like(block)], 1)
+    order = torch.sort(end - start, descending=True, stable=True).indices
+    return items[order].to(torch.int32).contiguous()
+
+
+class NnLayout(NamedTuple):
+    """What K2 reads: the query rows sorted by the length of their denser
+    prefix, each row's original slot, the prefix ends (ascending), the
+    columns' records sorted by key (slot: the original index), and the
+    work list."""
+    x: torch.Tensor          # (n, d) f32
+    row_id: torch.Tensor     # (n,) int32
+    ends: torch.Tensor       # (n,) int32
+    rec: torch.Tensor        # (m, record_width(d)) f32
+    items: torch.Tensor      # (k, 4) int32
+
+
+def nn_layout(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
+              y_key: torch.Tensor, block_rows: int, min_items: int,
+              min_chunk: int) -> NnLayout:
+    """K2's inputs for the strictly-denser NN of x's rows among y's."""
+    cols, ends = denser_prefix(x_key, y_key)
+    rows = torch.sort(ends, stable=True).indices
+    ends = ends[rows].to(torch.int32)
+    return NnLayout(x[rows].contiguous(), rows.to(torch.int32), ends,
+                    pack_records(y[cols], cols),
+                    chunk_worklist(ends, block_rows, min_items, min_chunk))
