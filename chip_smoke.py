@@ -33,7 +33,8 @@ Phases, each of which raises on failure (nothing is caught):
    search over all n.
 6. Block-sparse at 2^20: the worklist of the same input, grid-sorted; K3
    bit-equal to dense K1 on all 2^20 rows and to its plain version on 256
-   row tiles spread over the table; then
+   row tiles spread over the table, with its entries and pairs per phase
+   and entries per row tile (mean, p99, max); then
    the block-sparse fit (counted and timed as the dense one), whose rho,
    rho_key and delta must equal the dense fit's, and whose parent and
    labels must equal them wherever no exact distance tie decides a parent.
@@ -48,8 +49,9 @@ Phases, each of which raises on failure (nothing is caught):
    timed (K3 and K2 must launch, K1 must not); rho on 4,096 random rows and
    parent/delta of 4,096 random cell maxima against float64; K3 against
    its plain version and dense K1 on 256 row tiles spread over the table,
-   against all columns; K2 against its plain version on a slice of the
-   fit's rows, and on all of them against K9 on a best-1 ring worklist; a
+   against all columns, with its schedule as in phase 6; K2 against its
+   plain version on a slice of the fit's rows, and on all of them against
+   K9 on a best-1 ring worklist; a
    traced fit for the phase times and each phase's peak device memory.
 9. The stream's kernels vs plain at check shapes: K4 ``range_count``, K5
    ``range_count_signed`` and K6 ``gather_masked_nn`` bit for bit against
@@ -337,14 +339,55 @@ def k3_needed_pairs(wl, m: int, topv: torch.Tensor) -> int:
                .sum())
 
 
-def k3_work(x, y, wl, needed: int) -> tuple[float, float]:
+def k3_work(x, y, wl, needed: int, sel=None) -> tuple[float, float]:
     """Bytes and operations of worklist_count_topk on this run's data: the
-    inputs and the worklist read once, the outputs written once; 3d+1
-    operations per pair it needs (``needed``, from ``k3_needed_pairs``)."""
+    inputs and the worklist read once, the outputs written once, the
+    wrapper's record pack (kernels/packing.py: y's records, and gated the
+    selected columns' with each column tile's range, each written once and
+    read once; the split and the tile order); 3d+1 operations per pair it
+    needs (``needed``, from ``k3_needed_pairs``)."""
+    from repro_torch.kernels.packing import record_width
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    rec = 2 * 4 * record_width(d)
     nbytes = (4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
-              + 4 * wl.row_ptr.numel() + 9 * wl.n_kept)
+              + 4 * wl.row_ptr.numel() + 9 * wl.n_kept
+              + m * rec + 2 * 4 * wl.num_row_tiles)
+    if sel is not None:
+        nbytes += m + int(sel.sum()) * rec + 4 * (-(-m // 512) + 1)
     return nbytes, float(needed) * (3 * d + 1)
+
+
+def k3_schedule(x, y, d_cut, wl, sel=None) -> dict:
+    """K3's schedule on these inputs (a separate launch): entries computed
+    per phase, the spread of entries per row tile, and the pairs each
+    phase ran (phase 1: all 256 rows of a tile; phase 2: the rows that
+    took each chunk)."""
+    from repro_torch.kernels import ops, packing
+    dev = x.device
+    nbr = wl.num_row_tiles
+    live = torch.zeros(nbr, dtype=torch.int32, device=dev)
+    ran = torch.zeros((nbr, 2), dtype=torch.int64, device=dev)
+    gate = {} if sel is None else {"nn_sel": sel}
+    ops.fused_sweep(x, y, d_cut, worklist=wl, live=live, ran=ran, **gate)
+    ph1 = int((packing.phase_split(wl).long() - wl.row_ptr[:-1].long())
+              .sum())
+    lv = live.double().cpu()
+    return {"live": int(live.sum()), "phase1_entries": ph1,
+            "phase2_entries": int(live.sum()) - ph1,
+            "live_per_tile": {"mean": float(lv.mean()),
+                              "p99": float(torch.quantile(lv, 0.99)),
+                              "max": int(lv.max())},
+            "phase1_pairs": int(ran[:, 0].sum()),
+            "phase2_pairs": int(ran[:, 1].sum())}
+
+
+def k3_schedule_line(sch: dict, needed: int) -> str:
+    lt = sch["live_per_tile"]
+    return (f"{sch['phase1_entries']} + {sch['phase2_entries']} entries "
+            f"computed (phases 1 + 2; per row tile mean {lt['mean']:.1f}, "
+            f"p99 {lt['p99']:.0f}, max {lt['max']}), pairs run "
+            f"{sch['phase1_pairs']} + {sch['phase2_pairs']}, {needed} "
+            f"needed")
 
 
 def k2_work(x_key, y_key, d: int) -> tuple[float, float]:
@@ -1109,23 +1152,22 @@ def k3_row_tile_check(x, y, d_cut, wl, sel, name: str, card: str):
     want, plain_ms = timed_once(lambda: sweep.worklist_count_topk_plain(
         sx, y, sweep.d2cut_of(d_cut), sub, sel=plain_sel))
     err = check_equal(what, got, (want[0].to(torch.float32), *want[1:]))
-    live = torch.zeros(nbr, dtype=torch.int32, device=dev)
-    ops.fused_sweep(x, y, d_cut, worklist=wl, live=live, **gate)
+    sch = k3_schedule(x, y, d_cut, wl, sel)
     needed = k3_needed_pairs(wl, y.shape[0], fit_out[1])
     times = {"ms": time_ms(lambda: ops.fused_sweep(x, y, d_cut, worklist=wl,
                                                    **gate)),
              "plain_ms": plain_ms, "plain_row_tiles": tiles.numel()}
     rec = {"kept": wl.n_kept, "total": wl.n_total,
-           "in_cut": int(wl.in_cut.sum()), "live": int(live.sum()),
+           "in_cut": int(wl.in_cut.sum()), **sch,
            "needed_pairs": needed, "pruned_frac": wl.pruned_frac,
-           "live_frac_of_dense": int(live.sum()) / wl.n_total}
+           "live_frac_of_dense": sch["live"] / wl.n_total}
     print(f"{name} == plain == the fit's sweep == dense K1, bit for bit, on "
           f"{tiles.numel()} row tiles x {y.shape[0]} columns; worklist "
           f"{wl.n_kept} of {wl.n_total} tile pairs ({rec['in_cut']} in "
-          f"d_cut), {rec['live']} computed, {needed} pairs needed; kernel "
+          f"d_cut), {k3_schedule_line(sch, needed)}; kernel "
           f"{times['ms']:.3f} ms, plain {plain_ms:.1f} ms on the row tiles  "
           f"({card})", flush=True)
-    return err, times, k3_work(x, y, wl, needed), rec
+    return err, times, k3_work(x, y, wl, needed, sel), rec
 
 
 def k2_fit_check(calls, what: str, card: str):
@@ -2468,17 +2510,18 @@ def main() -> int:
         gs[rows].contiguous(), gs, d_cut, sub_worklist(wl, tiles)))
     check_equal("worklist_count_topk [2^20, row tiles]",
                 [t[rows] for t in got], want)
-    live_2e20 = k3_live(gs, gs, d_cut, wl)
+    sch = k3_schedule(gs, gs, d_cut, wl)
     k3_2e20 = {"kept": wl.n_kept, "total": wl.n_total,
-               "in_cut": int(wl.in_cut.sum()), "live": live_2e20,
+               "in_cut": int(wl.in_cut.sum()), **sch,
                "needed_pairs": k3_needed_pairs(wl, N_MAIN, got[1]),
                "build_ms": wl_ms, "ms": time_ms(lambda: k3(gs, gs, d_cut, wl)),
                "plain_ms": k3_plain_ms, "plain_rows": rows.numel()}
     print(f"worklist_count_topk == dense K1 on all {N_MAIN} rows "
           f"(grid-sorted), == plain on {rows.numel()} rows of {tiles.numel()} "
           f"row tiles, bit for bit: {wl.n_kept} of {wl.n_total} tile "
-          f"pairs kept ({int(wl.in_cut.sum())} in d_cut), {live_2e20} "
-          f"computed; K3 {k3_2e20['ms']:.3f} ms, plain {k3_plain_ms:.1f} ms, "
+          f"pairs kept ({int(wl.in_cut.sum())} in d_cut), "
+          f"{k3_schedule_line(sch, k3_2e20['needed_pairs'])}; K3 "
+          f"{k3_2e20['ms']:.3f} ms, plain {k3_plain_ms:.1f} ms, "
           f"build {wl_ms:.2f} ms  ({card})", flush=True)
     del want, got
 

@@ -43,8 +43,8 @@ __all__ = ["LB_SHRINK", "UB_GROW", "BLOCK_N", "BLOCK_M", "Worklist",
 LB_SHRINK = 1.0 - 1e-5
 UB_GROW = 1.0 + 1e-5
 
-# The fused sweep's tile shape: rows per row tile (one K3 block, one thread
-# per row) and columns per column tile (kWlRows / kWlCols in csrc/sweep.cu).
+# The fused sweep's tile shape: rows per row tile (one K3 block) and columns
+# per column tile (kWlRows / kWlCols in csrc/sweep.cu).
 BLOCK_N = 256
 BLOCK_M = 512
 

@@ -74,8 +74,9 @@ def load_library() -> ctypes.CDLL:
     lib.repro_fused_count_topk.argtypes = [p, p, i, i, i, i, f, i, p, p, p,
                                            p]
     lib.repro_fused_count_topk.restype = i
-    lib.repro_worklist_count_topk.argtypes = [p, p, i, i, i, f, p, p, p, p,
-                                              p, p, p, p, p, p]
+    lib.repro_worklist_count_topk.argtypes = [p, p, p, p, i, i, i, i, f, i,
+                                              p, p, p, p, p, p, p, p, p, p,
+                                              p, p]
     lib.repro_worklist_count_topk.restype = i
     lib.repro_masked_nn.argtypes = [p, p, p, p, i, p, i, i, i, p, p, p, p]
     lib.repro_masked_nn.restype = i

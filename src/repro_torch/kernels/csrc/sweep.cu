@@ -11,7 +11,8 @@
 //                              optionally among the selected columns only
 //                              (over packed records, kernels/packing.py)
 //   repro_worklist_count_topk  the same, over the tile pairs of a worklist
-//                              (kernels/blocksparse.py)
+//                              (kernels/blocksparse.py), in two phases
+//                              over packed records (kernels/packing.py)
 //   repro_masked_nn            per query row, the nearest strictly denser
 //                              y row (over a key-sorted prefix of packed
 //                              records and a chunk work list)
@@ -143,20 +144,20 @@ __device__ __forceinline__ void stage(float* tile, const float* y, int j0,
   for (int t = threadIdx.x; t < cols * d; t += blockDim.x) tile[t] = src[t];
 }
 
-// K1 and K2 read the columns as packed records (kernels/packing.py): the d
-// coordinates, one 32-bit slot (K1: the kept-k gate; K2: the column's
-// original index) and zeros up to a whole number of float4s, one float4 for
-// d <= 3.  A block of kNnThreads threads owns R rows per thread (register
-// blocking: one 16-byte shared load per column feeds R distances) and
-// streams the records through a two-stage ring of tiles in dynamic shared
-// memory, filled by 16-byte cp.async: tile t+1 is in flight while tile t is
-// computed, and the one barrier per tile both publishes tile t and retires
-// the buffer of tile t-1.
+// K1, K2 and K3 read the columns as packed records (kernels/packing.py):
+// the d coordinates, one 32-bit slot (K1: the kept-k gate; K2: the
+// column's original index; K3: either) and zeros up to a whole number of
+// float4s, one float4 for d <= 3.  A block of kNnThreads threads owns R
+// rows per thread (register blocking: one 16-byte shared load per column
+// feeds R distances) and streams the records through a two-stage ring of
+// tiles in dynamic shared memory, filled by 16-byte cp.async: tile t+1 is
+// in flight while tile t is computed, and the one barrier per tile both
+// publishes tile t and retires the buffer of tile t-1.
 // Rows per thread, measured at R = 2 and 4 on an H100 (PERF.md): K1 keeps
 // 16 registers of kept list per row, so at R = 4 it needs 128 registers
 // and an SM holds 4 blocks; R = 2 (68 registers, 7 blocks) is faster.
 // K2 holds 3 per row and is faster at R = 4.
-constexpr int kNnThreads = 128;     // threads per K1/K2 block
+constexpr int kNnThreads = 128;     // threads per K1/K2/K3 block
 constexpr int kK1R = 2;             // K1 rows per thread
 constexpr int kK2R = 4;             // K2 rows per thread
 constexpr int kStageVecs = 1024;    // float4s per ring stage (16 KB)
@@ -366,133 +367,386 @@ __global__ void __launch_bounds__(kNnThreads, kK1MinBlocks)
 // PrefetchScalarGridSpec worklist grid (repro/kernels/sweep.py:432, body
 // _make_sweep_kernel at :208, liveness at :250-258).
 //
-// Bound: f32 CUDA-core issue on the *live* pairs, about 3d+1 operations each,
-// as K1; the worklist and the tiles it stages are small next to that.  Most
-// kept entries are dead by the time a row tile reaches them, so the design
-// decides liveness per entry before any staging: the block walks its CSR
-// segment row_ptr[t] .. row_ptr[t+1] in the stored order (ascending lb),
-// reading (column tile, in_cut, lb) from a shared-memory copy of 256 entries
-// at a time, and each thread votes whether the entry can still change its
-// row: the count if in_cut, the kept-k if lb <= the row's worst kept d2.
-// Only if some thread votes yes (__syncthreads_or) does the block stage the
-// 512-column tile (in chunks of kTileFloats floats, so the 48 KB static limit
-// holds for any d) and compute.  The skip is exact: a pair's d2 >= lb, so
-// with lb > the row's worst kept d2 it cannot enter the row's kept set; an
-// entry that is not in_cut holds no pair within d_cut.  The per-row vote is
-// at least as tight as the reference's tile-wide lb <= max(topv).
+// Bound: f32 operations on the CUDA cores for the pairs the data needs,
+// 3d+1 each, as K1: every pair of an in-d_cut entry (the count) and, per
+// row, the pairs of the entries whose lb is at most its final 8th d2.  One
+// block of kNnThreads threads owns one 256-row tile, K1's register
+// blocking (kK3R rows a thread, one 16-byte shared load per column), and
+// walks its CSR segment row_ptr[t] .. row_ptr[t+1] (ascending lb) as
+// chunks of packed records streamed through a two-stage cp.async ring,
+// one barrier per chunk, in two phases (kernels/packing.py builds both
+// record sets, the split and the tile order):
 //
-// Column tiles arrive in ring order, not index order, so an equal-d2 pair of
-// a lower index can come later: the insertion guard is lexicographic on
-// (d2, index), and the kept set equals K1's.  The count adds integers, so
-// its order does not matter.  One block owns one row tile and its whole
-// segment, which replaces the TPU's 1-D worklist grid and its `first` flag.
-// `live` (optional) gets the number of entries each block computed.
+//   phase 1, entries [row_ptr[t], split[t]): up to the last in-d_cut
+//   entry, which in_cut = lb <= d_cut^2 over ascending lb makes a prefix.
+//   Every row needs every such pair for its count, so there is no vote:
+//   K1's column step, the count by a predicated add (an entry that is not
+//   in d_cut counts against -1), the kept-8 guard d2 <= tv[7] voted into
+//   one warp-uniform branch.  Entries arrive in lb order, not index
+//   order, so keep's insertion is lexicographic on (d2, index).
 //
-// kSel gates the kept 8 as in K1.  The per-row vote stays exact: a gated
-// column never enters, so lb <= tv[7] still bounds what can change a row,
-// and until a row has seen 8 selected columns its tv[7] is +inf and every
-// entry stays live for it (the worklist's k-NN ring is built on the
-// selected columns' counts, kernels/blocksparse.py).
-template <int D, bool kSel>
-__global__ void __launch_bounds__(kWlRows)
-    worklist_count_topk_kernel(const float* __restrict__ x,
-                               const float* __restrict__ y, int n, int m,
-                               int d, float d2cut,
-                               const unsigned char* __restrict__ sel,
-                               const int* __restrict__ row_ptr,
-                               const int* __restrict__ col_tile,
-                               const unsigned char* __restrict__ in_cut,
-                               const float* __restrict__ lb,
-                               int* __restrict__ count,
-                               float* __restrict__ topv,
-                               int* __restrict__ topi,
-                               int* __restrict__ live_out) {
-  __shared__ float tile[kTileFloats];
-  __shared__ unsigned char stile[kSel ? kWlCols : 1];
-  __shared__ int s_col[kWlRows];
-  __shared__ float s_lb[kWlRows];
-  __shared__ int s_cut[kWlRows];
-  if constexpr (D > 0) d = D;
-  const int per_chunk = min(kWlCols, kTileFloats / d);
-  const int t = blockIdx.x;
-  const int i = t * kWlRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;  // dead lanes compute, never vote
+//   phase 2, entries [split[t], row_ptr[t+1]): the kept-8 alone, which
+//   few rows still need (on Airline's 5.8M, 21 of a tile's 256 on
+//   average, none in 55 % of the tiles), each for its own number of
+//   entries, so the unit of work is a row, not a block of rows.  A row
+//   whose tv[7] is below the first phase-2 lb is done (every later pair
+//   has d2 >= lb); the rest move, in slot order, to shared memory (kept
+//   list, row id, coordinates).  At each chunk's barrier the warps
+//   publish their rows' loosest tv[7]: the block's maximum decides,
+//   exactly and fresh, whether an entry's first chunk is computed; lb
+//   ascends and tv only falls, so the first entry that fails ends the
+//   walk.  The next chunk is staged on the same (by then stale, so
+//   larger) maximum while the current one computes.  Warp w takes rows
+//   w, w + 4, ..., each only if its own tv[7] reaches the entry's lb, its
+//   32 lanes a column each: a lane whose d2 reaches tv[7] holds a
+//   candidate, and the candidates enter the row's list one at a time
+//   (k3_row_chunk).  Phase 2 reads its own records whose slot holds the
+//   column index: the wrapper's packed y (ungated), or the selected
+//   columns alone, grouped by column tile (kSel: `koff` gives each
+//   tile's range), since it counts nothing.
+//
+// Row tiles are launched in `order`, the longest phase 1 first: in index
+// order the densest tiles, each a block's work for over 70 ms at 5.8M,
+// start late and end the kernel a third later (PERF.md).  `live` (optional)
+// gets the entries each row tile computed, `ran` (optional, zeroed by the
+// caller) the pairs each of its phases ran (phase 2: per row taking a
+// chunk, its columns).
+//
+// kSel gates the kept 8 as in K1 (the record slot of phase 1).  The vote
+// stays exact: a gated column never enters, so lb <= tv[7] still bounds
+// what can change a row, and until a row has seen 8 selected columns its
+// tv[7] is +inf and every entry stays live for it.
+constexpr int kK3R = kWlRows / kNnThreads;  // K3 rows per thread
+constexpr int kWarps = kNnThreads / 32;
 
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
-  if constexpr (D > 0) {
+// columns per K3 chunk: an entry's 512, or fewer where a record is wide
+__host__ __device__ inline int k3_chunk_cols(int w4) {
+  const int c = ring_cols(w4);
+  return c < kWlCols ? c : kWlCols;
+}
+
+// K3's dynamic shared memory: the ring, then phase 2's rows (kept lists,
+// row ids and, for d <= 8, the coordinates)
+inline size_t k3_smem_bytes(int w4, int d) {
+  return 2 * static_cast<size_t>(k3_chunk_cols(w4)) * w4 * sizeof(float4) +
+         static_cast<size_t>(kWlRows) * (2 * kTopK + 1 + (d <= 8 ? d : 0)) *
+             sizeof(float);
+}
+
+// A thread's kK3R rows: coordinates, counts, kept lists, global row ids
+// (-1: no row, never written).
+template <int D>
+struct K3Rows {
+  float xr[kK3R][D > 0 ? D : 1];
+  const float* xg[kK3R];
+  float tv[kK3R][kTopK];
+  int ti[kK3R][kTopK];
+  int cnt[kK3R];
+  int row[kK3R];
+
+  __device__ __forceinline__ void load(int r, const float* x, int i, int d) {
+    xg[r] = x + static_cast<size_t>(i) * d;
+    if constexpr (D > 0) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
+      for (int k = 0; k < D; ++k) xr[r][k] = xg[r][k];
+    }
   }
 
+  __device__ __forceinline__ void write(int r, float* topv, int* topi) const {
+    const size_t o = static_cast<size_t>(row[r]) * kTopK;
+#pragma unroll
+    for (int s = 0; s < kTopK; ++s) {
+      topv[o + s] = tv[r][s];
+      topi[o + s] = ti[r][s] == INT_MAX ? -1 : ti[r][s];
+    }
+  }
+};
+
+// Phase 1's column j: counts below thr and the kept-8.
+template <int D, bool kSel>
+__device__ __forceinline__ void k3_count_column(const float4* rc, int j, int d,
+                                                float thr, K3Rows<D>& s) {
+  const Record<D> y(rc);
+  float d2[kK3R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < kK3R; ++r) {
+    d2[r] = row_d2<D>(s.xr[r], s.xg[r], y.coords(), d);
+    count_below(s.cnt[r], d2[r], thr);
+    any |= d2[r] <= s.tv[r][kTopK - 1];
+  }
+  if constexpr (kSel) any &= y.slot(d) != 0;
+  if (__any_sync(0xffffffffu, any)) {  // a uniform branch
+#pragma unroll
+    for (int r = 0; r < kK3R; ++r)
+      if (d2[r] <= s.tv[r][kTopK - 1]) keep(s.tv[r], s.ti[r], d2[r], j);
+  }
+}
+
+// Phase 2's step for one row and one chunk: the warp's lanes take the
+// columns, a lane whose d2 reaches the row's 8th holds a candidate, and
+// every lane inserts the candidates one at a time into its copy of the
+// row's kept list, which lives in shared memory between steps.  A
+// record's slot is its column index.
+template <int D>
+__device__ __forceinline__ void k3_row_chunk(const float4* tile, int cols,
+                                             int w4, int d, const float* xq,
+                                             float* rv, int* ri, int lane) {
+  float xr[D > 0 ? D : 1];
+  if constexpr (D > 0) {
+#pragma unroll
+    for (int q = 0; q < D; ++q) xr[q] = xq[q];
+  }
   float tv[kTopK];
   int ti[kTopK];
 #pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
-    tv[s] = CUDART_INF_F;
-    ti[s] = INT_MAX;
+  for (int q = 0; q < kTopK; ++q) {
+    tv[q] = rv[q];
+    ti[q] = ri[q];
   }
-  int cnt = 0;
-  int visited = 0;
+  bool dirty = false;
+#pragma unroll 2
+  for (int c0 = 0; c0 < cols; c0 += 32) {
+    const int c = c0 + lane;
+    float d2 = CUDART_INF_F;
+    int j = 0;
+    if (c < cols) {
+      const Record<D> y(tile + c * w4);
+      if constexpr (D > 0) {
+        d2 = pair_d2<D>(xr, y.coords(), D);
+      } else {
+        d2 = pair_d2<0>(xq, y.coords(), d);
+      }
+      j = y.slot(d);
+    }
+    unsigned cand =
+        __ballot_sync(0xffffffffu, c < cols && d2 <= tv[kTopK - 1]);
+    while (cand != 0) {  // a uniform loop
+      const int src = __ffs(cand) - 1;
+      cand &= cand - 1;
+      keep(tv, ti, __shfl_sync(0xffffffffu, d2, src),
+           __shfl_sync(0xffffffffu, j, src));
+      dirty = true;
+    }
+  }
+  if (dirty) {
+#pragma unroll
+    for (int q = 0; q < kTopK; ++q) {
+      if (lane == q) {
+        rv[q] = tv[q];
+        ri[q] = ti[q];
+      }
+    }
+    __syncwarp();  // the warp's other lanes read the list next
+  }
+}
 
+template <int D, bool kSel>
+__global__ void __launch_bounds__(kNnThreads, kK1MinBlocks)
+    worklist_count_topk_kernel(
+        const float* __restrict__ x, const float4* __restrict__ rec,
+        const float4* __restrict__ krec, const int* __restrict__ koff,
+        int w4, int n, int m, int d, float d2cut,
+        const int* __restrict__ order, const int* __restrict__ row_ptr,
+        const int* __restrict__ split, const int* __restrict__ col_tile,
+        const unsigned char* __restrict__ in_cut,
+        const float* __restrict__ lb, int* __restrict__ count,
+        float* __restrict__ topv, int* __restrict__ topi,
+        int* __restrict__ live_out, unsigned long long* __restrict__ ran_out) {
+  extern __shared__ float4 ring[];
+  __shared__ float s_tau[2][kWarps];
+  __shared__ int s_need[kK3R * kWarps];
+  if constexpr (D > 0) {
+    d = D;
+    w4 = rec_vecs(D);
+  }
+  const int t = order[blockIdx.x];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cap = k3_chunk_cols(w4);
+  const int stage = cap * w4;  // float4s of one ring stage
+
+  K3Rows<D> s;
+#pragma unroll
+  for (int r = 0; r < kK3R; ++r) {
+    const int i = t * kWlRows + r * kNnThreads + threadIdx.x;
+    s.row[r] = i < n ? i : -1;
+    s.load(r, x, i < n ? i : n - 1, d);  // dead rows compute, never vote
+#pragma unroll
+    for (int q = 0; q < kTopK; ++q) {
+      s.tv[r][q] = CUDART_INF_F;
+      s.ti[r][q] = INT_MAX;
+    }
+    s.cnt[r] = 0;
+  }
   const int e0 = row_ptr[t];
+  const int p1 = split[t];
   const int e1 = row_ptr[t + 1];
-  for (int base = e0; base < e1; base += kWlRows) {
-    const int ne = min(kWlRows, e1 - base);
-    __syncthreads();
-    if (threadIdx.x < ne) {
-      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
-      s_lb[threadIdx.x] = lb[base + threadIdx.x];
-      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+
+  // phase 1: [e0, p1), every chunk by every warp
+  unsigned long long cols1 = 0;
+  {
+    int ce = e0, cj = 0, cend = 0;  // the chunk cursor: entry, columns
+    if (ce < p1) {
+      cj = col_tile[ce] * kWlCols;
+      cend = min(cj + kWlCols, m);
+      stage_async(ring, rec, cj, min(cap, cend - cj), w4);
+    }
+    int b = 0;
+    while (ce < p1) {
+      const int j0 = cj;
+      const int cols = min(cap, cend - cj);
+      const float thr = in_cut[ce] ? d2cut : -1.0f;
+      cj += cols;
+      if (cj >= cend && ++ce < p1) {
+        cj = col_tile[ce] * kWlCols;
+        cend = min(cj + kWlCols, m);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      if (ce < p1) stage_async(ring + (b ^ 1) * stage, rec, cj,
+                               min(cap, cend - cj), w4);
+      const float4* tile = ring + b * stage;
+#pragma unroll 2
+      for (int c = 0; c < cols; ++c)
+        k3_count_column<D, kSel>(tile + c * w4, j0 + c, d, thr, s);
+      b ^= 1;
+      cols1 += cols;
+    }
+  }
+
+  // the counts are final; rows that phase 2 cannot change are done
+  const float lb2 = p1 < e1 ? lb[p1] : 0.0f;
+  bool need[kK3R];
+#pragma unroll
+  for (int r = 0; r < kK3R; ++r) {
+    if (s.row[r] >= 0) count[s.row[r]] = s.cnt[r];
+    need[r] = p1 < e1 && s.row[r] >= 0 && s.tv[r][kTopK - 1] >= lb2;
+    if (s.row[r] >= 0 && !need[r]) s.write(r, topv, topi);
+  }
+
+  // the rows that need phase 2, compacted in slot order (r, thread) into
+  // shared memory past the ring: kept lists, row ids, coordinates
+  float* const sv = reinterpret_cast<float*>(ring + 2 * stage);
+  int* const si = reinterpret_cast<int*>(sv + kWlRows * kTopK);
+  int* const sid = si + kWlRows * kTopK;
+  float* const sx = reinterpret_cast<float*>(sid + kWlRows);
+  unsigned bal[kK3R];
+#pragma unroll
+  for (int r = 0; r < kK3R; ++r) {
+    bal[r] = __ballot_sync(0xffffffffu, need[r]);
+    if (lane == 0) s_need[r * kWarps + warp] = __popc(bal[r]);
+  }
+  __syncthreads();
+  int live_rows = 0;
+  int k[kK3R];
+#pragma unroll
+  for (int g = 0; g < kK3R * kWarps; ++g) {
+#pragma unroll
+    for (int r = 0; r < kK3R; ++r)
+      if (g == r * kWarps + warp)
+        k[r] = live_rows + __popc(bal[r] & ((1u << lane) - 1u));
+    live_rows += s_need[g];
+  }
+  int visited = p1 - e0;
+  unsigned long long cols2 = 0;
+  if (live_rows > 0) {
+#pragma unroll
+    for (int r = 0; r < kK3R; ++r) {
+      if (!need[r]) continue;
+#pragma unroll
+      for (int q = 0; q < kTopK; ++q) {
+        sv[k[r] * kTopK + q] = s.tv[r][q];
+        si[k[r] * kTopK + q] = s.ti[r][q];
+      }
+      sid[k[r]] = s.row[r];
+      if constexpr (D > 0) {
+#pragma unroll
+        for (int q = 0; q < D; ++q) sx[k[r] * D + q] = s.xr[r][q];
+      }
     }
     __syncthreads();
-    for (int e = 0; e < ne; ++e) {
-      const int cut = s_cut[e];
-      const bool nn_live = live && s_lb[e] <= tv[kTopK - 1];
-      if (!__syncthreads_or(cut || nn_live)) continue;
-      ++visited;
-      const int j0 = s_col[e] * kWlCols;
-      const int j1 = min(j0 + kWlCols, m);
-      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
-        const int cols = min(per_chunk, j1 - c0);
-        if (c0 != j0) __syncthreads();
-        stage(tile, y, c0, cols, d);
-        if constexpr (kSel) {
-          for (int t = threadIdx.x; t < cols; t += kWlRows)
-            stile[t] = sel[c0 + t];
-        }
-        __syncthreads();
-        for (int c = 0; c < cols; ++c) {
-          float d2;
-          if constexpr (D > 0) {
-            d2 = pair_d2<D>(xr, tile + c * D, D);
-          } else {
-            d2 = pair_d2<0>(xg, tile + c * d, d);
+
+    // phase 2: [p1, e1) while live, kept-8 only, from krec; warp w takes
+    // rows w, w + 4, ..., a row at a time, its lanes the chunk's columns
+    auto range = [&](int e, int& lo, int& hi) {
+      const int ct = col_tile[e];
+      if (koff != nullptr) {
+        lo = koff[ct];
+        hi = koff[ct + 1];
+      } else {
+        lo = ct * kWlCols;
+        hi = min(lo + kWlCols, m);
+      }
+    };
+    int ce = p1, cj = 0, cend = 0;
+    for (; ce < e1; ++ce) {  // entry p1 is live: some row needs it
+      range(ce, cj, cend);
+      if (cj < cend) break;  // (a gated tile may hold no column)
+    }
+    if (ce < e1) stage_async(ring, krec, cj, min(cap, cend - cj), w4);
+    int b = 0;
+    int par = 0;
+    bool head = true;  // the staged chunk is its entry's first
+    while (ce < e1) {
+      const int cols = min(cap, cend - cj);
+      const float lbe = lb[ce];
+      const bool first = head;
+      cj += cols;
+      head = cj >= cend;
+      float wt = -CUDART_INF_F;  // the loosest of the warp's rows
+      for (int q = warp + kWarps * lane; q < live_rows; q += kNnThreads)
+        wt = fmaxf(wt, sv[q * kTopK + kTopK - 1]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        wt = fmaxf(wt, __shfl_xor_sync(0xffffffffu, wt, o));
+      if (lane == 0) s_tau[par][warp] = wt;
+      cp_async_wait_all();
+      __syncthreads();
+      float tau = s_tau[par][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) tau = fmaxf(tau, s_tau[par][w]);
+      par ^= 1;
+      if (first && lbe > tau) break;  // this entry and all later are dead
+      visited += first;
+      if (head) {  // the next live entry, on this (soon stale) maximum
+        for (++ce; ce < e1; ++ce) {
+          if (lb[ce] > tau) {
+            ce = e1;
+            break;
           }
-          cnt += cut & (d2 < d2cut);
-          const int j = c0 + c;
-          const bool better = d2 < tv[kTopK - 1] ||
-                              (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]);
-          if constexpr (kSel) {
-            if (stile[c] && better) keep(tv, ti, d2, j);
-          } else {
-            if (better) keep(tv, ti, d2, j);
-          }
+          range(ce, cj, cend);
+          if (cj < cend) break;
         }
+      }
+      if (ce < e1)
+        stage_async(ring + (b ^ 1) * stage, krec, cj, min(cap, cend - cj), w4);
+      const float4* tile = ring + b * stage;
+      for (int q = warp; q < live_rows; q += kWarps) {
+        if (lbe > sv[q * kTopK + kTopK - 1]) continue;  // the row is done
+        const float* xq = D > 0 ? sx + q * D
+                                : x + static_cast<size_t>(sid[q]) * d;
+        k3_row_chunk<D>(tile, cols, w4, d, xq, sv + q * kTopK,
+                        si + q * kTopK, lane);
+        cols2 += cols;
+      }
+      b ^= 1;
+    }
+    for (int q = warp; q < live_rows; q += kWarps) {
+      if (lane < kTopK) {
+        const size_t o = static_cast<size_t>(sid[q]) * kTopK + lane;
+        const int j = si[q * kTopK + lane];
+        topv[o] = sv[q * kTopK + lane];
+        topi[o] = j == INT_MAX ? -1 : j;
       }
     }
   }
-
-  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
-  if (!live) return;
-  count[i] = cnt;
-  const size_t o = static_cast<size_t>(i) * kTopK;
-#pragma unroll
-  for (int s = 0; s < kTopK; ++s) {
-    topv[o + s] = tv[s];
-    topi[o + s] = ti[s] == INT_MAX ? -1 : ti[s];
+  if (ran_out != nullptr && lane == 0) {
+    if (warp == 0)
+      atomicAdd(ran_out + 2 * t, cols1 * static_cast<unsigned>(kWlRows));
+    atomicAdd(ran_out + 2 * t + 1, cols2);
   }
+  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
 }
 
 // One column of K2 for a thread's R rows.  The hot compare is `d2 <= best`
@@ -1798,7 +2052,7 @@ __global__ void __launch_bounds__(kWlRows)
   }
 
 // Launch a kernel with `bytes` of dynamic shared memory, above the 48 KB
-// default where d needs it (K1, K2, K12, K13).
+// default where d needs it (K1, K2, K3, K12, K13).
 template <typename Kernel, typename... Args>
 int smem_launch(Kernel kernel, dim3 grid, int threads, size_t bytes,
                 cudaStream_t s, Args... args) {
@@ -1836,27 +2090,41 @@ extern "C" int repro_fused_count_topk(const float* x, const float* rec, int w,
   return code;
 }
 
+// K3.  rec: m packed records of w floats (kernels/packing.py), the slot
+// holding the gate when sel is nonzero; krec: phase 2's records, the slot
+// holding the column index, grouped by column tile, tile c at [koff[c],
+// koff[c+1]) (koff null: krec is y's records in order, tile c at columns
+// [512c, 512c+512)); split: each row tile's end of phase 1; order: the row
+// tiles in launch order.  live (optional): entries each row tile computed;
+// ran (optional, (row tiles, 2), zeroed): the pairs each phase ran.
 extern "C" int repro_worklist_count_topk(
-    const float* x, const float* y, int n, int m, int d, float d2cut,
-    const unsigned char* sel, const int* row_ptr, const int* col_tile,
+    const float* x, const float* rec, const float* krec, const int* koff,
+    int w, int n, int m, int d, float d2cut, int sel, const int* order,
+    const int* row_ptr, const int* split, const int* col_tile,
     const unsigned char* in_cut, const float* lb, int* count, float* topv,
-    int* topi, int* live, void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kWlRows - 1) / kWlRows);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int* topi, int* live, unsigned long long* ran, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (w != 4 * rec_vecs(d)) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kWlRows - 1) / kWlRows);
+  const size_t bytes = k3_smem_bytes(w / 4, d);
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+  const float4* k4 = reinterpret_cast<const float4*>(krec);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int code = 0;
 #define REPRO_LAUNCH(D)                                                    \
-  if (sel != nullptr)                                                      \
-    worklist_count_topk_kernel<D, true><<<grid, kWlRows, 0, s>>>(          \
-        x, y, n, m, d, d2cut, sel, row_ptr, col_tile, in_cut, lb, count,   \
-        topv, topi, live);                                                 \
-  else                                                                     \
-    worklist_count_topk_kernel<D, false><<<grid, kWlRows, 0, s>>>(         \
-        x, y, n, m, d, d2cut, sel, row_ptr, col_tile, in_cut, lb, count,   \
-        topv, topi, live)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+  code = sel ? smem_launch(worklist_count_topk_kernel<D, true>, grid,      \
+                           kNnThreads, bytes, s, x, r4, k4, koff, w / 4,   \
+                           n, m, d, d2cut, order, row_ptr, split,          \
+                           col_tile, in_cut, lb, count, topv, topi, live,  \
+                           ran)                                            \
+             : smem_launch(worklist_count_topk_kernel<D, false>, grid,     \
+                           kNnThreads, bytes, s, x, r4, k4, koff, w / 4,   \
+                           n, m, d, d2cut, order, row_ptr, split,          \
+                           col_tile, in_cut, lb, count, topv, topi, live,  \
+                           ran)
+  REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
+  return code;
 }
 
 // K2's rows per block: the work list's row blocks (kernels/packing.py).

@@ -92,6 +92,11 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ptr(t: torch.Tensor | None) -> int:
+    """An optional tensor's address, 0 (a null pointer) for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _check_worklist(name: str, x: torch.Tensor, y: torch.Tensor,
                     wl) -> None:
     """A worklist K3, K8, K9, K13, K14, K15 and K16 take: one entry range
@@ -154,7 +159,8 @@ def _check_sel(y: torch.Tensor, nn_sel) -> torch.Tensor:
 
 def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                 worklist: Worklist | None = None,
-                live: torch.Tensor | None = None, precision: str = "f32"):
+                live: torch.Tensor | None = None,
+                ran: torch.Tensor | None = None, precision: str = "f32"):
     """Per x-row: the range count over y within ``d_cut`` AND the 8 nearest
     y rows, unmasked by density (the caller resolves the denser mask once
     the counts are complete).
@@ -164,7 +170,9 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     ignores it.  ``worklist`` (``blocksparse.build_flat_worklist``)
     restricts the sweep to its tile pairs.  ``live`` (CUDA only, (row
     tiles,) int32) receives the number of entries the worklist kernel
-    computed in each row tile.
+    computed in each row tile; ``ran`` (CUDA only, f32 on a worklist,
+    (row tiles, 2) int64 zeros) receives the pairs K3 ran in each row
+    tile's two phases (``kernels/packing.py``).
 
     ``precision="f32"``: direct-difference d2, K1 (K3 on a worklist) on a
     CUDA tensor, their plain versions on a CPU one.  ``precision="bf16"``:
@@ -182,11 +190,18 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         raise ValueError(f"fused_sweep: precision must be one of "
                          f"{PRECISIONS}, got {precision!r}")
     bf16 = precision == "bf16"
-    suffix = "_bf16" if bf16 else ""
     sel = None if nn_sel is None else _check_sel(y, nn_sel)
     if worklist is not None:
         _check_worklist("fused_sweep", x, y, worklist)
     _check_live("fused_sweep", x, worklist, live)
+    if ran is not None and (
+            bf16 or worklist is None or x.device.type != "cuda"
+            or ran.dtype != torch.int64 or ran.device != x.device
+            or ran.shape != (worklist.num_row_tiles, 2)
+            or not ran.is_contiguous()):
+        raise ValueError("fused_sweep: pair counts come from the CUDA f32 "
+                         "worklist kernel, into (row tiles, 2) int64 on "
+                         "x's device")
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
         gate = None if sel is None else sel.bool()
@@ -223,14 +238,26 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                     x.data_ptr(), rec.data_ptr(), rec.shape[1], n, m, d,
                     d2cut, int(sel is not None), count.data_ptr(),
                     topv.data_ptr(), topi.data_ptr(), _stream(x))
-            else:
-                name = "worklist_count_topk" + suffix
-                code = getattr(lib, "repro_" + name)(
+            elif bf16:
+                name = "worklist_count_topk_bf16"
+                code = lib.repro_worklist_count_topk_bf16(
                     x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
                     worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
                     worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
-                    0 if live is None else live.data_ptr(), _stream(x))
+                    _ptr(live), _stream(x))
+            else:
+                name = "worklist_count_topk"
+                lay = packing.k3_layout(worklist, y, sel)
+                code = lib.repro_worklist_count_topk(
+                    x.data_ptr(), lay.rec.data_ptr(),
+                    lay.keep_rec.data_ptr(), _ptr(lay.keep_off),
+                    lay.rec.shape[1], n, m, d, d2cut, int(sel is not None),
+                    lay.order.data_ptr(), worklist.row_ptr.data_ptr(),
+                    lay.split.data_ptr(), worklist.col_tile.data_ptr(),
+                    worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
+                    count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+                    _ptr(live), _ptr(ran), _stream(x))
         build.check(lib, name, code)
         if sel is not None:
             name += "_sel"
@@ -292,7 +319,7 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                     y_key.data_ptr(), n, m, d, worklist.row_ptr.data_ptr(),
                     worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
                     best.data_ptr(), arg.data_ptr(),
-                    0 if live is None else live.data_ptr(), _stream(x))
+                    _ptr(live), _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
     return torch.sqrt(best), arg
@@ -541,7 +568,7 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
                     w, d, s, d2cut, worklist.row_ptr.data_ptr(),
                     worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
                     delta.data_ptr(), arg.data_ptr(), found.data_ptr(),
-                    0 if live is None else live.data_ptr(), _stream(x))
+                    _ptr(live), _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
     return delta, arg, found

@@ -1,10 +1,18 @@
-"""Host-side layouts of the K1 and K2 kernels (``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2 and K3 kernels (``csrc/sweep.cu``).
 
-Both kernels read the columns as packed records of ``record_width(d)``
+The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
 4 floats, so every record is a whole number of 16-byte vectors and one
 with d <= 3 is a single ``float4``.  K1's slot holds the kept-k gate (0 or
 1), K2's the column's original index.
+
+K3 (``worklist_count_topk``) walks each row tile's worklist segment in two
+phases: up to its last in-d_cut entry (count and kept-k), then the rest
+(kept-k alone, while some row can still take an entry).  ``k3_layout``
+gives it the split, the row tiles in launch order (longest phase 1
+first), phase 1's records (slot: the gate, gated; the index, ungated) and
+phase 2's (slot: the index; gated: the selected columns alone, grouped by
+column tile, with each tile's range).
 
 K2 (``masked_nn``) takes the strictly-denser mask as a prefix: the columns
 sorted by key, descending, so row i's candidates are exactly the first
@@ -21,6 +29,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .blocksparse import BLOCK_M
 
 
 def record_width(d: int) -> int:
@@ -111,3 +121,51 @@ def nn_layout(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     return NnLayout(x[rows].contiguous(), rows.to(torch.int32), ends,
                     pack_records(y[cols], cols),
                     chunk_worklist(ends, block_rows, min_items, min_chunk))
+
+
+class K3Layout(NamedTuple):
+    """What K3 reads besides the rows and the worklist."""
+    rec: torch.Tensor        # (m, w) f32; slot: the gate, or the index
+    keep_rec: torch.Tensor   # phase 2's records; slot: the column index
+    keep_off: torch.Tensor | None  # (column tiles + 1,) int32, or None
+    split: torch.Tensor      # (row tiles,) int32: end of each phase 1
+    order: torch.Tensor      # (row tiles,) int32: launch order
+
+
+def phase_split(wl) -> torch.Tensor:
+    """(row tiles,) int32: the end of each row tile's phase 1, one past
+    its last ``in_cut`` entry (its segment's start where it has none).
+    ``build_flat_worklist``'s ``in_cut`` is ``lb <= d_cut^2`` over
+    ascending lb, so phase 1 is exactly the in-d_cut entries; any entry
+    before the split is counted only if it is ``in_cut``, and none after
+    it is."""
+    start = wl.row_ptr[:-1].long()
+    cut = torch.nonzero(wl.in_cut).flatten()
+    tile = torch.searchsorted(wl.row_ptr.long(), cut, right=True) - 1
+    return start.scatter_reduce(0, tile, cut + 1, "amax").to(torch.int32)
+
+
+def heaviest_first(wl, split: torch.Tensor) -> torch.Tensor:
+    """(row tiles,) int32: the row tiles by the entries of their phase 1,
+    most first, ties in tile order."""
+    work = split.long() - wl.row_ptr[:-1].long()
+    return torch.sort(work, descending=True, stable=True).indices.to(
+        torch.int32)
+
+
+def k3_layout(wl, y: torch.Tensor, sel: torch.Tensor | None) -> K3Layout:
+    """K3's inputs for the worklist ``wl`` over y's columns, ``sel`` ((m,)
+    bool or uint8, or None) the kept-k gate."""
+    split = phase_split(wl)
+    order = heaviest_first(wl, split)
+    m = y.shape[0]
+    if sel is None:
+        rec = pack_records(y, torch.arange(m, device=y.device))
+        return K3Layout(rec, rec, None, split, order)
+    cols = torch.nonzero(sel).flatten()
+    per_tile = torch.bincount(cols // BLOCK_M, minlength=-(-m // BLOCK_M))
+    off = torch.zeros(per_tile.numel() + 1, dtype=torch.int64,
+                      device=y.device)
+    off[1:] = torch.cumsum(per_tile, 0)
+    return K3Layout(pack_records(y, sel), pack_records(y[cols], cols),
+                    off.to(torch.int32), split, order)
