@@ -140,10 +140,13 @@ Phases, each of which raises on failure (nothing is caught):
    rows.
 
 19. The bf16 kernels at check shapes: K12 ``fused_sweep(precision=
-   "bf16")`` and K13 (its worklist form), gated and not, on lattices
-   (integers in [0, 256) times 2^s at d = 2, 3, 8, 16, 17; in [0, 16) at
-   d = 64; the 128 x 128 sites) bit for bit against their plain versions,
-   K13 against K12 and K12 against f32 K1; on unit-scale data within the
+   "bf16")`` (over the wrapper's bf16 column records, its tensor-core
+   accumulators kept in registers through the epilogue) and K13 (its
+   worklist form), gated and not, on lattices (integers in [0, 256) times
+   2^s at d = 2, 3, 8, 16, 17; in [0, 16) at d = 64; the 128 x 128 sites)
+   bit for bit against their plain versions, K13 against K12 and K12
+   against f32 K1, K12 also on ragged rows and columns and on fewer than 8
+   columns; on unit-scale data within the
    stated tolerance d * 2^-20 * (|x|^2 + |y|^2) per pair, the differing
    rows counted; K14 ``local_density_delta(worklist=...)`` bit for bit
    against its plain version and dense K5 on phase 16's shard shapes;
@@ -157,7 +160,9 @@ Phases, each of which raises on failure (nothing is caught):
    equal to its f32 fit bit for bit (rho, rho_key, delta, parent,
    labels), block-sparse equal to dense up to counted exact distance
    ties; K12 and gated K12 on the dense fits' full inputs against f32 K1
-   and their plain versions on 65,536 rows, K13 and gated K13 on the
+   and their plain versions on 65,536 rows, with their pairs/s, share of
+   their bound, ratio to f32 K1's time, kept-list insertions per row
+   (mean, max) and registers and spills; K13 and gated K13 on the
    block-sparse fits' inputs against f32 K3 and their plain versions on a
    few row tiles, each timed against its f32 form.
 21. bf16 on the users' data: Approx-DPC, block-sparse, bf16, on the
@@ -1555,15 +1560,37 @@ def bf16_work(n: int, m: int, d: int, pairs: float, sel=None,
               wl=None) -> tuple[float, float, float]:
     """Bytes, tensor-core operations and f32 operations of K12 (K13 given
     its worklist): x, y (and the gate) and the worklist read once, the
-    outputs written once; per pair 2 * 16 * ceil(d / 16) operations on the
-    tensor cores (d padded to the MMA's k) and 4 in the epilogue (the norm
-    add, the scale, the subtraction, the compare)."""
+    outputs written once, K12's record pack (kernels/packing.py: the bf16
+    records, the two f32 norms a column and the gate bytes, written once
+    and read once); per pair 2 * 16 * ceil(d / 16) operations on the
+    tensor cores (d padded to the MMA's k) and 2 f32 ones, the superset
+    test xy >= lim + y2 * (1/2 - 2^-21) that every pair needs (an add and
+    a compare); the exact epilogue on the few pairs that pass it is not
+    counted."""
+    from repro_torch.kernels.packing import BF16_GROUP, bf16_record_width
     nbytes = 4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
     if sel is not None:
         nbytes += m
     if wl is not None:
         nbytes += 4 * wl.row_ptr.numel() + 9 * wl.n_kept
-    return nbytes, pairs * 32 * -(-d // 16), pairs * 4.0
+    else:
+        m16 = -(-m // BF16_GROUP) * BF16_GROUP
+        nbytes += 2 * m16 * (2 * bf16_record_width(d) + 8
+                             + (sel is not None))
+    return nbytes, pairs * 32 * -(-d // 16), pairs * 2.0
+
+
+def k12_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each K12 instantiation in the build's
+    ptxas log, by the d it serves and its gate."""
+    from repro_torch.kernels.build import ptxas_usage
+    kinds = {"1": "d<=8", "2": "d<=16", "0": "any d"}
+    out = {}
+    for name, u in ptxas_usage(log).items():
+        if "fused_count_topk_bf16_kernel" in name:
+            args = name.split("fused_count_topk_bf16_kernelILi")[1]
+            out[f"{kinds[args[0]]}{' gated' if args[4] == '1' else ''}"] = u
+    return out
 
 
 def k13_pairs(wl, n: int, m: int, live: torch.Tensor) -> float:
@@ -1704,6 +1731,13 @@ def bf16_check_shapes(card: str) -> dict:
                         k12_plain(x, x, dc, sel))
             check_equal(f"fused_count_topk_bf16 {what}", dense,
                         ops.fused_sweep(x, x, dc, nn_sel=sel), "f32 K1")
+            if n <= 20000:          # ragged rows and columns, < 8 columns
+                for r, c in ((n - 3, 5), (257, n // 3)):
+                    xr, yc = x[:r].contiguous(), x[-c:].contiguous()
+                    sc = None if sel is None else sel[-c:].contiguous()
+                    check_equal(f"fused_count_topk_bf16 {what} {r} x {c}",
+                                k12(xr, yc, dc, sc),
+                                k12_plain(xr, yc, dc, sc))
             live = torch.zeros(wl.num_row_tiles, dtype=torch.int32,
                                device=dev)
             sparse = k13(x, x, dc, wl, sel, live)
@@ -2206,13 +2240,16 @@ def main() -> int:
           f"cuda {torch.version.cuda}  SMs {sms}", flush=True)
     b = build.build()
     print(f"build: {b.seconds:.2f} s  ({b.path.name})")
-    regs = [line.split("Used ")[1].split(" registers")[0]
-            for line in b.log.splitlines() if "registers" in line]
-    spills = [line for line in b.log.splitlines()
-              if "spill" in line and " 0 bytes spill stores" not in line]
-    print(f"  ptxas: registers per instantiation {regs}; spills: "
+    usage = build.ptxas_usage(b.log)
+    spills = [name for name, u in usage.items()
+              if u["spill_stores"] or u["spill_loads"]]
+    print(f"  ptxas: registers per instantiation "
+          f"{[u['registers'] for u in usage.values()]}; spills in: "
           f"{spills or 'none'}")
-    record.update(card=card, clocks=clocks, build_s=b.seconds)
+    k12_regs = k12_ptxas(b.log)
+    print(f"  ptxas, K12 (registers, spill bytes): {k12_regs}")
+    record.update(card=card, clocks=clocks, build_s=b.seconds,
+                  k12_ptxas=k12_regs)
 
     # --------------------------------------- 2. kernels vs plain, check shapes
     stamp(2)
@@ -3252,15 +3289,32 @@ def main() -> int:
         want, p_ms = timed_once(lambda: k12_plain(x[:r], y, dc, sel))
         errs[name] = check_equal(f"{name} [2^20 lattice, {r} rows]",
                                  [t[:r] for t in full], want)
-        main_times[name] = {
+        ins = torch.zeros(x.shape[0], dtype=torch.int32, device=dev)
+        ops.fused_sweep(x, y, dc, nn_sel=sel, inserted=ins,
+                        precision="bf16")
+        pairs = float(x.shape[0]) * y.shape[0]
+        t = main_times[name] = {
             "ms": time_ms(lambda: k12(x, y, dc, sel), BF16_FULL_REPS),
             "rows": x.shape[0], "plain_ms": p_ms, "plain_rows": r,
             "f32_ms": time_ms(
                 lambda: ops.fused_sweep(x, y, dc, nn_sel=sel),
-                BF16_FULL_REPS)}
+                BF16_FULL_REPS),
+            "insertions_mean": float(ins.double().mean()),
+            "insertions_max": int(ins.max()),
+            "ptxas": k12_regs.get("d<=8" + (" gated" if gated else ""),
+                                  "not measured (library reused)")}
+        t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
+                 f32_ratio=t["ms"] / t["f32_ms"])
         bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1],
-                                 float(x.shape[0]) * y.shape[0], sel)
-        del full, want
+                                 pairs, sel)
+        t["bound_share"] = bf16_bound_ms(*bounds[name])[0] / t["ms"]
+        print(f"{name} [2^20 lattice]: {t['pairs_per_s']:.4g} pairs/s, "
+              f"{100 * t['bound_share']:.1f} % of its bound, "
+              f"{t['f32_ratio']:.3f} x f32 K1's time; kept-list insertions "
+              f"per row mean {t['insertions_mean']:.1f}, max "
+              f"{t['insertions_max']}; ptxas {t['ptxas']}  ({card})",
+              flush=True)
+        del full, want, ins
         (x, y, dc, wl, sel), = lat_given[algo, "block-sparse"]
         name = "worklist_count_topk_bf16" + gated
         live = torch.zeros(wl.num_row_tiles, dtype=torch.int32, device=dev)

@@ -66,6 +66,26 @@ def build() -> Build:
     return Build(lib, seconds, log)
 
 
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Per compiled kernel (mangled name) in an ``nvcc -Xptxas -v`` log:
+    its registers and its spill stores and loads in bytes."""
+    usage: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            usage[name] = {"registers": 0, "spill_stores": 0,
+                           "spill_loads": 0}
+        elif name is not None and "bytes spill stores" in line:
+            words = line.replace(",", " ").split()
+            usage[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            usage[name]["spill_loads"] = int(words[-4])
+        elif name is not None and "Used " in line and " registers" in line:
+            usage[name]["registers"] = int(
+                line.split("Used ")[1].split(" registers")[0])
+    return usage
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """The built library with every entry point's signature declared."""
@@ -111,8 +131,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_worklist_range_count_signed.argtypes = [p, p, p, i, i, i, f,
                                                       p, p, p, p, p]
     lib.repro_worklist_range_count_signed.restype = i
-    lib.repro_fused_count_topk_bf16.argtypes = [p, p, i, i, i, f, p, p, p,
-                                                p, p]
+    lib.repro_fused_count_topk_bf16.argtypes = [p, p, p, p, i, i, i, i, f,
+                                                p, p, p, p, p]
     lib.repro_fused_count_topk_bf16.restype = i
     lib.repro_worklist_count_topk_bf16.argtypes = [p, p, i, i, i, f, p, p,
                                                    p, p, p, p, p, p, p, p]

@@ -33,7 +33,8 @@
 //   repro_halo_masked_nn       per query row, the nearest strictly denser
 //                              window row within d_cut inside its spans
 //   repro_fused_count_topk_bf16    K1's function on the expanded form with
-//                              a bf16 cross term on the tensor cores
+//                              a bf16 cross term on the tensor cores (over
+//                              bf16 column records, kernels/packing.py)
 //   repro_worklist_count_topk_bf16 the same over a worklist, with the
 //                              reference's NN-liveness
 //   repro_worklist_range_count_signed  per query row, the sum of the signs
@@ -1683,19 +1684,20 @@ __global__ void __launch_bounds__(kWlRows)
 // expanded form d2 = (|x|^2 + |y|^2) - 2 x.y of tile_d2(precision="bf16")
 // (repro/kernels/sweep.py:104-119).  The norms are f32, summed over dims in
 // order with __fmul_rn/__fadd_rn; x and y are rounded to bf16
-// (__float2bfloat16_rn, jnp's astype) as they are staged in shared memory,
-// zero-padded to the MMA's k of 16, and their product runs on the tensor
-// cores, mma.sync m16n8k16 bf16 x bf16 -> f32, k-step after k-step.  Each
-// bf16 product is exact in f32, but the tensor cores' sum of 16 of them is
-// not an in-order IEEE sum: the plain version (kernels/sweep.py,
-// expanded_d2_bf16) sums in order, so the two agree bit for bit where every
-// partial sum is exact (integer coordinates times a power of two) and
-// within a few ulps of sum_k |x_k y_k| elsewhere.  A d2 may be negative.
+// (__float2bfloat16_rn, jnp's astype; K12's columns by the wrapper, the
+// same rounding), zero-padded to the MMA's k of 16, and their product runs
+// on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, k-step after
+// k-step.  Each bf16 product is exact in f32, but the tensor cores' sum of
+// 16 of them is not an in-order IEEE sum: the plain version
+// (kernels/sweep.py, expanded_d2_bf16) sums in order, so the two agree bit
+// for bit where every partial sum is exact (integer coordinates times a
+// power of two) and within a few ulps of sum_k |x_k y_k| elsewhere.  A d2
+// may be negative.
 //
-// Shared memory of a block of R rows (dynamic, sized per d): the f32 x.y
-// tile R x (kBfCols + 1) (the +1 spreads a row's reads over the banks), the
-// column norms, the bf16 rows R x ld and columns kBfCols x ld (ld = the
-// padded d + kBfPad), and the gate bytes of the columns.
+// K13's shared memory for a block of R rows (dynamic, sized per d): the
+// f32 x.y tile R x (kBfCols + 1) (the +1 spreads a row's reads over the
+// banks), the column norms, the bf16 rows R x ld and columns kBfCols x ld
+// (ld = the padded d + kBfPad), and the gate bytes of the columns.
 __host__ __device__ __forceinline__ int bf_kp(int d) {
   return (d + 15) / 16 * 16;
 }
@@ -1848,78 +1850,444 @@ __device__ __forceinline__ float bf16_d2(const Bf16Smem& s, float x2,
                    __fmul_rn(2.0f, s.xy[threadIdx.x * (kBfCols + 1) + c]));
 }
 
-// K12 — replaces the reference's ops.fused_sweep with precision="bf16",
-// i.e. sweep.tile_sweep with SweepSpec(count=True, nn="topk", k=8,
-// precision="bf16") (repro/kernels/sweep.py:432, distances tile_d2 at
-// :104-119), gated by kSel as K1 is.
+// K12 — replaces the reference's ops.fused_sweep with precision="bf16", i.e.
+// sweep.tile_sweep with SweepSpec(count=True, nn="topk", k=8, precision="bf16")
+// (repro/kernels/sweep.py:432, distances tile_d2 at :104-119), gated by kSel as
+// K1 is.
 //
-// Bound: the larger of the tensor-core work (2 * 16 * ceil(d/16) operations
-// per pair at the bf16 rate) and the CUDA-core epilogue (the norm add, the
-// scale, the subtraction and the compare, about 4 operations per pair at the
-// f32 rate), which is the larger for every d <= 64: about 2.5x fewer
-// operations per pair than K1's 3d+1 at d = 3.  The simple design here is
-// likely bound by neither but by the shared-memory round trip of the x.y
-// tile (one f32 written and read per pair).  One block of 128 threads owns
-// 128 rows and loops over column tiles of kBfCols, as K1 does (nothing is
-// carried between blocks): the columns are staged as bf16 with their norms,
-// the four warps write their x.y fragments to the shared tile, and then each
-// thread owns one row: the count d2 < d2cut and K1's kept-8 insertion.
-// Columns arrive in ascending order, so the strict `<` against the 8th kept
-// value keeps the lexicographic (d2, index) rule.
-template <bool kSel>
-__global__ void __launch_bounds__(kRows)
+// Bound: the tensor-core work (2 * 16 * ceil(d/16) operations per pair at the
+// bf16 rate) and the CUDA-core test each pair needs (an add and a compare at
+// the f32 rate, the larger for every d <= 64); the exact epilogue runs on the
+// few pairs that can be counted or kept.  The design spends on that test alone:
+// the accumulators never leave the registers.
+//
+// The wrapper packs the columns once per call (kernels/packing.py,
+// bf16_records): y in bf16, zero past d (8 values a column for d <= 8, else
+// 16 * ceil(d/16)), the f32 norms y2 (sq_norms: in order, no FMA, the bits
+// bf16_stage_cols computes), the test's halves y2 * (1/2 - 2^-21) and, gated,
+// the gate bytes, all padded to a whole number of kK12Group columns (norm NaN:
+// a padding column fails every test).  A block of kK12Warps warps (half as many
+// where full blocks would not fill the SMs twice: the check shapes) owns 32
+// rows a warp and streams the records through a two-stage cp.async ring, one
+// barrier per stage of k12_stage_cols(d) columns, padded kBfPad apart past 8
+// values so that the ldmatrix rows fall on distinct banks.  For d <= 16 each
+// warp holds its A fragments (two m16 tiles of query rows) in registers for the
+// whole sweep; larger d reads them per k-step from the block's staged rows.
+// Each warp takes 16 columns at a time (two n8 tiles): mma.sync m16n8k16,
+// k-step after k-step from zero, as the earlier kernel summed; lane (g, q) then
+// holds rows g and g+8 at columns 2q and 2q+1 of each n8 tile in its C
+// fragments.
+//
+// The epilogue on those registers has two levels.  A pair can matter only if
+// its d2 = (x2 + y2) - 2 xy is below d2cut (the count) or at most its row's
+// filter `cut` (the kept 8), so at most T = max(d2cut, cut).  Each value is
+// first tested as xy >= lim + half (k12_lim: one add and one compare), which
+// every pair with d2 <= T passes: d2 rounds (x2 + y2) - 2 xy once and
+// x2 + y2 once, within 2^-24 of each, and the test gives away 2^-21 of
+// x2 + y2 + T, with 2^-100 for subnormals (a NaN or infinite norm fails it,
+// and such a d2 is never counted or kept).  The test is voted into one
+// warp-uniform branch per 16 columns; inside it the exact epilogue, in the
+// reference's order: (x2 + y2) - 2 xy with __fadd_rn/__fmul_rn/__fsub_rn, the
+// count by a predicated add, and the filter d2 < cut (and, under kSel, the
+// gate), voted again.  A group after one that the warp counted or filtered
+// in skips the test and goes straight to the exact epilogue: where most
+// groups hold a pair in the count, as on domain-1e5 data whose bf16 error
+// dwarfs d_cut^2, the test would only add its two instructions (measured
+// against a rule per ring stage, PERF.md).
+//
+// The kept 8 of a row live in one lane, its owner: lane (g, q) keeps row
+// g + 8q of the warp (rows g and g+8 of m16 tile q >> 1 as its C fragments
+// number them), 16 registers a lane.  Where the filter vote is taken, the
+// lanes write the group's 16 x 32 d2 to the warp's queue in shared memory,
+// column-major (kK12QLd apart, so that both the writes and the owners'
+// reads fall on 32 distinct banks), and each owner reads its row's 16
+// values in index order and inserts those below its 8th value (gated: whose
+// gate is set), one warp vote a column.  Columns arrive in index order, so
+// the strict `<` keeps the lexicographic (d2, index) rule and an insertion
+// needs no index compare (k12_keep).  The filter `cut` of each of a lane's
+// 4 rows is then its owner's 8th value, by shuffle, and the test's lim
+// follows it.  At the end the 4 lanes of a row sum its count.  count, topv
+// and topi equal the earlier kernel's bit for bit: the same MMAs on the same
+// operands, the same f32 epilogue on every pair that can be counted or
+// kept, and the lexicographic 8 least of the admissible columns.  A private
+// kept-8 per lane for each of its 4 rows, merged by shuffle at the end,
+// held 64 registers a lane and ran slower at 2^20 rows (PERF.md); with 16,
+// ptxas fits the kernel in 80 registers, and 3 blocks share an SM.
+
+// warps per K12 block (half as many where full blocks would not fill the
+// SMs twice) and rows per full block: 2 m16 tiles a warp
+constexpr int kK12Warps = 8;
+constexpr int kK12Rows = 32 * kK12Warps;
+constexpr int kK12Group = 16;               // columns per vote: 2 n8 tiles;
+                                            // BF16_GROUP in kernels/packing.py
+constexpr int kK12QLd = 36;                 // floats per queue column
+constexpr int kK12StageBytes = 16384;       // bf16 records per ring stage
+
+// bf16 values per packed column record and per staged one
+__host__ __device__ inline int k12_rec(int d) { return d <= 8 ? 8 : bf_kp(d); }
+__host__ __device__ inline int k12_ld(int d) {
+  return d <= 8 ? 8 : bf_kp(d) + kBfPad;
+}
+
+// columns per ring stage: a whole number of vote groups
+__host__ __device__ inline int k12_stage_cols(int d) {
+  const int c = kK12StageBytes / (2 * k12_ld(d)) / kK12Group * kK12Group;
+  return c > kK12Group ? c : kK12Group;
+}
+
+// bytes of one stage: records, norms, halves and (gated) gate bytes
+__host__ __device__ inline int k12_stage_bytes(int d, bool sel) {
+  return k12_stage_cols(d) * (2 * k12_ld(d) + 8 + (sel ? 1 : 0));
+}
+
+// dynamic shared memory: two stages, for d > 16 the staged rows, and the
+// warps' queues
+inline size_t k12_smem_bytes(int d, bool sel) {
+  size_t b = 2 * static_cast<size_t>(k12_stage_bytes(d, sel));
+  if (d > 16) b += sizeof(__nv_bfloat16) * kK12Rows * (bf_kp(d) + kBfPad);
+  return b + sizeof(float) * kK12Warps * kK12Group * kK12QLd;
+}
+
+// Issue (and commit as one group) the copy of padded columns [j0, j0+cols)
+// into stage st: records 16 bytes at a time, norms, halves and gate bytes
+// (norms: 2 x m16, the norms then the halves).
+__device__ __forceinline__ void k12_stage(unsigned char* st,
+                                          const __nv_bfloat16* rec,
+                                          const float* norms, int m16,
+                                          const unsigned char* gate, int j0,
+                                          int cols, int per_stage, int kr,
+                                          int ld) {
+  const int kc = kr / 8;                    // 16-byte chunks per record
+  __nv_bfloat16* srec = reinterpret_cast<__nv_bfloat16*>(st);
+  for (int t = threadIdx.x; t < cols * kc; t += blockDim.x) {
+    const int c = t / kc;
+    const int h = t - c * kc;
+    cp_async16(reinterpret_cast<float4*>(srec + c * ld + h * 8),
+               reinterpret_cast<const float4*>(
+                   rec + (static_cast<size_t>(j0) + c) * kr + h * 8));
+  }
+  float* sy2 = reinterpret_cast<float*>(st + 2 * per_stage * ld);
+  for (int t = threadIdx.x; t < cols / 2; t += blockDim.x) {
+    const int h = t >= cols / 4;            // norms, then halves
+    const int c = 4 * (t - h * (cols / 4));
+    cp_async16(reinterpret_cast<float4*>(sy2 + h * per_stage + c),
+               reinterpret_cast<const float4*>(norms + h * m16 + j0 + c));
+  }
+  if (gate != nullptr) {
+    unsigned char* sg = st + per_stage * (2 * ld + 8);
+    for (int t = threadIdx.x; t < cols / 16; t += blockDim.x)
+      cp_async16(reinterpret_cast<float4*>(sg + 16 * t),
+                 reinterpret_cast<const float4*>(gate + j0 + 16 * t));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
+                                            const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(s));
+}
+
+// x[k], x[k+1] (zero at or past d) as bf16, k in the low half
+__device__ __forceinline__ uint32_t bf16x2_at(const float* xr, int k, int d) {
+  const uint32_t lo =
+      __bfloat16_as_ushort(__float2bfloat16_rn(k < d ? xr[k] : 0.0f));
+  const uint32_t hi =
+      __bfloat16_as_ushort(__float2bfloat16_rn(k + 1 < d ? xr[k + 1] : 0.0f));
+  return lo | (hi << 16);
+}
+
+// Insert (v, j) into a sorted kept list whose indices are all below j (an
+// owner reads its row's columns in index order): the entries with d2 <= v stay,
+// the rest move down one slot.  Called only where v < tv[kTopK-1].
+__device__ __forceinline__ void k12_keep(float (&tv)[kTopK], int (&ti)[kTopK],
+                                         float v, int j) {
+  bool lt[kTopK];
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) lt[s] = v < tv[s];
+#pragma unroll
+  for (int s = kTopK - 1; s > 0; --s) {
+    tv[s] = lt[s] ? (lt[s - 1] ? tv[s - 1] : v) : tv[s];
+    ti[s] = lt[s] ? (lt[s - 1] ? ti[s - 1] : j) : ti[s];
+  }
+  tv[0] = lt[0] ? v : tv[0];
+  ti[0] = lt[0] ? j : ti[0];
+}
+
+// The row's share of the cheap test: xy >= k12_lim(x2, T) + y2 * (1/2 -
+// 2^-21) holds for every pair with d2 <= T (T >= 0; see K12's note).
+__device__ __forceinline__ float k12_lim(float x2, float t) {
+  return 0.5f * (x2 * (1.0f - 0x1p-20f) - t * (1.0f + 0x1p-20f)) -
+         0x1p-100f;
+}
+
+// KC: 1 for d <= 8 (one 16-byte chunk a column, the upper k-half zero), 2
+// for d <= 16, 0 for any d (A per k-step from the staged rows).  inserted
+// (optional, n, zeroed): each row's kept-list insertions.
+template <int KC, bool kSel>
+__global__ void __launch_bounds__(kK12Rows, 3)
     fused_count_topk_bf16_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ y, int n, int m,
-                                 int d, float d2cut,
-                                 const unsigned char* __restrict__ sel,
+                                 const __nv_bfloat16* __restrict__ rec,
+                                 const float* __restrict__ norms,
+                                 const unsigned char* __restrict__ gate,
+                                 int n, int m, int d, float d2cut,
                                  int* __restrict__ count,
                                  float* __restrict__ topv,
-                                 int* __restrict__ topi) {
-  extern __shared__ __align__(16) unsigned char bf_raw[];
+                                 int* __restrict__ topi,
+                                 int* __restrict__ inserted) {
+  extern __shared__ __align__(16) unsigned char k12_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
   const int kp = bf_kp(d);
-  const int ld = bf_ld(d);
-  const Bf16Smem s = bf16_smem(bf_raw, kRows, ld);
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;  // dead lanes compute, never write
-  const float x2 =
-      bf16_stage_row(x + static_cast<size_t>(row) * d, d, kp, s.xs, ld);
+  const int kr = KC == 1 ? 8 : kp;
+  const int ld = KC == 1 ? 8 : kp + kBfPad;
+  const int per_stage = k12_stage_cols(d);
+  const int stage = k12_stage_bytes(d, kSel);
+  const int m16 = (m + kK12Group - 1) / kK12Group * kK12Group;
 
+  // row g + 8h of m16 tile mt (past n: computes as row n-1, never
+  // writes), its f32 norm, count, filter and test bound; this lane owns
+  // the kept list of row g + 8q (mt = q >> 1, h = q & 1)
+  const int row0 = blockIdx.x * blockDim.x + warp * 32 + g;
+  float x2[2][2];
+  int cnt[2][2];
+  float cut[2][2];
+  float lim[2][2];
   float tv[kTopK];
   int ti[kTopK];
+  uint32_t a[2][4];
 #pragma unroll
-  for (int k = 0; k < kTopK; ++k) {
-    tv[k] = CUDART_INF_F;
-    ti[k] = INT_MAX;
+  for (int s2 = 0; s2 < kTopK; ++s2) {
+    tv[s2] = CUDART_INF_F;
+    ti[s2] = INT_MAX;
   }
-  int cnt = 0;
-
-  for (int j0 = 0; j0 < m; j0 += kBfCols) {
-    const int cols = min(kBfCols, m - j0);
-    __syncthreads();
-    bf16_stage_cols(s, y, kSel ? sel : nullptr, j0, cols, d, kp, ld);
-    __syncthreads();
-    bf16_cross(s, kp, ld);
-    __syncthreads();
-    for (int c = 0; c < cols; ++c) {
-      const float d2 = bf16_d2(s, x2, c);
-      cnt += d2 < d2cut;
-      if constexpr (kSel) {
-        if (s.sel[c] && d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
-      } else {
-        if (d2 < tv[kTopK - 1]) keep(tv, ti, d2, j0 + c);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + mt * 16 + h * 8;
+      const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
+      float s = __fmul_rn(xr[0], xr[0]);
+      for (int k = 1; k < d; ++k) s = __fadd_rn(s, __fmul_rn(xr[k], xr[k]));
+      x2[mt][h] = s;
+      cnt[mt][h] = 0;
+      cut[mt][h] = CUDART_INF_F;
+      lim[mt][h] = k12_lim(s, CUDART_INF_F);
+      if constexpr (KC != 0) {
+        a[mt][h] = bf16x2_at(xr, 2 * q, d);
+        a[mt][h + 2] = bf16x2_at(xr, 2 * q + 8, d);
       }
     }
   }
-
-  if (!live) return;
-  count[i] = cnt;
-  const size_t o = static_cast<size_t>(i) * kTopK;
-#pragma unroll
-  for (int k = 0; k < kTopK; ++k) {
-    topv[o + k] = tv[k];
-    topi[o + k] = ti[k] == INT_MAX ? -1 : ti[k];
+  // any d: the block's rows as bf16 (zero past d) after the ring
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(k12_raw + 2 * stage);
+  if constexpr (KC == 0) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
+    for (int k = 0; k < kp; ++k)
+      xs[threadIdx.x * (kp + kBfPad) + k] =
+          __float2bfloat16_rn(k < d ? xr[k] : 0.0f);
   }
+  // the warp's queue: a group's candidate d2 of its 32 rows, column-major
+  // (kK12QLd apart: the writes and the owners' reads hit distinct banks)
+  float* queue = reinterpret_cast<float*>(
+                     k12_raw + 2 * stage +
+                     (KC == 0 ? sizeof(__nv_bfloat16) * kK12Rows *
+                                    (kp + kBfPad)
+                              : 0)) +
+                 warp * kK12Group * kK12QLd;
+  const int own = g + 8 * q;              // the row whose list this lane holds
+
+  // this lane's ldmatrix row addresses: B of two n8 tiles (KC == 1: the
+  // k-chunk 0 of 16 columns; else chunks 0 and 1 of 8 columns twice) and,
+  // for any d, A of the warp's two m16 tiles
+  const int b_off = KC == 1 ? (lane & 15) * ld
+                            : ((lane & 7) + (lane >> 4) * 8) * ld +
+                                  ((lane >> 3) & 1) * 8;
+  const int a_off = (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                        (kp + kBfPad) + (lane >> 4) * 8;
+
+  bool exact = true;   // the warp's last group counted or filtered in
+  const int ntile = (m16 + per_stage - 1) / per_stage;
+  if (ntile > 0)
+    k12_stage(k12_raw, rec, norms, m16, kSel ? gate : nullptr, 0,
+              min(per_stage, m16), per_stage, kr, ld);
+  for (int t = 0; t < ntile; ++t) {
+    const int j0 = t * per_stage;
+    const int cols = min(per_stage, m16 - j0);
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < ntile)
+      k12_stage(k12_raw + ((t + 1) & 1) * stage, rec, norms, m16,
+                kSel ? gate : nullptr, j0 + per_stage,
+                min(per_stage, m16 - j0 - per_stage), per_stage, kr, ld);
+    const unsigned char* st = k12_raw + (t & 1) * stage;
+    const __nv_bfloat16* srec = reinterpret_cast<const __nv_bfloat16*>(st);
+    const float* sy2 = reinterpret_cast<const float*>(st + 2 * per_stage * ld);
+    const float* shalf = sy2 + per_stage;
+    const unsigned char* sg = st + per_stage * (2 * ld + 8);
+    for (int c0 = 0; c0 < cols; c0 += kK12Group) {
+      float acc[2][2][4];                  // [mt][nt][C fragment]
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+      const __nv_bfloat16* bp = srec + c0 * ld + b_off;
+      if constexpr (KC == 1) {
+        uint32_t b[2][2] = {{0u, 0u}, {0u, 0u}};
+        ldmatrix_x2(b[0][0], b[1][0], bp);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_bf16_16816(acc[0][nt], a[0], b[nt]);
+          mma_bf16_16816(acc[1][nt], a[1], b[nt]);
+        }
+      } else if constexpr (KC == 2) {
+        uint32_t b4[4];
+        ldmatrix_x4(b4, bp);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
+          mma_bf16_16816(acc[0][nt], a[0], b);
+          mma_bf16_16816(acc[1][nt], a[1], b);
+        }
+      } else {
+        for (int k0 = 0; k0 < kp; k0 += 16) {
+          uint32_t b4[4];
+          ldmatrix_x4(b4, bp + k0);
+          uint32_t ak[2][4];
+          ldmatrix_x4(ak[0], xs + a_off + k0);
+          ldmatrix_x4(ak[1], xs + a_off + 16 * (kp + kBfPad) + k0);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
+            mma_bf16_16816(acc[0][nt], ak[0], b);
+            mma_bf16_16816(acc[1][nt], ak[1], b);
+          }
+        }
+      }
+      // the cheap test, an add and a compare a value
+      if (!exact) {
+        bool any[2][2] = {{false, false}, {false, false}};  // short chains
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float2 hy =
+              *reinterpret_cast<const float2*>(shalf + c0 + nt * 8 + 2 * q);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              any[mt][nt] |= acc[mt][nt][e] >=
+                             lim[mt][e >> 1] + ((e & 1) ? hy.y : hy.x);
+        }
+        exact = __any_sync(0xffffffffu, (any[0][0] || any[0][1]) ||
+                                            (any[1][0] || any[1][1]));
+        if (!exact) continue;              // a uniform branch
+      }
+      // the exact epilogue in place: acc becomes d2, in the reference's order
+      const int counted = cnt[0][0] + cnt[0][1] + cnt[1][0] + cnt[1][1];
+      bool keep_any[2][2] = {{false, false}, {false, false}};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 y2 =
+            *reinterpret_cast<const float2*>(sy2 + c0 + nt * 8 + 2 * q);
+        bool gt[2] = {true, true};
+        if constexpr (kSel) {
+          const unsigned short gb = *reinterpret_cast<const unsigned short*>(
+              sg + c0 + nt * 8 + 2 * q);
+          gt[0] = (gb & 0xffu) != 0;
+          gt[1] = (gb >> 8) != 0;
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float d2 = __fsub_rn(
+                __fadd_rn(x2[mt][h], (e & 1) ? y2.y : y2.x),
+                __fmul_rn(2.0f, acc[mt][nt][e]));
+            acc[mt][nt][e] = d2;
+            count_below(cnt[mt][h], d2, d2cut);
+            keep_any[mt][nt] |= gt[e & 1] && d2 < cut[mt][h];
+          }
+      }
+      const bool kept = __any_sync(0xffffffffu,
+                                   (keep_any[0][0] || keep_any[0][1]) ||
+                                       (keep_any[1][0] || keep_any[1][1]));
+      exact = kept || __any_sync(0xffffffffu,
+                                 cnt[0][0] + cnt[0][1] + cnt[1][0] +
+                                         cnt[1][1] != counted);
+      if (!kept) continue;
+      // the group's values into the queue, then each row's owner takes
+      // them in index order
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            queue[(nt * 8 + 2 * q + (e & 1)) * kK12QLd + g + 8 * (e >> 1) +
+                  16 * mt] = acc[mt][nt][e];
+      __syncwarp();
+#pragma unroll 4
+      for (int s = 0; s < kK12Group; ++s) {
+        const float v = queue[s * kK12QLd + own];
+        bool take = v < tv[kTopK - 1];
+        if constexpr (kSel) take = take && sg[c0 + s] != 0;
+        if (__any_sync(0xffffffffu, take)) {
+          if (take) {
+            k12_keep(tv, ti, v, j0 + c0 + s);
+            if (inserted != nullptr && row0 + 8 * q < n)
+              atomicAdd(inserted + row0 + 8 * q, 1);
+          }
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          cut[mt][h] = __shfl_sync(0xffffffffu, tv[kTopK - 1],
+                                   (lane & ~3) | (2 * mt + h));
+          lim[mt][h] = k12_lim(x2[mt][h], fmaxf(d2cut, cut[mt][h]));
+        }
+    }
+  }
+
+  // the 4 lanes of a row sum its counts; its owner writes it
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 1);
+      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 2);
+    }
+  const int i = row0 + 8 * q;
+  if (i >= n) return;
+  count[i] = q == 0 ? cnt[0][0] : q == 1 ? cnt[0][1] : q == 2 ? cnt[1][0]
+                                                             : cnt[1][1];
+  float4* ov = reinterpret_cast<float4*>(topv + static_cast<size_t>(i) * kTopK);
+  int4* oi = reinterpret_cast<int4*>(topi + static_cast<size_t>(i) * kTopK);
+  int o[kTopK];
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) o[s] = ti[s] == INT_MAX ? -1 : ti[s];
+  ov[0] = make_float4(tv[0], tv[1], tv[2], tv[3]);
+  ov[1] = make_float4(tv[4], tv[5], tv[6], tv[7]);
+  oi[0] = make_int4(o[0], o[1], o[2], o[3]);
+  oi[1] = make_int4(o[4], o[5], o[6], o[7]);
 }
 
 // K13 — replaces the reference's ops.fused_sweep with precision="bf16" on a
@@ -2363,24 +2731,50 @@ extern "C" int repro_worklist_range_count_signed(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K12.  sel: null for the ungated sweep, else m bytes, nonzero where a
-// column may enter the kept 8.  d must be at most kBfMaxD.
-extern "C" int repro_fused_count_topk_bf16(const float* x, const float* y,
+// K12.  rec: the columns' bf16 records, w = k12_rec(d) values each; norms:
+// 2 x m16 floats, their f32 norms then the test's halves; gate (null: the
+// ungated sweep) their gate bytes; m16 = m rounded up to kK12Group
+// (kernels/packing.py, bf16_records: norms NaN and gate 0 past m).
+// inserted (optional, n, zeroed): each row's kept-list insertions.  d must
+// be at most kBfMaxD.
+extern "C" int repro_fused_count_topk_bf16(const float* x, const void* rec,
+                                           const float* norms,
+                                           const unsigned char* gate, int w,
                                            int n, int m, int d, float d2cut,
-                                           const unsigned char* sel,
                                            int* count, float* topv,
-                                           int* topi, void* stream) {
-  if (d < 1 || d > kBfMaxD) return static_cast<int>(cudaErrorInvalidValue);
+                                           int* topi, int* inserted,
+                                           void* stream) {
+  if (d < 1 || d > kBfMaxD || w != k12_rec(d))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n + kRows - 1) / kRows);
-  const size_t bytes = bf16_smem_bytes(kRows, d);
+  // blocks of half the warps where full ones would not fill the SMs twice
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int rows = (n + kK12Rows - 1) / kK12Rows < 2 * sms ? kK12Rows / 2
+                                                           : kK12Rows;
+  const dim3 grid((n + rows - 1) / rows);
+  const size_t bytes = k12_smem_bytes(d, gate != nullptr);
+  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(rec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sel != nullptr)
-    return smem_launch(fused_count_topk_bf16_kernel<true>, grid, kRows,
-                       bytes, s, x, y, n, m, d, d2cut, sel, count, topv,
-                       topi);
-  return smem_launch(fused_count_topk_bf16_kernel<false>, grid, kRows, bytes,
-                     s, x, y, n, m, d, d2cut, sel, count, topv, topi);
+  int code = 0;
+#define REPRO_LAUNCH(KC)                                                   \
+  code = gate != nullptr                                                   \
+             ? smem_launch(fused_count_topk_bf16_kernel<KC, true>, grid,   \
+                           rows, bytes, s, x, r, norms, gate, n, m, d,     \
+                           d2cut, count, topv, topi, inserted)             \
+             : smem_launch(fused_count_topk_bf16_kernel<KC, false>, grid,  \
+                           rows, bytes, s, x, r, norms, gate, n, m, d,     \
+                           d2cut, count, topv, topi, inserted)
+  if (d <= 8) {
+    REPRO_LAUNCH(1);
+  } else if (d <= 16) {
+    REPRO_LAUNCH(2);
+  } else {
+    REPRO_LAUNCH(0);
+  }
+#undef REPRO_LAUNCH
+  return code;
 }
 
 // K13: K12 on the tile pairs of a worklist; live (optional) gets the

@@ -160,7 +160,9 @@ def _check_sel(y: torch.Tensor, nn_sel) -> torch.Tensor:
 def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                 worklist: Worklist | None = None,
                 live: torch.Tensor | None = None,
-                ran: torch.Tensor | None = None, precision: str = "f32"):
+                ran: torch.Tensor | None = None,
+                inserted: torch.Tensor | None = None,
+                precision: str = "f32"):
     """Per x-row: the range count over y within ``d_cut`` AND the 8 nearest
     y rows, unmasked by density (the caller resolves the denser mask once
     the counts are complete).
@@ -172,7 +174,9 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     tiles,) int32) receives the number of entries the worklist kernel
     computed in each row tile; ``ran`` (CUDA only, f32 on a worklist,
     (row tiles, 2) int64 zeros) receives the pairs K3 ran in each row
-    tile's two phases (``kernels/packing.py``).
+    tile's two phases (``kernels/packing.py``); ``inserted`` (CUDA only,
+    dense bf16, (n,) int32 zeros) the kept-list insertions K12 made for
+    each row, summed over the lanes that share it.
 
     ``precision="f32"``: direct-difference d2, K1 (K3 on a worklist) on a
     CUDA tensor, their plain versions on a CPU one.  ``precision="bf16"``:
@@ -202,6 +206,13 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         raise ValueError("fused_sweep: pair counts come from the CUDA f32 "
                          "worklist kernel, into (row tiles, 2) int64 on "
                          "x's device")
+    if inserted is not None and (
+            not bf16 or worklist is not None or x.device.type != "cuda"
+            or inserted.dtype != torch.int32 or inserted.device != x.device
+            or inserted.shape != (x.shape[0],)
+            or not inserted.is_contiguous()):
+        raise ValueError("fused_sweep: insertion counts come from the CUDA "
+                         "dense bf16 kernel, into (n,) int32 on x's device")
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
         gate = None if sel is None else sel.bool()
@@ -227,10 +238,12 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         with torch.cuda.device(x.device):
             if worklist is None and bf16:
                 name = "fused_count_topk_bf16"
+                rec = packing.bf16_records(y, sel)
                 code = lib.repro_fused_count_topk_bf16(
-                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
+                    x.data_ptr(), rec.rec.data_ptr(), rec.norms.data_ptr(),
+                    _ptr(rec.gate), rec.rec.shape[1], n, m, d, d2cut,
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
-                    _stream(x))
+                    _ptr(inserted), _stream(x))
             elif worklist is None:
                 name = "fused_count_topk"
                 rec = packing.pack_records(y, sel)

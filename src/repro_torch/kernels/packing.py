@@ -1,4 +1,4 @@
-"""Host-side layouts of the K1, K2 and K3 kernels (``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2, K3 and K12 kernels (``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
@@ -21,6 +21,14 @@ rows scans nearly the same prefix and masks by position only past the
 least end of its rows.  The block prefixes are cut into column chunks (a
 work list, heaviest first), so the card fills whatever the row count; the
 chunks of a row merge by the lexicographic (d2, original index) minimum.
+
+K12 (``fused_count_topk_bf16``) reads the columns as bf16 records
+(``bf16_records``): y rounded to bf16, zero past d, ``bf16_record_width(d)``
+values a column, beside their f32 norms, the halves of its cheap test and,
+gated, their gate bytes, all padded to a whole number of ``BF16_GROUP``
+columns, so the kernel streams whole 16-byte chunks and masks nothing: a
+padding column's norm is NaN, so it fails every test.
+
 The wrappers build all of this on the tensors' device; the kernels
 allocate nothing.
 """
@@ -31,6 +39,15 @@ from typing import NamedTuple
 import torch
 
 from .blocksparse import BLOCK_M
+from .sweep import sq_norms
+
+# K12's columns per vote group, the padding unit of its records
+# (kK12Group in csrc/sweep.cu)
+BF16_GROUP = 16
+
+# a column's share of K12's cheap test, y2 times this (k12_lim in
+# csrc/sweep.cu): 1/2 less the test's margin of 2^-21
+BF16_HALF = 0.5 - 2.0 ** -21
 
 
 def record_width(d: int) -> int:
@@ -169,3 +186,39 @@ def k3_layout(wl, y: torch.Tensor, sel: torch.Tensor | None) -> K3Layout:
     off[1:] = torch.cumsum(per_tile, 0)
     return K3Layout(pack_records(y, sel), pack_records(y[cols], cols),
                     off.to(torch.int32), split, order)
+
+
+def bf16_record_width(d: int) -> int:
+    """bf16 values per K12 record (``k12_rec``): 8 for d <= 8, where the
+    MMA's upper k-half is zero and never loaded, else d rounded up to the
+    MMA's k of 16."""
+    return 8 if d <= 8 else -(-d // 16) * 16
+
+
+class Bf16Records(NamedTuple):
+    """What K12 reads of the columns, m rounded up to ``BF16_GROUP`` long."""
+    rec: torch.Tensor           # (m16, bf16_record_width(d)) bf16
+    norms: torch.Tensor         # (2, m16) f32: y2, y2 * BF16_HALF; NaN past m
+    gate: torch.Tensor | None   # (m16,) uint8, 0 past m; None ungated
+
+
+def bf16_records(y: torch.Tensor, sel: torch.Tensor | None) -> Bf16Records:
+    """K12's records of y's rows: y as bf16 (round to nearest even, as
+    ``__float2bfloat16_rn``), the norms of ``sq_norms`` (in order, one
+    rounding per operation: the kernel's own order) and their products
+    with ``BF16_HALF``, and ``sel`` ((m,) bool or uint8, or None) as 0/1
+    bytes."""
+    m, d = y.shape
+    m16 = -(-m // BF16_GROUP) * BF16_GROUP
+    rec = torch.zeros((m16, bf16_record_width(d)), dtype=torch.bfloat16,
+                      device=y.device)
+    rec[:m, :d] = y.to(torch.bfloat16)
+    norms = torch.full((2, m16), float("nan"), dtype=torch.float32,
+                       device=y.device)
+    norms[0, :m] = sq_norms(y)
+    norms[1, :m] = norms[0, :m] * BF16_HALF
+    gate = None
+    if sel is not None:
+        gate = torch.zeros((m16,), dtype=torch.uint8, device=y.device)
+        gate[:m] = sel != 0
+    return Bf16Records(rec, norms, gate)
