@@ -35,24 +35,31 @@ Phases, each of which raises on failure (nothing is caught):
    bit-equal to dense K1 on all 2^20 rows and to its plain version on 256
    row tiles spread over the table, with its entries and pairs per phase
    and entries per row tile (mean, p99, max); then
-   the block-sparse fit (counted and timed as the dense one), whose rho,
-   rho_key and delta must equal the dense fit's, and whose parent and
-   labels must equal them wherever no exact distance tie decides a parent.
+   the block-sparse fit (counted and timed as the dense one: K3 and K9 must
+   launch, K1 and K2 must not), whose rho, rho_key and delta must equal
+   the dense fit's, and whose parent and labels must equal them wherever
+   no exact distance tie decides a parent; K9 on the fit's unresolved rows
+   as in phase 8.
 7. Ex-DPC and Scan at 2^20 (each fit counted and timed): Ex-DPC
    block-sparse bit-equal to Scan block-sparse, and equal to Ex-DPC dense
    as in phase 6; its rho equal to the Approx-DPC fit's; its delta and
    parent of 4,096 random rows against a float64 masked search; the rows
-   each sent to K2 and K2's time on them.
+   each fit sent to its fallback (K9 on their best-1 ring block-sparse, K2
+   dense) and the fallback's time on them, ring included, beside K2's.
 8. The main path at full width: ``DPCEngine(d_cut, rho_min=10,
    exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy at
    Airline's full n = 5,810,462, run twice and the second counted and
-   timed (K3 and K2 must launch, K1 must not); rho on 4,096 random rows and
-   parent/delta of 4,096 random cell maxima against float64; K3 against
-   its plain version and dense K1 on 256 row tiles spread over the table,
-   against all columns, with its schedule as in phase 6; K2 against its
-   plain version on a slice of the fit's rows, and on all of them against
-   K9 on a best-1 ring worklist; a
-   traced fit for the phase times and each phase's peak device memory.
+   timed (K3 and K9 must launch, K1 and K2 must not); rho on 4,096 random
+   rows and parent/delta of 4,096 random cell maxima against float64; K3
+   against its plain version and dense K1 on 256 row tiles spread over the
+   table, against all columns, with its schedule as in phase 6; on the
+   fit's unresolved cell maxima, K2 against its plain version on a slice,
+   and K9 on their best-1 ring against dense K2 on all of them and its
+   plain version on a few row tiles, with K2, K9 and the route (ring build
+   and K9) timed side by side, the route decision, the entries K9's row
+   walks computed, the longest walk and K9's bound (and the earlier
+   count's); a traced fit for the phase times and each phase's peak device
+   memory.
 9. The stream's kernels vs plain at check shapes: K4 ``range_count``, K5
    ``range_count_signed`` and K6 ``gather_masked_nn`` bit for bit against
    their plain versions (Airline 65,536 with 4,096 query rows, a 512-row
@@ -89,13 +96,14 @@ Phases, each of which raises on failure (nothing is caught):
    ``DPCEngine(d_cut, algorithm="sapproxdpc", eps=0.8, rho_min=10,
    exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy
    at n = 5,810,462, d_cut of phase 8, run twice and the second counted
-   and timed (gated K3 and K2 must launch, ungated K1/K3 and gated K1 must
-   not); every member's rho, parent and delta from its representative;
+   and timed (gated K3 and K9 must launch, ungated K1/K3, gated K1 and K2
+   must not); every member's rho, parent and delta from its representative;
    rho on 4,096 random representatives against float64, and their
    phase-1/phase-2 delta and parent against a float64 masked search among
    the representatives; gated K3 against its plain version, the fit's own
-   sweep and gated K1 on 256 row tiles; K2 on the rows the fit sent it; a
-   traced fit for the phase times and each phase's peak.
+   sweep and gated K1 on 256 row tiles; K9 on the rows the fit sent it
+   beside K2, as in phase 8; a traced fit for the phase times and each
+   phase's peak.
 14. The eps sweep at 2^20 (paper Table 5, ``benchmarks/eps_sweep.py``'s
    eps 0.2, 0.4, 0.6, 0.8, 1.0): each block-sparse fit's time and its Rand
    index against phase 7's Ex-DPC labels (at least 0.9); at eps 0.8 the
@@ -120,7 +128,7 @@ Phases, each of which raises on failure (nothing is caught):
    K4, K9 against dense K2, K10 with spans covering the whole window (and
    a reversed and a negative span) against K4, K11 so against K2 masked to
    d_cut; each shard's halo window assembled by the ppermute ring, its
-   empty spans negative.
+   empty spans negative; the entries K9's row walks computed.
 17. Distributed Ex-DPC at full width: ``DPCEngine(d_cut, algorithm="exdpc",
    rho_min=10, mesh=ShardMesh.on("cuda", shards=4), strategy=...,
    exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy at
@@ -133,7 +141,9 @@ Phases, each of which raises on failure (nothing is caught):
    hops and the rows the ring moves against the gather's, the unresolved
    rows; K8-K11 on every call of the counted runs timed, against their
    plain versions on a few row tiles or 65,536 rows, their bounds from
-   their inputs.  The four shards are logical shards of one card.
+   their inputs; for K9 on the gather's delta and on the halo fallback,
+   the entries its row walks computed and the longest walk.  The four
+   shards are logical shards of one card.
 18. The dense gather strategy at 2^20 (K4 and K2 per shard, four shards):
    counted (K4 and K2 must launch, K8-K11 must not), equal to phase 7's
    dense Ex-DPC up to counted exact ties, and against float64 on 4,096
@@ -195,10 +205,11 @@ Phases, each of which raises on failure (nothing is caught):
    K10/K11 timed, kept, in-cut and computed entries, bounds from the
    inputs.
 
-Prints the card line and a ``{"kernels": [...]}`` line (K1 from the dense
-path, K2 and K3 from the main path, K4-K6 from the mixture stream, gated
+Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
+launches from the dense path, K2's times on the main path's unresolved
+rows, K3 and K9 from the main path, K4-K6 from the mixture stream, gated
 K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
-K8 and K9 from phase 17's gather fit, K10 and K11 from its halo fit, K12
+K8 from phase 17's gather fit, K10 and K11 from its halo fit, K12
 and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
 phase 21, K14 from phase 22, K15 and K16 from phase 23), and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
@@ -1300,12 +1311,17 @@ def k9_work(x, xk, y, yk, wl, best_d2, sample: int = 2048,
             gen=None) -> tuple[float, float, dict]:
     """Bytes and operations of worklist_masked_nn on this run's data.
     Bytes: x, its keys, y, its keys and the ring (row_ptr, col_tile, lb)
-    read once, (d2, parent) written once.  Operations: per row, a key test
-    for each column of the entries whose lb is at most the row's final
-    best d2 (a prefix of its ring, found by a search on (row tile, lb's
-    bits) as in ``k3_needed_pairs``; rows keyed +inf need none), and 3d+1
-    for each of those columns that is denser: counted on ``sample`` random
-    rows and scaled by their share of the key tests."""
+    read once, (d2, parent) written once.  Operations, per row: a key test
+    for each column of the entries it needs, those whose lb is at most its
+    final best d2 (a prefix of its ring, found by a search on (row tile,
+    lb's bits) as in ``k3_needed_pairs``) and whose column tile's largest
+    key (``packing.tile_max_key``) is above the row's key, since no column
+    of any other tile can be denser (rows keyed +inf or NaN need none);
+    and 3d+1 for each of those columns that is denser: counted on
+    ``sample`` random rows and scaled by their share of the key tests.
+    ``info`` also holds the earlier count, a key test for every
+    column of the prefix, and its operations."""
+    from repro_torch.kernels import packing
     from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     dev = x.device
@@ -1318,24 +1334,131 @@ def k9_work(x, xk, y, yk, wl, best_d2, sample: int = 2048,
     p = torch.searchsorted(key, (tile << 32) | tau, right=True)
     start = wl.row_ptr.long()[tile]
     seeks = xk < float("inf")
-    needed = torch.where(seeks, cum[p] - cum[start], 0)
-    total = float(needed.sum())
+    prefix = torch.where(seeks, p - start, 0)
+    earlier = float(torch.where(seeks, cum[p] - cum[start], 0).sum())
+    # the prefix's entries whose tile holds a key above the row's, in
+    # chunks of rows of at most ~40M entries
+    tmax = packing.tile_max_key(yk)[wl.col_tile.long()]
+    total = 0.0
+    r0 = 0
+    while r0 < n:
+        r1 = min(n, r0 + 4096)
+        while r1 < n and int(prefix[r0:r1].sum()) < 40_000_000:
+            r1 = min(n, r1 + 4096)
+        cnt = prefix[r0:r1]
+        rows = torch.repeat_interleave(torch.arange(r0, r1, device=dev), cnt)
+        first = torch.cumsum(cnt, 0) - cnt
+        e = start[rows] + torch.arange(rows.numel(), device=dev) \
+            - torch.repeat_interleave(first, cnt)
+        total += float((width[e] * (tmax[e] > xk[rows])).sum())
+        r0 = r1
     rows = torch.nonzero(seeks).flatten()
     rows = rows[torch.randperm(rows.numel(), generator=gen)[:sample]
                 .to(dev)]
     lane = torch.arange(BLOCK_M, device=dev)
     s_needed = s_denser = 0
     for r in rows.tolist():
-        tiles = wl.col_tile[int(start[r]):int(p[r])].long()
+        ent = torch.arange(int(start[r]), int(p[r]), device=dev)
+        ent = ent[tmax[ent] > xk[r]]
+        tiles = wl.col_tile[ent].long()
         cols = (tiles[:, None] * BLOCK_M + lane).flatten()
         cols = cols[cols < m]
         s_needed += cols.numel()
         s_denser += int((yk[cols] > xk[r]).sum())
+    # the same denser columns under either count: the tiles the key test
+    # passes over hold none
     denser = total * s_denser / max(s_needed, 1)
     nbytes = (4 * (n * d + n + m * d + m) + 4 * wl.row_ptr.numel()
               + 8 * wl.n_kept + 8 * n)
-    return nbytes, total + denser * (3 * d + 1), {
-        "key_tests": total, "denser_est": denser, "sample_rows": rows.numel()}
+    ops = total + denser * (3 * d + 1)
+    ops_earlier = earlier + denser * (3 * d + 1)
+    return nbytes, ops, {
+        "key_tests": total, "denser_est": denser, "sample_rows": rows.numel(),
+        "key_tests_earlier": earlier, "ops_earlier": ops_earlier,
+        "bound_ms_earlier": bound_ms(nbytes, ops_earlier)[0]}
+
+
+def row_tile_slice(wl, n_rows, count):
+    """A few row tiles spread over a worklist (the last one ragged)."""
+    from repro_torch.kernels.blocksparse import BLOCK_N
+    dev = wl.row_ptr.device
+    nbr = wl.num_row_tiles
+    tiles = torch.linspace(0, nbr - 1, count).round().long().unique()
+    tiles = tiles.to(dev)
+    rows = (tiles[:, None] * BLOCK_N
+            + torch.arange(BLOCK_N, device=dev)).flatten()
+    return sub_worklist(wl, tiles), rows[rows < n_rows]
+
+
+def k9_walks(x, xk, y, yk, wl) -> tuple:
+    """(delta, parent) of K9 on the ring, the entries its rows' walks
+    computed and the longest walk."""
+    from repro_torch.kernels import ops
+    live = torch.zeros((wl.num_row_tiles, 2), dtype=torch.int32,
+                       device=x.device)
+    out = ops.dependent_masked(x, xk, y, yk, worklist=wl, live=live)
+    return out, int(live[:, 0].sum()), int(live[:, 1].max())
+
+
+def k9_fit_check(calls, what: str, card: str, gen) -> tuple:
+    """K9 on the rows a fit's block-sparse ``rho_delta`` sent it (its
+    unresolved rows, each call's x, keys, y and column keys): bit for bit
+    against dense K2 on all rows and against its plain version on a few
+    row tiles; K2, K9 and the route K9 took (its best-1 ring built, then
+    K9) timed; the entries its rows' walks computed, the longest walk, and
+    its bound from the inputs.  Returns (max abs err against the plain
+    version, the record, the work for the bound)."""
+    from repro_torch.kernels import blocksparse, ops, sweep
+    rec = {"rows": [], "k2_ms": 0.0, "k9_ms": 0.0, "route_ms": 0.0,
+           "ring_ms": 0.0, "plain_ms": 0.0, "plain_rows": 0, "entries": 0,
+           "longest": 0, "ring": 0}
+    err, nb, no, no0 = 0.0, 0.0, 0.0, 0.0
+
+    def ring_of(x, y):
+        return blocksparse.build_flat_worklist(x, y, count=False, nn="best1")
+
+    for i, (x, xk, y, yk) in enumerate(calls):
+        ring, ring_ms = timed_once(lambda: ring_of(x, y))
+        (d9, p9), entries, longest = k9_walks(x, xk, y, yk, ring)
+        check_equal(f"worklist_masked_nn [{what}, call {i}]", (d9, p9),
+                    ops.dependent_masked(x, xk, y, yk), "dense K2")
+        sub, rows = row_tile_slice(ring, x.shape[0], DIST_PLAIN_TILES)
+        sx, sk = x[rows].contiguous(), xk[rows].contiguous()
+        want, p_ms = timed_once(lambda: sweep.worklist_masked_nn_plain(
+            sx, sk, y, yk, sub))
+        err = max(err, check_equal(
+            f"worklist_masked_nn [{what}, call {i}, row tiles]",
+            ops.dependent_masked(sx, sk, y, yk, worklist=sub),
+            (torch.sqrt(want[0]), want[1])))
+        rec["rows"].append(x.shape[0])
+        rec["k2_ms"] += time_ms(lambda: ops.dependent_masked(x, xk, y, yk))
+        rec["k9_ms"] += time_ms(lambda: ops.dependent_masked(
+            x, xk, y, yk, worklist=ring))
+        rec["route_ms"] += time_ms(lambda: ops.dependent_masked(
+            x, xk, y, yk, worklist=ring_of(x, y)))
+        rec["ring_ms"] += ring_ms
+        rec["plain_ms"] += p_ms
+        rec["plain_rows"] += rows.numel()
+        rec["entries"] += entries
+        rec["longest"] = max(rec["longest"], longest)
+        rec["ring"] += ring.n_kept
+        b, o, info = k9_work(x, xk, y, yk, ring, torch.square(d9), gen=gen)
+        nb, no, no0 = nb + b, no + o, no0 + info["ops_earlier"]
+        del ring
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nb, no)
+    rec["bound_ms_earlier"] = bound_ms(nb, no0)[0]
+    rec["route"] = ("K9" if rec["route_ms"] < rec["k2_ms"] else "K2")
+    print(f"worklist_masked_nn [{what}]: == dense K2 bit for bit on all "
+          f"{rec['rows']} rows, == plain on {rec['plain_rows']} rows of "
+          f"{DIST_PLAIN_TILES} row tiles a call; "
+          f"K9 {rec['k9_ms']:.3f} ms (+ ring {rec['ring_ms']:.3f} ms: route "
+          f"{rec['route_ms']:.3f} ms) against K2 {rec['k2_ms']:.3f} ms: the "
+          f"faster is {rec['route']}, and the block-sparse fallback runs K9; "
+          f"entries computed {rec['entries']} of {rec['ring']} (a row's "
+          f"walk each), longest walk {rec['longest']}; bound "
+          f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}; earlier count "
+          f"{rec['bound_ms_earlier']:.3f})  ({card})", flush=True)
+    return err, rec, (nb, no)
 
 
 def span_pairs(st, en, w: int) -> torch.Tensor:
@@ -1420,20 +1543,18 @@ def dist_check_shapes(cases, card: str) -> dict:
                         [ops.local_density_xy(q, tbl, dc)], "dense K4")
             ring = blocksparse.build_flat_worklist(q, tbl, count=False,
                                                    nn="best1")
-            live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
-                               device=dev)
-            got = k9(q, qk, tbl, tk, ring, live)
+            got, walked, longest = k9_walks(q, qk, tbl, tk, ring)
             check_equal(f"worklist_masked_nn [{label}, shard {s}]", got,
                         k9_plain(q, qk, tbl, tk, ring))
             check_equal(f"worklist_masked_nn [{label}, shard {s}]", got,
                         ops.dependent_masked(q, qk, tbl, tk), "dense K2")
-            computed[f"{label} shard {s}"] = [int(live.sum()), ring.n_kept]
+            computed[f"{label} shard {s}"] = [walked, longest, ring.n_kept]
         line = (f"worklist_range_count == plain == dense K4, "
                 f"worklist_masked_nn == plain == dense K2, bit for bit: "
                 f"{label}, n={n} d={pts.shape[1]}, 3 shards (shard 1 "
-                f"{cut} rows; {m - n} padded rows); K9 computed "
+                f"{cut} rows; {m - n} padded rows); K9's row walks computed "
                 f"{[computed[f'{label} shard {s}'][0] for s in range(3)]} "
-                f"of {ring.n_kept} ring entries per shard")
+                f"entries (the ring: {ring.n_kept} per shard)")
         if halo:
             st, en = (ddpc._pad_rows(a, m, 0) for a in point_span_bounds(grid))
             lo, W, hf, hb = ddpc._window_bounds(st, en, 3)
@@ -2407,9 +2528,11 @@ def main() -> int:
         given[kind].append((*a, kw.get("worklist"), kw.get("nn_sel")))
         return launch_sweep(*a, **kw)
 
-    def recording_nn(*a):
-        given["masked_nn"].append(a)
-        return launch_nn(*a)
+    def recording_nn(*a, **kw):
+        kind = ("worklist_masked_nn" if kw.get("worklist") is not None
+                else "masked_nn")
+        given[kind].append(a)
+        return launch_nn(*a, **kw)
 
     def counted_fit(eng, points):
         """(seconds, launch counts) of one fit, counts zeroed just before
@@ -2568,10 +2691,15 @@ def main() -> int:
     torch.cuda.synchronize()
     sparse_s, launches_2e20 = counted_fit(sparse_engine, main_pts)
     assert launches_2e20["fused_count_topk"] == 0 and \
-        launches_2e20["worklist_count_topk"] >= 1, launches_2e20
+        launches_2e20["masked_nn"] == 0 and \
+        launches_2e20["worklist_count_topk"] >= 1 and \
+        launches_2e20["worklist_masked_nn"] >= 1, launches_2e20
     print(f"block-sparse fit: n={N_MAIN}: {sparse_s * 1e3:.1f} ms (dense "
           f"{fit_s * 1e3:.1f} ms), launches {launches_2e20}  ({card})",
           flush=True)
+    _, k9_2e20, _ = k9_fit_check(given["worklist_masked_nn"],
+                                 "Approx-DPC 2^20, unresolved rows", card,
+                                 torch.Generator().manual_seed(1))
     ties, tied, lab_diff = same_up_to_ties(
         xs, res, sparse_engine.result, cl.labels,
         sparse_engine.clustering.labels, "Approx-DPC block-sparse vs dense")
@@ -2579,7 +2707,7 @@ def main() -> int:
           f"equal; parent and labels equal except {ties} exact distance "
           f"ties ({tied} rows downstream of them, {lab_diff} labels "
           f"differ)", flush=True)
-    k3_2e20.update(parent_ties=ties, fit_ms=sparse_s * 1e3)
+    k3_2e20.update(parent_ties=ties, fit_ms=sparse_s * 1e3, k9=k9_2e20)
     record["block_sparse_2e20"] = k3_2e20
     del sparse_engine, wl
 
@@ -2593,20 +2721,30 @@ def main() -> int:
         eng.fit(main_pts)                                  # warm-up
         torch.cuda.synchronize()
         secs, launched = counted_fit(eng, main_pts)
+        sparse = layout == "block-sparse"
         swept, skipped = ("worklist_count_topk", "fused_count_topk")[
-            ::1 if layout == "block-sparse" else -1]
-        assert launched[swept] >= 1 and launched["masked_nn"] >= 1 \
-            and launched[skipped] == 0, (algo, layout, launched)
-        calls = given["masked_nn"]
+            ::1 if sparse else -1]
+        # the unresolved rows: K9 on their best-1 ring, or dense K2
+        tail, no_tail = ("worklist_masked_nn", "masked_nn")[
+            ::1 if sparse else -1]
+        assert launched[swept] >= 1 and launched[tail] >= 1 \
+            and launched[skipped] == 0 and launched[no_tail] == 0, \
+            (algo, layout, launched)
+        calls = given[tail]
         rows_k2 = [a[0].shape[0] for a in calls]
         ms_k2 = sum(time_ms(lambda a=a: k2(*a)) for a in calls)
+        ms_tail = ms_k2 if not sparse else sum(time_ms(
+            lambda a=a: ops.dependent_masked(
+                *a, worklist=blocksparse.build_flat_worklist(
+                    a[0], a[2], count=False, nn="best1"))) for a in calls)
         exact_fits[algo, layout] = eng
         exact_rec[f"{algo} {layout}"] = {
             "fit_ms": secs * 1e3, "launches": launched, "k2_rows": rows_k2,
-            "k2_ms": ms_k2}
+            "k2_ms": ms_k2, "tail": tail, "tail_ms": ms_tail}
         print(f"{algo} fit, {layout}: n={N_MAIN}: {secs * 1e3:.1f} ms, "
-              f"launches {launched}, masked_nn rows {rows_k2}, K2 "
-              f"{ms_k2:.3f} ms  ({card})", flush=True)
+              f"launches {launched}, {tail} rows {rows_k2}: {ms_tail:.3f} "
+              f"ms (ring included; K2 on them {ms_k2:.3f} ms)  ({card})",
+              flush=True)
     ex, sc = exact_fits["exdpc", "block-sparse"], exact_fits[
         "scan", "block-sparse"]
     for a, b in zip(ex.result, sc.result):
@@ -2643,14 +2781,15 @@ def main() -> int:
     engine.fit(full_pts)                                   # warm-up
     torch.cuda.synchronize()
     full_s, launches = counted_fit(engine, full_pts)
-    k2_rows_full = [a[0].shape[0] for a in given["masked_nn"]]
+    k2_rows_full = [a[0].shape[0] for a in given["worklist_masked_nn"]]
     print(f"main path fit: n={N_FULL} d=3 d_cut={d_full!r} block-sparse: "
-          f"{full_s * 1e3:.1f} ms, launches {launches}, masked_nn rows "
-          f"{k2_rows_full}  ({card})", flush=True)
-    for name in ("worklist_count_topk", "masked_nn"):
+          f"{full_s * 1e3:.1f} ms, launches {launches}, worklist_masked_nn "
+          f"rows {k2_rows_full}  ({card})", flush=True)
+    for name in ("worklist_count_topk", "worklist_masked_nn"):
         assert launches[name] >= 1, f"the main path never launched {name}"
-    assert launches["fused_count_topk"] == 0, \
-        "the block-sparse main path launched the dense sweep"
+    for name in ("fused_count_topk", "masked_nn"):
+        assert launches[name] == 0, \
+            f"the block-sparse main path launched the dense {name}"
     fres, fcl = engine.result, engine.clustering
 
     pts64 = torch.from_numpy(full_pts).to(dev, torch.float64)
@@ -2671,23 +2810,21 @@ def main() -> int:
           f"({n_rule2_full} rule 2, {pick.numel() - n_rule2_full} rule 3 "
           f"or peak); {int(fcl.num_clusters)} clusters", flush=True)
 
-    # K3 against its plain version and dense K1 on 256 row tiles; K2 on
-    # the fit's unresolved cell maxima, plain on a slice of them
+    # K3 against its plain version and dense K1 on 256 row tiles; K9 on
+    # the fit's unresolved cell maxima beside K2 (the route), each against
+    # its plain version on a slice
     (fxs, fys, fdc, fwl, _), = given["worklist_count_topk"]
     (errs["worklist_count_topk"], main_times["worklist_count_topk"],
      bounds["worklist_count_topk"], wl_full) = k3_row_tile_check(
         fxs, fys, fdc, fwl, None, "worklist_count_topk", card)
     errs["masked_nn"], main_times["masked_nn"], bounds["masked_nn"] = \
-        k2_fit_check(given["masked_nn"], "main path", card)
-    for i, (kq, kqk, ky, kyk) in enumerate(given["masked_nn"]):
-        ring = blocksparse.build_flat_worklist(kq, ky, count=False,
-                                               nn="best1")
-        check_equal(f"masked_nn [main path, call {i}]", k2(kq, kqk, ky, kyk),
-                    ops.dependent_masked(kq, kqk, ky, kyk, worklist=ring),
-                    "K9 on a best-1 ring")
-        del ring
-    print(f"masked_nn == worklist_masked_nn on a best-1 ring, bit for bit, "
-          f"on all {k2_rows_full} unresolved rows x {N_FULL}", flush=True)
+        k2_fit_check(given["worklist_masked_nn"], "main path", card)
+    errs["worklist_masked_nn"], k9_main, bounds["worklist_masked_nn"] = \
+        k9_fit_check(given["worklist_masked_nn"],
+                     "main path, unresolved cell maxima", card, gen)
+    main_times["worklist_masked_nn"] = {
+        "ms": k9_main["k9_ms"], "plain_ms": k9_main["plain_ms"],
+        "plain_rows": k9_main["plain_rows"], "route_ms": k9_main["route_ms"]}
 
     # traced fit: phase times and each phase's peak device memory
     del given, fxs, fys, fwl, fx, fgrid
@@ -2747,11 +2884,11 @@ def main() -> int:
     given = {}
     sa_s, sa_launches = counted_fit(sa_engine, full_pts)
     sres, scl = sa_engine.result, sa_engine.clustering
-    sa_k2_rows = [a[0].shape[0] for a in given["masked_nn"]]
+    sa_k2_rows = [a[0].shape[0] for a in given["worklist_masked_nn"]]
     assert sa_launches["worklist_count_topk_sel"] >= 1 and \
-        sa_launches["masked_nn"] >= 1, sa_launches
+        sa_launches["worklist_masked_nn"] >= 1, sa_launches
     for name in ("fused_count_topk", "worklist_count_topk",
-                 "fused_count_topk_sel"):
+                 "fused_count_topk_sel", "masked_nn"):
         assert sa_launches[name] == 0, \
             f"the S-Approx-DPC main path launched {name}: {sa_launches}"
     fx = torch.from_numpy(full_pts).to(dev)
@@ -2762,7 +2899,7 @@ def main() -> int:
     print(f"S-Approx-DPC fit: n={N_FULL} d=3 d_cut={d_full!r} eps="
           f"{SAPPROX_EPS} block-sparse: {sa_s * 1e3:.1f} ms, {n_reps} "
           f"representatives ({100 * n_reps / N_FULL:.1f} %), launches "
-          f"{sa_launches}, masked_nn rows {sa_k2_rows}, "
+          f"{sa_launches}, worklist_masked_nn rows {sa_k2_rows}, "
           f"{int(scl.num_clusters)} clusters  ({card})", flush=True)
     is_rep = torch.zeros(N_FULL, dtype=torch.bool, device=dev)
     is_rep[rep_ids] = True
@@ -2793,9 +2930,9 @@ def main() -> int:
      bounds["worklist_count_topk_sel"], sa_wl) = k3_row_tile_check(
         sxs, sys_, sdc, swl, ssel, "worklist_count_topk_sel", card)
     del sxs, sys_, swl, ssel
-    _, sa_k2, _ = k2_fit_check(given["masked_nn"],
+    _, sa_k9, _ = k9_fit_check(given["worklist_masked_nn"],
                                "S-Approx-DPC main path, members keyed -inf",
-                               card)
+                               card, gen)
     del given, fx, fgrid, rep_of, is_rep, member
     trace_sa = traced(
         lambda: sa_engine.fit(full_pts),
@@ -2808,7 +2945,7 @@ def main() -> int:
         "fit_ms": sa_s * 1e3, "n": N_FULL, "d_cut": d_full,
         "eps": SAPPROX_EPS, "reps": n_reps, "launches": sa_launches,
         "clusters": int(scl.num_clusters), "phase1_rows": n_ph1,
-        "phase2_rows": n_ph2, "k2": sa_k2, "worklist": sa_wl, **trace_sa}
+        "phase2_rows": n_ph2, "k9": sa_k9, "worklist": sa_wl, **trace_sa}
     del sa_engine, sres, scl
     torch.cuda.empty_cache()
 
@@ -3055,16 +3192,6 @@ def main() -> int:
 
     # the kernels at the main path's shapes: times of every call of the
     # counted runs, plain versions on slices, bounds from their inputs
-    def row_tile_slice(wl, n_rows, count):
-        """A few row tiles spread over a worklist (the last one ragged)."""
-        from repro_torch.kernels.blocksparse import BLOCK_N
-        nbr = wl.num_row_tiles
-        tiles = torch.linspace(0, nbr - 1, count).round().long().unique()
-        tiles = tiles.to(dev)
-        rows = (tiles[:, None] * BLOCK_N
-                + torch.arange(BLOCK_N, device=dev)).flatten()
-        return sub_worklist(wl, tiles), rows[rows < n_rows]
-
     g8 = dist_given["gather"]["worklist_range_count"]
     (x8, y8, dc8), kw8 = g8[0]
     sub, rows = row_tile_slice(kw8["worklist"], x8.shape[0], DIST_PLAIN_TILES)
@@ -3086,35 +3213,34 @@ def main() -> int:
     k9_rec = {}
     for strategy in ("gather", "halo"):
         calls = dist_given[strategy]["worklist_masked_nn"]
-        ms, nb, no, comp, ring = 0.0, 0.0, 0.0, 0, 0
+        ms, nb, no, no0, comp, ring, longest = 0.0, 0.0, 0.0, 0.0, 0, 0, 0
         for (x9, xk9, y9, yk9), kw in calls:
             wl9 = kw["worklist"]
-            live = torch.zeros(wl9.num_row_tiles, dtype=torch.int32,
-                               device=dev)
-            d9, _ = k9(x9, xk9, y9, yk9, wl9, live)
-            comp, ring = comp + int(live.sum()), ring + wl9.n_kept
+            (d9, _), walked, lng = k9_walks(x9, xk9, y9, yk9, wl9)
+            comp, ring = comp + walked, ring + wl9.n_kept
+            longest = max(longest, lng)
             ms += time_ms(lambda: k9(x9, xk9, y9, yk9, wl9))
             b, o, info = k9_work(x9, xk9, y9, yk9, wl9, torch.square(d9),
                                  gen=gen)
-            nb, no = nb + b, no + o
+            nb, no, no0 = nb + b, no + o, no0 + info["ops_earlier"]
         k9_rec[strategy] = {"ms": ms, "calls": len(calls),
                             "rows": [c[0][0].shape[0] for c in calls],
-                            "computed": comp, "ring": ring,
-                            "bound": bound_ms(nb, no), "work": (nb, no)}
+                            "computed": comp, "longest_walk": longest,
+                            "ring": ring, "bound": bound_ms(nb, no),
+                            "bound_earlier": bound_ms(nb, no0),
+                            "work": (nb, no)}
     (x9, xk9, y9, yk9), kw9 = dist_given["gather"]["worklist_masked_nn"][-1]
     sub, rows = row_tile_slice(kw9["worklist"], x9.shape[0], DIST_PLAIN_TILES)
     sx, sk = x9[rows].contiguous(), xk9[rows].contiguous()
     got = k9(sx, sk, y9, yk9, sub)
-    check_equal("worklist_masked_nn [main path, row tiles]", got,
+    check_equal("worklist_masked_nn [gather, row tiles]", got,
                 [t[rows] for t in k9(x9, xk9, y9, yk9, kw9["worklist"])],
                 "the fit's call")
     want, p_ms = timed_once(lambda: k9_plain(sx, sk, y9, yk9, sub))
-    errs["worklist_masked_nn"] = check_equal(
-        "worklist_masked_nn [main path, row tiles]", got, want)
-    main_times["worklist_masked_nn"] = {
-        "ms": k9_rec["gather"]["ms"], "plain_ms": p_ms,
-        "plain_rows": rows.numel(), "halo_fallback_ms": k9_rec["halo"]["ms"]}
-    bounds["worklist_masked_nn"] = k9_rec["gather"]["work"]
+    errs["worklist_masked_nn"] = max(errs["worklist_masked_nn"], check_equal(
+        "worklist_masked_nn [gather, row tiles]", got, want))
+    main_times["worklist_masked_nn"].update(
+        gather_ms=k9_rec["gather"]["ms"], halo_fallback_ms=k9_rec["halo"]["ms"])
 
     for name, kern, plain, work in (
             ("halo_range_count", k10, k10_plain, k10_work),
@@ -3145,8 +3271,8 @@ def main() -> int:
         else:
             works = [work(*a[:6]) for a, _ in calls]
         bounds[name] = (sum(w[0] for w in works), sum(w[1] for w in works))
-    for name in ("worklist_range_count", "worklist_masked_nn",
-                 "halo_range_count", "halo_masked_nn"):
+    for name in ("worklist_range_count", "halo_range_count",
+                 "halo_masked_nn"):
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
         print(f"{name} [main path, all calls]: kernel {t['ms']:.3f} ms, "
@@ -3154,10 +3280,11 @@ def main() -> int:
               f"rows ({t['plain_ms']:.1f} ms)  ({card})", flush=True)
     for strategy, r9 in k9_rec.items():
         print(f"worklist_masked_nn [{strategy}]: {r9['calls']} calls on "
-              f"{r9['rows']} rows, {r9['ms']:.3f} ms, computed "
-              f"{r9['computed']} of {r9['ring']} ring entries, bound "
-              f"{r9['bound'][0]:.3f} ms ({r9['bound'][1]})  ({card})",
-              flush=True)
+              f"{r9['rows']} rows, {r9['ms']:.3f} ms, its row walks computed "
+              f"{r9['computed']} entries (the rings: {r9['ring']}), longest "
+              f"walk {r9['longest_walk']}, bound {r9['bound'][0]:.3f} ms "
+              f"({r9['bound'][1]}; earlier count "
+              f"{r9['bound_earlier'][0]:.3f})  ({card})", flush=True)
     dist_rec["k9"] = {k: {kk: vv for kk, vv in v.items() if kk != "work"}
                       for k, v in k9_rec.items()}
     record["distributed_full"] = dist_rec
@@ -3253,7 +3380,8 @@ def main() -> int:
         lat_rec[f"{algo} {layout}"] = {
             "fit_ms": secs * 1e3, "f32_fit_ms": ref_s * 1e3,
             "launches": {k: v for k, v in launched.items() if v},
-            "k2_rows": [a[0].shape[0] for a in given["masked_nn"]],
+            "k2_rows": [a[0].shape[0] for a in given["masked_nn"]
+                        + given["worklist_masked_nn"]],
             "clusters": int(eng.clustering.num_clusters)}
         print(f"bf16 {algo} {layout} on the 2^20 lattice: {secs * 1e3:.1f} "
               f"ms (f32 {ref_s * 1e3:.1f} ms), launches "
@@ -3358,10 +3486,10 @@ def main() -> int:
     torch.cuda.synchronize()
     air_s, air_launches = counted_fit(bf_air, full_pts)
     assert air_launches["worklist_count_topk_bf16"] >= 1 \
-        and air_launches["masked_nn"] >= 1 and not any(
+        and air_launches["worklist_masked_nn"] >= 1 and not any(
             air_launches[k] for k in (*f32_sweeps, "fused_count_topk_bf16")), \
         air_launches
-    air_k2_rows = [a[0].shape[0] for a in given["masked_nn"]]
+    air_k2_rows = [a[0].shape[0] for a in given["worklist_masked_nn"]]
     (x, y, dc, wl, _), = given["worklist_count_topk_bf16"]
     del given
     fr, br = f32_air.result, bf_air.result
@@ -3499,14 +3627,14 @@ def main() -> int:
     kernels = []
     for name, launched, where in (
             ("fused_count_topk", launches_dense, "sweep.py:432"),
-            ("masked_nn", launches, "sweep.py:432"),
+            ("masked_nn", launches_dense, "sweep.py:432"),
             ("worklist_count_topk", launches, "sweep.py:432"),
             ("fused_count_topk_sel", sel_launches, "sweep.py:432"),
             ("worklist_count_topk_sel", sa_launches, "sweep.py:432"),
             ("prefix_nn", {"prefix_nn": k7_launches}, "dependent.py:28"),
             ("worklist_range_count", dist_launches["gather"],
              "sweep.py:432"),
-            ("worklist_masked_nn", dist_launches["gather"], "sweep.py:432"),
+            ("worklist_masked_nn", launches, "sweep.py:432"),
             ("halo_range_count", dist_launches["halo"], "density.py:68"),
             ("halo_masked_nn", dist_launches["halo"], "dependent.py:56"),
             ("worklist_halo_range_count", halo_wl["launches"],
@@ -3565,6 +3693,7 @@ def main() -> int:
                   main={"fit_ms": full_s * 1e3, "n": N_FULL, "d_cut": d_full,
                         "clusters": n_clusters_full,
                         "cell_maxima": fmax.numel(), "k2_rows": k2_rows_full,
+                        "k9": k9_main,
                         "worklist": wl_full, **trace_full},
                   issue_rate=issue_rate, phase_start_s=phase_s,
                   seconds=time.perf_counter() - t_start,

@@ -136,7 +136,8 @@ def _sparse(layout) -> bool:
 class CudaBackend(KernelBackend):
     """The Hopper kernels: ``fused_count_topk`` / ``worklist_count_topk``
     (gated or not; their ``_bf16`` forms under ``precision="bf16"``) then
-    ``masked_nn`` for the fit; ``range_count``, ``range_count_signed`` (or
+    ``masked_nn`` (``worklist_masked_nn`` under the block-sparse layout)
+    for the fit; ``range_count``, ``range_count_signed`` (or
     ``worklist_range_count_signed``) and ``gather_masked_nn`` for the
     stream; ``prefix_nn``; ``worklist_range_count``,
     ``worklist_masked_nn``, ``halo_range_count`` and ``halo_masked_nn``
@@ -223,12 +224,15 @@ class CudaBackend(KernelBackend):
         ``layout="block-sparse"`` builds the tile-pair worklist of x over y
         (``blocksparse.build_flat_worklist``) and sweeps only its pairs
         (K3); the result is the dense sweep's, since the pruning is exact.
-        The unresolved tail stays dense, as the reference's does.
+        The unresolved tail then walks its own best-1 ring (``denser_nn``'s
+        block-sparse form, K9) where the reference scans all of y
+        (``repro/kernels/backend.py:719-720``): the same (d2, index) as the
+        dense K2, in a fraction of its time on grid-sorted data (PERF.md).
 
         The kept-k resolution is exact: if any kept candidate is strictly
         denser, every candidate nearer than it was kept too, so the nearest
         denser kept candidate IS the dependent point.  Rows whose 8 nearest
-        are all less dense (the local maxima) go to ``masked_nn``;
+        are all less dense (the local maxima) go to ``denser_nn``;
         ``fallback_interest`` restricts that pass to the rows the caller
         reads (Approx-DPC: the cell maxima).  The reference pads the
         unresolved rows to a power of two to bound its retraces; the kernel
@@ -238,14 +242,15 @@ class CudaBackend(KernelBackend):
         branch): ``nn_sel`` is 1 at those y rows, so the kept-k holds only
         them (the gated K1/K3); the worklist's k-NN ring counts only them
         per column tile; ``col_key`` is ``rho_key`` at them and -inf
-        elsewhere, so the resolution and the dense K2 pass over all of y
-        reject every other column by its key before its distance.
+        elsewhere, so the resolution and the tail's K2 (or K9, whose column
+        tiles with no representative hold only -inf keys and are skipped
+        whole) reject every other column by its key before its distance.
 
         ``precision="bf16"`` (the reference's ``ExecSpec(precision=
         "bf16")``): the sweep is K12/K13, whose count and kept 8 come from
         the expanded form with a bf16 cross term; the resolution then
         re-evaluates the kept 8 in direct-difference f32 before it picks,
-        and the tail stays f32 K2, as in the reference
+        and the tail stays f32 (K2, or K9 block-sparse), as in the reference
         (``repro/kernels/backend.py:653-727``).  On data where bf16 rounding
         is material the count, and the worklist's pruning, differ from f32:
         those are the reference's semantics, kept as they are.
@@ -298,7 +303,7 @@ class CudaBackend(KernelBackend):
             with obs.span("rho_delta.fallback",
                           rows=int(unresolved.numel())) as sp:
                 fd, fp = self.denser_nn(x[unresolved], rho_key[unresolved],
-                                        y, col_key)
+                                        y, col_key, layout=layout)
                 delta[unresolved] = fd
                 parent[unresolved] = fp
                 sp.sync((delta, parent))

@@ -113,8 +113,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_worklist_range_count.argtypes = [p, p, i, i, i, f, p, p, p, p,
                                                p]
     lib.repro_worklist_range_count.restype = i
-    lib.repro_worklist_masked_nn.argtypes = [p, p, p, p, i, i, i, p, p, p, p,
-                                             p, p, p]
+    lib.repro_worklist_masked_nn.argtypes = [p, p, p, i, i, i, i, p, p, p, p,
+                                             p, p, p, p, p]
     lib.repro_worklist_masked_nn.restype = i
     lib.repro_halo_range_count.argtypes = [p, p, p, p, i, i, i, i, f, p, p]
     lib.repro_halo_range_count.restype = i

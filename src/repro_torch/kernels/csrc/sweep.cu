@@ -27,7 +27,9 @@
 //   repro_worklist_range_count per query row, the count within d_cut over
 //                              the in-d_cut pairs of a count-only worklist
 //   repro_worklist_masked_nn   per query row, the nearest strictly denser
-//                              y row, walking a best-1 ring worklist
+//                              y row, walking a best-1 ring worklist, a
+//                              warp a row (over packed records with the
+//                              key in the slot, kernels/packing.py)
 //   repro_halo_range_count     per query row, the count within d_cut of the
 //                              window rows inside its [start, end) spans
 //   repro_halo_masked_nn       per query row, the nearest strictly denser
@@ -1248,109 +1250,196 @@ __global__ void __launch_bounds__(kWlRows)
 // repro/kernels/backend.py:639-647; liveness at sweep.py:250-258, the
 // lexicographic update at :303-311), reached through
 // ops.dependent_masked(worklist=...): the distributed gather strategy's
-// block-sparse delta phase and the unresolved-row fallback of both
-// strategies on a block-sparse plan.
+// block-sparse delta phase, the unresolved-row fallback of both
+// strategies, and the unresolved rows of a block-sparse fit's rho_delta.
 //
-// Bound: f32 CUDA-core issue: a key test for each pair of an entry the walk
-// computes and about 3d+1 operations for each denser one.  The ring keeps
-// every tile pair, so what bounds the work is where the walk stops.  The
-// design: one block per 256-row tile walks its ring in the stored order
-// (ascending lb, 256 entries at a time through shared memory); each thread
-// keeps (best d2, index) in registers and votes whether the entry can still
-// change its row (lb <= best, since a pair's d2 >= lb and an equal d2 of a
-// lower index may still win).  The first entry no thread votes for ends the
-// walk: every later entry has a larger lb and no best can grow.  Until a row
-// has a candidate its best is +inf, so a tile holding a density peak walks
-// its whole ring; a row keyed +inf (padding) has no denser column and never
-// votes.  A voted entry's 512 columns and keys are staged in shared memory;
-// the key is tested before the distance.  Columns arrive in ring order, so
-// the update is the lexicographic (d2, index) minimum, which equals K2's
-// ascending strict `<`.  `live` (optional) gets the entries each block
-// computed.
+// Bound: f32 CUDA-core issue: a key test for each pair of the entries a row
+// needs (lb at most its final best, and the column tile holding a key
+// above the row's) and about 3d+1 operations for each denser one.  The
+// ring keeps every tile pair, so what bounds the work is where each row's
+// walk stops.  The parent kernel, one block per 256-row tile walking until
+// no row of it could improve, ran as long as its longest tile: the global
+// density peak's tile walked the whole ring (11,349 entries at 5.8M
+// points), and a tile of scattered local maxima computed all 256 rows for
+// the few that needed an entry (PERF.md).
+//
+// The design: a warp a row.  Persistent warps take the rows in index
+// order from a counter, so the rows of a tile run at about the same time
+// and share its records in L1.  A warp walks its row's ring: its lanes
+// test 32 entries at a time by ballot, open (lb at most the row's best)
+// and needed (open, and the column tile's largest key above the row's);
+// it computes the needed entries in ring order, each after a fresh test of
+// lb against the row's best, the lanes taking the entry's columns l, l +
+// 32, ... from the packed records (the d coordinates and the column's key
+// in the slot, kernels/packing.py) and each keeping its own lexicographic
+// minimum; after an entry the lanes' least d2 is the row's new best.  The
+// walk ends at the first entry the row is not open for.  Each row thus
+// computes exactly the entries it needs, and the longest walk is one
+// warp's.  Two forms, by how many rows the card gets: with few (under
+// kK9BulkRows a SM: a fit's unresolved rows, the halo fallback) the time is
+// the longest walks', and kBatch loads an entry's columns 16 float4 at a
+// time, every load issued before any distance, so a lone warp waits one
+// round trip an entry (104 registers); with many (the gather's shards) the
+// card is full and the plain loop (40 registers, more warps an SM) is
+// faster (PERF.md).
+//
+// Exactness.  (1) Every pair of entry e has d2 >= lb[e] (LB_SHRINK), and a
+// pair changes a row's answer, the lexicographic minimum of (d2, index)
+// over its strictly denser columns, only if d2 <= best; best only falls and
+// lb ascends, so once lb[e] > best the row needs no later entry.  (2) The
+// skip by key: tmax[c] is the largest key of column tile c (NaN keys left
+// out: a NaN is never denser).  No column of e is denser than a row whose
+// key is at least tmax[col_tile[e]], so e cannot change that row and is
+// passed over; it is not taken as the end.  This ends the walk of the
+// global density peak, which has no denser column at all, and skips the
+// column tiles that hold no representative under S-Approx-DPC (keys -inf
+// off them).  (3) The ballot's best may be stale by the entries computed
+// since (larger, so it opens a superset); each entry is tested again on
+// the fresh best before it is computed.  (4) The lanes' minima merge by
+// shuffle, and the lexicographic minimum is order-free.  A row with no
+// denser column keeps (+inf, -1); a row keyed +inf or NaN (padding) needs
+// nothing.  `live` (optional, (row tiles, 2)) gets the entries the rows of
+// each tile computed and the longest walk among them.
+constexpr int kK9Warps = 4;        // warps a block
+constexpr int kK9Blocks = 16;      // persistent blocks an SM
+constexpr int kK9BulkRows = 4096;  // rows an SM from which the card is full
+constexpr int kK9Batch = 16;       // float4s a lane loads at once (kBatch)
+
+// One entry's columns for a lane (D > 0), kK9Batch float4s at a time, all
+// of a batch loaded before any distance.
 template <int D>
-__global__ void __launch_bounds__(kWlRows)
-    worklist_masked_nn_kernel(const float* __restrict__ x,
-                              const float* __restrict__ x_key,
-                              const float* __restrict__ y,
-                              const float* __restrict__ y_key, int n, int m,
-                              int d, const int* __restrict__ row_ptr,
-                              const int* __restrict__ col_tile,
-                              const float* __restrict__ lb,
-                              float* __restrict__ best_out,
-                              int* __restrict__ arg_out,
-                              int* __restrict__ live_out) {
-  __shared__ float tile[kTileFloats];
-  __shared__ float ktile[kWlCols];
-  __shared__ int s_col[kWlRows];
-  __shared__ float s_lb[kWlRows];
-  if constexpr (D > 0) d = D;
-  const int per_chunk = min(kWlCols, kTileFloats / d);
-  const int t = blockIdx.x;
-  const int i = t * kWlRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;
-
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
-  if constexpr (D > 0) {
+__device__ __forceinline__ void k9_entry_batched(
+    const float4* tile, int cols, int j0, const float (&xr)[D > 0 ? D : 1],
+    float key, int lane, float& v, int& a) {
+  constexpr int V = rec_vecs(D > 0 ? D : 1);
+  constexpr int B = kK9Batch / V > 0 ? kK9Batch / V : 1;  // columns a batch
+  constexpr int K = kWlCols / 32;                         // a lane's columns
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  const float key = x_key[row];
-  const bool seeks = live && key < CUDART_INF_F;
-
-  float best = CUDART_INF_F;
-  int arg = INT_MAX;
-  int visited = 0;
-  bool done = false;
-  const int e0 = row_ptr[t];
-  const int e1 = row_ptr[t + 1];
-  for (int base = e0; base < e1 && !done; base += kWlRows) {
-    const int ne = min(kWlRows, e1 - base);
-    __syncthreads();
-    if (threadIdx.x < ne) {
-      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
-      s_lb[threadIdx.x] = lb[base + threadIdx.x];
-    }
-    __syncthreads();
-    for (int e = 0; e < ne; ++e) {
-      if (!__syncthreads_or(seeks && s_lb[e] <= best)) {
-        done = true;                  // the same for every thread
-        break;
+  for (int k0 = 0; k0 < K; k0 += B) {
+    float r[B][4 * V];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int c = lane + 32 * (k0 + b);
+      const float4* src = tile + static_cast<size_t>(c < cols ? c : 0) * V;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float4 f = k0 + b < K ? src[q] : make_float4(0, 0, 0, 0);
+        r[b][4 * q] = f.x;
+        r[b][4 * q + 1] = f.y;
+        r[b][4 * q + 2] = f.z;
+        r[b][4 * q + 3] = f.w;
       }
-      ++visited;
-      const int j0 = s_col[e] * kWlCols;
-      const int j1 = min(j0 + kWlCols, m);
-      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
-        const int cols = min(per_chunk, j1 - c0);
-        __syncthreads();
-        stage(tile, y, c0, cols, d);
-        for (int c = threadIdx.x; c < cols; c += kWlRows)
-          ktile[c] = y_key[c0 + c];
-        __syncthreads();
-        for (int c = 0; c < cols; ++c) {
-          if (!(ktile[c] > key)) continue;
-          float d2;
-          if constexpr (D > 0) {
-            d2 = pair_d2<D>(xr, tile + c * D, D);
-          } else {
-            d2 = pair_d2<0>(xg, tile + c * d, d);
-          }
-          const int j = c0 + c;
-          if (d2 < best || (d2 == best && j < arg)) {
-            best = d2;
-            arg = j;
-          }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int c = lane + 32 * (k0 + b);
+      if (k0 + b < K && c < cols) {
+        const float d2 = pair_d2<D>(xr, r[b], D);
+        const int j = j0 + c;
+        if (r[b][D] > key && (d2 < v || (d2 == v && j < a))) {
+          v = d2;
+          a = j;
         }
       }
     }
   }
+}
 
-  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
-  if (!live) return;
-  const bool found = best < CUDART_INF_F;
-  best_out[i] = best;
-  arg_out[i] = found ? arg : -1;
+template <int D, bool kBatch>
+__global__ void __launch_bounds__(32 * kK9Warps)
+    worklist_masked_nn_kernel(const float* __restrict__ x,
+                              const float* __restrict__ x_key,
+                              const float4* __restrict__ rec, int w4, int n,
+                              int m, int d, const int* __restrict__ row_ptr,
+                              const int* __restrict__ col_tile,
+                              const float* __restrict__ lb,
+                              const float* __restrict__ tmax,
+                              int* __restrict__ next_row,
+                              float* __restrict__ best_out,
+                              int* __restrict__ arg_out,
+                              int* __restrict__ live_out) {
+  if constexpr (D > 0) {
+    d = D;
+    w4 = rec_vecs(D);
+  }
+  const int lane = threadIdx.x & 31;
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(next_row, 1);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    if (i >= n) return;
+    const float* xg = x + static_cast<size_t>(i) * d;
+    float xr[D > 0 ? D : 1];
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) xr[k] = xg[k];
+    }
+    const float key = x_key[i];
+    float v = CUDART_INF_F;   // the lane's minimum
+    int a = INT_MAX;
+    float rb = CUDART_INF_F;  // the row's best: the lanes' least v
+    const int t = i / kWlRows;
+    const int e1 = row_ptr[t + 1];
+    int walked = 0;
+    bool done = !(key < CUDART_INF_F);  // +inf or NaN: nothing is denser
+    for (int e = row_ptr[t]; e < e1 && !done; e += 32) {
+      const int j = e + lane;
+      const float l = j < e1 ? lb[j] : CUDART_INF_F;
+      const bool open = j < e1 && l <= rb;
+      const int ct = open ? col_tile[j] : 0;
+      unsigned todo = __ballot_sync(0xffffffffu, open && tmax[ct] > key);
+      done = __ballot_sync(0xffffffffu, !open) != 0;  // open lanes first
+      while (todo != 0) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        if (!(__shfl_sync(0xffffffffu, l, src) <= rb)) {  // fresh: the end
+          done = true;
+          break;
+        }
+        const int j0 = __shfl_sync(0xffffffffu, ct, src) * kWlCols;
+        const int cols = min(kWlCols, m - j0);
+        const float4* tile = rec + static_cast<size_t>(j0) * w4;
+        if constexpr (kBatch && D > 0) {
+          k9_entry_batched<D>(tile, cols, j0, xr, key, lane, v, a);
+        } else {
+#pragma unroll 4
+          for (int c = lane; c < cols; c += 32) {
+            const Record<D> y(tile + static_cast<size_t>(c) * w4);
+            const float d2 = row_d2<D>(xr, xg, y.coords(), d);
+            const int jc = j0 + c;
+            if (__int_as_float(y.slot(d)) > key &&
+                (d2 < v || (d2 == v && jc < a))) {
+              v = d2;
+              a = jc;
+            }
+          }
+        }
+        float mv = v;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mv = fminf(mv, __shfl_xor_sync(0xffffffffu, mv, o));
+        rb = mv;
+        ++walked;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+      const int oa = __shfl_xor_sync(0xffffffffu, a, o);
+      if (ov < v || (ov == v && oa < a)) {
+        v = ov;
+        a = oa;
+      }
+    }
+    if (lane == 0) {
+      best_out[i] = v;
+      arg_out[i] = v < CUDART_INF_F ? a : -1;
+      if (live_out != nullptr) {
+        atomicAdd(live_out + 2 * t, walked);
+        atomicMax(live_out + 2 * t + 1, walked);
+      }
+    }
+  }
 }
 
 // K10 — replaces the reference's density.range_count_halo, i.e.
@@ -2620,22 +2709,43 @@ extern "C" int repro_worklist_range_count(const float* x, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_worklist_masked_nn(const float* x, const float* x_key,
-                                        const float* y, const float* y_key,
-                                        int n, int m, int d,
-                                        const int* row_ptr,
-                                        const int* col_tile, const float* lb,
-                                        float* best, int* arg, int* live,
-                                        void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kWlRows - 1) / kWlRows);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                    \
-  worklist_masked_nn_kernel<D><<<grid, kWlRows, 0, s>>>(                   \
-      x, x_key, y, y_key, n, m, d, row_ptr, col_tile, lb, best, arg, live)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
+// K9.  rec: y's packed records of w floats (kernels/packing.py), the slot
+// holding the column's key; tmax: each column tile's largest key, NaN keys
+// left out; next_row: one int32 of scratch.  live (optional, (row tiles,
+// 2) int32): the entries each row tile's rows computed and the longest
+// walk among them.
+extern "C" int repro_worklist_masked_nn(
+    const float* x, const float* x_key, const float* rec, int w, int n,
+    int m, int d, const int* row_ptr, const int* col_tile, const float* lb,
+    const float* tmax, int* next_row, float* best, int* arg, int* live,
+    void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (w != 4 * rec_vecs(d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(next_row, 0, sizeof(int), s);
+  if (err == cudaSuccess && live != nullptr)
+    err = cudaMemsetAsync(
+        live, 0, 2 * sizeof(int) * ((n + kWlRows - 1) / kWlRows), s);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+  const dim3 grid(min((n + kK9Warps - 1) / kK9Warps, sms * kK9Blocks));
+  const bool bulk = n >= sms * kK9BulkRows;
+#define REPRO_LAUNCH(D)                                                   \
+  if (bulk) {                                                             \
+    worklist_masked_nn_kernel<D, false><<<grid, 32 * kK9Warps, 0, s>>>(   \
+        x, x_key, r4, w / 4, n, m, d, row_ptr, col_tile, lb, tmax,        \
+        next_row, best, arg, live);                                       \
+  } else {                                                                \
+    worklist_masked_nn_kernel<D, true><<<grid, 32 * kK9Warps, 0, s>>>(    \
+        x, x_key, r4, w / 4, n, m, d, row_ptr, col_tile, lb, tmax,        \
+        next_row, best, arg, live);                                       \
   }
+  REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -284,11 +284,12 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     """Per x-row: the nearest y row with ``y_key > x_key`` (Def. 2).
 
     ``worklist`` (a best-1 ring, ``blocksparse.build_flat_worklist(
-    nn="best1")``) walks each row tile's tile pairs in ascending lb and
-    stops where no row can improve: K9 on a CUDA tensor, its plain version
+    nn="best1")``) walks each row's tile pairs in ascending lb, skipping
+    those whose column tile holds no key above the row's, and stops where
+    the row can no longer improve: K9 on a CUDA tensor, its plain version
     on a CPU one; without it, K2 / its plain version scan all of y.
-    ``live`` (CUDA only, (row tiles,) int32) receives the number of
-    entries K9 computed in each row tile.
+    ``live`` (CUDA only, (row tiles, 2) int32) receives, per row tile, the
+    entries K9's walks of its rows computed and the longest walk.
 
     Returns (delta (n,) f32, parent (n,) int32); (inf, -1) where no y row
     is strictly denser.
@@ -296,7 +297,14 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     _check("dependent_masked", x, y, x_key, y_key)
     if worklist is not None:
         _check_worklist("dependent_masked", x, y, worklist)
-    _check_live("dependent_masked", x, worklist, live)
+    if live is not None and (
+            worklist is None or x.device.type != "cuda"
+            or live.dtype != torch.int32 or live.device != x.device
+            or live.shape != (worklist.num_row_tiles, 2)
+            or not live.is_contiguous()):
+        raise ValueError("dependent_masked: live counts come from the CUDA "
+                         "worklist kernel, into (row tiles, 2) int32 on "
+                         "x's device")
     if x.device.type == "cpu":
         if worklist is None:
             best, arg = masked_nn_plain(x, x_key, y, y_key)
@@ -327,12 +335,16 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                     best.data_ptr(), arg.data_ptr(), _stream(x))
             else:
                 name = "worklist_masked_nn"
+                rec = packing.pack_records(y, y_key.view(torch.int32))
+                tmax = packing.tile_max_key(y_key)
+                next_row = torch.empty((1,), dtype=torch.int32,
+                                       device=x.device)
                 code = lib.repro_worklist_masked_nn(
-                    x.data_ptr(), x_key.data_ptr(), y.data_ptr(),
-                    y_key.data_ptr(), n, m, d, worklist.row_ptr.data_ptr(),
+                    x.data_ptr(), x_key.data_ptr(), rec.data_ptr(),
+                    rec.shape[1], n, m, d, worklist.row_ptr.data_ptr(),
                     worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
-                    best.data_ptr(), arg.data_ptr(),
-                    _ptr(live), _stream(x))
+                    tmax.data_ptr(), next_row.data_ptr(), best.data_ptr(),
+                    arg.data_ptr(), _ptr(live), _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
     return torch.sqrt(best), arg

@@ -1,10 +1,11 @@
-"""Host-side layouts of the K1, K2, K3 and K12 kernels (``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2, K3, K9 and K12 kernels (``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
 4 floats, so every record is a whole number of 16-byte vectors and one
 with d <= 3 is a single ``float4``.  K1's slot holds the kept-k gate (0 or
-1), K2's the column's original index.
+1), K2's the column's original index, K9's the column's key (its f32
+bits); K9 also reads each column tile's largest key (``tile_max_key``).
 
 K3 (``worklist_count_topk``) walks each row tile's worklist segment in two
 phases: up to its last in-d_cut entry (count and kept-k), then the rest
@@ -138,6 +139,19 @@ def nn_layout(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     return NnLayout(x[rows].contiguous(), rows.to(torch.int32), ends,
                     pack_records(y[cols], cols),
                     chunk_worklist(ends, block_rows, min_items, min_chunk))
+
+
+def tile_max_key(y_key: torch.Tensor) -> torch.Tensor:
+    """K9's skip by key: (column tiles,) f32, the largest key of each
+    ``BLOCK_M``-column tile, NaN keys left out (a NaN is never denser) and
+    -inf for a tile with none.  No column of tile c is strictly denser than
+    a row whose key is at least ``tile_max_key(y_key)[c]``."""
+    m = y_key.numel()
+    nbc = -(-m // BLOCK_M)
+    keys = torch.full((nbc * BLOCK_M,), float("-inf"), dtype=torch.float32,
+                      device=y_key.device)
+    keys[:m] = torch.where(torch.isnan(y_key), float("-inf"), y_key)
+    return keys.view(nbc, BLOCK_M).amax(1)
 
 
 class K3Layout(NamedTuple):

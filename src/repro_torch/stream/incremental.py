@@ -109,6 +109,10 @@ class IncrementalGrid:
         self.device = torch.device(device)
         self.rebuilds = 0
         self._built = False
+        # what stats() reads; 0 until the first rebuild measures them (the
+        # reference sets neither here, so its stats() raises before then)
+        self.live_cells = 0
+        self.maxima_cap = 0
         # grouping-cell coords touched by the last successful apply();
         # None = unknown (fresh build / rebuild) -> treat everything dirty
         self.last_touched: np.ndarray | None = None
@@ -232,6 +236,7 @@ class IncrementalGrid:
         self._built = snap["built"]
         if not self._built:
             self.last_touched = None
+            self.live_cells = self.maxima_cap = 0
             return
         self.box_lo = snap["box_lo"]
         self.box_extent = snap["box_extent"]

@@ -371,7 +371,8 @@ def test_rand_index_matches_reference():
 
 def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
     """The plan forwards ``y_sel_slots``; the gated sweep gets nn_sel, the
-    block-sparse worklist the selected columns' counts, and K2 the keys
+    block-sparse worklist the selected columns' counts, and the fallback
+    (K2, or K9 on a best-1 ring under the block-sparse layout) the keys
     with -inf at every other column."""
     pts, _ = gaussian_mixture(1500, k=4, seed=2)
     seen = []
@@ -383,9 +384,10 @@ def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
         seen.append(("sweep", nn_sel is not None, worklist is not None))
         return sweep_fn(x, y, d_cut, nn_sel=nn_sel, worklist=worklist)
 
-    def rec_nn(x, xk, y, yk):
-        seen.append(("nn", int(torch.isinf(yk).sum()), y.shape[0]))
-        return nn_fn(x, xk, y, yk)
+    def rec_nn(x, xk, y, yk, worklist=None):
+        seen.append(("nn", int(torch.isinf(yk).sum()), y.shape[0],
+                     worklist is not None))
+        return nn_fn(x, xk, y, yk, worklist=worklist)
 
     monkeypatch.setattr(ops, "fused_sweep", rec_sweep)
     monkeypatch.setattr(ops, "dependent_masked", rec_nn)
@@ -396,9 +398,11 @@ def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
         grid = build_grid(_t(pts), 2500.0)
         reps, _ = representatives(grid, 2500.0, 0.8)
         assert seen[0] == ("sweep", True, layout == "block-sparse")
-        # the fallback sweeps all of y; the members' keys are -inf
+        # the fallback sweeps all of y, or its ring of all of y; the
+        # members' keys are -inf
         assert [s for s in seen[1:]] == [("nn", len(pts) - reps.numel(),
-                                          len(pts))]
+                                          len(pts),
+                                          layout == "block-sparse")]
         assert torch.isinf(res.delta).sum() == 1        # the global peak
 
 

@@ -16,13 +16,16 @@ from repro.data.points import gaussian_mixture
 from repro.engine import ExecSpec as JExecSpec
 from repro.stream import StreamDPC as JStreamDPC
 from repro.stream import StreamDPCConfig as JStreamDPCConfig
+from repro.stream import StreamServeConfig as JServeConfig
+from repro.stream import StreamService as JService
 
 from repro_torch import ExecSpec
 from repro_torch.carry import stream_state
 from repro_torch.core.approxdpc import run_approxdpc
 from repro_torch.core.labels import assign_labels
 from repro_torch.kernels.sweep import direct_d2
-from repro_torch.stream import StreamDPC, StreamDPCConfig
+from repro_torch.stream import (StreamDPC, StreamDPCConfig,
+                                StreamServeConfig, StreamService)
 
 from _torch_ref import f32_d2cut, f32_ulp, near_threshold_rows
 
@@ -213,3 +216,29 @@ def test_mesh_and_checkpoints_are_not_ported():
         StreamDPCConfig(d_cut=1.0, capacity=8, batch_cap=9)
     with pytest.raises(TypeError):
         StreamDPCConfig(d_cut=1.0, exec_spec="cuda")
+
+
+def test_stats_before_the_window_fills():
+    """Before the window first fills (no grid rebuild yet) ``stats()``
+    reports ``live_cells`` and ``maxima_cap`` as 0, and the service's stats
+    follow; the reference's raise AttributeError there, a divergence
+    listed in ROADMAP "Reference gaps"."""
+    cfg = dict(d_cut=0.5, capacity=256, batch_cap=64, rho_min=2.0)
+    pts = np.random.default_rng(1).normal(size=(100, 2)).astype(
+        np.float32)[:64]
+    p = StreamDPC(StreamDPCConfig(**cfg), device="cpu")
+    p.ingest(pts)
+    svc = StreamService(StreamServeConfig(stream=StreamDPCConfig(**cfg)),
+                        device="cpu")
+    svc.submit(pts)
+    for s in (p.stats(), svc.stats()):
+        assert s["count"] == 64 and s["rebuilds"] == 0, s
+        assert s["live_cells"] == 0 and s["maxima_cap"] == 0, s
+    j = JStreamDPC(JStreamDPCConfig(**cfg))
+    j.ingest(pts)
+    with pytest.raises(AttributeError, match="live_cells"):
+        j.stats()
+    ref = JService(JServeConfig(stream=JStreamDPCConfig(**cfg)))
+    ref.submit(pts)
+    with pytest.raises(AttributeError, match="live_cells"):
+        ref.stats()
