@@ -160,7 +160,9 @@ Phases, each of which raises on failure (nothing is caught):
    stated tolerance d * 2^-20 * (|x|^2 + |y|^2) per pair, the differing
    rows counted; K14 ``local_density_delta(worklist=...)`` bit for bit
    against its plain version and dense K5 on phase 16's shard shapes;
-   their times at 65,536 rows against K1, K3 and K5.
+   their times at 65,536 rows against K1, K3 and K5.  K13 reads K12's
+   records on K3's walk, heaviest row tile first, and ends a walk at the
+   first entry past the in-d_cut ones that no row needs.
 20. bf16 at full width on exact data: the lattice of 2^20 points with
    integer coordinates in [0, 256)^3 (seed 0), d_cut = sqrt(30.5):
    ``DPCEngine(d_cut, rho_min=10, exec_spec=ExecSpec(precision="bf16",
@@ -174,14 +176,18 @@ Phases, each of which raises on failure (nothing is caught):
    their bound, ratio to f32 K1's time, kept-list insertions per row
    (mean, max) and registers and spills; K13 and gated K13 on the
    block-sparse fits' inputs against f32 K3 and their plain versions on a
-   few row tiles, each timed against its f32 form.
+   few row tiles, each timed against its f32 form, with their registers
+   and spills, entries computed (total, the largest per row tile), the
+   row tiles whose walk ended past the split, pairs/s and share of their
+   bound.
 21. bf16 on the users' data: Approx-DPC, block-sparse, bf16, on the
    Airline proxy at n = 5,810,462, d_cut of phase 8, against the f32 fit
    of the same input (not gated: on domain-1e5 data the bf16 expanded form
    moves d2 by about 1e8, which is the reference's semantics): both
    timed, the rows whose rho differs, the Rand index of the labels, the
    centers of each; K13 against its plain version on a few row tiles
-   within the tolerance; a traced fit.
+   within the tolerance, with its walk, pairs/s and share of bound as in
+   phase 20; a traced fit.
 22. K14 at the stream's shape: the Airline window of 2^20 and a delta
    batch of 8,192 (4,096 inserted, 4,096 evicted, signs +-1), both
    grid-sorted, through ``CudaBackend.range_count_delta(layout=
@@ -1701,17 +1707,35 @@ def bf16_work(n: int, m: int, d: int, pairs: float, sel=None,
     return nbytes, pairs * 32 * -(-d // 16), pairs * 2.0
 
 
-def k12_ptxas(log: str) -> dict:
-    """Registers and spill bytes of each K12 instantiation in the build's
-    ptxas log, by the d it serves and its gate."""
+def bf16_ptxas(log: str) -> dict:
+    """Registers and spill bytes of each K12 and K13 instantiation in the
+    build's ptxas log, by kernel, the d it serves and its gate."""
     from repro_torch.kernels.build import ptxas_usage
     kinds = {"1": "d<=8", "2": "d<=16", "0": "any d"}
-    out = {}
+    out: dict = {"K12": {}, "K13": {}}
     for name, u in ptxas_usage(log).items():
-        if "fused_count_topk_bf16_kernel" in name:
-            args = name.split("fused_count_topk_bf16_kernelILi")[1]
-            out[f"{kinds[args[0]]}{' gated' if args[4] == '1' else ''}"] = u
+        for kernel, tag in (("fused_count_topk_bf16_kernel", "K12"),
+                            ("worklist_count_topk_bf16_kernel", "K13")):
+            if kernel in name:
+                args = name.split(kernel + "ILi")[1]
+                gated = " gated" if args[4] == "1" else ""
+                out[tag][f"{kinds[args[0]]}{gated}"] = u
     return out
+
+
+def k13_walk(wl, live: torch.Tensor) -> dict:
+    """K13's walk from its ``live`` counts: the entries computed (total,
+    the most in a row tile) and the row tiles whose walk ended past the
+    split, before the end of their segment (the in_cut entries lead, and
+    K13 computes them all)."""
+    from repro_torch.kernels import packing
+    seg = (wl.row_ptr[1:] - wl.row_ptr[:-1]).long()
+    split = (packing.phase_split(wl) - wl.row_ptr[:-1]).long()
+    live = live.long()
+    return {"computed": int(live.sum()),
+            "computed_max_tile": int(live.max()) if live.numel() else 0,
+            "ended_past_split": int(((live < seg) & (live >= split)).sum()),
+            "row_tiles": wl.num_row_tiles}
 
 
 def k13_pairs(wl, n: int, m: int, live: torch.Tensor) -> float:
@@ -2367,10 +2391,11 @@ def main() -> int:
     print(f"  ptxas: registers per instantiation "
           f"{[u['registers'] for u in usage.values()]}; spills in: "
           f"{spills or 'none'}")
-    k12_regs = k12_ptxas(b.log)
-    print(f"  ptxas, K12 (registers, spill bytes): {k12_regs}")
+    bf16_regs = bf16_ptxas(b.log)
+    print(f"  ptxas, K12 (registers, spill bytes): {bf16_regs['K12']}")
+    print(f"  ptxas, K13 (registers, spill bytes): {bf16_regs['K13']}")
     record.update(card=card, clocks=clocks, build_s=b.seconds,
-                  k12_ptxas=k12_regs)
+                  bf16_ptxas=bf16_regs)
 
     # --------------------------------------- 2. kernels vs plain, check shapes
     stamp(2)
@@ -3429,8 +3454,9 @@ def main() -> int:
                 BF16_FULL_REPS),
             "insertions_mean": float(ins.double().mean()),
             "insertions_max": int(ins.max()),
-            "ptxas": k12_regs.get("d<=8" + (" gated" if gated else ""),
-                                  "not measured (library reused)")}
+            "ptxas": bf16_regs["K12"].get("d<=8" + (" gated" if gated
+                                                       else ""),
+                                          "not measured (library reused)")}
         t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
                  f32_ratio=t["ms"] / t["f32_ms"])
         bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1],
@@ -3455,14 +3481,25 @@ def main() -> int:
                                                   dc, sub, sel))
         errs[name] = check_equal(f"{name} [2^20 lattice, row tiles]",
                                  [t[rows] for t in got], want)
-        main_times[name] = {
+        pairs = k13_pairs(wl, x.shape[0], y.shape[0], live)
+        t = main_times[name] = {
             "ms": time_ms(lambda: k13(x, y, dc, wl, sel)), "plain_ms": p_ms,
             "plain_rows": rows.numel(), "f32_ms": time_ms(
                 lambda: ops.fused_sweep(x, y, dc, nn_sel=sel, worklist=wl)),
-            "computed": int(live.sum()), "kept": wl.n_kept}
-        bounds[name] = bf16_work(
-            x.shape[0], y.shape[0], x.shape[1],
-            k13_pairs(wl, x.shape[0], y.shape[0], live), sel, wl)
+            "kept": wl.n_kept, **k13_walk(wl, live), "pairs": pairs,
+            "ptxas": bf16_regs["K13"].get("d<=8" + (" gated" if gated
+                                                    else ""),
+                                          "not measured (library reused)")}
+        bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1], pairs,
+                                 sel, wl)
+        t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
+                 bound_share=bf16_bound_ms(*bounds[name])[0] / t["ms"])
+        print(f"{name} [2^20 lattice]: {t['pairs_per_s']:.4g} pairs/s, "
+              f"{100 * t['bound_share']:.1f} % of its bound; entries "
+              f"computed {t['computed']} of {t['kept']} (at most "
+              f"{t['computed_max_tile']} in a row tile), walks ended past "
+              f"the split in {t['ended_past_split']} of {t['row_tiles']} "
+              f"row tiles; ptxas {t['ptxas']}  ({card})", flush=True)
         del got, want
     for name in ("fused_count_topk_bf16", "worklist_count_topk_bf16",
                  "fused_count_topk_bf16_sel", "worklist_count_topk_bf16_sel"):
@@ -3509,17 +3546,20 @@ def main() -> int:
     live = torch.zeros(wl.num_row_tiles, dtype=torch.int32, device=dev)
     k13(x, y, dc, wl, live=live)
     errs["worklist_count_topk_bf16"] = tol["max_abs_err"]
-    main_times["worklist_count_topk_bf16"] = {
+    pairs = k13_pairs(wl, x.shape[0], y.shape[0], live)
+    t = main_times["worklist_count_topk_bf16"] = {
         "ms": time_ms(lambda: k13(x, y, dc, wl)), "plain_ms": p_ms,
         "plain_rows": rows.numel(), "f32_ms": time_ms(
             lambda: ops.fused_sweep(x, y, dc, worklist=wl)),
-        "computed": int(live.sum()), "kept": wl.n_kept, "tolerance": tol,
-        "lattice": main_times["worklist_count_topk_bf16"]}
+        "kept": wl.n_kept, **k13_walk(wl, live), "pairs": pairs,
+        "ptxas": bf16_regs["K13"].get("d<=8", "not measured (library "
+                                              "reused)"),
+        "tolerance": tol, "lattice": main_times["worklist_count_topk_bf16"]}
     bounds["worklist_count_topk_bf16"] = bf16_work(
-        x.shape[0], y.shape[0], x.shape[1],
-        k13_pairs(wl, x.shape[0], y.shape[0], live), None, wl)
-    t = main_times["worklist_count_topk_bf16"]
+        x.shape[0], y.shape[0], x.shape[1], pairs, None, wl)
     b_ms, by = bf16_bound_ms(*bounds["worklist_count_topk_bf16"])
+    t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
+             bound_share=b_ms / t["ms"])
     del x, y, wl, xr, got, want, sub, rows, live
     trace_air = traced(
         lambda: bf_air.fit(full_pts),
@@ -3539,7 +3579,11 @@ def main() -> int:
           f"index vs f32 {ri:.6f}, centers f32 {centers[0]} bf16 "
           f"{centers[1]}; K13 {t['ms']:.3f} ms (f32 K3 {t['f32_ms']:.3f} ms, "
           f"bound {b_ms:.3f} ms, {by}), {t['computed']} of {t['kept']} "
-          f"entries computed; == plain within d*2^-20*(|x|^2+|y|^2) on "
+          f"entries computed (at most {t['computed_max_tile']} in a row "
+          f"tile; walks ended past the split in {t['ended_past_split']} of "
+          f"{t['row_tiles']} row tiles), {t['pairs_per_s']:.4g} pairs/s, "
+          f"{100 * t['bound_share']:.1f} % of its bound, ptxas "
+          f"{t['ptxas']}; == plain within d*2^-20*(|x|^2+|y|^2) on "
           f"{t['plain_rows']} rows: {tol}  ({card})", flush=True)
     del f32_air, bf_air, fr, br
     torch.cuda.empty_cache()

@@ -134,8 +134,9 @@ def load_library() -> ctypes.CDLL:
     lib.repro_fused_count_topk_bf16.argtypes = [p, p, p, p, i, i, i, i, f,
                                                 p, p, p, p, p]
     lib.repro_fused_count_topk_bf16.restype = i
-    lib.repro_worklist_count_topk_bf16.argtypes = [p, p, i, i, i, f, p, p,
-                                                   p, p, p, p, p, p, p, p]
+    lib.repro_worklist_count_topk_bf16.argtypes = [p, p, p, p, i, i, i, i,
+                                                   f, p, p, p, p, p, p, p,
+                                                   p, p, p, p]
     lib.repro_worklist_count_topk_bf16.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -37,8 +37,8 @@
 //   repro_fused_count_topk_bf16    K1's function on the expanded form with
 //                              a bf16 cross term on the tensor cores (over
 //                              bf16 column records, kernels/packing.py)
-//   repro_worklist_count_topk_bf16 the same over a worklist, with the
-//                              reference's NN-liveness
+//   repro_worklist_count_topk_bf16 the same over a worklist (the same
+//                              records), with the reference's NN-liveness
 //   repro_worklist_range_count_signed  per query row, the sum of the signs
 //                              of the y rows within d_cut over the in-d_cut
 //                              pairs of a count-only worklist
@@ -77,11 +77,11 @@ constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
 constexpr int kWlCols = 512;        // K3 columns per column tile: BLOCK_M
 constexpr int kSplitBlocks = 2048;  // K4/K6 split the columns until about
                                     // this many blocks fill the card
-constexpr int kBfCols = 64;         // K12/K13 columns per tensor-core tile
 constexpr int kBfPad = 8;           // bf16 pad of a staged row (16 bytes):
                                     // fragment loads hit 32 distinct banks
-constexpr int kBfMaxD = 224;        // BF16_MAX_D in kernels/ops.py: K13's
-                                    // staged rows fit 227 KB of shared memory
+constexpr int kBfMaxD = 224;        // BF16_MAX_D in kernels/ops.py: K12's
+                                    // and K13's staged rows and ring fit
+                                    // 227 KB of shared memory
 
 __host__ __device__ __forceinline__ int tile_cols(int d) {
   const int c = kTileFloats / d;
@@ -1773,7 +1773,7 @@ __global__ void __launch_bounds__(kWlRows)
 // expanded form d2 = (|x|^2 + |y|^2) - 2 x.y of tile_d2(precision="bf16")
 // (repro/kernels/sweep.py:104-119).  The norms are f32, summed over dims in
 // order with __fmul_rn/__fadd_rn; x and y are rounded to bf16
-// (__float2bfloat16_rn, jnp's astype; K12's columns by the wrapper, the
+// (__float2bfloat16_rn, jnp's astype; the columns by the wrapper, the
 // same rounding), zero-padded to the MMA's k of 16, and their product runs
 // on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, k-step after
 // k-step.  Each bf16 product is exact in f32, but the tensor cores' sum of
@@ -1783,84 +1783,8 @@ __global__ void __launch_bounds__(kWlRows)
 // power of two) and within a few ulps of sum_k |x_k y_k| elsewhere.  A d2
 // may be negative.
 //
-// K13's shared memory for a block of R rows (dynamic, sized per d): the
-// f32 x.y tile R x (kBfCols + 1) (the +1 spreads a row's reads over the
-// banks), the column norms, the bf16 rows R x ld and columns kBfCols x ld
-// (ld = the padded d + kBfPad), and the gate bytes of the columns.
 __host__ __device__ __forceinline__ int bf_kp(int d) {
   return (d + 15) / 16 * 16;
-}
-
-__host__ __device__ __forceinline__ int bf_ld(int d) {
-  return bf_kp(d) + kBfPad;
-}
-
-size_t bf16_smem_bytes(int rows, int d) {
-  return sizeof(float) * (static_cast<size_t>(rows) * (kBfCols + 1) +
-                          kBfCols) +
-         sizeof(__nv_bfloat16) * static_cast<size_t>(rows + kBfCols) *
-             bf_ld(d) +
-         kBfCols;
-}
-
-struct Bf16Smem {
-  float* xy;             // rows x (kBfCols + 1)
-  float* y2;             // kBfCols
-  __nv_bfloat16* xs;     // rows x ld
-  __nv_bfloat16* ys;     // kBfCols x ld
-  unsigned char* sel;    // kBfCols
-};
-
-__device__ __forceinline__ Bf16Smem bf16_smem(unsigned char* raw, int rows,
-                                              int ld) {
-  Bf16Smem s;
-  s.xy = reinterpret_cast<float*>(raw);
-  s.y2 = s.xy + rows * (kBfCols + 1);
-  s.xs = reinterpret_cast<__nv_bfloat16*>(s.y2 + kBfCols);
-  s.ys = s.xs + rows * ld;
-  s.sel = reinterpret_cast<unsigned char*>(s.ys + kBfCols * ld);
-  return s;
-}
-
-// This thread's query row: its f32 norm, in order, and its bf16 copy in
-// row threadIdx.x of the staged rows, zero past d.
-__device__ __forceinline__ float bf16_stage_row(const float* xg, int d,
-                                                int kp, __nv_bfloat16* xs,
-                                                int ld) {
-  __nv_bfloat16* dst = xs + threadIdx.x * ld;
-  float x2 = 0.0f;
-  for (int k = 0; k < kp; ++k) {
-    const float v = k < d ? xg[k] : 0.0f;
-    if (k < d) x2 = k == 0 ? __fmul_rn(v, v) : __fadd_rn(x2, __fmul_rn(v, v));
-    dst[k] = __float2bfloat16_rn(v);
-  }
-  return x2;
-}
-
-// Stage columns y[j0 : j0+cols) as bf16 (zero past d and past cols), their
-// f32 norms in order and, when given, their gate bytes.
-__device__ __forceinline__ void bf16_stage_cols(const Bf16Smem& s,
-                                                const float* y,
-                                                const unsigned char* sel,
-                                                int j0, int cols, int d,
-                                                int kp, int ld) {
-  for (int t = threadIdx.x; t < kBfCols * kp; t += blockDim.x) {
-    const int c = t / kp;
-    const int k = t - c * kp;
-    const float v = (c < cols && k < d)
-                        ? y[static_cast<size_t>(j0 + c) * d + k] : 0.0f;
-    s.ys[c * ld + k] = __float2bfloat16_rn(v);
-  }
-  for (int c = threadIdx.x; c < kBfCols; c += blockDim.x) {
-    float y2 = 0.0f;
-    if (c < cols) {
-      const float* yc = y + static_cast<size_t>(j0 + c) * d;
-      y2 = __fmul_rn(yc[0], yc[0]);
-      for (int k = 1; k < d; ++k) y2 = __fadd_rn(y2, __fmul_rn(yc[k], yc[k]));
-    }
-    s.y2[c] = y2;
-    if (sel != nullptr) s.sel[c] = c < cols ? sel[j0 + c] : 0;
-  }
 }
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
@@ -1871,72 +1795,6 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// x.y of the block's staged rows and columns into the shared f32 tile.
-// Warp w owns rows 32w .. 32w+31 (two m16 tiles) against the kBfCols
-// columns (kBfCols / 8 n8 tiles), accumulating over the k-steps in
-// registers.  Fragments follow the PTX ISA layout of m16n8k16: with g =
-// lane / 4 and q = lane % 4, A holds rows g and g+8 at k = 2q, 2q+1 and
-// 2q+8, 2q+9; B holds column g at the same k; C holds rows g and g+8 at
-// columns 2q, 2q+1.
-__device__ __forceinline__ void bf16_cross(const Bf16Smem& s, int kp,
-                                           int ld) {
-  constexpr int kNt = kBfCols / 8;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int q = lane & 3;
-  float acc[2][kNt][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.0f;
-  for (int k0 = 0; k0 < kp; k0 += 16) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const __nv_bfloat16* p = s.xs + (warp * 32 + mt * 16 + g) * ld + k0 +
-                               2 * q;
-      a[mt][0] = ld_bf16x2(p);
-      a[mt][1] = ld_bf16x2(p + 8 * ld);
-      a[mt][2] = ld_bf16x2(p + 8);
-      a[mt][3] = ld_bf16x2(p + 8 * ld + 8);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      const __nv_bfloat16* p = s.ys + (nt * 8 + g) * ld + k0 + 2 * q;
-      const uint32_t b[2] = {ld_bf16x2(p), ld_bf16x2(p + 8)};
-      mma_bf16_16816(acc[0][nt], a[0], b);
-      mma_bf16_16816(acc[1][nt], a[1], b);
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int r = warp * 32 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) {
-      float* o = s.xy + r * (kBfCols + 1) + nt * 8 + 2 * q;
-      o[0] = acc[mt][nt][0];
-      o[1] = acc[mt][nt][1];
-      o[8 * (kBfCols + 1)] = acc[mt][nt][2];
-      o[8 * (kBfCols + 1) + 1] = acc[mt][nt][3];
-    }
-  }
-}
-
-// The expanded-form d2 of this thread's row and staged column c, in the
-// reference's order of operations: (x2 + y2) - 2 xy.
-__device__ __forceinline__ float bf16_d2(const Bf16Smem& s, float x2,
-                                         int c) {
-  return __fsub_rn(__fadd_rn(x2, s.y2[c]),
-                   __fmul_rn(2.0f, s.xy[threadIdx.x * (kBfCols + 1) + c]));
 }
 
 // K12 — replaces the reference's ops.fused_sweep with precision="bf16", i.e.
@@ -1971,10 +1829,11 @@ __device__ __forceinline__ float bf16_d2(const Bf16Smem& s, float x2,
 // its d2 = (x2 + y2) - 2 xy is below d2cut (the count) or at most its row's
 // filter `cut` (the kept 8), so at most T = max(d2cut, cut).  Each value is
 // first tested as xy >= lim + half (k12_lim: one add and one compare), which
-// every pair with d2 <= T passes: d2 rounds (x2 + y2) - 2 xy once and
-// x2 + y2 once, within 2^-24 of each, and the test gives away 2^-21 of
-// x2 + y2 + T, with 2^-100 for subnormals (a NaN or infinite norm fails it,
-// and such a d2 is never counted or kept).  The test is voted into one
+// every pair with d2 <= T passes, for T of either sign: d2 rounds (x2 +
+// y2) - 2 xy once and x2 + y2 once, within 2^-24 of each, and the test,
+// with T moved up by |T| 2^-20, gives away 2^-21 of x2 + y2 + |T|, with
+// 2^-100 for subnormals (a NaN or infinite norm fails it, and such a d2 is
+// never counted or kept here).  The test is voted into one
 // warp-uniform branch per 16 columns; inside it the exact epilogue, in the
 // reference's order: (x2 + y2) - 2 xy with __fadd_rn/__fmul_rn/__fsub_rn, the
 // count by a predicated add, and the filter d2 < cut (and, under kSel, the
@@ -2096,14 +1955,19 @@ __device__ __forceinline__ uint32_t bf16x2_at(const float* xr, int k, int d) {
   return lo | (hi << 16);
 }
 
-// Insert (v, j) into a sorted kept list whose indices are all below j (an
-// owner reads its row's columns in index order): the entries with d2 <= v stay,
-// the rest move down one slot.  Called only where v < tv[kTopK-1].
+// Insert (v, j) into a kept list sorted lexicographically by (d2, index),
+// where (v, j) lies below its last entry: the entries before it stay, the
+// rest move down one slot.  kIndex false: every index in the list is below
+// j (K12's owner reads its row's columns in index order), so d2 alone
+// orders; true: K13's columns arrive in lb order, and an equal d2 is
+// settled on the index, as keep does.
+template <bool kIndex>
 __device__ __forceinline__ void k12_keep(float (&tv)[kTopK], int (&ti)[kTopK],
                                          float v, int j) {
   bool lt[kTopK];
 #pragma unroll
-  for (int s = 0; s < kTopK; ++s) lt[s] = v < tv[s];
+  for (int s = 0; s < kTopK; ++s)
+    lt[s] = v < tv[s] || (kIndex && v == tv[s] && j < ti[s]);
 #pragma unroll
   for (int s = kTopK - 1; s > 0; --s) {
     tv[s] = lt[s] ? (lt[s - 1] ? tv[s - 1] : v) : tv[s];
@@ -2114,10 +1978,128 @@ __device__ __forceinline__ void k12_keep(float (&tv)[kTopK], int (&ti)[kTopK],
 }
 
 // The row's share of the cheap test: xy >= k12_lim(x2, T) + y2 * (1/2 -
-// 2^-21) holds for every pair with d2 <= T (T >= 0; see K12's note).
+// 2^-21) holds for every pair with d2 <= T (see K12's note).  T is moved
+// up by |T| 2^-20: K12's T is at least 0, K13's may be below it.
 __device__ __forceinline__ float k12_lim(float x2, float t) {
-  return 0.5f * (x2 * (1.0f - 0x1p-20f) - t * (1.0f + 0x1p-20f)) -
+  return 0.5f * (x2 * (1.0f - 0x1p-20f) - (t + fabsf(t) * 0x1p-20f)) -
          0x1p-100f;
+}
+
+// A warp's rows g + 16 mt + 8 h from row0 (past n: computed as row n-1):
+// their f32 norms, in order, and for KC != 0 their A fragments (x as bf16,
+// zero past d: k = 2q, 2q+1 and 2q+8, 2q+9).
+template <int KC>
+__device__ __forceinline__ void k12_rows(const float* __restrict__ x, int n,
+                                         int d, int row0, int q,
+                                         float (&x2)[2][2],
+                                         uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + mt * 16 + h * 8;
+      const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
+      float s = __fmul_rn(xr[0], xr[0]);
+      for (int k = 1; k < d; ++k) s = __fadd_rn(s, __fmul_rn(xr[k], xr[k]));
+      x2[mt][h] = s;
+      if constexpr (KC != 0) {
+        a[mt][h] = bf16x2_at(xr, 2 * q, d);
+        a[mt][h + 2] = bf16x2_at(xr, 2 * q + 8, d);
+      }
+    }
+  }
+}
+
+// KC == 0: this thread's row i of the block (past n: row n-1) as bf16, zero
+// past d, into row threadIdx.x of the staged rows.
+template <int KC>
+__device__ __forceinline__ void k12_stage_row(__nv_bfloat16* xs,
+                                              const float* __restrict__ x,
+                                              int n, int d, int kp, int i) {
+  if constexpr (KC == 0) {
+    const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
+    for (int k = 0; k < kp; ++k)
+      xs[threadIdx.x * (kp + kBfPad) + k] =
+          __float2bfloat16_rn(k < d ? xr[k] : 0.0f);
+  }
+}
+
+// x.y of the warp's 32 rows and 16 staged columns, from zero, k-step after
+// k-step: acc[mt][nt] is the C fragment of m16 tile mt and n8 tile nt.  bp
+// is this lane's ldmatrix row address of B in the group (KC == 1: k-chunk 0
+// of 16 columns; else chunks 0 and 1 of 8 columns twice), xa (KC == 0) its
+// address of A in the staged rows, kp + kBfPad apart.
+template <int KC>
+__device__ __forceinline__ void k12_mma(float (&acc)[2][2][4],
+                                        const uint32_t (&a)[2][4],
+                                        const __nv_bfloat16* bp,
+                                        const __nv_bfloat16* xa, int kp) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  if constexpr (KC == 1) {
+    uint32_t b[2][2] = {{0u, 0u}, {0u, 0u}};
+    ldmatrix_x2(b[0][0], b[1][0], bp);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      mma_bf16_16816(acc[0][nt], a[0], b[nt]);
+      mma_bf16_16816(acc[1][nt], a[1], b[nt]);
+    }
+  } else if constexpr (KC == 2) {
+    uint32_t b4[4];
+    ldmatrix_x4(b4, bp);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
+      mma_bf16_16816(acc[0][nt], a[0], b);
+      mma_bf16_16816(acc[1][nt], a[1], b);
+    }
+  } else {
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      uint32_t b4[4];
+      ldmatrix_x4(b4, bp + k0);
+      uint32_t ak[2][4];
+      ldmatrix_x4(ak[0], xa + k0);
+      ldmatrix_x4(ak[1], xa + 16 * (kp + kBfPad) + k0);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
+        mma_bf16_16816(acc[0][nt], ak[0], b);
+        mma_bf16_16816(acc[1][nt], ak[1], b);
+      }
+    }
+  }
+}
+
+// The 4 lanes of a row sum its counts; lane q, the owner of row i = row0 +
+// 8q, writes it and its kept list (past n: nothing).
+__device__ __forceinline__ void k12_write(int (&cnt)[2][2],
+                                          const float (&tv)[kTopK],
+                                          const int (&ti)[kTopK], int i,
+                                          int q, int n, int* count,
+                                          float* topv, int* topi) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 1);
+      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 2);
+    }
+  if (i >= n) return;
+  count[i] = q == 0 ? cnt[0][0] : q == 1 ? cnt[0][1] : q == 2 ? cnt[1][0]
+                                                             : cnt[1][1];
+  float4* ov = reinterpret_cast<float4*>(topv + static_cast<size_t>(i) * kTopK);
+  int4* oi = reinterpret_cast<int4*>(topi + static_cast<size_t>(i) * kTopK);
+  int o[kTopK];
+#pragma unroll
+  for (int s = 0; s < kTopK; ++s) o[s] = ti[s] == INT_MAX ? -1 : ti[s];
+  ov[0] = make_float4(tv[0], tv[1], tv[2], tv[3]);
+  ov[1] = make_float4(tv[4], tv[5], tv[6], tv[7]);
+  oi[0] = make_int4(o[0], o[1], o[2], o[3]);
+  oi[1] = make_int4(o[4], o[5], o[6], o[7]);
 }
 
 // KC: 1 for d <= 8 (one 16-byte chunk a column, the upper k-half zero), 2
@@ -2162,33 +2144,19 @@ __global__ void __launch_bounds__(kK12Rows, 3)
     tv[s2] = CUDART_INF_F;
     ti[s2] = INT_MAX;
   }
+  k12_rows<KC>(x, n, d, row0, q, x2, a);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int i = row0 + mt * 16 + h * 8;
-      const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
-      float s = __fmul_rn(xr[0], xr[0]);
-      for (int k = 1; k < d; ++k) s = __fadd_rn(s, __fmul_rn(xr[k], xr[k]));
-      x2[mt][h] = s;
       cnt[mt][h] = 0;
       cut[mt][h] = CUDART_INF_F;
-      lim[mt][h] = k12_lim(s, CUDART_INF_F);
-      if constexpr (KC != 0) {
-        a[mt][h] = bf16x2_at(xr, 2 * q, d);
-        a[mt][h + 2] = bf16x2_at(xr, 2 * q + 8, d);
-      }
+      lim[mt][h] = k12_lim(x2[mt][h], CUDART_INF_F);
     }
   }
   // any d: the block's rows as bf16 (zero past d) after the ring
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(k12_raw + 2 * stage);
-  if constexpr (KC == 0) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    const float* xr = x + static_cast<size_t>(i < n ? i : n - 1) * d;
-    for (int k = 0; k < kp; ++k)
-      xs[threadIdx.x * (kp + kBfPad) + k] =
-          __float2bfloat16_rn(k < d ? xr[k] : 0.0f);
-  }
+  k12_stage_row<KC>(xs, x, n, d, kp, blockIdx.x * blockDim.x + threadIdx.x);
   // the warp's queue: a group's candidate d2 of its 32 rows, column-major
   // (kK12QLd apart: the writes and the owners' reads hit distinct banks)
   float* queue = reinterpret_cast<float*>(
@@ -2199,9 +2167,8 @@ __global__ void __launch_bounds__(kK12Rows, 3)
                  warp * kK12Group * kK12QLd;
   const int own = g + 8 * q;              // the row whose list this lane holds
 
-  // this lane's ldmatrix row addresses: B of two n8 tiles (KC == 1: the
-  // k-chunk 0 of 16 columns; else chunks 0 and 1 of 8 columns twice) and,
-  // for any d, A of the warp's two m16 tiles
+  // this lane's ldmatrix row addresses: B of two n8 tiles and, for any d,
+  // A of the warp's two m16 tiles
   const int b_off = KC == 1 ? (lane & 15) * ld
                             : ((lane & 7) + (lane >> 4) * 8) * ld +
                                   ((lane >> 3) & 1) * 8;
@@ -2229,45 +2196,7 @@ __global__ void __launch_bounds__(kK12Rows, 3)
     const unsigned char* sg = st + per_stage * (2 * ld + 8);
     for (int c0 = 0; c0 < cols; c0 += kK12Group) {
       float acc[2][2][4];                  // [mt][nt][C fragment]
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-      const __nv_bfloat16* bp = srec + c0 * ld + b_off;
-      if constexpr (KC == 1) {
-        uint32_t b[2][2] = {{0u, 0u}, {0u, 0u}};
-        ldmatrix_x2(b[0][0], b[1][0], bp);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          mma_bf16_16816(acc[0][nt], a[0], b[nt]);
-          mma_bf16_16816(acc[1][nt], a[1], b[nt]);
-        }
-      } else if constexpr (KC == 2) {
-        uint32_t b4[4];
-        ldmatrix_x4(b4, bp);
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
-          mma_bf16_16816(acc[0][nt], a[0], b);
-          mma_bf16_16816(acc[1][nt], a[1], b);
-        }
-      } else {
-        for (int k0 = 0; k0 < kp; k0 += 16) {
-          uint32_t b4[4];
-          ldmatrix_x4(b4, bp + k0);
-          uint32_t ak[2][4];
-          ldmatrix_x4(ak[0], xs + a_off + k0);
-          ldmatrix_x4(ak[1], xs + a_off + 16 * (kp + kBfPad) + k0);
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            const uint32_t b[2] = {b4[2 * nt], b4[2 * nt + 1]};
-            mma_bf16_16816(acc[0][nt], ak[0], b);
-            mma_bf16_16816(acc[1][nt], ak[1], b);
-          }
-        }
-      }
+      k12_mma<KC>(acc, a, srec + c0 * ld + b_off, xs + a_off, kp);
       // the cheap test, an add and a compare a value
       if (!exact) {
         bool any[2][2] = {{false, false}, {false, false}};  // short chains
@@ -2338,7 +2267,7 @@ __global__ void __launch_bounds__(kK12Rows, 3)
         if constexpr (kSel) take = take && sg[c0 + s] != 0;
         if (__any_sync(0xffffffffu, take)) {
           if (take) {
-            k12_keep(tv, ti, v, j0 + c0 + s);
+            k12_keep<false>(tv, ti, v, j0 + c0 + s);
             if (inserted != nullptr && row0 + 8 * q < n)
               atomicAdd(inserted + row0 + 8 * q, 1);
           }
@@ -2355,140 +2284,319 @@ __global__ void __launch_bounds__(kK12Rows, 3)
         }
     }
   }
-
-  // the 4 lanes of a row sum its counts; its owner writes it
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 1);
-      cnt[mt][h] += __shfl_xor_sync(0xffffffffu, cnt[mt][h], 2);
-    }
-  const int i = row0 + 8 * q;
-  if (i >= n) return;
-  count[i] = q == 0 ? cnt[0][0] : q == 1 ? cnt[0][1] : q == 2 ? cnt[1][0]
-                                                             : cnt[1][1];
-  float4* ov = reinterpret_cast<float4*>(topv + static_cast<size_t>(i) * kTopK);
-  int4* oi = reinterpret_cast<int4*>(topi + static_cast<size_t>(i) * kTopK);
-  int o[kTopK];
-#pragma unroll
-  for (int s = 0; s < kTopK; ++s) o[s] = ti[s] == INT_MAX ? -1 : ti[s];
-  ov[0] = make_float4(tv[0], tv[1], tv[2], tv[3]);
-  ov[1] = make_float4(tv[4], tv[5], tv[6], tv[7]);
-  oi[0] = make_int4(o[0], o[1], o[2], o[3]);
-  oi[1] = make_int4(o[4], o[5], o[6], o[7]);
+  k12_write(cnt, tv, ti, row0 + 8 * q, q, n, count, topv, topi);
 }
 
 // K13 — replaces the reference's ops.fused_sweep with precision="bf16" on a
 // worklist, i.e. sweep.tile_sweep with SweepSpec(count=True, nn="topk",
 // k=8, precision="bf16") over the PrefetchScalarGridSpec worklist grid
-// (repro/kernels/sweep.py:432, liveness at :255-260, the masked kept-k at
-// :312-316), gated by kSel.
+// (repro/kernels/sweep.py:432, liveness at :250-260, the masked kept-k at
+// :300-316), gated by kSel.
 //
-// Bound: K12's per pair, on the pairs of the entries it computes.  The
-// design is K12's arithmetic on K3's CSR walk: one block of 256 threads per
-// 256-row tile walks its segment in the stored order, 256 entries at a time
-// through shared memory, and stages each computed entry's 512 columns
-// kBfCols at a time.  The liveness rule is the reference's, not K3's: K3
-// inserts from every entry it computes, which is exact in f32 because a
-// pair's direct d2 is at least its entry's lb.  A bf16 d2 may lie below the
-// lb of its pair, even below 0, so here an entry is NN-live only when some
-// row of the tile has lb <= its 8th kept d2 (a block vote: the reference's
-// lb <= max(topv) over the tile), and only an NN-live entry enters the kept
-// 8; only an in_cut entry counts; an entry that is neither is skipped.  The
-// insertion is lexicographic on (d2, index), since column tiles arrive in
-// ring order.  Padding rows (past n) do not vote.  `live` (optional) gets
-// the number of entries each block computed.
-template <bool kSel>
-__global__ void __launch_bounds__(kWlRows)
-    worklist_count_topk_bf16_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ y, int n,
-                                    int m, int d, float d2cut,
-                                    const unsigned char* __restrict__ sel,
-                                    const int* __restrict__ row_ptr,
-                                    const int* __restrict__ col_tile,
-                                    const unsigned char* __restrict__ in_cut,
-                                    const float* __restrict__ lb,
-                                    int* __restrict__ count,
-                                    float* __restrict__ topv,
-                                    int* __restrict__ topi,
-                                    int* __restrict__ live_out) {
-  extern __shared__ __align__(16) unsigned char bf_raw[];
-  __shared__ int s_col[kWlRows];
-  __shared__ float s_lb[kWlRows];
-  __shared__ int s_cut[kWlRows];
-  const int kp = bf_kp(d);
-  const int ld = bf_ld(d);
-  const Bf16Smem s = bf16_smem(bf_raw, kWlRows, ld);
-  const int t = blockIdx.x;
-  const int i = t * kWlRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;  // dead lanes compute, never vote
-  const float x2 =
-      bf16_stage_row(x + static_cast<size_t>(row) * d, d, kp, s.xs, ld);
+// Bound: K12's per pair (the tensor-core cross term and the superset
+// test's two f32 operations) on the pairs of the entries it computes.  The
+// design is K12's body on K3's walk.  One block of kK12Warps warps (32
+// rows a warp, as K12) owns one 256-row tile and walks its CSR segment
+// row_ptr[t] .. row_ptr[t+1] in the stored order (ascending lb), reading
+// K12's bf16 records (kernels/packing.py, bf16_records, packed once per
+// call): each computed entry's columns (512; in the last column tile up to
+// m rounded up to kK12Group, whose padding columns have NaN norms) stream
+// through a two-stage cp.async ring in chunks of k13_stage_cols(d), one
+// barrier per chunk.  The ring is filled in walk order ahead of the votes,
+// so the next chunk is in flight while one is computed; a chunk of an
+// entry the vote skips is dropped.  Row tiles launch in `order`, the
+// longest in-d_cut prefix first, as K3's do (kernels/packing.py,
+// heaviest_first).  Measured on an H100 (PERF.md): a third stage, 2 blocks
+// an SM without spills, and the test without K12's carry were each no
+// faster; 80 registers at 3 blocks spill 36-116 bytes.
+//
+// The liveness rule is the reference's.  At an entry's first chunk one
+// block vote on fresh kept lists (__syncthreads_or over the owner lanes of
+// the tile's real rows, after the previous entry's insertions): the entry
+// is NN-live when its lb is at most some row's 8th kept d2.  A bf16 d2 may
+// lie below the lb of its pair, even below 0, so every row inserts from
+// every NN-live entry whatever its own 8th; only an NN-live entry enters
+// the kept 8, only an in_cut entry counts, and an entry that is neither is
+// skipped.  Past `split` (one past the tile's last in_cut entry,
+// kernels/packing.py, phase_split) nothing counts, lb ascends and each 8th
+// d2 only falls, so the first entry that fails the vote ends the walk.
+//
+// The epilogue is K12's on the C fragments in registers, the entry's kind
+// in its test bound: T = max(d2cut, cut) for an in_cut, NN-live entry,
+// d2cut for an in_cut one (no filter), cut for an NN-live one (no count;
+// the cut may be below 0, which k12_lim allows).  While some row of the
+// warp has T = +inf (fewer than 8 kept: an infinite d2 may still enter)
+// the warp skips the test.  The count is a predicated add below d2cut
+// (below -inf in an entry that does not count).  Columns arrive in lb
+// order, not index order, so a later entry may hold a lower index at an
+// equal d2: the lanes' filter is d2 <= cut, and each row's owner inserts
+// its queued values lexicographically on (d2, index) (k12_keep<true>)
+// where they lie below its last kept pair (gated: where the gate is set).
+// count, topv, topi and live equal the earlier K13's (a 64-column x.y
+// tile through shared memory and the full epilogue on every pair) bit for
+// bit: the same MMAs on the same operands, the same f32 epilogue on every
+// pair that can be counted or kept, the same votes.  Padding rows
+// (past n) compute as row n-1, never vote and never write.  `live`
+// (optional) gets the number of entries each row tile computed: its first
+// `live` entries, where its in_cut entries lead.
 
+// columns per K13 ring stage: K12's stage cut to a power of two that
+// divides an entry's kWlCols
+__host__ __device__ inline int k13_stage_cols(int d) {
+  int c = kWlCols;
+  while (c > kK12Group && c > k12_stage_cols(d)) c >>= 1;
+  return c;
+}
+
+// bytes of one K13 stage: records, norms, halves and (gated) gate bytes
+__host__ __device__ inline int k13_stage_bytes(int d, bool sel) {
+  return k13_stage_cols(d) * (2 * k12_ld(d) + 8 + (sel ? 1 : 0));
+}
+
+// K13's dynamic shared memory: the ring, then K12's staged rows (d > 16)
+// and queues
+inline size_t k13_smem_bytes(int d, bool sel) {
+  size_t b = 2 * static_cast<size_t>(k13_stage_bytes(d, sel));
+  if (d > 16) b += sizeof(__nv_bfloat16) * kK12Rows * (bf_kp(d) + kBfPad);
+  return b + sizeof(float) * kK12Warps * kK12Group * kK12QLd;
+}
+
+static_assert(kK12Rows == kWlRows, "a K13 block owns one row tile");
+
+template <int KC, bool kSel>
+__global__ void __launch_bounds__(kK12Rows, 3)
+    worklist_count_topk_bf16_kernel(
+        const float* __restrict__ x, const __nv_bfloat16* __restrict__ rec,
+        const float* __restrict__ norms,
+        const unsigned char* __restrict__ gate, int n, int m, int d,
+        float d2cut, const int* __restrict__ order,
+        const int* __restrict__ row_ptr, const int* __restrict__ split,
+        const int* __restrict__ col_tile,
+        const unsigned char* __restrict__ in_cut,
+        const float* __restrict__ lb, int* __restrict__ count,
+        float* __restrict__ topv, int* __restrict__ topi,
+        int* __restrict__ live_out) {
+  extern __shared__ __align__(16) unsigned char k13_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int kp = bf_kp(d);
+  const int kr = KC == 1 ? 8 : kp;
+  const int ld = KC == 1 ? 8 : kp + kBfPad;
+  const int per_stage = k13_stage_cols(d);
+  const int stage = k13_stage_bytes(d, kSel);
+  const int m16 = (m + kK12Group - 1) / kK12Group * kK12Group;
+  const int t = order[blockIdx.x];
+
+  // as K12: rows g + 16 mt + 8 h of the warp, this lane the owner of row
+  // g + 8q, which votes only if it is real
+  const int row0 = t * kWlRows + warp * 32 + g;
+  const bool real = row0 + 8 * q < n;
+  float x2[2][2];
+  int cnt[2][2];
+  float cut[2][2];
+  float lim[2][2];
   float tv[kTopK];
   int ti[kTopK];
+  uint32_t a[2][4];
 #pragma unroll
-  for (int k = 0; k < kTopK; ++k) {
-    tv[k] = CUDART_INF_F;
-    ti[k] = INT_MAX;
+  for (int s2 = 0; s2 < kTopK; ++s2) {
+    tv[s2] = CUDART_INF_F;
+    ti[s2] = INT_MAX;
   }
-  int cnt = 0;
-  int visited = 0;
+  k12_rows<KC>(x, n, d, row0, q, x2, a);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      cnt[mt][h] = 0;
+      cut[mt][h] = CUDART_INF_F;
+    }
+  }
+  unsigned char* const tail = k13_raw + 2 * stage;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(tail);
+  k12_stage_row<KC>(xs, x, n, d, kp, t * kWlRows + threadIdx.x);
+  float* queue = reinterpret_cast<float*>(
+                     tail + (KC == 0 ? sizeof(__nv_bfloat16) * kK12Rows *
+                                           (kp + kBfPad)
+                                     : 0)) +
+                 warp * kK12Group * kK12QLd;
+  const int own = g + 8 * q;
+  const int b_off = KC == 1 ? (lane & 15) * ld
+                            : ((lane & 7) + (lane >> 4) * 8) * ld +
+                                  ((lane >> 3) & 1) * 8;
+  const int a_off = (warp * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                        (kp + kBfPad) + (lane >> 4) * 8;
+
+  bool ecut = false;   // the entry counts
+  bool elive = false;  // the entry is NN-live
+  float thr = -CUDART_INF_F;  // the count's bound: d2cut, or -inf
+  bool open = true;    // some row of the warp has T = +inf: no test
+  // the test bound of each row from the entry's kind and its cut
+  auto bounds = [&]() {
+    bool inf = false;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float tb = fmaxf(ecut ? d2cut : -CUDART_INF_F,
+                               elive ? cut[mt][h] : -CUDART_INF_F);
+        lim[mt][h] = k12_lim(x2[mt][h], tb);
+        inf |= tb == CUDART_INF_F;
+      }
+    open = __any_sync(0xffffffffu, inf);
+  };
 
   const int e0 = row_ptr[t];
+  const int p1 = split[t];
   const int e1 = row_ptr[t + 1];
-  for (int base = e0; base < e1; base += kWlRows) {
-    const int ne = min(kWlRows, e1 - base);
-    __syncthreads();
-    if (threadIdx.x < ne) {
-      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
-      s_lb[threadIdx.x] = lb[base + threadIdx.x];
-      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
+  // the ring is filled in walk order: pe, pj the next chunk to stage
+  int pe = e0, pj = 0, pend = 0;
+  if (pe < e1) {
+    pj = col_tile[pe] * kWlCols;
+    pend = min(pj + kWlCols, m16);
+  }
+  auto issue = [&](int buf) {
+    if (pe >= e1) return;
+    const int cols = min(per_stage, pend - pj);
+    k12_stage(k13_raw + buf * stage, rec, norms, m16, kSel ? gate : nullptr,
+              pj, cols, per_stage, kr, ld);
+    pj += cols;
+    if (pj >= pend && ++pe < e1) {
+      pj = col_tile[pe] * kWlCols;
+      pend = min(pj + kWlCols, m16);
     }
-    __syncthreads();
-    for (int e = 0; e < ne; ++e) {
-      const int cut = s_cut[e];
-      const bool nn_live =
-          __syncthreads_or(live && s_lb[e] <= tv[kTopK - 1]) != 0;
-      if (!cut && !nn_live) continue;   // the same for every thread
-      ++visited;
-      const int j0 = s_col[e] * kWlCols;
-      const int j1 = min(j0 + kWlCols, m);
-      for (int c0 = j0; c0 < j1; c0 += kBfCols) {
-        const int cols = min(kBfCols, j1 - c0);
-        __syncthreads();
-        bf16_stage_cols(s, y, kSel ? sel : nullptr, c0, cols, d, kp, ld);
-        __syncthreads();
-        bf16_cross(s, kp, ld);
-        __syncthreads();
-        for (int c = 0; c < cols; ++c) {
-          const float d2 = bf16_d2(s, x2, c);
-          cnt += cut & (d2 < d2cut);
-          if (!nn_live) continue;
-          const int j = c0 + c;
-          const bool better = d2 < tv[kTopK - 1] ||
-                              (d2 == tv[kTopK - 1] && j < ti[kTopK - 1]);
-          if constexpr (kSel) {
-            if (s.sel[c] && better) keep(tv, ti, d2, j);
-          } else {
-            if (better) keep(tv, ti, d2, j);
+  };
+  issue(0);
+  int ce = e0, cj = 0, cend = 0;  // the chunk to compute
+  if (ce < e1) {
+    cj = col_tile[ce] * kWlCols;
+    cend = min(cj + kWlCols, m16);
+  }
+  int b = 0;
+  bool head = true;    // it is its entry's first
+  bool skip = false;   // its entry is skipped
+  bool exact = true;   // the warp's last group counted or filtered in
+  int visited = 0;
+  while (ce < e1) {
+    const int j0 = cj;
+    const int cols = min(per_stage, cend - cj);
+    cp_async_wait_all();
+    if (head) {
+      ecut = in_cut[ce] != 0;
+      elive = __syncthreads_or(real && lb[ce] <= tv[kTopK - 1]) != 0;
+      skip = !ecut && !elive;       // the same for every thread
+      if (skip && ce >= p1) break;  // this entry and all later are dead
+      if (!skip) {
+        ++visited;
+        thr = ecut ? d2cut : -CUDART_INF_F;
+        bounds();
+      }
+    } else {
+      __syncthreads();
+    }
+    issue(b ^ 1);                  // the buffer computed last
+    cj += cols;
+    head = cj >= cend;
+    if (head && ++ce < e1) {
+      cj = col_tile[ce] * kWlCols;
+      cend = min(cj + kWlCols, m16);
+    }
+    const unsigned char* st = k13_raw + b * stage;
+    b ^= 1;
+    if (skip) continue;
+    const __nv_bfloat16* srec = reinterpret_cast<const __nv_bfloat16*>(st);
+    const float* sy2 = reinterpret_cast<const float*>(st + 2 * per_stage * ld);
+    const float* shalf = sy2 + per_stage;
+    const unsigned char* sg = st + per_stage * (2 * ld + 8);
+    for (int c0 = 0; c0 < cols; c0 += kK12Group) {
+      float acc[2][2][4];                  // [mt][nt][C fragment]
+      k12_mma<KC>(acc, a, srec + c0 * ld + b_off, xs + a_off, kp);
+      if (!exact && !open) {               // K12's cheap test
+        bool any[2][2] = {{false, false}, {false, false}};
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float2 hy =
+              *reinterpret_cast<const float2*>(shalf + c0 + nt * 8 + 2 * q);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              any[mt][nt] |= acc[mt][nt][e] >=
+                             lim[mt][e >> 1] + ((e & 1) ? hy.y : hy.x);
+        }
+        exact = __any_sync(0xffffffffu, (any[0][0] || any[0][1]) ||
+                                            (any[1][0] || any[1][1]));
+        if (!exact) continue;              // a uniform branch
+      }
+      const int counted = cnt[0][0] + cnt[0][1] + cnt[1][0] + cnt[1][1];
+      bool keep_any[2][2] = {{false, false}, {false, false}};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 y2 =
+            *reinterpret_cast<const float2*>(sy2 + c0 + nt * 8 + 2 * q);
+        bool gt[2] = {true, true};
+        if constexpr (kSel) {
+          const unsigned short gb = *reinterpret_cast<const unsigned short*>(
+              sg + c0 + nt * 8 + 2 * q);
+          gt[0] = (gb & 0xffu) != 0;
+          gt[1] = (gb >> 8) != 0;
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            const float d2 = __fsub_rn(
+                __fadd_rn(x2[mt][h], (e & 1) ? y2.y : y2.x),
+                __fmul_rn(2.0f, acc[mt][nt][e]));
+            acc[mt][nt][e] = d2;
+            count_below(cnt[mt][h], d2, thr);
+            keep_any[mt][nt] |= gt[e & 1] && d2 <= cut[mt][h];
           }
+      }
+      const bool kept =
+          elive && __any_sync(0xffffffffu,
+                              (keep_any[0][0] || keep_any[0][1]) ||
+                                  (keep_any[1][0] || keep_any[1][1]));
+      exact = kept || __any_sync(0xffffffffu,
+                                 cnt[0][0] + cnt[0][1] + cnt[1][0] +
+                                         cnt[1][1] != counted);
+      if (!kept) continue;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            queue[(nt * 8 + 2 * q + (e & 1)) * kK12QLd + g + 8 * (e >> 1) +
+                  16 * mt] = acc[mt][nt][e];
+      __syncwarp();
+#pragma unroll 4
+      for (int s = 0; s < kK12Group; ++s) {
+        const float v = queue[s * kK12QLd + own];
+        const int j = j0 + c0 + s;
+        bool take = v < tv[kTopK - 1] ||
+                    (v == tv[kTopK - 1] && j < ti[kTopK - 1]);
+        if constexpr (kSel) take = take && sg[c0 + s] != 0;
+        if (__any_sync(0xffffffffu, take)) {
+          if (take) k12_keep<true>(tv, ti, v, j);
         }
       }
+      __syncwarp();
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          cut[mt][h] = __shfl_sync(0xffffffffu, tv[kTopK - 1],
+                                   (lane & ~3) | (2 * mt + h));
+      bounds();
     }
   }
-
+  // nothing is in flight here: the walk ends at a chunk's wait
   if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
-  if (!live) return;
-  count[i] = cnt;
-  const size_t o = static_cast<size_t>(i) * kTopK;
-#pragma unroll
-  for (int k = 0; k < kTopK; ++k) {
-    topv[o + k] = tv[k];
-    topi[o + k] = ti[k] == INT_MAX ? -1 : ti[k];
-  }
+  k12_write(cnt, tv, ti, row0 + 8 * q, q, n, count, topv, topi);
 }
 
 }  // namespace
@@ -2887,25 +2995,43 @@ extern "C" int repro_fused_count_topk_bf16(const float* x, const void* rec,
   return code;
 }
 
-// K13: K12 on the tile pairs of a worklist; live (optional) gets the
-// entries each row tile computed.
+// K13.  rec, norms, gate, w: K12's column records (kernels/packing.py,
+// bf16_records); order: the row tiles in launch order; split: each row
+// tile's end of its in_cut entries (kernels/packing.py).  live (optional):
+// the entries each row tile computed.  d must be at most kBfMaxD.
 extern "C" int repro_worklist_count_topk_bf16(
-    const float* x, const float* y, int n, int m, int d, float d2cut,
-    const unsigned char* sel, const int* row_ptr, const int* col_tile,
-    const unsigned char* in_cut, const float* lb, int* count, float* topv,
-    int* topi, int* live, void* stream) {
-  if (d < 1 || d > kBfMaxD) return static_cast<int>(cudaErrorInvalidValue);
+    const float* x, const void* rec, const float* norms,
+    const unsigned char* gate, int w, int n, int m, int d, float d2cut,
+    const int* order, const int* row_ptr, const int* split,
+    const int* col_tile, const unsigned char* in_cut, const float* lb,
+    int* count, float* topv, int* topi, int* live, void* stream) {
+  if (d < 1 || d > kBfMaxD || w != k12_rec(d))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const dim3 grid((n + kWlRows - 1) / kWlRows);
-  const size_t bytes = bf16_smem_bytes(kWlRows, d);
+  const size_t bytes = k13_smem_bytes(d, gate != nullptr);
+  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(rec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sel != nullptr)
-    return smem_launch(worklist_count_topk_bf16_kernel<true>, grid, kWlRows,
-                       bytes, s, x, y, n, m, d, d2cut, sel, row_ptr,
-                       col_tile, in_cut, lb, count, topv, topi, live);
-  return smem_launch(worklist_count_topk_bf16_kernel<false>, grid, kWlRows,
-                     bytes, s, x, y, n, m, d, d2cut, sel, row_ptr, col_tile,
-                     in_cut, lb, count, topv, topi, live);
+  int code = 0;
+#define REPRO_LAUNCH(KC)                                                   \
+  code = gate != nullptr                                                   \
+             ? smem_launch(worklist_count_topk_bf16_kernel<KC, true>,      \
+                           grid, kK12Rows, bytes, s, x, r, norms, gate, n, \
+                           m, d, d2cut, order, row_ptr, split, col_tile,   \
+                           in_cut, lb, count, topv, topi, live)            \
+             : smem_launch(worklist_count_topk_bf16_kernel<KC, false>,     \
+                           grid, kK12Rows, bytes, s, x, r, norms, gate, n, \
+                           m, d, d2cut, order, row_ptr, split, col_tile,   \
+                           in_cut, lb, count, topv, topi, live)
+  if (d <= 8) {
+    REPRO_LAUNCH(1);
+  } else if (d <= 16) {
+    REPRO_LAUNCH(2);
+  } else {
+    REPRO_LAUNCH(0);
+  }
+#undef REPRO_LAUNCH
+  return code;
 }
 
 extern "C" const char* repro_error_string(int code) {

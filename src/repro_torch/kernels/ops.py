@@ -234,7 +234,6 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
     topi = torch.empty((n, FUSED_TOPK), dtype=torch.int32, device=x.device)
     if n:
         lib = build.load_library()
-        sel_ptr = 0 if sel is None else sel.data_ptr()
         with torch.cuda.device(x.device):
             if worklist is None and bf16:
                 name = "fused_count_topk_bf16"
@@ -253,9 +252,14 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
                     topv.data_ptr(), topi.data_ptr(), _stream(x))
             elif bf16:
                 name = "worklist_count_topk_bf16"
+                rec = packing.bf16_records(y, sel)
+                split = packing.phase_split(worklist)
+                order = packing.heaviest_first(worklist, split)
                 code = lib.repro_worklist_count_topk_bf16(
-                    x.data_ptr(), y.data_ptr(), n, m, d, d2cut, sel_ptr,
-                    worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
+                    x.data_ptr(), rec.rec.data_ptr(), rec.norms.data_ptr(),
+                    _ptr(rec.gate), rec.rec.shape[1], n, m, d, d2cut,
+                    order.data_ptr(), worklist.row_ptr.data_ptr(),
+                    split.data_ptr(), worklist.col_tile.data_ptr(),
                     worklist.in_cut.data_ptr(), worklist.lb.data_ptr(),
                     count.data_ptr(), topv.data_ptr(), topi.data_ptr(),
                     _ptr(live), _stream(x))

@@ -1,4 +1,5 @@
-"""Host-side layouts of the K1, K2, K3, K9 and K12 kernels (``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2, K3, K9, K12 and K13 kernels
+(``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
@@ -28,7 +29,10 @@ K12 (``fused_count_topk_bf16``) reads the columns as bf16 records
 values a column, beside their f32 norms, the halves of its cheap test and,
 gated, their gate bytes, all padded to a whole number of ``BF16_GROUP``
 columns, so the kernel streams whole 16-byte chunks and masks nothing: a
-padding column's norm is NaN, so it fails every test.
+padding column's norm is NaN, so it fails every test.  K13
+(``worklist_count_topk_bf16``) reads the same records on K3's walk, with
+K3's split (``phase_split``: past it the first entry no row needs ends the
+walk) and tile order (``heaviest_first``).
 
 The wrappers build all of this on the tensors' device; the kernels
 allocate nothing.
@@ -203,14 +207,15 @@ def k3_layout(wl, y: torch.Tensor, sel: torch.Tensor | None) -> K3Layout:
 
 
 def bf16_record_width(d: int) -> int:
-    """bf16 values per K12 record (``k12_rec``): 8 for d <= 8, where the
+    """bf16 values per K12/K13 record (``k12_rec``): 8 for d <= 8, where the
     MMA's upper k-half is zero and never loaded, else d rounded up to the
     MMA's k of 16."""
     return 8 if d <= 8 else -(-d // 16) * 16
 
 
 class Bf16Records(NamedTuple):
-    """What K12 reads of the columns, m rounded up to ``BF16_GROUP`` long."""
+    """What K12 and K13 read of the columns, m rounded up to ``BF16_GROUP``
+    long."""
     rec: torch.Tensor           # (m16, bf16_record_width(d)) bf16
     norms: torch.Tensor         # (2, m16) f32: y2, y2 * BF16_HALF; NaN past m
     gate: torch.Tensor | None   # (m16,) uint8, 0 past m; None ungated

@@ -56,8 +56,9 @@ class Work:
 
 
 def k12_lim(x2, t):
-    """The row's share of the cheap test (``k12_lim``)."""
-    return 0.5 * (x2 * (1.0 - 2.0 ** -20) - t * (1.0 + 2.0 ** -20)) \
+    """The row's share of the cheap test (``k12_lim``): T moved up by
+    |T| 2^-20, which K13's bounds below 0 need."""
+    return 0.5 * (x2 * (1.0 - 2.0 ** -20) - (t + abs(t) * 2.0 ** -20)) \
         - 2.0 ** -100
 
 
