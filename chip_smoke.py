@@ -65,7 +65,8 @@ Phases, each of which raises on failure (nothing is caught):
    their plain versions (Airline 65,536 with 4,096 query rows, a 512-row
    batch of mixed signs and 4,096 slots with padding slots and the global
    peak; mixtures n = 1,000 at d = 2, 4, 8; a 128 x 128 lattice of exact
-   ties with three key levels); K6 also against K2 on the gathered rows.
+   ties with three key levels); K6 also against K2 on the gathered rows,
+   and in both of its forms (the one its shape picks and the other).
 10. The stream main path, the workload of ``benchmarks/stream_bench.py``
    at the card's size: ``DPCEngine(2000.0, window_capacity=2**20,
    batch_cap=4096, exec_spec=ExecSpec(layout="block-sparse"))`` on
@@ -74,7 +75,10 @@ Phases, each of which raises on failure (nothing is caught):
    times and peaks), 32 counted ticks (launch counts zeroed just before
    them and read just after; each tick must launch K4, K5 and K6; their
    inputs kept and each tick's kernels held against the plain versions
-   on a slice, the last tick's K4/K5 on all rows and K6 on 2,048 slots),
+   on a slice, the last tick's K4/K5 on all rows and K6 on 2,048 slots;
+   the form each tick's K6 took, and on the last tick both forms held
+   against it, each timed with its layout and its scan apart, beside K2
+   on the gathered rows and K6's bound with its earlier count),
    the final state against a from-scratch block-sparse fit of the window
    (rho, rho_key, delta bit for bit, parents up to counted exact ties),
    rho against float64 on 4,096 rows, re-queried maxima against a float64
@@ -213,7 +217,8 @@ Phases, each of which raises on failure (nothing is caught):
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
-rows, K3 and K9 from the main path, K4-K6 from the mixture stream, gated
+rows, K3 and K9 from the main path, K4 and K5 from the mixture stream, K6
+from the Airline stream, gated
 K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
 K8 from phase 17's gather fit, K10 and K11 from its halo fit, K12
 and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
@@ -567,17 +572,26 @@ def k5_work(n: int, m: int, d: int) -> tuple[float, float]:
     return 4 * (n * d + m * d + m) + 4 * n, float(n) * m * (3 * d + 1)
 
 
-def k6_work(keys, slots, d: int) -> tuple[float, float]:
-    """Bytes and operations of gather_masked_nn on these keys and slots:
-    the table, its keys and the slots read once, (d2, parent) written
-    once; a key test per pair of a live slot and 3d+1 operations for each
-    pair whose column is denser."""
+def k6_work(keys, slots, d: int) -> tuple[float, float, dict]:
+    """Bytes and operations of gather_masked_nn on these keys and slots,
+    counted as K2's (``k2_work``) on the gathered rows: 3d+1 operations
+    for each pair of a live slot and a strictly denser column, no key test
+    (the prefix form tests none); the table, its keys and the slots read
+    once, (d2, parent) written once, and the sort and pack of the columns
+    and the rows.  ``info`` holds the earlier count, a key
+    test for every pair of a live slot and a column plus 3d+1 for each
+    denser one, with the table, keys and slots as its only bytes."""
+    from repro_torch.kernels.packing import gather_rows
     m, q = keys.numel(), slots.numel()
-    live = slots[(slots >= 0) & (slots < m)]
-    ks = torch.sort(keys).values
-    denser = float((m - torch.searchsorted(ks, keys[live], right=True)).sum())
-    nbytes = 4 * (m * d + m) + 8 * q + 8 * q
-    return nbytes, float(live.numel()) * m + denser * (3 * d + 1)
+    _, x_key = gather_rows(keys, slots)
+    nbytes, ops = k2_work(x_key, keys, d)
+    nbytes += 8 * q                       # the slots, as int64
+    live = int(((slots >= 0) & (slots < m)).sum())
+    old = (4 * (m * d + m) + 8 * q + 8 * q,
+           float(live) * m + ops)
+    b_ms, by = bound_ms(*old)
+    return nbytes, ops, {"earlier_bytes": old[0], "earlier_ops": old[1],
+                         "earlier_bound_ms": b_ms}
 
 
 def stream_kernels():
@@ -605,6 +619,29 @@ def stream_kernels():
         return torch.sqrt(best), arg
 
     return k4, k4_plain, k5, k5_plain, k6, k6_plain
+
+
+def k6_forms(table, keys, slots, want) -> dict:
+    """Both of K6's forms on one call's inputs: each held bit for bit
+    against ``want`` (the wrapper's answer), its time, and its layout
+    (gather, sort and pack) and scan (the launch on a built layout)
+    timed apart."""
+    from repro_torch.kernels import ops
+    d = table.shape[1]
+    parts = {}
+    for form in ("key", "prefix"):
+        lay = ops.gather_layout(table, keys, slots, form)
+        best, arg = ops.gather_scan(lay, d)
+        check_equal(f"gather_masked_nn, {form} form", [torch.sqrt(best), arg],
+                    want, "the wrapper's form")
+        parts[form] = {
+            "ms": time_ms(lambda: ops.gather_scan(
+                ops.gather_layout(table, keys, slots, form), d)),
+            "layout_ms": time_ms(
+                lambda: ops.gather_layout(table, keys, slots, form)),
+            "scan_ms": time_ms(lambda: ops.gather_scan(lay, d))}
+        del lay
+    return parts
 
 
 def stream_check_shapes(cases, card: str) -> dict:
@@ -648,14 +685,20 @@ def stream_check_shapes(cases, card: str) -> dict:
                     [t[:len(real)] for t in got],
                     ops.dependent_masked(x[rows], keys[rows].contiguous(), x,
                                          keys), "masked_nn on the rows")
+        for form in ("key", "prefix"):    # the form not picked, too
+            best, arg = ops.gather_scan(
+                ops.gather_layout(x, keys, slots, form), pts.shape[1])
+            check_equal(f"gather_masked_nn [{label}, {form} form]",
+                        [torch.sqrt(best), arg], got, "the wrapper's form")
         none = int((got[1][:len(real)] == -1).sum())
         assert none >= 1 and bool((got[1][len(real):] == -1).all()), \
             f"gather_masked_nn [{label}]: peak or padding slots not (inf, -1)"
         print(f"range_count, range_count_signed, gather_masked_nn == plain, "
               f"bit for bit: {label}, n={n} d={pts.shape[1]} ({none} slots "
               f"with no denser row, {len(pad)} padding slots; "
-              f"gather_masked_nn == masked_nn on the gathered rows)",
-              flush=True)
+              f"gather_masked_nn == masked_nn on the gathered rows, its "
+              f"{ops.gather_form(slots.numel())} form taken, both forms "
+              f"equal)", flush=True)
         if not times:
             times = {
                 "range_count": {
@@ -788,6 +831,8 @@ def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
         incremental.IncrementalGrid.dirty_near = near_fn
     for k in names:
         assert launches[k] == len(given[k]) >= ticks, (k, launches[k])
+    forms6 = "/".join(sorted({ops.gather_form(s6.numel())
+                              for t6, _, s6 in given["gather_masked_nn"]}))
     median_ms = statistics.median(t["ms"] for t in per_tick)
     print(f"{label} stream: window {n}, d={d}, d_cut={d_cut!r}, {ticks} "
           f"ticks of {B}: median tick {median_ms:.2f} ms (first tick after "
@@ -846,12 +891,16 @@ def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
         "ms": time_ms(lambda: k6(t6, k6k, s6)), "plain_ms": p6,
         "plain_rows": sl.numel(),
         "shape": f"{s6.numel()} slots x {t6.shape[0]}",
-        # K2 on the same rows, gathered: the one-pass grid K6 replaces
+        # K2 on the same rows, gathered, through its own wrapper
         "masked_nn_ms": time_ms(lambda: ops.dependent_masked(
-            rows6, k6k[s6].contiguous(), t6, k6k))}
+            rows6, k6k[s6].contiguous(), t6, k6k)),
+        "form": ops.gather_form(s6.numel()),
+        "forms": forms6, "parts": k6_forms(t6, k6k, s6, k6(t6, k6k, s6))}
     bounds["range_count"] = k4_work(x4.shape[0], y4.shape[0], d)
     bounds["range_count_signed"] = k5_work(x5.shape[0], y5.shape[0], d)
-    bounds["gather_masked_nn"] = k6_work(k6k, s6, d)
+    nb6, ops6, k6_info = k6_work(k6k, s6, d)
+    bounds["gather_masked_nn"] = (nb6, ops6)
+    times["gather_masked_nn"].update(k6_info)
     kernels = {}
     for k in names:
         b_ms, by = bound_ms(*bounds[k])
@@ -864,9 +913,17 @@ def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
               f"ms{' on ' + str(sl.numel()) + ' slots' if k == names[2] else ''}"
               f", {launches[k] / ticks:.2f} launches per tick  ({card})",
               flush=True)
-    print(f"  masked_nn on the same {s6.numel()} rows, gathered: "
-          f"{times['gather_masked_nn']['masked_nn_ms']:.3f} ms  ({card})",
-          flush=True)
+    t = times["gather_masked_nn"]
+    print(f"  gather_masked_nn: the counted calls took the {forms6} form; "
+          f"earlier bound {t['earlier_bound_ms']:.3f} ms (a key test a pair); "
+          f"masked_nn on the same {s6.numel()} rows, gathered: "
+          f"{t['masked_nn_ms']:.3f} ms  ({card})", flush=True)
+    for form, part in t["parts"].items():
+        taken = " (taken)" if form == t["form"] else ""
+        print(f"  gather_masked_nn, {form} form{taken} on the last tick: "
+              f"{part['ms']:.3f} ms, of which the layout "
+              f"{part['layout_ms']:.3f} ms and the scan {part['scan_ms']:.3f} "
+              f"ms; == the counted path bit for bit  ({card})", flush=True)
     print(f"  every counted tick: the three kernels == plain, bit for bit, "
           f"on {r} rows ({K5_PLAIN_ROWS} window rows for K5); the last tick's "
           f"K4 and K5 on all rows, K6 on {sl.numel()} slots", flush=True)
@@ -3721,7 +3778,9 @@ def main() -> int:
                 "range_count_signed": "src/repro/kernels/sweep.py:432",
                 "gather_masked_nn": "src/repro/kernels/sweep.py:510"}
     for name, where in replaces.items():
-        k = streams["mixture"]["kernels"][name]
+        # K6 where it loses the most: the Airline stream's tick
+        k = streams["airline" if name == "gather_masked_nn" else "mixture"][
+            "kernels"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sweep.cu",

@@ -178,10 +178,12 @@ class CudaBackend(KernelBackend):
                                           worklist=wl)
 
     def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
-        """The fused-gather kernel: the query rows are read from ``points``
-        inside it, so the gathered subset never exists as a tensor.  It is
-        already subset-shaped, so ``layout`` is checked and ignored, as in
-        the reference's pallas backend."""
+        """K6: the rows ``points[q_slots]`` are gathered (q x d floats) and
+        searched by the form the shape picks, K2's key-sorted prefix for
+        many slots or a key test over unsorted columns for few
+        (``ops.dependent_masked_gather``).  It is already subset-shaped, so
+        ``layout`` is checked and ignored, as in the reference's pallas
+        backend."""
         _sparse(layout)
         return dependent.masked_min_dist_gather(points, rho_key, q_slots)
 

@@ -106,7 +106,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_range_count.restype = i
     lib.repro_range_count_signed.argtypes = [p, p, p, i, i, i, f, p, p]
     lib.repro_range_count_signed.restype = i
-    lib.repro_gather_masked_nn.argtypes = [p, p, p, i, i, i, p, p, p, p]
+    lib.repro_gather_masked_nn.argtypes = [p, p, p, p, i, i, i, i, p, p, p,
+                                           p]
     lib.repro_gather_masked_nn.restype = i
     lib.repro_prefix_nn.argtypes = [p, i, i, p, p, p]
     lib.repro_prefix_nn.restype = i

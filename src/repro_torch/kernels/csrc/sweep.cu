@@ -21,7 +21,10 @@
 //   repro_range_count_signed   per query row, the sum of the signs of the
 //                              y rows within d_cut (the stream's rho repair)
 //   repro_gather_masked_nn     per slot, the nearest strictly denser table
-//                              row to table[slot] (the stream's maxima)
+//                              row to table[slot] (the stream's maxima):
+//                              K2's loop on unsorted columns with the key
+//                              in the record, for few slots (many take
+//                              repro_masked_nn on the gathered rows)
 //   repro_prefix_nn            per row of a table sorted by descending
 //                              key, the nearest earlier row
 //   repro_worklist_range_count per query row, the count within d_cut over
@@ -65,17 +68,18 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kRows = 128;          // query rows per block, one per thread
 constexpr int kTileFloats = 8192;   // y coordinates staged per tile (32 KB)
-constexpr int kMaxTileCols = 2048;  // columns per tile (K5/K6: 8 KB)
+constexpr int kMaxTileCols = 2048;  // columns per tile (K5's signs: 8 KB)
 constexpr int kTopK = 8;            // FUSED_TOPK in kernels/sweep.py
 constexpr int kWlRows = 256;        // K3 rows per row tile: BLOCK_N in
                                     // kernels/blocksparse.py
 constexpr int kWlCols = 512;        // K3 columns per column tile: BLOCK_M
-constexpr int kSplitBlocks = 2048;  // K4/K6 split the columns until about
+constexpr int kSplitBlocks = 2048;  // K4 splits the columns until about
                                     // this many blocks fill the card
 constexpr int kBfPad = 8;           // bf16 pad of a staged row (16 bytes):
                                     // fragment loads hit 32 distinct banks
@@ -88,7 +92,7 @@ __host__ __device__ __forceinline__ int tile_cols(int d) {
   return c < kMaxTileCols ? c : kMaxTileCols;
 }
 
-// Columns per block of a column-split grid (K4, K6): a whole number of
+// Columns per block of K4's column-split grid: a whole number of
 // staged tiles, few enough that rows x column chunks make about
 // kSplitBlocks blocks, so a few thousand query rows still fill 132 SMs.
 int split_chunk(int rows, int m, int d) {
@@ -752,29 +756,42 @@ __global__ void __launch_bounds__(kNnThreads, kK1MinBlocks)
   if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
 }
 
-// One column of K2 for a thread's R rows.  The hot compare is `d2 <= best`
-// per row, voted into one warp-uniform branch; equal d2 are settled inside
-// it on the original index.  kMask: past the least end of the block's rows, a row
-// skips the columns at or past its own end.
-template <int D, bool kMask>
+// One column of K2, or of K6's key form, for a thread's R rows.  The hot
+// compare is `d2 <= best` per row, voted into one warp-uniform branch;
+// equal d2 are settled inside it on the column's index.  kMask: the rows
+// do not all take the column.  K2 (kKey false) masks by position: past the
+// least end of the block's rows, a row skips the columns at or past its
+// own end, lim[r]; the column's index is in the record's slot.  K6's key
+// form (kKey true) masks by key: a row takes a column whose key, in the
+// record's slot, is strictly above its own, lim[r] (a NaN on either side
+// takes nothing); the column's index is its position.
+template <int D, bool kKey, bool kMask, typename Lim>
 __device__ __forceinline__ void nn_column(
-    const float4* rc, int pos, int d, const float (&xr)[kK2R][D > 0 ? D : 1],
-    const float* const (&xg)[kK2R], const int (&e)[kK2R],
-    float (&best)[kK2R], int (&arg)[kK2R]) {
-  const Record<D> y(rc);
+    const Record<D>& y, int pos, int d,
+    const float (&xr)[kK2R][D > 0 ? D : 1], const float* const (&xg)[kK2R],
+    const Lim (&lim)[kK2R], float (&best)[kK2R], int (&arg)[kK2R]) {
+  float yk = 0.0f;
+  if constexpr (kKey) yk = __int_as_float(y.slot(d));
   float d2[kK2R];
+  bool in[kK2R];
   bool any = false;
 #pragma unroll
   for (int r = 0; r < kK2R; ++r) {
+    if constexpr (!kMask) {
+      in[r] = true;
+    } else if constexpr (kKey) {
+      in[r] = yk > lim[r];
+    } else {
+      in[r] = pos < lim[r];
+    }
     d2[r] = row_d2<D>(xr[r], xg[r], y.coords(), d);
-    any |= d2[r] <= best[r] && (!kMask || pos < e[r]);
+    any |= in[r] && d2[r] <= best[r];
   }
   if (__any_sync(0xffffffffu, any)) {  // a uniform branch
-    const int j = y.slot(d);
+    const int j = kKey ? pos : y.slot(d);
 #pragma unroll
     for (int r = 0; r < kK2R; ++r) {
-      if ((!kMask || pos < e[r]) &&
-          (d2[r] < best[r] || (d2[r] == best[r] && j < arg[r]))) {
+      if (in[r] && (d2[r] < best[r] || (d2[r] == best[r] && j < arg[r]))) {
         best[r] = d2[r];
         arg[r] = j;
       }
@@ -808,28 +825,50 @@ __device__ __forceinline__ void nn_column(
 // never merges and decodes to (inf, -1), as the plain version gives.
 // Distances are direct differences on every pair, so the reference's top-4
 // re-rank, which only repaired the expanded form, has no counterpart.
-template <int D>
+//
+// kKey: K6's key form (see K6 below), the same loop over unsorted columns.
+// The rows are sorted by key, ascending, and lim holds their keys (+inf
+// for a padding slot or a NaN key); the records carry each column's key in
+// the slot; block (b, c) takes row block b and columns [c chunk, (c + 1)
+// chunk).  A column whose key is not above the block's least row key is
+// skipped by the whole block, one above its greatest is taken by every row
+// unmasked, and one between is masked by key: each test is on the block's
+// two bounds, so the branch is uniform.
+template <int D, bool kKey>
 __global__ void __launch_bounds__(kNnThreads)
     masked_nn_kernel(const float* __restrict__ x,
                      const int* __restrict__ row_id,
-                     const int* __restrict__ ends,
+                     const std::conditional_t<kKey, float, int>* __restrict__
+                         row_lim,
                      const float4* __restrict__ rec, int w4,
-                     const int4* __restrict__ items, int n, int d,
-                     unsigned long long* __restrict__ packed) {
+                     const int4* __restrict__ items, int n, int m, int chunk,
+                     int d, unsigned long long* __restrict__ packed) {
+  using Lim = std::conditional_t<kKey, float, int>;
   extern __shared__ float4 ring[];
   if constexpr (D > 0) {
     d = D;
     w4 = rec_vecs(D);
   }
-  const int4 item = items[blockIdx.x];
-  const int first = item.x * (kK2R * kNnThreads);
-  const int c_begin = item.y;
-  const int c_end = item.z;
-  const int lo = ends[first];  // every row of the block takes [0, lo)
+  int first, c_begin, c_end;
+  if constexpr (kKey) {
+    first = blockIdx.x * (kK2R * kNnThreads);
+    c_begin = blockIdx.y * chunk;
+    c_end = min(c_begin + chunk, m);
+  } else {
+    const int4 item = items[blockIdx.x];
+    first = item.x * (kK2R * kNnThreads);
+    c_begin = item.y;
+    c_end = item.z;
+  }
+  // K2: every row of the block takes [0, lo).  K6: the block's least and
+  // greatest row key.
+  const Lim lo = row_lim[first];
+  [[maybe_unused]] const Lim hi =
+      row_lim[min(first + kK2R * kNnThreads, n) - 1];
 
   float xr[kK2R][D > 0 ? D : 1];
   const float* xg[kK2R];
-  int e[kK2R];
+  Lim e[kK2R];
   float best[kK2R];
   int arg[kK2R];
 #pragma unroll
@@ -840,7 +879,11 @@ __global__ void __launch_bounds__(kNnThreads)
 #pragma unroll
       for (int k = 0; k < D; ++k) xr[r][k] = xg[r][k];
     }
-    e[r] = i < n ? ends[i] : 0;
+    if constexpr (kKey) {
+      e[r] = i < n ? row_lim[i] : CUDART_INF_F;
+    } else {
+      e[r] = i < n ? row_lim[i] : 0;
+    }
     best[r] = CUDART_INF_F;
     arg[r] = INT_MAX;
   }
@@ -860,11 +903,26 @@ __global__ void __launch_bounds__(kNnThreads)
       stage_async((t & 1) ? buf0 : buf1, rec, j0 + per_tile,
                   min(per_tile, c_end - j0 - per_tile), w4);
     const float4* tile = (t & 1) ? buf1 : buf0;
-    const int open = min(cols, max(0, lo - j0));  // uniform in the block
-    for (int c = 0; c < open; ++c)
-      nn_column<D, false>(tile + c * w4, j0 + c, d, xr, xg, e, best, arg);
-    for (int c = open; c < cols; ++c)
-      nn_column<D, true>(tile + c * w4, j0 + c, d, xr, xg, e, best, arg);
+    if constexpr (kKey) {
+      for (int c = 0; c < cols; ++c) {
+        const Record<D> y(tile + c * w4);
+        const float yk = __int_as_float(y.slot(d));
+        if (!(yk > lo)) continue;  // no row of the block is below it
+        if (yk > hi) {
+          nn_column<D, true, false>(y, j0 + c, d, xr, xg, e, best, arg);
+        } else {
+          nn_column<D, true, true>(y, j0 + c, d, xr, xg, e, best, arg);
+        }
+      }
+    } else {
+      const int open = min(cols, max(0, lo - j0));  // uniform in the block
+      for (int c = 0; c < open; ++c)
+        nn_column<D, false, false>(Record<D>(tile + c * w4), j0 + c, d, xr,
+                                   xg, e, best, arg);
+      for (int c = open; c < cols; ++c)
+        nn_column<D, false, true>(Record<D>(tile + c * w4), j0 + c, d, xr,
+                                  xg, e, best, arg);
+    }
   }
 
 #pragma unroll
@@ -986,79 +1044,72 @@ __global__ void __launch_bounds__(kRows)
 // K6 — replaces the reference's sweep.gather_nn (repro/kernels/sweep.py:491,
 // pallas_call at :510), reached through ops.dependent_masked_gather.
 //
-// Bound: f32 CUDA-core issue: a key test per pair and about 3d+1
-// operations for each pair whose column is denser.  The stream calls it
-// with the dirty cell maxima as rows (a few hundred to a few hundred
-// thousand) against the whole window.  The TPU kernel gathers its query
-// rows with one-hot matrix products on a doubled column grid; here each
-// thread loads table[slot] and keys[slot] directly.  Since a few hundred
-// rows fill only a few blocks, the columns are split across blocks
-// (split_chunk), and each block's per-row (best d2, index) merges with one
-// 64-bit atomicMin on (d2's bits << 32 | index).  A d2 is a sum of squares,
-// never negative, and non-negative floats order as their bits do, so the
-// merge takes the lexicographic (d2, index) minimum: inside a chunk the
-// update is a strict `<` over ascending columns, so the lowest index wins
-// among equal distances, and across chunks the atomic keeps the lowest
-// (d2, index) in any order.  Slots outside [0, m) are padding: their key is
-// +inf, so no column is denser, and they decode to (inf, -1).
+// Per slot s, the nearest table row with a key strictly above keys[s]:
+// K2's function on the rows table[slots].  The stream calls it with the
+// dirty cell maxima as rows (1,342 on the mixture, about 489,000 on the
+// Airline proxy) against its whole 2^20-row window, and the keys change
+// every tick.  Bound: f32 CUDA-core issue, 3d+1 operations for each
+// strictly denser pair, plus the bytes of K2's sort and pack.  The TPU
+// kernel gathers its rows with one-hot products on a doubled column grid
+// and tests a key for every pair.  Here a key test per pair, a thread a
+// row in slot order, would make each warp pay for every pair: its lanes'
+// keys are unrelated, so some lane needs almost every column.  The
+// wrapper (ops.py) gathers the rows (a padding slot, and a NaN key, keyed
+// +inf: neither has a denser row) and takes one of two forms by the slot
+// count alone (ops.gather_form, crossing at 8,192 slots on an H100):
+//   - the prefix form, for many rows: K2 itself, on the gathered rows
+//     (the columns sorted by key and packed, the rows sorted by prefix
+//     length, heaviest-first work items; repro_masked_nn), so the pairs
+//     it computes are the strictly denser ones;
+//   - the key form, for few rows, where sorting and packing 2^20
+//     columns costs more than the pairs it saves: K2's loop on unsorted
+//     columns, masked_nn_kernel<D, true> (above), launched below.  The
+//     rows are sorted by key, ascending, so a block's rows hold a narrow
+//     key band and its tests against the band's bounds are uniform; the
+//     records carry each column's key (pack_records, no sort); the grid
+//     is row blocks x column chunks, as many chunks as make kK6Waves
+//     waves of the blocks the card holds at once.
+// Both merge each row's (best d2, index) into the slot's place with the
+// 64-bit atomicMin on (d2 bits << 32 | index) and decode as K2 does, so
+// either gives the lexicographic (d2, index) minimum over the strictly
+// denser rows, bit for bit the plain version's: (inf, -1) for a slot with
+// none (padding, the peak, a NaN key, or every d2 overflowing).
+constexpr int kK6Waves = 4;
+
 template <int D>
-__global__ void __launch_bounds__(kRows)
-    gather_masked_nn_kernel(const float* __restrict__ table,
-                            const float* __restrict__ keys,
-                            const int* __restrict__ slots, int q, int m,
-                            int d, int chunk,
-                            unsigned long long* __restrict__ packed) {
-  __shared__ float tile[kTileFloats];
-  __shared__ float ktile[kMaxTileCols];
-  if constexpr (D > 0) d = D;
-  const int per_tile = tile_cols(d);
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  const int slot = i < q ? slots[i] : -1;
-  const bool live = slot >= 0 && slot < m;
-  const int row = live ? slot : 0;
-
-  float xr[D > 0 ? D : 1];
-  const float* xg = table + static_cast<size_t>(row) * d;
-  if constexpr (D > 0) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  const float key = live ? keys[row] : CUDART_INF_F;
-
-  const int c_begin = blockIdx.y * chunk;
-  const int c_end = min(c_begin + chunk, m);
-  float best = CUDART_INF_F;
-  int arg = -1;
-  for (int j0 = c_begin; j0 < c_end; j0 += per_tile) {
-    const int cols = min(per_tile, c_end - j0);
-    __syncthreads();
-    stage(tile, table, j0, cols, d);
-    for (int t = threadIdx.x; t < cols; t += kRows) ktile[t] = keys[j0 + t];
-    __syncthreads();
-    for (int c = 0; c < cols; ++c) {
-      if (!(ktile[c] > key)) continue;
-      float d2;
-      if constexpr (D > 0) {
-        d2 = pair_d2<D>(xr, tile + c * D, D);
-      } else {
-        d2 = pair_d2<0>(xg, tile + c * d, d);
-      }
-      if (d2 < best) {
-        best = d2;
-        arg = j0 + c;
-      }
-    }
-  }
-  if (arg >= 0) {
-    const unsigned long long p =
-        (static_cast<unsigned long long>(__float_as_uint(best)) << 32) |
-        static_cast<unsigned int>(arg);
-    atomicMin(packed + i, p);
-  }
+int launch_gather_nn(const float* x, const float* x_key, const int* row_id,
+                     const float4* rec, int w4, int n, int m, int d,
+                     unsigned long long* packed, cudaStream_t s) {
+  const auto kernel = masked_nn_kernel<D, true>;
+  const size_t bytes = ring_bytes(w4);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kNnThreads, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_blocks = (n + kK2R * kNnThreads - 1) / (kK2R * kNnThreads);
+  // chunks a row block: kK6Waves waves of the blocks in flight, at most m
+  long long chunks = static_cast<long long>(kK6Waves) * sms *
+                     (per_sm > 0 ? per_sm : 1) / row_blocks;
+  chunks = chunks < 1 ? 1 : (chunks > m ? m : chunks);
+  const int chunk = static_cast<int>((m + chunks - 1) / chunks);
+  const dim3 grid(row_blocks,
+                  static_cast<int>((static_cast<long long>(m) + chunk - 1) /
+                                   chunk));
+  kernel<<<grid, kNnThreads, bytes, s>>>(x, row_id, x_key, rec, w4, nullptr,
+                                         n, m, chunk, d, packed);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K6's epilogue: (d2 bits << 32 | index) -> (best d2, index); the all-ones
-// initial value (no denser row, or a padding slot) -> (inf, -1).
+// K2's and K6's epilogue: (d2 bits << 32 | index) -> (best d2, index);
+// the all-ones initial value (no denser row, or a padding slot) -> (inf, -1).
 __global__ void gather_nn_decode_kernel(
     const unsigned long long* __restrict__ packed, int q,
     float* __restrict__ best, int* __restrict__ arg) {
@@ -2718,8 +2769,9 @@ extern "C" int repro_masked_nn(const float* x, const int* row_id,
     const int4* it = reinterpret_cast<const int4*>(items);
     int code = 0;
 #define REPRO_LAUNCH(D)                                                    \
-  code = smem_launch(masked_nn_kernel<D>, dim3(n_items), kNnThreads, bytes, \
-                     s, x, row_id, ends, r4, w / 4, it, n, d, packed)
+  code = smem_launch(masked_nn_kernel<D, false>, dim3(n_items), kNnThreads, \
+                     bytes, s, x, row_id, ends, r4, w / 4, it, n, 0, 0, d,   \
+                     packed)
     REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
     if (code != 0) return code;
@@ -2761,27 +2813,35 @@ extern "C" int repro_range_count_signed(const float* x, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_gather_masked_nn(const float* table, const float* keys,
-                                      const int* slots, int q, int m, int d,
+// K6's key form (its prefix form is repro_masked_nn on the gathered rows).
+// x: the n gathered rows sorted by x_key (ascending; +inf for a padding
+// slot or a NaN key); row_id: each sorted row's slot position; rec: the m
+// table rows as packed records (w floats), the slot holding the row's key
+// bits, in index order.  packed (n, scratch) gets the merged (d2 bits << 32
+// | index); best and arg (n) the decoded (d2, index) in slot order, (inf,
+// -1) where none is denser.  m == 0 runs only the decode.
+extern "C" int repro_gather_masked_nn(const float* x, const float* x_key,
+                                      const int* row_id, const float* rec,
+                                      int w, int n, int m, int d,
                                       unsigned long long* packed, float* best,
                                       int* arg, void* stream) {
-  if (q > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t set = cudaMemsetAsync(
-        packed, 0xFF, static_cast<size_t>(q) * sizeof(*packed), s);
-    if (set != cudaSuccess) return static_cast<int>(set);
-    if (m > 0) {
-      const int chunk = split_chunk(q, m, d);
-      const dim3 grid((q + kRows - 1) / kRows, (m + chunk - 1) / chunk);
-#define REPRO_LAUNCH(D)                                                 \
-  gather_masked_nn_kernel<D><<<grid, kRows, 0, s>>>(table, keys, slots, q, \
-                                                    m, d, chunk, packed)
-      REPRO_DISPATCH_D(d, REPRO_LAUNCH)
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (w != 4 * rec_vecs(d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t set = cudaMemsetAsync(
+      packed, 0xFF, static_cast<size_t>(n) * sizeof(*packed), s);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (m > 0) {
+    const float4* r4 = reinterpret_cast<const float4*>(rec);
+    int code = 0;
+#define REPRO_LAUNCH(D) \
+  code = launch_gather_nn<D>(x, x_key, row_id, r4, w / 4, n, m, d, packed, s)
+    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
-    }
-    gather_nn_decode_kernel<<<(q + 255) / 256, 256, 0, s>>>(packed, q, best,
-                                                            arg);
+    if (code != 0) return code;
   }
+  gather_nn_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(packed, n, best,
+                                                          arg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,9 +4,9 @@
 ``repro/kernels/dependent.py::masked_min_dist``), a thin form over
 ``ops.dependent_masked``: the CUDA kernel ``masked_nn`` on CUDA tensors,
 its plain version on CPU tensors.  ``masked_min_dist_gather`` is the same
-NN for a row subset of one table, gathered inside the kernel (the
-reference's ``sweep.gather_nn``): ``ops.dependent_masked_gather``, the CUDA
-kernel ``gather_masked_nn``.  ``prefix_min_dist`` is the triangular
+NN for a row subset of one table (the reference's ``sweep.gather_nn``):
+``ops.dependent_masked_gather``, the CUDA kernel ``gather_masked_nn``
+(K6) on the gathered rows.  ``prefix_min_dist`` is the triangular
 form, the NN among earlier rows of a density-sorted table:
 ``ops.dependent_prefix``, the CUDA kernel ``prefix_nn``.  On a best-1
 ring worklist ``masked_min_dist`` is the CUDA kernel

@@ -28,7 +28,8 @@ from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
 
 __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
            "local_density_xy", "local_density_delta",
-           "dependent_masked_gather", "halo_density", "halo_dependent",
+           "dependent_masked_gather", "gather_form", "gather_layout",
+           "gather_scan", "halo_density", "halo_dependent",
            "launch_counts", "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
@@ -57,6 +58,15 @@ BF16_MAX_D = 224
 # the blocks an SM holds), each at least NN_MIN_CHUNK columns long
 NN_ITEMS_PER_SM = 32
 NN_MIN_CHUNK = 4096
+
+# K6 takes its prefix form from this many slots on, its key form below
+# (gather_form).  On an H100 (PERF.md §6), on the Airline stream's
+# maxima against its 2^20-row window: key 1.96-2.13 ms against prefix
+# 2.27-2.41 at 4,096 slots, 3.60-3.64 against 3.61-3.62 at 8,192, 6.42-6.76
+# against 5.71-5.77 at 16,384; on random slots of the mixture's window
+# 1.51-1.56 against 1.96-1.97 at 4,096 and 5.02-5.04 against 4.08-4.26 at
+# 16,384.
+K6_PREFIX_ROWS = 8192
 
 
 def _check(name: str, x: torch.Tensor, y: torch.Tensor, *vecs) -> None:
@@ -459,12 +469,74 @@ def local_density_delta(x: torch.Tensor, batch: torch.Tensor,
     return out
 
 
+def gather_form(q: int) -> str:
+    """K6's form for q slots, chosen by the shape alone: ``"prefix"`` (K2
+    on the gathered rows: the columns sorted by key and packed, so only the
+    strictly denser pairs are computed) from ``K6_PREFIX_ROWS`` slots on,
+    else ``"key"`` (unsorted columns, each pair's key tested), where
+    sorting and packing the table costs more than the pairs it saves.  The
+    table's size does not enter: the sort and the pairs it saves both grow
+    with it (measured at 2^20 rows; at 65,536 the key form also won at
+    4,100 slots)."""
+    return "prefix" if q >= K6_PREFIX_ROWS else "key"
+
+
+def gather_layout(table: torch.Tensor, keys: torch.Tensor,
+                  q_slots: torch.Tensor, form: str):
+    """What K6's ``form`` reads for these slots (CUDA tensors, m >= 1):
+    ``packing.NnLayout`` (prefix) or ``packing.KeyLayout`` (key)."""
+    rows, x_key = packing.gather_rows(keys, q_slots)
+    if form == "prefix":
+        lib = build.load_library()
+        sms = torch.cuda.get_device_properties(
+            table.device).multi_processor_count
+        return packing.nn_layout(table[rows], x_key, table, keys,
+                                 lib.repro_masked_nn_block_rows(),
+                                 NN_ITEMS_PER_SM * sms, NN_MIN_CHUNK)
+    if form != "key":
+        raise ValueError(f"gather_layout: unknown form {form!r}")
+    return packing.key_layout(table, keys, rows, x_key)
+
+
+def gather_scan(lay, d: int):
+    """K6 on a layout from ``gather_layout``: (best d2 (q,) f32, index (q,)
+    int32) in slot order; (inf, -1) where none is denser."""
+    q = lay.x.shape[0]
+    dev = lay.x.device
+    packed = torch.empty((q,), dtype=torch.int64, device=dev)
+    best = torch.empty((q,), dtype=torch.float32, device=dev)
+    arg = torch.empty((q,), dtype=torch.int32, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        if isinstance(lay, packing.NnLayout):
+            code = lib.repro_masked_nn(
+                lay.x.data_ptr(), lay.row_id.data_ptr(), lay.ends.data_ptr(),
+                lay.rec.data_ptr(), lay.rec.shape[1], lay.items.data_ptr(),
+                lay.items.shape[0], q, d, packed.data_ptr(), best.data_ptr(),
+                arg.data_ptr(), _stream(lay.x))
+        else:
+            code = lib.repro_gather_masked_nn(
+                lay.x.data_ptr(), lay.x_key.data_ptr(), lay.row_id.data_ptr(),
+                lay.rec.data_ptr(), lay.rec.shape[1], q, lay.rec.shape[0], d,
+                packed.data_ptr(), best.data_ptr(), arg.data_ptr(),
+                _stream(lay.x))
+    build.check(lib, "gather_masked_nn", code)
+    _LAUNCHES["gather_masked_nn"] += 1
+    return best, arg
+
+
 def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
                             q_slots: torch.Tensor):
     """Per slot s of ``q_slots``: the nearest table row with a key strictly
-    greater than ``keys[s]`` (Def. 2 for the row subset ``table[q_slots]``,
-    the rows gathered inside the kernel).  Slots outside [0, len(table))
-    are padding.
+    greater than ``keys[s]`` (Def. 2 for the row subset ``table[q_slots]``).
+    Slots outside [0, len(table)) are padding.
+
+    On a CUDA tensor, K6: the rows are gathered here and take the form
+    ``gather_form`` picks by the shape, K2's key-sorted prefix for many
+    slots or K2's loop over unsorted columns with a key test for few
+    (``gather_layout``, ``gather_scan``); either merges by the
+    lexicographic (d2, index) minimum and equals the plain version bit for
+    bit.
 
     Returns (delta (q,) f32, parent (q,) int32); (inf, -1) where no row is
     strictly denser and for padding slots.
@@ -478,22 +550,12 @@ def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
     if table.device.type == "cpu":
         best, arg = gather_masked_nn_plain(table, keys, q_slots)
         return torch.sqrt(best), arg
-    q, m, d = q_slots.numel(), table.shape[0], table.shape[1]
-    # any slot past the table is padding: clamp into int32 range first
-    slots = q_slots.clamp(-1, m).to(torch.int32).contiguous()
-    packed = torch.empty((q,), dtype=torch.int64, device=table.device)
-    best = torch.empty((q,), dtype=torch.float32, device=table.device)
-    arg = torch.empty((q,), dtype=torch.int32, device=table.device)
-    if q:
-        lib = build.load_library()
-        with torch.cuda.device(table.device):
-            code = lib.repro_gather_masked_nn(
-                table.data_ptr(), keys.data_ptr(), slots.data_ptr(), q, m, d,
-                packed.data_ptr(), best.data_ptr(), arg.data_ptr(),
-                _stream(table))
-        build.check(lib, "gather_masked_nn", code)
-        if m:                # for m == 0 only the decode epilogue runs
-            _LAUNCHES["gather_masked_nn"] += 1
+    q, m = q_slots.numel(), table.shape[0]
+    if not (q and m):    # no slot, or no row to be denser: nothing launches
+        return (torch.full((q,), float("inf"), device=table.device),
+                torch.full((q,), -1, dtype=torch.int32, device=table.device))
+    best, arg = gather_scan(
+        gather_layout(table, keys, q_slots, gather_form(q)), table.shape[1])
     return torch.sqrt(best), arg
 
 

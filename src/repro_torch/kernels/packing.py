@@ -1,12 +1,13 @@
-"""Host-side layouts of the K1, K2, K3, K9, K12 and K13 kernels
+"""Host-side layouts of the K1, K2, K3, K6, K9, K12 and K13 kernels
 (``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
 4 floats, so every record is a whole number of 16-byte vectors and one
 with d <= 3 is a single ``float4``.  K1's slot holds the kept-k gate (0 or
-1), K2's the column's original index, K9's the column's key (its f32
-bits); K9 also reads each column tile's largest key (``tile_max_key``).
+1), K2's the column's original index, K6's key form's and K9's the
+column's key (its f32 bits); K9 also reads each column tile's largest key
+(``tile_max_key``).
 
 K3 (``worklist_count_topk``) walks each row tile's worklist segment in two
 phases: up to its last in-d_cut entry (count and kept-k), then the rest
@@ -23,6 +24,11 @@ rows scans nearly the same prefix and masks by position only past the
 least end of its rows.  The block prefixes are cut into column chunks (a
 work list, heaviest first), so the card fills whatever the row count; the
 chunks of a row merge by the lexicographic (d2, original index) minimum.
+
+K6 (``gather_masked_nn``) is K2's function on gathered rows
+(``gather_rows``: a padding slot and a NaN key keyed +inf).  Its prefix
+form is K2's layout of them; its key form (``key_layout``) sorts the rows
+by key and leaves the columns unsorted, in records carrying their keys.
 
 K12 (``fused_count_topk_bf16``) reads the columns as bf16 records
 (``bf16_records``): y rounded to bf16, zero past d, ``bf16_record_width(d)``
@@ -143,6 +149,39 @@ def nn_layout(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     return NnLayout(x[rows].contiguous(), rows.to(torch.int32), ends,
                     pack_records(y[cols], cols),
                     chunk_worklist(ends, block_rows, min_items, min_chunk))
+
+
+def gather_rows(keys: torch.Tensor, q_slots: torch.Tensor):
+    """K6's query rows: (rows, x_key).  ``rows`` (q,) int64 is each slot
+    clamped into the table (a slot outside [0, m) reads row 0); ``x_key``
+    (q,) f32 is its key, +inf for such a padding slot and for a NaN key:
+    nothing is strictly above +inf, and nothing is above a NaN, so either
+    way the row has no denser column.  Needs m >= 1."""
+    m = keys.numel()
+    slots = q_slots.long()
+    live = (slots >= 0) & (slots < m)
+    rows = torch.where(live, slots, 0)
+    key = keys[rows]
+    return rows, torch.where(live & ~torch.isnan(key), key, float("inf"))
+
+
+class KeyLayout(NamedTuple):
+    """What K6's key form reads: the gathered rows sorted by key
+    (ascending), their keys, each row's slot position, and the table's
+    records in index order (slot: the row's key bits)."""
+    x: torch.Tensor          # (q, d) f32
+    x_key: torch.Tensor      # (q,) f32, ascending
+    row_id: torch.Tensor     # (q,) int32
+    rec: torch.Tensor        # (m, record_width(d)) f32
+
+
+def key_layout(table: torch.Tensor, keys: torch.Tensor, rows: torch.Tensor,
+               x_key: torch.Tensor) -> KeyLayout:
+    """K6's key form's inputs for the rows ``table[rows]`` keyed ``x_key``
+    (``gather_rows``)."""
+    order = torch.sort(x_key, stable=True).indices
+    return KeyLayout(table[rows[order]], x_key[order], order.to(torch.int32),
+                     pack_records(table, keys.view(torch.int32)))
 
 
 def tile_max_key(y_key: torch.Tensor) -> torch.Tensor:
