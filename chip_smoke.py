@@ -145,9 +145,15 @@ Phases, each of which raises on failure (nothing is caught):
    hops and the rows the ring moves against the gather's, the unresolved
    rows; K8-K11 on every call of the counted runs timed, against their
    plain versions on a few row tiles or 65,536 rows, their bounds from
-   their inputs; for K9 on the gather's delta and on the halo fallback,
-   the entries its row walks computed and the longest walk.  The four
-   shards are logical shards of one card.
+   their inputs (K11's key tests only in the column tiles whose largest
+   key is above the row's, the earlier count beside it), K11's registers
+   and spills and the rows per run of rows sharing their spans (one
+   candidate cell's); for K9 on the gather's delta and on the halo
+   fallback, the entries its row walks computed and the longest walk; the
+   halo fit's steps outside its ``dist.*`` spans (the points to the
+   card, ``point_span_bounds``, the spans' padding, ``_window_bounds``,
+   the sharding) timed alone on its input.  The four shards are logical
+   shards of one card.
 18. The dense gather strategy at 2^20 (K4 and K2 per shard, four shards):
    counted (K4 and K2 must launch, K8-K11 must not), equal to phase 7's
    dense Ex-DPC up to counted exact ties, and against float64 on 4,096
@@ -211,9 +217,13 @@ Phases, each of which raises on failure (nothing is caught):
    ``denser_nn_halo(layout="block-sparse")`` with the counts zeroed just
    before and read just after (K15/K16 must launch, nothing else may),
    each result equal to K10/K11 bit for bit, K15/K16 against their plain
-   versions on a few row tiles; K15, K16, their worklist builds and
-   K10/K11 timed, kept, in-cut and computed entries, bounds from the
-   inputs.
+   versions on a few row tiles, K11's and K16's layout built on the card
+   against its plain version array for array (also at check shapes); K15,
+   K16, their worklist builds and
+   K10/K11 timed, kept, in-cut and computed entries, K16's longest walk,
+   bounds from the inputs (K16's recounted on the entries each row needs,
+   the earlier count on each row tile's block-wide walk beside it), K16's
+   registers and spills and the rows per run.
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
@@ -1345,6 +1355,54 @@ def dist_kernels():
     return k8, k8_plain, k9, k9_plain, k10, k10_plain, k11, k11_plain
 
 
+def halo_setup_ms(points: np.ndarray, d_cut: float, shards: int) -> dict:
+    """Milliseconds of the halo fit's steps that run outside its ``dist.*``
+    spans, as ``DPCEngine.fit`` and ``distributed_dpc`` run them on these
+    points, each between two synchronizes (the second of two runs): the
+    engine's host admission, the points to the card, the points padded
+    and sharded, ``point_span_bounds``, the two ``_pad_rows`` of the
+    spans, ``_window_bounds`` (its host copy included), the spans sharded
+    and the keys' jitter; ``dist.grid``, which runs inside its span,
+    beside them."""
+    from repro_torch.core.device import as_points
+    from repro_torch.core.dpc_types import with_jitter
+    from repro_torch.resilience.sanitize import AdmissionConfig, admit
+    from repro_torch.core.grid import build_grid, point_span_bounds
+    from repro_torch.distributed import dpc as ddpc
+    from repro_torch.kernels import sweep
+    from repro_torch.launch import ShardMesh
+    mesh = ShardMesh.on("cuda", shards=shards)
+    for _ in range(2):
+        ms = {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        step("admit", lambda: admit(points, AdmissionConfig(),
+                                    where="engine.fit"))
+        x = step("as_points", lambda: as_points(points, mesh.devices[0]))
+        grid = step("dist.grid (in its span)", lambda: build_grid(x, d_cut))
+        n = grid.points.shape[0]
+        m = -(-n // shards) * shards
+        step("mesh.shard(_pad_rows(points))", lambda: mesh.shard(
+            ddpc._pad_rows(grid.points, m, sweep.PAD_COORD)))
+        st, en = step("point_span_bounds", lambda: point_span_bounds(grid))
+        st, en = step("_pad_rows x2", lambda: (ddpc._pad_rows(st, m, 0),
+                                               ddpc._pad_rows(en, m, 0)))
+        step("_window_bounds", lambda: ddpc._window_bounds(st, en, shards))
+        step("mesh.shard(starts, ends)", lambda: (mesh.shard(st),
+                                                  mesh.shard(en)))
+        step("with_jitter", lambda: with_jitter(grid.cell_count.new_ones(
+            n, dtype=torch.float32)))
+        del x, grid, st, en
+    return ms
+
+
 def entry_widths(wl, m: int) -> torch.Tensor:
     """(W,) int64 real columns of each worklist entry's column tile."""
     from repro_torch.kernels.blocksparse import BLOCK_M
@@ -1540,14 +1598,52 @@ def k10_work(x, win, st, en) -> tuple[float, float]:
     return 4 * (n * d + w * d) + 8 * st.numel() + 4 * n, pairs * (3 * d + 1)
 
 
-def k11_work(x, xk, win, wk, st, en) -> tuple[float, float]:
+def span_tiles(st, en, w: int, rows):
+    """Every (row, span, column tile) that the clipped spans of ``rows``
+    ((r,) int64) reach, flattened: (row, column tile, the span's columns
+    in that tile), each (k,) int64."""
+    from repro_torch.kernels.blocksparse import BLOCK_M
+    a = st[rows].long().clamp(0, w)
+    b = torch.maximum(en[rows].long().clamp(0, w), a)
+    reach = torch.where(b > a, (b - 1) // BLOCK_M - a // BLOCK_M + 1, 0)
+    c = a[..., None] // BLOCK_M + torch.arange(
+        max(int(reach.max()) if reach.numel() else 0, 1), device=st.device)
+    cols = (torch.minimum(b[..., None], (c + 1) * BLOCK_M)
+            - torch.maximum(a[..., None], c * BLOCK_M)).clamp_min(0)
+    keep = cols > 0
+    return rows[:, None, None].expand_as(c)[keep], c[keep], cols[keep]
+
+
+def span_tile_chunks(st, en, w: int, rows=None, budget: int = 40_000_000):
+    """``span_tiles`` over ``rows`` (default all) in chunks of rows of at
+    most about ``budget`` (row, span, tile) slots."""
+    from repro_torch.kernels.blocksparse import BLOCK_M
+    if rows is None:
+        rows = torch.arange(st.shape[0], device=st.device)
+    lens = (en.long().clamp(0, w) - st.long().clamp(0, w)).clamp_min(0)
+    width = st.shape[1] * (int(lens.max()) // BLOCK_M + 2) if lens.numel() \
+        else 1
+    step = max(1, budget // width)
+    for r0 in range(0, rows.numel(), step):
+        yield span_tiles(st, en, w, rows[r0:r0 + step])
+
+
+def k11_work(x, xk, win, wk, st, en) -> tuple[float, float, float]:
     """Bytes and operations of halo_masked_nn: x, its keys, the window, its
     keys and the spans read once, (delta, parent, found) written once; a
-    key test per window column inside a row's spans and 3d+1 operations
-    for each denser one (counted exactly, in row blocks)."""
-    from repro_torch.kernels import sweep
+    key test per window column inside a row's spans whose column tile's
+    largest key (``packing.tile_max_key``) is above the row's, since no
+    column of another tile can be denser (counted exactly, (row, span,
+    tile) by (row, span, tile)), and 3d+1 operations for each denser one
+    (counted exactly, in row blocks).  The third value is the earlier
+    count, a key test for every span column."""
+    from repro_torch.kernels import packing, sweep
     (n, d), w = x.shape, win.shape[0]
     pairs = float(span_pairs(st, en, w).sum())
+    tmax = packing.tile_max_key(wk)
+    tests = 0
+    for r, c, cols in span_tile_chunks(st, en, w):
+        tests += int(cols[tmax[c] > xk[r]].sum())
     denser = 0
     step = sweep._span_rows(st, en)
     for r0 in range(0, n, step):
@@ -1556,7 +1652,36 @@ def k11_work(x, xk, win, wk, st, en) -> tuple[float, float]:
         denser += int((valid & (wk[idx] > xk[r0:r0 + step, None, None]))
                       .sum())
     nbytes = 4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
-    return nbytes, pairs + denser * (3 * d + 1)
+    return (nbytes, tests + denser * (3 * d + 1),
+            pairs + denser * (3 * d + 1))
+
+
+def halo_runs(st, en, w: int) -> dict:
+    """Rows per run (the rows in order whose spans clip to the same
+    columns: one candidate cell's, grid-sorted): mean, largest, and the
+    share of the span columns (row by row) in runs of at least 32 rows."""
+    from repro_torch.kernels import packing
+    run = torch.cumsum(packing.span_runs(st, en, w), 0) - 1
+    per = torch.bincount(run)
+    a, b = packing.clip_spans(st, en, w)
+    cols = (b - a).long().sum(1)
+    return {"runs": per.numel(), "rows_mean": float(per.float().mean()),
+            "rows_max": int(per.max()),
+            "share_cols_runs_ge32": float(cols[per[run] >= 32].sum())
+            / max(float(cols.sum()), 1.0)}
+
+
+def halo_ptxas(log: str) -> dict:
+    """K11's and K16's registers and spill bytes at d = 3 (the halo fit's)
+    from the build's ptxas log: by rows a lane is not told apart (one
+    kernel serves both), so the kernel's whole report."""
+    from repro_torch.kernels.build import ptxas_usage
+    out = {}
+    for name, u in ptxas_usage(log).items():
+        if "halo_nn_kernel" in name and "ILi3E" in name:
+            form = "K16" if "Lb1E" in name else "K11"
+            out[form] = (u["registers"], u["spill_stores"], u["spill_loads"])
+    return out
 
 
 def dist_check_shapes(cases, card: str) -> dict:
@@ -2095,14 +2220,6 @@ def tile_mask(wl, nbc: int, entries: torch.Tensor) -> torch.Tensor:
     return mask
 
 
-def walked_entries(wl, live: torch.Tensor) -> torch.Tensor:
-    """(W,) bool: the entries a walk computed, the first ``live[t]`` of
-    each row tile's segment."""
-    t = wl.row_tile()
-    pos = torch.arange(wl.n_kept, device=t.device) - wl.row_ptr.long()[t]
-    return pos < live.long()[t]
-
-
 def masked_span_pairs(st, en, w: int, mask: torch.Tensor) -> torch.Tensor:
     """(n,) int64: per row, the window columns inside its spans (clipped
     to [0, w)) whose column tile its row tile computes (``mask``, (row
@@ -2140,40 +2257,92 @@ def k15_work(x, win, st, en, wl) -> tuple[float, float]:
     return nbytes, pairs * (3 * d + 1)
 
 
-def k16_work(x, xk, win, wk, st, en, wl, live, sample: int = 2048,
-             gen=None) -> tuple[float, float, dict]:
+def k16_work(x, xk, win, wk, st, en, wl, d2cut: float, parent,
+             sample: int = 2048, gen=None) -> tuple[float, float, dict]:
     """Bytes and operations of worklist_halo_masked_nn on this run's data.
     Bytes: x, its keys, the window, its keys, the spans and the ring
     (row_ptr, col_tile, lb) read once, (delta, parent, found) written
-    once.  Operations: a key test per span column inside the entries the
-    walk computed (``live``; rows keyed +inf compute none), counted
-    exactly by ``masked_span_pairs``, and 3d+1 for each of those columns
-    that is denser: counted on ``sample`` random rows and scaled by their
-    share of the key tests."""
-    from repro_torch.kernels import sweep
+    once.  Operations, per row: a key test per span column inside the ring
+    entries it needs, those whose lb is at most its final best d2 (below
+    d_cut^2 where it found none: no pair at or above it counts) and whose
+    column tile's largest key is above the row's (rows keyed +inf or NaN
+    need none), counted exactly (row, span, tile) by (row, span, tile);
+    and 3d+1 for each of those columns that is denser: counted on
+    ``sample`` random rows and scaled by their share of the key tests.
+    The final best d2 is recomputed from ``parent`` with the kernels'
+    arithmetic.  ``info`` also holds the earlier count, on the entries
+    each row tile's block-wide walk computed: those whose lb is at most
+    the largest final best of its seeking rows (+inf where one found
+    none), which is where that walk stopped, since lb ascends."""
+    from repro_torch.kernels import packing, sweep
     from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
     (n, d), w = x.shape, win.shape[0]
-    mask = tile_mask(wl, -(-w // BLOCK_M), walked_entries(wl, live))
-    seeks = xk < float("inf")
-    per_row = torch.where(seeks, masked_span_pairs(st, en, w, mask), 0)
-    total = float(per_row.sum())
+    dev = x.device
+    inf = float("inf")
+    nbc = -(-w // BLOCK_M)
+    lbt = torch.full((wl.num_row_tiles, nbc), inf, device=dev)
+    lbt[wl.row_tile(), wl.col_tile.long()] = wl.lb
+    tmax = packing.tile_max_key(wk)
+    seeks = xk < inf
+    found = parent >= 0
+    best = torch.full((n,), inf, device=dev)
+    best[found] = sweep.direct_d2(x[found], win[parent[found].long()])
+    below = float(np.nextafter(np.float32(d2cut), np.float32(-inf)))
+    thr = torch.where(found, best, below)
+    tile = torch.arange(n, device=dev) // BLOCK_N
+    old_thr = torch.full((wl.num_row_tiles,), -inf, device=dev)
+    old_thr.scatter_reduce_(0, tile[seeks], best[seeks], "amax")
+    tests = tests_old = 0
+    for r, c, cols in span_tile_chunks(st, en, w):
+        lb = lbt[tile[r], c]
+        tests += int(cols[seeks[r] & (lb <= thr[r])
+                          & (tmax[c] > xk[r])].sum())
+        tests_old += int(cols[seeks[r] & (lb <= old_thr[tile[r]])].sum())
     rows = torch.nonzero(seeks).flatten()
     rows = rows[torch.randperm(rows.numel(), generator=gen)[:sample]
-                .to(x.device)]
-    s_tests = s_denser = 0
+                .to(dev)]
+    s_tests = s_denser = s_old = s_denser_old = 0
     for r0 in range(0, rows.numel(), 256):
         rr = rows[r0:r0 + 256]
         idx, valid = sweep._span_candidates(st[rr], en[rr], w)
-        valid &= mask[(rr // BLOCK_N)[:, None, None], idx // BLOCK_M]
-        s_tests += int(valid.sum())
-        s_denser += int((valid & (wk[idx] > xk[rr, None, None])).sum())
-    assert s_tests == int(per_row[rows].sum()), \
-        "the prefix count of span columns disagrees with the gathered one"
-    denser = total * s_denser / max(s_tests, 1)
+        lb = lbt[(rr // BLOCK_N)[:, None, None], idx // BLOCK_M]
+        denser = wk[idx] > xk[rr, None, None]
+        new = valid & (lb <= thr[rr, None, None]) \
+            & (tmax[idx // BLOCK_M] > xk[rr, None, None])
+        old = valid & (lb <= old_thr[(rr // BLOCK_N)[:, None, None]])
+        s_tests += int(new.sum())
+        s_denser += int((new & denser).sum())
+        s_old += int(old.sum())
+        s_denser_old += int((old & denser).sum())
+    denser = tests * s_denser / max(s_tests, 1)
+    denser_old = tests_old * s_denser_old / max(s_old, 1)
     nbytes = (4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
               + 4 * wl.row_ptr.numel() + 8 * wl.n_kept)
-    return nbytes, total + denser * (3 * d + 1), {
-        "key_tests": total, "denser_est": denser, "sample_rows": rows.numel()}
+    ops_old = tests_old + denser_old * (3 * d + 1)
+    return nbytes, tests + denser * (3 * d + 1), {
+        "key_tests": tests, "denser_est": denser,
+        "sample_rows": rows.numel(), "key_tests_earlier": tests_old,
+        "ops_earlier": ops_old}
+
+
+def halo_layout_check(x_key, win, wk, st, en, what: str) -> None:
+    """The layout K11 and K16 build on the card (``ops.halo_layout``)
+    equal to its plain version (``packing.halo_layout``) array for array,
+    both forms, the records bit for bit."""
+    from repro_torch.kernels import ops, packing
+    splits = (torch.cuda.get_device_properties(x_key.device)
+              .multi_processor_count * ops.HALO_SPLITS_PER_SM)
+    for ring in (False, True):
+        got = ops.halo_layout(x_key, win, wk, st, en, ring=ring)
+        want = packing.halo_layout(x_key, win, wk, st, en, ring=ring,
+                                   splits=splits)
+        for name, g, w in zip(got._fields, got, want):
+            same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                    if name == "rec" else torch.equal(g, w.to(g.dtype)))
+            if not same:
+                raise AssertionError(f"halo layout [{what}, ring={ring}]: "
+                                     f"{name} differs from its plain "
+                                     f"version")
 
 
 def halo_worklist_check_shapes(cases, card: str) -> dict:
@@ -2226,6 +2395,7 @@ def halo_worklist_check_shapes(cases, card: str) -> dict:
                              extra[:, 0].expand(r, 2)], 1).contiguous()
             sen = torch.cat([mesh.shard(en)[s][:r] - lo[s],
                              extra[:, 1].expand(r, 2)], 1).contiguous()
+            halo_layout_check(qk, win, wk, sst, sen, f"{label}, shard {s}")
             cwl = span_count_worklist(q, win, sst, sen, dc)
             ring = halo_ring(q, win, sst, sen, dc)
             got = k15(q, win, sst, sen, dc, cwl)
@@ -2233,7 +2403,7 @@ def halo_worklist_check_shapes(cases, card: str) -> dict:
                         [got], [k15_plain(q, win, sst, sen, dc, cwl)])
             check_equal(f"worklist_halo_range_count [{label}, shard {s}]",
                         [got], [k10(q, win, sst, sen, dc)], "K10")
-            live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
+            live = torch.zeros((ring.num_row_tiles, 2), dtype=torch.int32,
                                device=dev)
             got = k16(q, qk, win, wk, sst, sen, dc, ring, live)
             check_equal(f"worklist_halo_masked_nn [{label}, shard {s}]", got,
@@ -2242,16 +2412,16 @@ def halo_worklist_check_shapes(cases, card: str) -> dict:
                         k11(q, qk, win, wk, sst, sen, dc), "K11")
             entries[f"{label} shard {s}"] = {
                 "count_kept": cwl.n_kept, "in_cut": int(cwl.in_cut.sum()),
-                "ring": ring.n_kept, "k16_computed": int(live.sum()),
-                "total": cwl.n_total}
+                "ring": ring.n_kept, "k16_computed": int(live[:, 0].sum()),
+                "k16_longest": int(live[:, 1].max()), "total": cwl.n_total}
             shard_in.append((q, qk, win, wk, sst, sen, cwl, ring))
         print(f"worklist_halo_range_count == plain == K10, "
               f"worklist_halo_masked_nn == plain == K11, bit for bit: "
               f"{label}, n={n} d={pts.shape[1]}, 3 shards (shard 1 {cut} "
-              f"rows), W={W}; per shard (in-cut of kept, K16 computed of "
-              f"ring): " + ", ".join(
-                  f"{e['in_cut']}/{e['count_kept']}, "
-                  f"{e['k16_computed']}/{e['ring']}"
+              f"rows), W={W}; per shard (in-cut of kept; entries K16's "
+              f"pieces computed, its longest walk, the ring): " + ", ".join(
+                  f"{e['in_cut']}/{e['count_kept']}; {e['k16_computed']}, "
+                  f"{e['k16_longest']}, {e['ring']}"
                   for k, e in entries.items() if k.startswith(label + " ")),
               flush=True)
         if not times:
@@ -2278,7 +2448,7 @@ def halo_worklist_check_shapes(cases, card: str) -> dict:
 
 
 def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
-                       gen) -> dict:
+                       gen, regs: dict) -> dict:
     """Phase 23 at full width: every shard input that phase 17's counted
     halo fit gave K10 (``calls10``) and K11 (``calls11``), through
     ``CudaBackend.range_count_halo`` / ``denser_nn_halo(layout=
@@ -2287,8 +2457,11 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
     to K10/K11 bit for bit; K15/K16 against their plain versions on a few
     row tiles of the first shard; medians of five CUDA-event runs of each
     kernel and of each worklist build, summed over the shards; kept,
-    in-cut and computed entries; bounds from the inputs."""
-    from repro_torch.kernels import ops
+    in-cut and computed entries, K16's longest walk; bounds from the
+    inputs (K16's recounted on the entries each row needs, the earlier
+    count beside it); the rows per run; K16's registers and spills
+    (``regs``, from ``halo_ptxas``)."""
+    from repro_torch.kernels import ops, sweep
     from repro_torch.kernels.backend import get_backend
     _, _, _, _, k10, _, k11, _ = dist_kernels()
     k15, k15_plain, k16, k16_plain = halo_wl_kernels()
@@ -2314,16 +2487,18 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
     rec = {"launches": launched, "shards": []}
     tot = {"k15_ms": 0.0, "k16_ms": 0.0, "k15_build_ms": 0.0,
            "k16_build_ms": 0.0, "k10_ms": 0.0, "k11_ms": 0.0}
-    work15, work16 = [0.0, 0.0], [0.0, 0.0]
+    work15, work16 = [0.0, 0.0], [0.0, 0.0, 0.0]
     first = None
     for a10, a11 in zip(calls10, calls11):
         x, win, st, en, dc = a10
         x11, xk, win11, wk, st11, en11, _ = a11
+        halo_layout_check(xk, win11, wk, st11, en11,
+                          f"main path, shard {len(rec['shards'])}")
         cwl = span_count_worklist(*a10)
         ring = halo_ring(x11, win11, st11, en11, dc)
-        live = torch.zeros(ring.num_row_tiles, dtype=torch.int32,
+        live = torch.zeros((ring.num_row_tiles, 2), dtype=torch.int32,
                            device=x.device)
-        k16(*a11, ring, live)
+        parent = k16(*a11, ring, live)[1]
         t = {"k15_ms": time_ms(lambda: k15(*a10, cwl)),
              "k16_ms": time_ms(lambda: k16(*a11, ring)),
              "k15_build_ms": time_ms(lambda: span_count_worklist(*a10)),
@@ -2334,17 +2509,21 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
         for k, v in t.items():
             tot[k] += v
         b15 = k15_work(x, win, st, en, cwl)
-        b16 = k16_work(x11, xk, win11, wk, st11, en11, ring, live, gen=gen)
+        b16 = k16_work(x11, xk, win11, wk, st11, en11, ring,
+                       sweep.d2cut_of(dc), parent, gen=gen)
         work15 = [work15[0] + b15[0], work15[1] + b15[1]]
-        work16 = [work16[0] + b16[0], work16[1] + b16[1]]
+        work16 = [work16[0] + b16[0], work16[1] + b16[1],
+                  work16[2] + b16[2]["ops_earlier"]]
         rec["shards"].append({
             "rows": x.shape[0], "window": win.shape[0], "spans": st.shape[1],
             "count_kept": cwl.n_kept, "in_cut": int(cwl.in_cut.sum()),
-            "ring": ring.n_kept, "k16_computed": int(live.sum()),
-            "total": cwl.n_total, "k16_work": b16[2], **t})
+            "ring": ring.n_kept, "k16_computed": int(live[:, 0].sum()),
+            "k16_longest": int(live[:, 1].max()), "total": cwl.n_total,
+            "k16_work": b16[2], "runs": halo_runs(st11, en11, win11.shape[0]),
+            **t})
         if first is None:
             first = (a10, a11, cwl, ring)
-        del cwl, ring, live
+        del cwl, ring, live, parent
 
     plain = {}
     for name in ("worklist_halo_range_count", "worklist_halo_masked_nn"):
@@ -2371,28 +2550,44 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
                                           got, want),
                        "plain_ms": p_ms, "plain_rows": rows.numel()}
     del first
-    rec.update(totals=tot, plain=plain, work={
+    b16_earlier = bound_ms(work16[0], work16[2])[0]
+    rec.update(totals=tot, plain=plain, ptxas=regs, work={
         "worklist_halo_range_count": tuple(work15),
-        "worklist_halo_masked_nn": tuple(work16)})
+        "worklist_halo_masked_nn": tuple(work16[:2])},
+        k16_bound_ms_earlier=b16_earlier)
     sh = rec["shards"]
     for name, key, bkey, work, ref in (
             ("worklist_halo_range_count", "k15_ms", "k15_build_ms", work15,
              "k10_ms"),
-            ("worklist_halo_masked_nn", "k16_ms", "k16_build_ms", work16,
-             "k11_ms")):
+            ("worklist_halo_masked_nn", "k16_ms", "k16_build_ms",
+             work16[:2], "k11_ms")):
         b_ms, by = bound_ms(*work)
         kept = [e["count_kept" if key == "k15_ms" else "ring"] for e in sh]
-        comp = [e["in_cut" if key == "k15_ms" else "k16_computed"]
-                for e in sh]
+        if key == "k15_ms":
+            comp = f"entries computed {[e['in_cut'] for e in sh]}"
+            more = ""
+        else:
+            comp = (f"entries its pieces computed "
+                    f"{[e['k16_computed'] for e in sh]}, longest walk "
+                    f"{max(e['k16_longest'] for e in sh)},")
+            more = (f" (earlier count {b16_earlier:.3f}, on each row "
+                    f"tile's block-wide walk); ptxas (registers, spill "
+                    f"bytes) {regs.get('K16', 'not measured')}")
         print(f"{name} [main path: {len(sh)} shards x "
               f"{[e['rows'] for e in sh]} rows, W {[e['window'] for e in sh]}"
               f", S={sh[0]['spans']}]: == {ref[:3].upper()} bit for bit on "
               f"every shard, == plain on {plain[name]['plain_rows']} rows "
               f"({plain[name]['plain_ms']:.1f} ms); kernel {tot[key]:.3f} ms "
               f"+ worklist builds {tot[bkey]:.3f} ms against "
-              f"{ref[:3].upper()} {tot[ref]:.3f} ms; entries computed "
-              f"{comp} of kept {kept} of {sh[0]['total']} tile pairs a "
-              f"shard; bound {b_ms:.3f} ms ({by})  ({card})", flush=True)
+              f"{ref[:3].upper()} {tot[ref]:.3f} ms; {comp} of kept {kept} "
+              f"of {sh[0]['total']} tile pairs a shard; bound {b_ms:.3f} ms "
+              f"({by}){more}  ({card})", flush=True)
+    runs = [e["runs"] for e in sh]
+    print("  rows per run (candidate cell) on the shards: " + "; ".join(
+        f"{r['runs']} runs, mean {r['rows_mean']:.2f}, largest "
+        f"{r['rows_max']}, {100 * r['share_cols_runs_ge32']:.1f} % of the "
+        f"span columns in runs of 32 rows or more" for r in runs),
+        flush=True)
     return rec
 
 
@@ -2451,8 +2646,11 @@ def main() -> int:
     bf16_regs = bf16_ptxas(b.log)
     print(f"  ptxas, K12 (registers, spill bytes): {bf16_regs['K12']}")
     print(f"  ptxas, K13 (registers, spill bytes): {bf16_regs['K13']}")
+    halo_regs = halo_ptxas(b.log)
+    print(f"  ptxas, K11 and K16 at d = 3 (registers, spill bytes): "
+          f"{halo_regs}")
     record.update(card=card, clocks=clocks, build_s=b.seconds,
-                  bf16_ptxas=bf16_regs)
+                  bf16_ptxas=bf16_regs, halo_ptxas=halo_regs)
 
     # --------------------------------------- 2. kernels vs plain, check shapes
     stamp(2)
@@ -3266,6 +3464,18 @@ def main() -> int:
                   f"shard against the gather's {DIST_SHARDS * m_rows}; "
                   f"{unres} rows unresolved by the stencil go to the "
                   f"fallback (K9)", flush=True)
+            spans = trace["phases_ms"]
+            outside = spans.get("smoke.traced_fit", 0.0) - sum(
+                v for k, v in spans.items() if k.startswith("dist.")
+                or k == "labels.assign")
+            setup = halo_setup_ms(full_pts, d_full, DIST_SHARDS)
+            rec.update(setup_ms=setup, outside_spans_ms=outside)
+            print(f"  the traced halo fit outside its dist.* and "
+                  f"labels.assign spans: {outside:.1f} ms of "
+                  f"{spans.get('smoke.traced_fit', 0.0):.1f}; its steps "
+                  f"there, timed alone between synchronizes: " + ", ".join(
+                      f"{k} {v:.1f} ms" for k, v in setup.items())
+                  + f"  ({card})", flush=True)
         dist_rec[strategy] = rec
         dist_given[strategy], dist_launches[strategy] = given, launched
         del eng
@@ -3352,14 +3562,32 @@ def main() -> int:
             works = [work(a[0], a[1], a[2], a[3]) for a, _ in calls]
         else:
             works = [work(*a[:6]) for a, _ in calls]
+            k11_earlier = bound_ms(sum(w[0] for w in works),
+                                   sum(w[2] for w in works))[0]
+            k11_runs = [halo_runs(a[4], a[5], a[2].shape[0])
+                        for a, _ in calls]
         bounds[name] = (sum(w[0] for w in works), sum(w[1] for w in works))
     for name in ("worklist_range_count", "halo_range_count",
                  "halo_masked_nn"):
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
+        more = ""
+        if name == "halo_masked_nn":
+            more = (f" (earlier count {k11_earlier:.3f}, a key test for "
+                    f"every span column); ptxas (registers, spill bytes) "
+                    f"{halo_regs.get('K11', 'not measured')}; rows per run "
+                    f"(candidate cell) a shard: " + "; ".join(
+                        f"{r['runs']} runs, mean {r['rows_mean']:.2f}, "
+                        f"largest {r['rows_max']}, "
+                        f"{100 * r['share_cols_runs_ge32']:.1f} % of the "
+                        f"span columns in runs of 32 rows or more"
+                        for r in k11_runs))
+            dist_rec["k11"] = {"bound_ms_earlier": k11_earlier,
+                               "runs": k11_runs}
         print(f"{name} [main path, all calls]: kernel {t['ms']:.3f} ms, "
-              f"bound {b_ms:.3f} ms ({by}), == plain on {t['plain_rows']} "
-              f"rows ({t['plain_ms']:.1f} ms)  ({card})", flush=True)
+              f"bound {b_ms:.3f} ms ({by}){more}, == plain on "
+              f"{t['plain_rows']} rows ({t['plain_ms']:.1f} ms)  ({card})",
+              flush=True)
     for strategy, r9 in k9_rec.items():
         print(f"worklist_masked_nn [{strategy}]: {r9['calls']} calls on "
               f"{r9['rows']} rows, {r9['ms']:.3f} ms, its row walks computed "
@@ -3708,7 +3936,7 @@ def main() -> int:
         *([tuple(t.to(dev) if isinstance(t, torch.Tensor) else t for t in a)
            for a in halo_calls[name]]
           for name in ("halo_range_count", "halo_masked_nn")),
-        row_tile_slice, card, gen)
+        row_tile_slice, card, gen, halo_regs)
     del halo_calls
     for name, key in (("worklist_halo_range_count", "k15_ms"),
                       ("worklist_halo_masked_nn", "k16_ms")):

@@ -119,16 +119,22 @@ def load_library() -> ctypes.CDLL:
     lib.repro_worklist_masked_nn.restype = i
     lib.repro_halo_range_count.argtypes = [p, p, p, p, i, i, i, i, f, p, p]
     lib.repro_halo_range_count.restype = i
-    lib.repro_halo_masked_nn.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p,
-                                         p, p, p]
+    lib.repro_halo_masked_nn.argtypes = [p, p, p, i, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, f, p, p, p, p, p, p]
     lib.repro_halo_masked_nn.restype = i
     lib.repro_worklist_halo_range_count.argtypes = [p, p, p, p, i, i, i, i,
                                                     f, p, p, p, p, p]
     lib.repro_worklist_halo_range_count.restype = i
-    lib.repro_worklist_halo_masked_nn.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                  i, f, p, p, p, p, p, p, p,
-                                                  p]
+    lib.repro_worklist_halo_masked_nn.argtypes = [p, p, p, i, p, p, p, p, p,
+                                                  p, p, p, i, i, i, i, f, p,
+                                                  p, p, p, p, p, p, p, p, p]
     lib.repro_worklist_halo_masked_nn.restype = i
+    ll = ctypes.c_longlong
+    lib.repro_halo_layout_scratch.argtypes = [i]
+    lib.repro_halo_layout_scratch.restype = ll
+    lib.repro_halo_layout.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, p,
+                                      ll, p, p, p, p, p, p, p, p]
+    lib.repro_halo_layout.restype = i
     lib.repro_worklist_range_count_signed.argtypes = [p, p, p, i, i, i, f,
                                                       p, p, p, p, p]
     lib.repro_worklist_range_count_signed.restype = i

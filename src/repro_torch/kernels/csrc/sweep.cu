@@ -36,7 +36,10 @@
 //   repro_halo_range_count     per query row, the count within d_cut of the
 //                              window rows inside its [start, end) spans
 //   repro_halo_masked_nn       per query row, the nearest strictly denser
-//                              window row within d_cut inside its spans
+//                              window row within d_cut inside its spans, a
+//                              warp a piece of rows sharing their spans
+//                              (over packed records with the key in the
+//                              slot and rows by piece, kernels/packing.py)
 //   repro_fused_count_topk_bf16    K1's function on the expanded form with
 //                              a bf16 cross term on the tensor cores (over
 //                              bf16 column records, kernels/packing.py)
@@ -49,7 +52,8 @@
 //                              of a span count worklist
 //   repro_worklist_halo_masked_nn      K11's NN walking a halo ring
 //                              worklist (the pairs within d_cut a span
-//                              reaches), stopping where no row can improve
+//                              reaches), each piece of rows stopping where
+//                              none of its rows can improve (K11's body)
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -66,8 +70,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <cub/cub.cuh>
+
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -1545,66 +1552,6 @@ __global__ void __launch_bounds__(kRows)
   count[i] = cnt;
 }
 
-// K11 — replaces the reference's dependent.masked_min_dist_halo, i.e.
-// sweep.tile_sweep with SweepSpec(nn="best1", key=True, span=True,
-// nn_dcut=True) (repro/kernels/dependent.py:56, the d_cut mask at
-// sweep.py:294-295, pallas_call at :432), reached through
-// ops.halo_dependent: the distributed halo strategy's delta phase.
-//
-// Bound: f32 CUDA-core issue, a key test for each column inside a row's
-// spans and about 3d+1 operations for each denser one.  The design is K10's
-// span walk with three conditions: the window key strictly above the row's,
-// d2 < d_cut^2 (stencil semantics: a row with no such column is left to the
-// caller's global fallback), and the lexicographic (d2, window index)
-// minimum.  It writes delta = __fsqrt_rn(best d2) (torch.sqrt's rounding),
-// the window-local parent (-1 where none) and found.
-template <int D>
-__global__ void __launch_bounds__(kRows)
-    halo_masked_nn_kernel(const float* __restrict__ x,
-                          const float* __restrict__ x_key,
-                          const float* __restrict__ win,
-                          const float* __restrict__ w_key,
-                          const int* __restrict__ starts,
-                          const int* __restrict__ ends, int n, int w, int d,
-                          int s, float d2cut, float* __restrict__ delta_out,
-                          int* __restrict__ arg_out,
-                          unsigned char* __restrict__ found_out) {
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  if (i >= n) return;
-  if constexpr (D > 0) d = D;
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(i) * d;
-  if constexpr (D > 0) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  const float key = x_key[i];
-  float best = CUDART_INF_F;
-  int arg = INT_MAX;
-  for (int k = 0; k < s; ++k) {
-    const int a = max(starts[static_cast<size_t>(i) * s + k], 0);
-    const int b = min(ends[static_cast<size_t>(i) * s + k], w);
-    for (int j = a; j < b; ++j) {
-      if (!(w_key[j] > key)) continue;
-      const float* yc = win + static_cast<size_t>(j) * d;
-      float d2;
-      if constexpr (D > 0) {
-        d2 = pair_d2<D>(xr, yc, D);
-      } else {
-        d2 = pair_d2<0>(xg, yc, d);
-      }
-      if (d2 < d2cut && (d2 < best || (d2 == best && j < arg))) {
-        best = d2;
-        arg = j;
-      }
-    }
-  }
-  const bool found = best < CUDART_INF_F;
-  delta_out[i] = __fsqrt_rn(best);
-  arg_out[i] = found ? arg : -1;
-  found_out[i] = found;
-}
-
 // K15 — replaces the reference's density.range_count_halo over a worklist,
 // i.e. sweep.tile_sweep with SweepSpec(count=True, span=True) and wl_meta
 // (repro/kernels/density.py:68-87, the span mask at sweep.py:199-205,
@@ -1697,126 +1644,541 @@ __global__ void __launch_bounds__(kWlRows)
   if (live) count[i] = cnt;
 }
 
-// K16 — replaces the reference's dependent.masked_min_dist_halo over a
-// worklist, i.e. sweep.tile_sweep with SweepSpec(nn="best1", key=True,
-// span=True, nn_dcut=True) and wl_meta (repro/kernels/dependent.py:56-77;
-// liveness at sweep.py:250-258, the d_cut mask at :294-295, the
-// lexicographic update at :303-311, pallas_call at :432;
-// PallasBackend.denser_nn_halo(layout="block-sparse"),
-// repro/kernels/backend.py:742-758), reached through
-// ops.halo_dependent(worklist=...) on the halo ring
-// (blocksparse.build_flat_worklist(count=False, nn="best1", nn_dcut=True,
-// starts=, ends=)).
+// K11 and K16 — replace the reference's dependent.masked_min_dist_halo,
+// i.e. sweep.tile_sweep with SweepSpec(nn="best1", key=True, span=True,
+// nn_dcut=True) (repro/kernels/dependent.py:56-77, the span mask at
+// sweep.py:199-205, the d_cut mask at :294-295, the lexicographic update at
+// :303-311, pallas_call at :432), reached through ops.halo_dependent: the
+// distributed halo strategy's delta phase (K11), and on the halo ring
+// (PallasBackend.denser_nn_halo(layout="block-sparse"),
+// repro/kernels/backend.py:742-758; blocksparse.build_flat_worklist(
+// count=False, nn="best1", nn_dcut=True, starts=, ends=)) through
+// ops.halo_dependent(worklist=...) (K16).
 //
-// Bound: f32 CUDA-core issue: a key test for each span column of the
-// entries the walk computes and about 3d+1 operations for each denser one.
-// The design is K9's walk: the ring in stored (ascending lb) order, 256
-// entries at a time through shared memory, each thread keeping (best d2,
-// index) in registers; the block vote lb <= best (rows keyed +inf never
-// vote) ends the walk at the first entry no row votes for, where every
-// later entry has a larger lb and no row can improve or tie.  A voted
-// entry's 512 columns and keys are staged; each thread computes only the
-// columns of its spans inside the chunk (K15's intersection) under K11's
-// three conditions: the window key strictly above the row's, d2 < d_cut^2,
-// and the lexicographic (d2, window index) minimum, which does not depend
-// on the visit order, so K16 equals K11 bit for bit.  It writes delta =
-// __fsqrt_rn(best d2), the window-local parent (-1 where none) and found;
-// `live` (optional) gets the entries each block computed.
-template <int D>
-__global__ void __launch_bounds__(kWlRows)
-    worklist_halo_masked_nn_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ x_key,
-                                   const float* __restrict__ win,
-                                   const float* __restrict__ w_key,
-                                   const int* __restrict__ starts,
-                                   const int* __restrict__ ends, int n, int w,
-                                   int d, int s, float d2cut,
-                                   const int* __restrict__ row_ptr,
-                                   const int* __restrict__ col_tile,
-                                   const float* __restrict__ lb,
-                                   float* __restrict__ delta_out,
-                                   int* __restrict__ arg_out,
-                                   unsigned char* __restrict__ found_out,
-                                   int* __restrict__ live_out) {
-  __shared__ float tile[kTileFloats];
-  __shared__ float ktile[kWlCols];
-  __shared__ int s_col[kWlRows];
-  __shared__ float s_lb[kWlRows];
-  if constexpr (D > 0) d = D;
-  const int per_chunk = min(kWlCols, kTileFloats / d);
-  const int t = blockIdx.x;
-  const int i = t * kWlRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;
-  const int* st = starts + static_cast<size_t>(row) * s;
-  const int* en = ends + static_cast<size_t>(row) * s;
+// Per query row: the nearest window row inside its [start, end) spans
+// (clipped to [0, W)) whose key is strictly above the row's and whose d2
+// is below d_cut^2 (stencil semantics: a row with none is left to the
+// caller's global fallback), the lexicographic (d2, window index) minimum.
+// It writes delta = __fsqrt_rn(best d2) (torch.sqrt's rounding), the
+// window-local parent (-1 where none) and found.
+//
+// Bound: f32 CUDA-core issue, a key test for each span column (in a column
+// tile holding a key above the row's) and about 3d+1 operations for each
+// denser one; K16 counts only the ring entries a row needs (lb at most its
+// final best).  The parent kernels ran a thread a row (K11), each reading
+// its span columns from global memory once per row with a dependent load
+// chain a column, its lanes' walks of different lengths; and a block a
+// 256-row tile (K16), whose vote on every ring entry kept all its rows
+// walking as long as its slowest row.
+//
+// The design.  The rows of one candidate cell are contiguous in a
+// grid-sorted shard and share its spans, so the wrapper groups the rows
+// whose spans clip to the same columns into runs, sorts each run's rows
+// by key and cuts it into pieces of at most kHaloPiece rows, each
+// piece's length stored at its first position, the pieces ordered by
+// their work, most first, and the heaviest cut into splits
+// (kernels/packing.py::halo_layout, built on the card by
+// repro_halo_layout; K16's runs are cut at its ring's row tiles too).  A
+// warp takes the splits in that order from a counter, so the longest
+// start first and none outlasts the rest, two rows a lane (one where a
+// piece has at most 32), streaming each column once for all of a piece's
+// rows: its lanes load
+// 32 consecutive records (the d coordinates and the key in the slot) a
+// chunk, the next chunk's load issued before the current one is
+// computed, and a ballot on the keys keeps the columns above the piece's
+// least key, the rest passed over by the whole warp; the kept records go
+// through a per-warp shared buffer and every lane reads each one by
+// broadcast.  A column tile whose largest key (kernels/packing.py::
+// tile_max_key) is not above the piece's least key is not loaded at all.
+// Sorted by key, a piece's keys lie in a narrow band, so these skips pass
+// over most columns no row of it needs.  K11 walks the piece's spans;
+// K16 walks its row tile's ring in ascending lb, the lanes testing 32
+// entries a ballot (open: lb at most the piece's largest best d2, with
+// d_cut^2 standing in for a row with none; needed: open, the tile's
+// largest key above the piece's least and a span reaching it), and
+// computes each needed entry's span columns after a fresh test of lb; the
+// walk ends at the first entry that is not open, so each piece ends on
+// its own and not at its tile's slowest row.
+//
+// Exactness.  Each row keeps (d2, index) as one 64-bit key, d2's bits
+// above the index: d2 >= +0 or NaN, whose bits lie above +inf's, so the
+// keys order as (d2, index) do, and a NaN d2 is never kept.  It starts at
+// d_cut^2's bits with index 0 (0 where d_cut^2 is NaN), so a column is
+// kept iff its key is above the row's, d2 < d_cut^2 and (d2, index) below
+// the row's best: the lexicographic minimum in any visiting order, so K16
+// equals K11 bit for bit.  Every pair of
+// ring entry e has d2 >= lb[e] (LB_SHRINK) and lb ascends, so a piece
+// whose rows' bests are all below lb[e] needs no later entry.  A row
+// keyed +inf or NaN (padding) seeks nothing and never changes its best.
+// `live` (optional, (row tiles, 2)) gets the entries each row tile's
+// pieces computed and the longest walk among them.
+constexpr int kHaloWarps = 4;   // warps a block
+constexpr int kHaloPiece = 64;  // rows a piece at most (HALO_PIECE in
+                                // kernels/packing.py): two a lane
 
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
-  if constexpr (D > 0) {
+struct HaloArgs {
+  const float* x;          // (n, d) query rows
+  const float* x_key;      // (n,) their keys
+  const float4* rec;       // w records of w4 float4s, key in the slot
+  const float* tmax;       // each 512-column tile's largest key
+  const int* starts;       // (n, s) spans, window-local
+  const int* ends;
+  const int* row_id;       // the rows, piece after piece
+  int w4, w, d, s;
+  unsigned long long init; // (d_cut^2, 0) as a best key
+  unsigned long long* best;  // (n,) each row's best key
+  const int* row_ptr;      // K16's ring
+  const int* col_tile;
+  const float* lb;
+  int* live;               // K16, optional
+};
+
+// A lane's rows: coordinates, key (+inf: seeks nothing) and best key.
+template <int D, int R>
+struct HaloRows {
+  float xr[R][D > 0 ? D : 1];
+  const float* xg[R];
+  float key[R];
+  unsigned long long best[R];
+};
+
+__device__ __forceinline__ unsigned long long halo_key(float d2, int j) {
+  return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
+         static_cast<unsigned>(j);
+}
+
+__device__ __forceinline__ float halo_d2(unsigned long long best) {
+  return __uint_as_float(static_cast<unsigned>(best >> 32));
+}
+
+// The piece's rows against window columns [a, b), 32 a chunk.
+template <int D, int R>
+__device__ __forceinline__ void halo_cols(const HaloArgs& g, int a, int b,
+                                          float kmin, float4* buf, int lane,
+                                          HaloRows<D, R>& h) {
+  constexpr int V = rec_vecs(D > 0 ? D : 1);
+  const float* recf = reinterpret_cast<const float*>(g.rec);
+  float4 nx[V];
+  auto fetch = [&](int c0) {
+    const int j = c0 + lane < b ? c0 + lane : a;
+    if constexpr (D > 0) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  const float key = x_key[row];
-  const bool seeks = live && key < CUDART_INF_F;
-  const int ns = seeks ? s : 0;
-
-  float best = CUDART_INF_F;
-  int arg = INT_MAX;
-  int visited = 0;
-  bool done = false;
-  const int e0 = row_ptr[t];
-  const int e1 = row_ptr[t + 1];
-  for (int base = e0; base < e1 && !done; base += kWlRows) {
-    const int ne = min(kWlRows, e1 - base);
-    __syncthreads();
-    if (threadIdx.x < ne) {
-      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
-      s_lb[threadIdx.x] = lb[base + threadIdx.x];
+      for (int q = 0; q < V; ++q)
+        nx[q] = g.rec[static_cast<size_t>(j) * V + q];
+    } else {
+      nx[0].x = recf[static_cast<size_t>(j) * 4 * g.w4 + g.d];
     }
-    __syncthreads();
-    for (int e = 0; e < ne; ++e) {
-      if (!__syncthreads_or(seeks && s_lb[e] <= best)) {
-        done = true;                  // the same for every thread
-        break;
-      }
-      ++visited;
-      const int j0 = s_col[e] * kWlCols;
-      const int j1 = min(j0 + kWlCols, w);
-      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
-        const int c1 = min(c0 + per_chunk, j1);
-        __syncthreads();
-        stage(tile, win, c0, c1 - c0, d);
-        for (int c = threadIdx.x; c < c1 - c0; c += kWlRows)
-          ktile[c] = w_key[c0 + c];
-        __syncthreads();
-        for (int k = 0; k < ns; ++k) {
-          const int a = max(st[k], c0);
-          const int b = min(en[k], c1);
-          for (int j = a; j < b; ++j) {
-            if (!(ktile[j - c0] > key)) continue;
-            float d2;
-            if constexpr (D > 0) {
-              d2 = pair_d2<D>(xr, tile + (j - c0) * D, D);
-            } else {
-              d2 = pair_d2<0>(xg, tile + (j - c0) * d, d);
-            }
-            if (d2 < d2cut && (d2 < best || (d2 == best && j < arg))) {
-              best = d2;
-              arg = j;
-            }
-          }
+  };
+  fetch(a);
+  for (int c0 = a; c0 < b; c0 += 32) {
+    float4 cu[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) cu[q] = nx[q];
+    if (c0 + 32 < b) fetch(c0 + 32);
+    constexpr int kc = (D > 0 ? D : 0) % 4;  // the slot's place: D here
+    const float4 kv = cu[(D > 0 ? D : 0) / 4];
+    const float ck = kc == 0 ? kv.x : kc == 1 ? kv.y : kc == 2 ? kv.z : kv.w;
+    unsigned todo = __ballot_sync(0xffffffffu, c0 + lane < b && ck > kmin);
+    if (todo == 0) continue;
+    if constexpr (D > 0) {
+      __syncwarp();                   // the previous chunk's reads are done
+#pragma unroll
+      for (int q = 0; q < V; ++q) buf[lane * V + q] = cu[q];
+      __syncwarp();
+    }
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {    // unrolled: constant buffer offsets
+      if (!((todo >> c) & 1u)) continue;
+      const int j = c0 + c;
+      float y[4 * V];
+      const float* yg = recf + static_cast<size_t>(j) * 4 * g.w4;
+      if constexpr (D > 0) {
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float4 f = buf[c * V + q];
+          y[4 * q] = f.x;
+          y[4 * q + 1] = f.y;
+          y[4 * q + 2] = f.z;
+          y[4 * q + 3] = f.w;
         }
       }
+      float yk;
+      if constexpr (D > 0) {
+        yk = y[D];
+      } else {
+        yk = yg[g.d];
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float d2;
+        if constexpr (D > 0) {
+          d2 = pair_d2<D>(h.xr[r], y, D);
+        } else {
+          d2 = pair_d2<0>(h.xg[r], yg, g.d);
+        }
+        const unsigned long long cand = halo_key(d2, j);
+        if (yk > h.key[r] && cand < h.best[r]) h.best[r] = cand;
+      }
     }
   }
+}
 
-  if (live_out != nullptr && threadIdx.x == 0) live_out[t] = visited;
-  if (!live) return;
-  const bool found = best < CUDART_INF_F;
-  delta_out[i] = __fsqrt_rn(best);
-  arg_out[i] = found ? arg : -1;
-  found_out[i] = found;
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// One piece's split (pc: first position in row_id, rows, the row whose
+// spans it walks, its row tile; split `part` of `parts`), R rows a lane:
+// K11 takes the part-th of `parts` equal slices of the piece's span
+// columns, K16 every parts-th entry of its ring from the part-th.  The
+// rows' bests merge by atomicMin into `best` (halo_decode_kernel).
+template <int D, int R, bool kRing>
+__device__ __forceinline__ void halo_piece(const HaloArgs& g, int4 pc,
+                                           int part, int parts,
+                                           float4* buf, int lane) {
+  HaloRows<D, R> h;
+  int row[R];
+  float kmin = CUDART_INF_F;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = lane + 32 * r;
+    row[r] = p < pc.y ? g.row_id[pc.x + p] : -1;
+    h.xg[r] = g.x + static_cast<size_t>(row[r] >= 0 ? row[r] : 0) * g.d;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) h.xr[r][k] = h.xg[r][k];
+    }
+    const float k = row[r] >= 0 ? g.x_key[row[r]] : CUDART_INF_F;
+    h.key[r] = k < CUDART_INF_F ? k : CUDART_INF_F;    // NaN: +inf
+    h.best[r] = g.init;
+    kmin = fminf(kmin, h.key[r]);
+  }
+  kmin = warp_min(kmin);
+  if (!(kmin < CUDART_INF_F)) return;  // no row of the piece seeks
+  const int* st = g.starts + static_cast<size_t>(pc.z) * g.s;
+  const int* en = g.ends + static_cast<size_t>(pc.z) * g.s;
+  if constexpr (!kRing) {
+    // K11: the slice [c0, c1) of the spans' columns laid end to end, a
+    // column tile passed over where its largest key is not above kmin
+    long long cols = 0;
+    for (int k = 0; k < g.s; ++k)
+      cols += max(min(__ldg(en + k), g.w) - max(__ldg(st + k), 0), 0);
+    const long long c0 = cols * part / parts;
+    const long long c1 = cols * (part + 1) / parts;
+    long long off = 0;
+    for (int k = 0; k < g.s && off < c1; ++k) {
+      const int a0 = max(__ldg(st + k), 0);
+      const int b0 = min(__ldg(en + k), g.w);
+      if (a0 >= b0) continue;
+      const int a = a0 + static_cast<int>(max(c0 - off, 0LL));
+      const int b = a0 + static_cast<int>(min(c1 - off,
+                                              static_cast<long long>(b0 - a0)));
+      off += b0 - a0;
+      int ra = a;
+      while (ra < b) {
+        while (ra < b && !(__ldg(g.tmax + ra / kWlCols) > kmin))
+          ra = (ra / kWlCols + 1) * kWlCols;
+        int rb = ra;
+        while (rb < b && __ldg(g.tmax + rb / kWlCols) > kmin)
+          rb = min(b, (rb / kWlCols + 1) * kWlCols);
+        if (ra < rb) halo_cols<D, R>(g, ra, rb, kmin, buf, lane, h);
+        ra = rb;
+      }
+    }
+  } else {
+    // K16: the row tile's ring, ascending lb, every parts-th entry
+    auto bests = [&]() {
+      float v = -CUDART_INF_F;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (h.key[r] < CUDART_INF_F) v = fmaxf(v, halo_d2(h.best[r]));
+      return warp_max(v);
+    };
+    float bmax = bests();
+    const int e0 = g.row_ptr[pc.w];
+    const int ne = (g.row_ptr[pc.w + 1] - e0 - part + parts - 1) / parts;
+    int walked = 0;
+    bool done = false;
+    for (int m = 0; m < ne && !done; m += 32) {
+      const int j = e0 + part + (m + lane) * parts;
+      const float l = m + lane < ne ? g.lb[j] : CUDART_INF_F;
+      const bool open = m + lane < ne && l <= bmax;
+      int ct = 0;
+      bool need = false;
+      if (open) {
+        ct = g.col_tile[j];
+        if (g.tmax[ct] > kmin) {
+          const int j0 = ct * kWlCols;
+          const int j1 = min(j0 + kWlCols, g.w);
+          for (int k = 0; k < g.s && !need; ++k)
+            need = max(__ldg(st + k), j0) < min(__ldg(en + k), j1);
+        }
+      }
+      unsigned todo = __ballot_sync(0xffffffffu, need);
+      done = __ballot_sync(0xffffffffu, !open) != 0;  // open lanes first
+      while (todo != 0) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        if (!(__shfl_sync(0xffffffffu, l, src) <= bmax)) {  // fresh: end
+          done = true;
+          break;
+        }
+        const int j0 = __shfl_sync(0xffffffffu, ct, src) * kWlCols;
+        const int j1 = min(j0 + kWlCols, g.w);
+        for (int k = 0; k < g.s; ++k) {
+          const int a = max(__ldg(st + k), j0);
+          const int b = min(__ldg(en + k), j1);
+          if (a < b) halo_cols<D, R>(g, a, b, kmin, buf, lane, h);
+        }
+        bmax = bests();
+        ++walked;
+      }
+    }
+    if (g.live != nullptr && lane == 0) {
+      atomicAdd(g.live + 2 * pc.w, walked);
+      atomicMax(g.live + 2 * pc.w + 1, walked);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (row[r] >= 0 && h.best[r] < g.init) atomicMin(g.best + row[r],
+                                                     h.best[r]);
+}
+
+// Persistent warps taking the pieces' splits from a counter in their
+// order (kernels/packing.py::halo_layout: order, the positions, pieces'
+// first ones first, most work first; plen, a piece's rows at its first
+// position, else 0; item_end, the splits' running count along order;
+// meta, the splits and the pieces in all).  Split i belongs to the first
+// order slot q with item_end[q] > i: q <= i, and q >= i - (splits -
+// pieces), found by a 32-way search.
+template <int D, bool kRing>
+__global__ void __launch_bounds__(32 * kHaloWarps)
+    halo_nn_kernel(HaloArgs g, const int* __restrict__ plen,
+                   const int* __restrict__ order,
+                   const int* __restrict__ item_end,
+                   const int* __restrict__ meta,
+                   int* __restrict__ next_item) {
+  constexpr int V = rec_vecs(D > 0 ? D : 1);
+  __shared__ float4 bufs[kHaloWarps][D > 0 ? 32 * V : 1];
+  if constexpr (D > 0) {
+    g.d = D;
+    g.w4 = V;
+  }
+  const int lane = threadIdx.x & 31;
+  float4* buf = bufs[threadIdx.x >> 5];
+  const int items = meta[0];
+  const int pieces = meta[1];
+  for (;;) {
+    int i = 0;
+    if (lane == 0) i = atomicAdd(next_item, 1);
+    i = __shfl_sync(0xffffffffu, i, 0);
+    if (i >= items) return;
+    int lo = max(0, i - (items - pieces));
+    int hi = min(i, pieces - 1);
+    while (lo < hi) {                 // the first q in [lo, hi] past i
+      const int step = (hi - lo + 30) / 31;  // lane 31 reaches hi
+      const int q = min(lo + lane * step, hi);
+      const unsigned past = __ballot_sync(0xffffffffu, item_end[q] > i);
+      const int f = __ffs(past) - 1;  // item_end[hi] > i: lane 31 is
+      hi = min(lo + f * step, hi);
+      if (f > 0) lo = lo + (f - 1) * step + 1;
+    }
+    const int base = lo > 0 ? item_end[lo - 1] : 0;
+    const int at = order[lo];
+    const int rows = plen[at];
+    const int src = g.row_id[at];
+    const int4 pc = make_int4(at, rows, src, src / kWlRows);
+    if (rows > 32) {
+      halo_piece<D, 2, kRing>(g, pc, i - base, item_end[lo] - base, buf,
+                              lane);
+    } else {
+      halo_piece<D, 1, kRing>(g, pc, i - base, item_end[lo] - base, buf,
+                              lane);
+    }
+  }
+}
+
+// Every row's best key to the starting one.
+__global__ void halo_fill_kernel(unsigned long long* __restrict__ best,
+                                 int n, unsigned long long init) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) best[i] = init;
+}
+
+// (delta, window index, found) from each row's best key.
+__global__ void halo_decode_kernel(
+    const unsigned long long* __restrict__ best, int n,
+    unsigned long long init, float* __restrict__ delta,
+    int* __restrict__ arg, unsigned char* __restrict__ found) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long b = best[i];
+  const bool f = b < init;
+  delta[i] = f ? __fsqrt_rn(halo_d2(b)) : CUDART_INF_F;
+  arg[i] = f ? static_cast<int>(b & 0xffffffffu) : -1;
+  found[i] = f;
+}
+
+// K11's and K16's layout on the card, the arrays of
+// kernels/packing.py::halo_layout (its plain version) built by a few
+// kernels and cub's sort, scan and sum, with no host round trip: the
+// torch version's eighty-odd small launches left the card waiting on the
+// host.
+
+// A span clipped to [0, w), an empty one as [0, 0).
+__device__ __forceinline__ void halo_clip(int a, int b, int w, int& ca,
+                                          int& cb) {
+  ca = min(max(a, 0), w);
+  cb = min(max(b, 0), w);
+  if (cb <= ca) ca = cb = 0;
+}
+
+// Per row: whether it starts a run (the first row, a tile's first where
+// tile_rows > 0, clipped spans unlike the previous row's), its span
+// columns, and its key's bits ordered as the keys (NaN as +inf).
+__global__ void halo_rows_kernel(const int* __restrict__ starts,
+                                 const int* __restrict__ ends,
+                                 const float* __restrict__ x_key, int n,
+                                 int s, int w, int tile_rows,
+                                 int* __restrict__ newf,
+                                 long long* __restrict__ cols,
+                                 unsigned* __restrict__ korder) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool nw = i == 0 || (tile_rows > 0 && i % tile_rows == 0);
+  long long c = 0;
+  const size_t o = static_cast<size_t>(i) * s;
+  for (int k = 0; k < s; ++k) {
+    int a, b;
+    halo_clip(starts[o + k], ends[o + k], w, a, b);
+    c += b - a;
+    if (!nw) {
+      int pa, pb;
+      halo_clip(starts[o - s + k], ends[o - s + k], w, pa, pb);
+      nw = a != pa || b != pb;
+    }
+  }
+  newf[i] = nw;
+  cols[i] = c;
+  const float key = x_key[i];
+  const unsigned bits = __float_as_uint(isnan(key) ? CUDART_INF_F : key);
+  korder[i] = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+// The sort keys (run, key order) and each run's first row.
+__global__ void halo_keys_kernel(const int* __restrict__ run,
+                                 const int* __restrict__ newf,
+                                 const unsigned* __restrict__ korder, int n,
+                                 unsigned long long* __restrict__ keys,
+                                 int* __restrict__ vals,
+                                 int* __restrict__ rstart) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = run[i] - 1;
+  keys[i] = (static_cast<unsigned long long>(r) << 32) | korder[i];
+  vals[i] = i;
+  if (newf[i]) rstart[r] = i;
+}
+
+// Per position (a run keeps its positions): its piece's rows where one
+// starts there, else 0, and the piece's work (-1 where none starts).
+__global__ void halo_plen_kernel(const int* __restrict__ run,
+                                 const int* __restrict__ rstart,
+                                 const long long* __restrict__ cols, int n,
+                                 int* __restrict__ plen,
+                                 int* __restrict__ work,
+                                 int* __restrict__ vals) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int r = run[i] - 1;
+  const int first = rstart[r];
+  const int end = r + 1 < run[n - 1] ? rstart[r + 1] : n;
+  const int len = (i - first) % kHaloPiece == 0 ? min(end - i, kHaloPiece)
+                                                : 0;
+  plen[i] = len;
+  const long long wk = cols[i] * (len > 32 ? 2 : 1);
+  work[i] = len > 0 ? static_cast<int>(min(wk, static_cast<long long>(
+                                                   INT_MAX)))
+                    : -1;
+  vals[i] = i;
+}
+
+__global__ void halo_w64_kernel(const int* __restrict__ work, int n,
+                                long long* __restrict__ w64) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) w64[i] = max(work[i], 0);
+}
+
+// Splits of the piece at each order slot: its work over 1/splits of all.
+__global__ void halo_split_kernel(const long long* __restrict__ w64,
+                                  const int* __restrict__ plen,
+                                  const int* __restrict__ order,
+                                  const long long* __restrict__ total,
+                                  long long splits, int n,
+                                  int* __restrict__ nsplit) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long cap = max((*total + splits - 1) / splits, 1LL);
+  nsplit[i] = plen[order[i]] > 0
+                  ? static_cast<int>(max((w64[i] + cap - 1) / cap, 1LL))
+                  : 0;
+}
+
+// meta: the splits, and the pieces (the order slots of work >= 0).
+__global__ void halo_meta_kernel(const int* __restrict__ item_end,
+                                 const int* __restrict__ work, int n,
+                                 int* __restrict__ meta) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (work[mid] >= 0) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  meta[0] = item_end[n - 1];
+  meta[1] = lo;
+}
+
+// The window's records: coordinates, the key's bits, zeros.
+__global__ void halo_pack_kernel(const float* __restrict__ win,
+                                 const float* __restrict__ w_key, int w,
+                                 int d, int wf, float* __restrict__ rec) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= static_cast<long long>(w) * wf) return;
+  const int j = static_cast<int>(t / wf);
+  const int k = static_cast<int>(t % wf);
+  rec[t] = k < d ? win[static_cast<size_t>(j) * d + k]
+                 : (k == d ? w_key[j] : 0.0f);
+}
+
+// Each column tile's largest key, NaN left out, -inf where none: a warp
+// a tile.
+__global__ void halo_tmax_kernel(const float* __restrict__ w_key, int w,
+                                 int tiles, float* __restrict__ tmax) {
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (t >= tiles) return;
+  float v = -CUDART_INF_F;
+  for (int j = t * kWlCols + lane; j < min((t + 1) * kWlCols, w); j += 32) {
+    const float k = w_key[j];
+    if (!isnan(k)) v = fmaxf(v, k);
+  }
+  v = warp_max(v);
+  if (lane == 0) tmax[t] = v;
 }
 
 // ---------------------------------------------------------------- bf16
@@ -2934,25 +3296,6 @@ extern "C" int repro_halo_range_count(const float* x, const float* win,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_halo_masked_nn(const float* x, const float* x_key,
-                                    const float* win, const float* w_key,
-                                    const int* starts, const int* ends, int n,
-                                    int w, int d, int s, float d2cut,
-                                    float* delta, int* arg,
-                                    unsigned char* found, void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kRows - 1) / kRows);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                   \
-  halo_masked_nn_kernel<D><<<grid, kRows, 0, st>>>(                       \
-      x, x_key, win, w_key, starts, ends, n, w, d, s, d2cut, delta, arg,  \
-      found)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K15: K10's count over the in-cut entries of a span count worklist.
 extern "C" int repro_worklist_halo_range_count(
     const float* x, const float* win, const int* starts, const int* ends,
@@ -2972,24 +3315,209 @@ extern "C" int repro_worklist_halo_range_count(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K16: K11's NN walking a halo ring; live (optional) gets the entries each
-// row tile computed.
-extern "C" int repro_worklist_halo_masked_nn(
-    const float* x, const float* x_key, const float* win, const float* w_key,
-    const int* starts, const int* ends, int n, int w, int d, int s,
-    float d2cut, const int* row_ptr, const int* col_tile, const float* lb,
-    float* delta, int* arg, unsigned char* found, int* live, void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kWlRows - 1) / kWlRows);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                    \
-  worklist_halo_masked_nn_kernel<D><<<grid, kWlRows, 0, st>>>(             \
-      x, x_key, win, w_key, starts, ends, n, w, d, s, d2cut, row_ptr,      \
-      col_tile, lb, delta, arg, found, live)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
+// K11's and K16's layout (kernels/packing.py::halo_layout): scratch of
+// repro_halo_layout_scratch(n) bytes, the outputs sized as there.
+namespace {
+
+struct HaloScratch {
+  int* newf;
+  int* run;
+  long long* cols;
+  unsigned* korder;
+  unsigned long long* keys;
+  unsigned long long* keys_out;
+  int* vals;
+  int* rstart;
+  int* work;
+  int* work_sorted;
+  long long* w64;
+  int* nsplit;
+  long long* total;
+  void* temp;
+  size_t temp_bytes;
+  size_t bytes;
+};
+
+HaloScratch halo_scratch(char* base, int n) {
+  HaloScratch h{};
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base == nullptr ? nullptr : base + off;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  const size_t m = static_cast<size_t>(n);
+  h.newf = reinterpret_cast<int*>(take(4 * m));
+  h.run = reinterpret_cast<int*>(take(4 * m));
+  h.cols = reinterpret_cast<long long*>(take(8 * m));
+  h.korder = reinterpret_cast<unsigned*>(take(4 * m));
+  h.keys = reinterpret_cast<unsigned long long*>(take(8 * m));
+  h.keys_out = reinterpret_cast<unsigned long long*>(take(8 * m));
+  h.vals = reinterpret_cast<int*>(take(4 * m));
+  h.rstart = reinterpret_cast<int*>(take(4 * m));
+  h.work = reinterpret_cast<int*>(take(4 * m));
+  h.work_sorted = reinterpret_cast<int*>(take(4 * m));
+  h.w64 = reinterpret_cast<long long*>(take(8 * m));
+  h.nsplit = reinterpret_cast<int*>(take(4 * m));
+  h.total = reinterpret_cast<long long*>(take(8));
+  size_t t = 0, b = 0;
+  cub::DeviceScan::InclusiveSum(nullptr, b, static_cast<int*>(nullptr),
+                                static_cast<int*>(nullptr), n);
+  t = b > t ? b : t;
+  cub::DeviceRadixSort::SortPairs(
+      nullptr, b, static_cast<unsigned long long*>(nullptr),
+      static_cast<unsigned long long*>(nullptr), static_cast<int*>(nullptr),
+      static_cast<int*>(nullptr), n);
+  t = b > t ? b : t;
+  cub::DeviceRadixSort::SortPairsDescending(
+      nullptr, b, static_cast<int*>(nullptr), static_cast<int*>(nullptr),
+      static_cast<int*>(nullptr), static_cast<int*>(nullptr), n);
+  t = b > t ? b : t;
+  cub::DeviceReduce::Sum(nullptr, b, static_cast<long long*>(nullptr),
+                         static_cast<long long*>(nullptr), n);
+  t = b > t ? b : t;
+  h.temp = take(t);
+  h.temp_bytes = t;
+  h.bytes = off;
+  return h;
+}
+
+}  // namespace
+
+extern "C" long long repro_halo_layout_scratch(int n) {
+  return static_cast<long long>(halo_scratch(nullptr, n).bytes);
+}
+
+extern "C" int repro_halo_layout(const int* starts, const int* ends,
+                                 const float* x_key, const float* win,
+                                 const float* w_key, int n, int w, int d,
+                                 int s, int ring, long long splits,
+                                 void* scratch, long long scratch_bytes,
+                                 float* rec, float* tmax, int* row_id,
+                                 int* plen, int* order, int* item_end,
+                                 int* meta, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  HaloScratch h = halo_scratch(static_cast<char*>(scratch), n);
+  if (static_cast<long long>(h.bytes) > scratch_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = (n + 255) / 256;
+  size_t tb = h.temp_bytes;
+  halo_rows_kernel<<<g, 256, 0, st>>>(starts, ends, x_key, n, s, w,
+                                      ring ? kWlRows : 0, h.newf, h.cols,
+                                      h.korder);
+  cudaError_t err = cub::DeviceScan::InclusiveSum(h.temp, tb, h.newf, h.run,
+                                                  n, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_keys_kernel<<<g, 256, 0, st>>>(h.run, h.newf, h.korder, n, h.keys,
+                                      h.vals, h.rstart);
+  tb = h.temp_bytes;
+  err = cub::DeviceRadixSort::SortPairs(h.temp, tb, h.keys, h.keys_out,
+                                        h.vals, row_id, n, 0, 64, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_plen_kernel<<<g, 256, 0, st>>>(h.run, h.rstart, h.cols, n, plen,
+                                      h.work, h.vals);
+  tb = h.temp_bytes;
+  err = cub::DeviceRadixSort::SortPairsDescending(
+      h.temp, tb, h.work, h.work_sorted, h.vals, order, n, 0, 32, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_w64_kernel<<<g, 256, 0, st>>>(h.work_sorted, n, h.w64);
+  tb = h.temp_bytes;
+  err = cub::DeviceReduce::Sum(h.temp, tb, h.w64, h.total, n, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_split_kernel<<<g, 256, 0, st>>>(h.w64, plen, order, h.total,
+                                       max(splits, 1LL), n, h.nsplit);
+  tb = h.temp_bytes;
+  err = cub::DeviceScan::InclusiveSum(h.temp, tb, h.nsplit, item_end, n, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_meta_kernel<<<1, 1, 0, st>>>(item_end, h.work_sorted, n, meta);
+  if (w > 0) {
+    const int wf = 4 * rec_vecs(d);
+    const long long total = static_cast<long long>(w) * wf;
+    halo_pack_kernel<<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
+        win, w_key, w, d, wf, rec);
+    const int tiles = (w + kWlCols - 1) / kWlCols;
+    halo_tmax_kernel<<<(tiles + 7) / 8, 256, 0, st>>>(w_key, w, tiles, tmax);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K11 and K16: the halo NN over packed window records (kernels/packing.py:
+// rec w floats a record, the key's bits in the slot; tmax each column
+// tile's largest key; row_id, plen, order, item_end and meta from
+// halo_layout); scratch: best, n 64-bit keys, and next_item, one int32.
+template <bool kRing>
+int launch_halo_nn(HaloArgs g, const int* plen, const int* order,
+                   const int* item_end, const int* meta, int n, float d2cut,
+                   int* next_item, float* delta, int* arg,
+                   unsigned char* found, cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (g.w4 != rec_vecs(g.d)) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned bits = 0;                                   // NaN: none
+  if (d2cut > 0.0f) std::memcpy(&bits, &d2cut, sizeof(bits));
+  g.init = static_cast<unsigned long long>(bits) << 32;
+  cudaError_t err = cudaMemsetAsync(next_item, 0, sizeof(int), s);
+  if (err == cudaSuccess && g.live != nullptr)
+    err = cudaMemsetAsync(
+        g.live, 0, 2 * sizeof(int) * ((n + kWlRows - 1) / kWlRows), s);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  halo_fill_kernel<<<(n + 255) / 256, 256, 0, s>>>(g.best, n, g.init);
+  // at most one piece a row, mostly fewer: a warp for every 32 rows
+  const int want = (n + 32 * kHaloWarps - 1) / (32 * kHaloWarps);
+#define REPRO_LAUNCH(D)                                                    \
+  {                                                                        \
+    int per_sm = 0;                                                        \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+        &per_sm, halo_nn_kernel<D, kRing>, 32 * kHaloWarps, 0);            \
+    if (err != cudaSuccess) return static_cast<int>(err);                  \
+    const dim3 grid(min(want, sms * max(per_sm, 1)));                      \
+    halo_nn_kernel<D, kRing><<<grid, 32 * kHaloWarps, 0, s>>>(             \
+        g, plen, order, item_end, meta, next_item);                        \
+  }
+  REPRO_DISPATCH_D(g.d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
+  halo_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(g.best, n, g.init,
+                                                     delta, arg, found);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int repro_halo_masked_nn(
+    const float* x, const float* x_key, const float* rec, int w,
+    const float* tmax, const int* starts, const int* ends,
+    const int* row_id, const int* plen, const int* order,
+    const int* item_end, const int* meta, int n, int m, int d, int s,
+    float d2cut, void* best, int* next_item, float* delta, int* arg,
+    unsigned char* found, void* stream) {
+  const HaloArgs g{x, x_key, reinterpret_cast<const float4*>(rec), tmax,
+                   starts, ends, row_id, w / 4, m, d, s, 0,
+                   static_cast<unsigned long long*>(best), nullptr, nullptr,
+                   nullptr, nullptr};
+  return launch_halo_nn<false>(g, plen, order, item_end, meta, n, d2cut,
+                               next_item, delta, arg, found,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// live (optional, (row tiles, 2) int32): the entries each row tile's
+// pieces computed and the longest walk among their splits.
+extern "C" int repro_worklist_halo_masked_nn(
+    const float* x, const float* x_key, const float* rec, int w,
+    const float* tmax, const int* starts, const int* ends,
+    const int* row_id, const int* plen, const int* order,
+    const int* item_end, const int* meta, int n, int m, int d, int s,
+    float d2cut, const int* row_ptr, const int* col_tile, const float* lb,
+    void* best, int* next_item, float* delta, int* arg,
+    unsigned char* found, int* live, void* stream) {
+  const HaloArgs g{x, x_key, reinterpret_cast<const float4*>(rec), tmax,
+                   starts, ends, row_id, w / 4, m, d, s, 0,
+                   static_cast<unsigned long long*>(best), row_ptr,
+                   col_tile, lb, live};
+  return launch_halo_nn<true>(g, plen, order, item_end, meta, n, d2cut,
+                              next_item, delta, arg, found,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // K14: K8's walk summing the f32 signs of the batch rows within d_cut.

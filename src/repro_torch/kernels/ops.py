@@ -29,7 +29,7 @@ from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
 __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
            "local_density_xy", "local_density_delta",
            "dependent_masked_gather", "gather_form", "gather_layout",
-           "gather_scan", "halo_density", "halo_dependent",
+           "gather_scan", "halo_density", "halo_layout", "halo_dependent",
            "launch_counts", "reset_launch_counts"]
 
 _INT_MAX = 2**31 - 1
@@ -58,6 +58,10 @@ BF16_MAX_D = 224
 # the blocks an SM holds), each at least NN_MIN_CHUNK columns long
 NN_ITEMS_PER_SM = 32
 NN_MIN_CHUNK = 4096
+
+# K11/K16 cut a piece whose work is above 1/(SMs x this) of the call's
+# into splits: about eight times the warps an SM holds
+HALO_SPLITS_PER_SM = 384
 
 # K6 takes its prefix form from this many slots on, its key form below
 # (gather_form).  On an H100 (PERF.md §6), on the Airline stream's
@@ -129,15 +133,20 @@ def _check_worklist(name: str, x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"{name}: worklist names a column tile past y")
 
 
-def _check_live(name: str, x: torch.Tensor, wl, live) -> None:
+def _check_live(name: str, x: torch.Tensor, wl, live,
+                walks: bool = False) -> None:
     """``live`` counts come from a CUDA worklist kernel, into (row tiles,)
-    int32 on x's device."""
+    int32 on x's device; (row tiles, 2) where ``walks`` (K9, K16: the
+    entries computed and the longest walk)."""
+    tiles = None if wl is None else wl.num_row_tiles
+    shape = (tiles, 2) if walks else (tiles,)
     if live is not None and (
             wl is None or x.device.type != "cuda"
             or live.dtype != torch.int32 or live.device != x.device
-            or live.shape != (wl.num_row_tiles,)):
+            or live.shape != shape or not live.is_contiguous()):
+        form = "(row tiles, 2)" if walks else "(row tiles,)"
         raise ValueError(f"{name}: live counts come from the CUDA "
-                         f"worklist kernel, into (row tiles,) int32 on x's "
+                         f"worklist kernel, into {form} int32 on x's "
                          f"device")
 
 
@@ -311,14 +320,7 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     _check("dependent_masked", x, y, x_key, y_key)
     if worklist is not None:
         _check_worklist("dependent_masked", x, y, worklist)
-    if live is not None and (
-            worklist is None or x.device.type != "cuda"
-            or live.dtype != torch.int32 or live.device != x.device
-            or live.shape != (worklist.num_row_tiles, 2)
-            or not live.is_contiguous()):
-        raise ValueError("dependent_masked: live counts come from the CUDA "
-                         "worklist kernel, into (row tiles, 2) int32 on "
-                         "x's device")
+    _check_live("dependent_masked", x, worklist, live, walks=True)
     if x.device.type == "cpu":
         if worklist is None:
             best, arg = masked_nn_plain(x, x_key, y, y_key)
@@ -605,6 +607,40 @@ def halo_density(x: torch.Tensor, window: torch.Tensor,
     return count.to(torch.float32)
 
 
+def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
+                w_key: torch.Tensor, starts: torch.Tensor,
+                ends: torch.Tensor, *, ring: bool) -> packing.HaloLayout:
+    """K11's (``ring`` False) or K16's layout of the rows keyed ``x_key``
+    with these spans over the window (``packing.halo_layout``, the pieces
+    cut into at most SMs x ``HALO_SPLITS_PER_SM`` splits' worth): on a
+    CUDA tensor built on the card by a few kernels and cub in one call, on
+    a CPU one by ``packing.halo_layout`` itself (as for one SM)."""
+    if x_key.device.type == "cpu":
+        return packing.halo_layout(x_key, window, w_key, starts, ends,
+                                   ring=ring, splits=HALO_SPLITS_PER_SM)
+    (n, s), (w, d) = starts.shape, window.shape
+    dev = x_key.device
+    splits = (torch.cuda.get_device_properties(dev).multi_processor_count
+              * HALO_SPLITS_PER_SM)
+    lib = build.load_library()
+    scratch = torch.empty((lib.repro_halo_layout_scratch(n),),
+                          dtype=torch.uint8, device=dev)
+    lay = packing.HaloLayout(
+        torch.empty((w, packing.record_width(d)), device=dev),
+        torch.empty((-(-w // BLOCK_M),), device=dev),
+        *(torch.empty((n,), dtype=torch.int32, device=dev)
+          for _ in range(4)),
+        torch.empty((2,), dtype=torch.int32, device=dev))
+    with torch.cuda.device(dev):
+        code = lib.repro_halo_layout(
+            starts.data_ptr(), ends.data_ptr(), x_key.data_ptr(),
+            window.data_ptr(), w_key.data_ptr(), n, w, d, s, int(ring),
+            splits, scratch.data_ptr(), scratch.numel(),
+            *(t.data_ptr() for t in lay), _stream(x_key))
+    build.check(lib, "halo_layout", code)
+    return lay
+
+
 def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
                    window: torch.Tensor, w_key: torch.Tensor,
                    starts: torch.Tensor, ends: torch.Tensor, d_cut, *,
@@ -616,9 +652,11 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
     CPU one.  ``worklist`` (a halo ring, ``blocksparse.build_flat_worklist(
     count=False, nn="best1", nn_dcut=True, starts=, ends=)``) walks each
     row tile's tile pairs in ascending lb and stops where no row can
-    improve: K16 on a CUDA tensor, its plain version on a CPU one.
-    ``live`` (CUDA only, (row tiles,) int32) receives the number of
-    entries K16 computed in each row tile.
+    improve: K16 on a CUDA tensor, its plain version on a CPU one.  Both
+    kernels take the window as packed records and the rows by piece
+    (``packing.halo_layout``, built here on the device).  ``live`` (CUDA
+    only, (row tiles, 2) int32) receives, per row tile, the entries K16's
+    pieces computed and the longest walk among them.
 
     Returns (delta (n,) f32, parent (n,) int32 window index, found (n,)
     bool); (inf, -1, False) where no window row qualifies.
@@ -627,7 +665,7 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
     _check_spans("halo_dependent", x, starts, ends)
     if worklist is not None:
         _check_worklist("halo_dependent", x, window, worklist)
-    _check_live("halo_dependent", x, worklist, live)
+    _check_live("halo_dependent", x, worklist, live, walks=True)
     d2cut = d2cut_of(d_cut)
     if x.device.type == "cpu":
         if worklist is None:
@@ -642,24 +680,28 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
     arg = torch.empty((n,), dtype=torch.int32, device=x.device)
     found = torch.empty((n,), dtype=torch.bool, device=x.device)
     if n:
+        lay = halo_layout(x_key, window, w_key, starts, ends,
+                          ring=worklist is not None)
+        best = torch.empty((n,), dtype=torch.int64, device=x.device)
+        nxt = torch.empty((1,), dtype=torch.int32, device=x.device)
+        head = (x.data_ptr(), x_key.data_ptr(), lay.rec.data_ptr(),
+                lay.rec.shape[1], lay.tmax.data_ptr(), starts.data_ptr(),
+                ends.data_ptr(), lay.row_id.data_ptr(), lay.plen.data_ptr(),
+                lay.order.data_ptr(), lay.item_end.data_ptr(),
+                lay.meta.data_ptr(), n, w, d, s, d2cut)
+        tail = (best.data_ptr(), nxt.data_ptr(), delta.data_ptr(),
+                arg.data_ptr(), found.data_ptr())
         lib = build.load_library()
         with torch.cuda.device(x.device):
             if worklist is None:
                 name = "halo_masked_nn"
-                code = lib.repro_halo_masked_nn(
-                    x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
-                    w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n,
-                    w, d, s, d2cut, delta.data_ptr(), arg.data_ptr(),
-                    found.data_ptr(), _stream(x))
+                code = lib.repro_halo_masked_nn(*head, *tail, _stream(x))
             else:
                 name = "worklist_halo_masked_nn"
                 code = lib.repro_worklist_halo_masked_nn(
-                    x.data_ptr(), x_key.data_ptr(), window.data_ptr(),
-                    w_key.data_ptr(), starts.data_ptr(), ends.data_ptr(), n,
-                    w, d, s, d2cut, worklist.row_ptr.data_ptr(),
+                    *head, worklist.row_ptr.data_ptr(),
                     worklist.col_tile.data_ptr(), worklist.lb.data_ptr(),
-                    delta.data_ptr(), arg.data_ptr(), found.data_ptr(),
-                    _ptr(live), _stream(x))
+                    *tail, _ptr(live), _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
     return delta, arg, found

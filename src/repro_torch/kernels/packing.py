@@ -1,5 +1,5 @@
-"""Host-side layouts of the K1, K2, K3, K6, K9, K12 and K13 kernels
-(``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2, K3, K6, K9, K11, K12, K13 and K16
+kernels (``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
@@ -40,6 +40,17 @@ padding column's norm is NaN, so it fails every test.  K13
 K3's split (``phase_split``: past it the first entry no row needs ends the
 walk) and tile order (``heaviest_first``).
 
+K11 (``halo_masked_nn``) and K16 (``worklist_halo_masked_nn``) take the
+halo window as records with the key in the slot, its column tiles'
+largest keys (``tile_max_key``) and the rows by piece (``halo_layout``):
+consecutive rows whose spans clip to the same columns form a run (the
+rows of one candidate cell, grid-sorted), each run's rows sorted by key,
+cut into pieces of at most ``HALO_PIECE`` rows, which one warp walks
+together, most work first, the heaviest cut into splits that several
+warps share; K16's runs are also cut at the ring's row tiles.  On the
+card ``ops.halo_layout`` builds the same arrays in one call
+(``repro_halo_layout``): ``halo_layout`` here is its plain version.
+
 The wrappers build all of this on the tensors' device; the kernels
 allocate nothing.
 """
@@ -49,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from .blocksparse import BLOCK_M
+from .blocksparse import BLOCK_M, BLOCK_N
 from .sweep import sq_norms
 
 # K12's columns per vote group, the padding unit of its records
@@ -280,3 +291,91 @@ def bf16_records(y: torch.Tensor, sel: torch.Tensor | None) -> Bf16Records:
         gate = torch.zeros((m16,), dtype=torch.uint8, device=y.device)
         gate[:m] = sel != 0
     return Bf16Records(rec, norms, gate)
+
+
+# rows a K11/K16 piece holds at most: one warp, two rows a lane
+# (kHaloPiece in csrc/sweep.cu)
+HALO_PIECE = 64
+
+
+def clip_spans(starts: torch.Tensor, ends: torch.Tensor, w: int):
+    """Each row's ``[start, end)`` spans clipped to the window ``[0, w)``,
+    an empty one as ``[0, 0)``: (a, b) int32, the columns the kernels walk."""
+    a = starts.clamp(0, w)
+    b = ends.clamp(0, w)
+    empty = b <= a
+    return a.masked_fill(empty, 0), b.masked_fill(empty, 0)
+
+
+def span_runs(starts: torch.Tensor, ends: torch.Tensor, w: int,
+              tile_rows: int | None = None) -> torch.Tensor:
+    """(n,) bool: the rows that start a run, in order: the first row, a
+    row whose clipped spans (``clip_spans``) differ from the previous
+    row's, and every ``tile_rows``-th row where that is given."""
+    n = starts.shape[0]
+    a, b = clip_spans(starts, ends, w)
+    new = torch.ones((n,), dtype=torch.bool, device=starts.device)
+    new[1:] = ((a[1:] != a[:-1]) | (b[1:] != b[:-1])).any(1)
+    if tile_rows is not None:
+        new[::tile_rows] = True
+    return new
+
+
+class HaloLayout(NamedTuple):
+    """What K11 and K16 read besides the rows, their keys and the spans."""
+    rec: torch.Tensor       # (w, record_width(d)) f32; slot: the key's bits
+    tmax: torch.Tensor      # (column tiles,) f32: tile_max_key of the keys
+    row_id: torch.Tensor    # (n,) int32: the rows by run, key ascending
+    plen: torch.Tensor      # (n,) int32: at a piece's first position its
+                            # rows, else 0
+    order: torch.Tensor     # (n,) int32: the positions, the pieces' first
+                            # ones first, most work first
+    item_end: torch.Tensor  # (n,) int32: the pieces' splits counted along
+                            # order
+    meta: torch.Tensor      # (2,) int32: the splits and the pieces in all
+
+
+def key_order(key: torch.Tensor) -> torch.Tensor:
+    """(n,) int64 in [0, 2^32) ordered as the f32 keys are (NaN as +inf)."""
+    key = torch.where(torch.isnan(key), float("inf"), key)
+    bits = key.view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
+
+
+def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
+                w_key: torch.Tensor, starts: torch.Tensor,
+                ends: torch.Tensor, ring: bool,
+                splits: int = 1) -> HaloLayout:
+    """K11's (``ring`` False) or K16's (``ring`` True: runs cut at the
+    ``BLOCK_N``-row tiles of its ring) layout.  Each run's rows are sorted by key (NaN as +inf, which seeks nothing),
+    so a piece's keys lie in a narrow band, and cut into pieces of
+    ``HALO_PIECE`` rows from its first, the last one shorter.  A run keeps
+    its positions, so a position's run, and its span columns, are those of
+    the row at that index.  A piece's work is its span columns, twice over
+    where it has more than 32 rows (two a lane); the pieces are ordered by
+    it, most first, and one whose work is above 1/``splits`` of all is cut
+    into that many splits (``splits``: about eight times the warps the
+    card holds), so no piece outlasts the rest."""
+    n, w = starts.shape[0], window.shape[0]
+    dev = starts.device
+    new = span_runs(starts, ends, w, BLOCK_N if ring else None)
+    run = torch.cumsum(new, 0) - 1
+    row_id = torch.sort((run << 32) | key_order(x_key), stable=True).indices
+    pos = torch.arange(n, device=dev)
+    first = torch.searchsorted(run, run)
+    end = torch.searchsorted(run, run, right=True)
+    plen = torch.where((pos - first) % HALO_PIECE == 0,
+                       torch.clamp(end - pos, max=HALO_PIECE), 0)
+    a, b = clip_spans(starts, ends, w)
+    work = torch.where(plen > 0, (b - a).sum(1) * (1 + (plen > 32)), -1)
+    work = work.clamp(max=2**31 - 1).to(torch.int32)
+    order = torch.sort(work, descending=True, stable=True).indices
+    work = work[order].clamp_min(0).long()
+    cap = torch.clamp((work.sum() + splits - 1) // splits, min=1)
+    item_end = torch.cumsum(torch.where(
+        plen[order] > 0, torch.clamp((work + cap - 1) // cap, min=1), 0), 0)
+    meta = torch.stack([item_end[-1], (plen > 0).sum()])
+    return HaloLayout(pack_records(window, w_key.view(torch.int32)),
+                      tile_max_key(w_key), row_id.to(torch.int32),
+                      plen.to(torch.int32), order.to(torch.int32),
+                      item_end.to(torch.int32), meta.to(torch.int32))

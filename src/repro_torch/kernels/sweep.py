@@ -556,8 +556,10 @@ def worklist_halo_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
     lexicographic on (d2, index); (+inf, -1) where none qualifies: K16's
     function.  Each row tile walks its entries in stored (ascending lb)
     order and stops at the first entry for which no row with a finite key
-    has ``lb <= best``, as the kernel does; ``live`` ((row tiles,) int32,
-    optional) receives the entries walked.  On a halo ring from
+    has ``lb <= best``: a block-wide walk, exact since lb ascends (the
+    kernel ends each piece of rows on its own, which computes a subset of
+    these entries); ``live`` ((row tiles,) int32, optional) receives the
+    entries this walk computed.  On a halo ring from
     ``build_flat_worklist(count=False, nn="best1", nn_dcut=True, starts=,
     ends=)`` it equals ``halo_masked_nn_plain``."""
     n, w = x.shape[0], window.shape[0]
