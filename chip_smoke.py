@@ -132,7 +132,9 @@ Phases, each of which raises on failure (nothing is caught):
    K4, K9 against dense K2, K10 with spans covering the whole window (and
    a reversed and a negative span) against K4, K11 so against K2 masked to
    d_cut; each shard's halo window assembled by the ppermute ring, its
-   empty spans negative; the entries K9's row walks computed.
+   empty spans negative; the layouts K10/K15 (no key) and K11/K16 build
+   on the card against their plain version, array for array; the entries
+   K9's row walks computed.
 17. Distributed Ex-DPC at full width: ``DPCEngine(d_cut, algorithm="exdpc",
    rho_min=10, mesh=ShardMesh.on("cuda", shards=4), strategy=...,
    exec_spec=ExecSpec(layout="block-sparse")).fit`` on the Airline proxy at
@@ -146,9 +148,13 @@ Phases, each of which raises on failure (nothing is caught):
    rows; K8-K11 on every call of the counted runs timed, against their
    plain versions on a few row tiles or 65,536 rows, their bounds from
    their inputs (K11's key tests only in the column tiles whose largest
-   key is above the row's, the earlier count beside it), K11's registers
-   and spills and the rows per run of rows sharing their spans (one
-   candidate cell's); for K9 on the gather's delta and on the halo
+   key is above the row's, the earlier count beside it), K10's and K11's
+   registers and spills and the rows per run of rows sharing their spans
+   (one candidate cell's), K10's keyless layout timed alone, its pieces
+   by form and its splits, and a count for a later PR: the share of the
+   span columns in 32-column chunks whose bounding box lies beyond d_cut
+   of their piece's rows' (``k10_skip_share``); for K9 on the gather's
+   delta and on the halo
    fallback, the entries its row walks computed and the longest walk; the
    halo fit's steps outside its ``dist.*`` spans (the points to the
    card, ``point_span_bounds``, the spans' padding, ``_window_bounds``,
@@ -217,12 +223,13 @@ Phases, each of which raises on failure (nothing is caught):
    ``denser_nn_halo(layout="block-sparse")`` with the counts zeroed just
    before and read just after (K15/K16 must launch, nothing else may),
    each result equal to K10/K11 bit for bit, K15/K16 against their plain
-   versions on a few row tiles, K11's and K16's layout built on the card
-   against its plain version array for array (also at check shapes); K15,
-   K16, their worklist builds and
-   K10/K11 timed, kept, in-cut and computed entries, K16's longest walk,
-   bounds from the inputs (K16's recounted on the entries each row needs,
-   the earlier count on each row tile's block-wide walk beside it), K16's
+   versions on a few row tiles, the layouts of K10/K15 (no key) and
+   K11/K16 built on the card against their plain version array for array
+   (also at check shapes); K15, K16, their worklist builds, K15's keyless
+   layout and K10/K11 timed, kept, in-cut and computed entries, K15's
+   pieces by form and its splits, K16's longest walk, bounds from the
+   inputs (K16's recounted on the entries each row needs, the earlier
+   count on each row tile's block-wide walk beside it), K15's and K16's
    registers and spills and the rows per run.
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
@@ -1672,16 +1679,103 @@ def halo_runs(st, en, w: int) -> dict:
 
 
 def halo_ptxas(log: str) -> dict:
-    """K11's and K16's registers and spill bytes at d = 3 (the halo fit's)
-    from the build's ptxas log: by rows a lane is not told apart (one
-    kernel serves both), so the kernel's whole report."""
+    """K10's, K11's, K15's and K16's registers and spill bytes at d = 3
+    (the halo fit's) from the build's ptxas log: by rows a lane (and, for
+    the count, by form) they are not told apart (one kernel serves all),
+    so each kernel's whole report."""
     from repro_torch.kernels.build import ptxas_usage
     out = {}
     for name, u in ptxas_usage(log).items():
-        if "halo_nn_kernel" in name and "ILi3E" in name:
-            form = "K16" if "Lb1E" in name else "K11"
-            out[form] = (u["registers"], u["spill_stores"], u["spill_loads"])
+        for kern, forms in (("halo_nn_kernel", ("K11", "K16")),
+                            ("halo_count_kernel", ("K10", "K15"))):
+            if kern in name and "ILi3E" in name:
+                form = forms[1] if "Lb1E" in name else forms[0]
+                out[form] = (u["registers"], u["spill_stores"],
+                             u["spill_loads"])
     return out
+
+
+def count_pieces(lay) -> dict:
+    """The pieces of a count layout (``ops.halo_layout`` with no key) by
+    form: a column a lane (at most ``packing.COUNT_BALLOT_ROWS`` rows), a
+    row a lane, two rows a lane (above 32); the splits and pieces."""
+    from repro_torch.kernels import packing
+    plen = lay.plen[lay.plen > 0]
+    cols = plen <= packing.COUNT_BALLOT_ROWS
+    return {"splits": int(lay.meta[0]), "pieces": int(lay.meta[1]),
+            "col_a_lane": int(cols.sum()),
+            "row_a_lane": int((~cols & (plen <= 32)).sum()),
+            "two_rows_a_lane": int((plen > 32).sum())}
+
+
+def k10_skip_share(x, win, st, en, d_cut) -> dict:
+    """A count for a later PR, recorded here: of the span columns K10's
+    pieces walk (its keyless layout's pieces, each span cut into 32-column
+    chunks from its start, as the kernel loads them), the share in chunks
+    whose bounding box lies farther than d_cut from the bounding box of
+    the piece's rows, and the share of row-column pairs there: what a
+    distance skip could pass over.  Exact only with the box bound shrunk
+    as ``blocksparse.LB_SHRINK`` shrinks the worklist's (its f32 rounding
+    never above a pair's d2), counted so; without the shrink beside it.
+    Plain PyTorch on the card's tensors, a window sparse table giving
+    each chunk's box."""
+    from repro_torch.kernels import ops, packing, sweep
+    from repro_torch.kernels.blocksparse import LB_SHRINK
+    n, d = x.shape
+    w = win.shape[0]
+    d2cut = sweep.d2cut_of(d_cut)
+    lay = ops.halo_layout(None, win, None, st, en, ring=False)
+    start = lay.plen > 0
+    p0 = torch.nonzero(start).flatten()
+    rows = lay.plen[p0].long()
+    piece = torch.cumsum(start, 0) - 1
+    plo = torch.full((p0.numel(), d), float("inf"), device=x.device)
+    phi = torch.full((p0.numel(), d), float("-inf"), device=x.device)
+    plo.scatter_reduce_(0, piece[:, None].expand(n, d), x, "amin")
+    phi.scatter_reduce_(0, piece[:, None].expand(n, d), x, "amax")
+    lo_t, hi_t = [win], [win]          # min / max over [j, j + 2^l)
+    for lvl in range(1, 6):
+        h = min(1 << (lvl - 1), w)
+        a, b = lo_t[-1], hi_t[-1]
+        lo_t.append(torch.minimum(a, torch.cat([a[h:], a[w - h:]])))
+        hi_t.append(torch.maximum(b, torch.cat([b[h:], b[w - h:]])))
+    a, b = packing.clip_spans(st[p0], en[p0], w)
+    tot = {"cols": 0, "pairs": 0, "skip_cols": 0, "skip_pairs": 0,
+           "skip_cols_no_shrink": 0, "chunks": 0}
+    for k in range(st.shape[1]):
+        length = (b[:, k] - a[:, k]).long()
+        nch = (length + 31) // 32
+        pc = torch.repeat_interleave(torch.arange(p0.numel(),
+                                                  device=x.device), nch)
+        first = torch.cumsum(nch, 0) - nch
+        c0 = a[pc, k].long() + 32 * (torch.arange(pc.numel(),
+                                                  device=x.device)
+                                     - first[pc])
+        ln = torch.clamp(b[pc, k].long() - c0, max=32)
+        if not pc.numel():
+            continue
+        lvl = torch.floor(torch.log2(ln.double())).long()
+        clo = torch.empty((pc.numel(), d), device=x.device)
+        chi = torch.empty_like(clo)
+        for v in range(6):
+            m = lvl == v
+            if not bool(m.any()):
+                continue
+            j0, j1 = c0[m], c0[m] + ln[m] - (1 << v)
+            clo[m] = torch.minimum(lo_t[v][j0], lo_t[v][j1])
+            chi[m] = torch.maximum(hi_t[v][j0], hi_t[v][j1])
+        gap = torch.maximum(clo - phi[pc], plo[pc] - chi).clamp_min(0.0)
+        g2 = sweep.direct_d2(gap, torch.zeros_like(gap))
+        skip = g2 * LB_SHRINK > d2cut
+        skip0 = g2 > d2cut
+        r = rows[pc]
+        tot["chunks"] += pc.numel()
+        tot["cols"] += int(ln.sum())
+        tot["pairs"] += int((ln * r).sum())
+        tot["skip_cols"] += int(ln[skip].sum())
+        tot["skip_pairs"] += int((ln * r)[skip].sum())
+        tot["skip_cols_no_shrink"] += int(ln[skip0].sum())
+    return tot
 
 
 def dist_check_shapes(cases, card: str) -> dict:
@@ -1757,6 +1851,8 @@ def dist_check_shapes(cases, card: str) -> dict:
                 sst = (mesh.shard(st)[s] - lo[s]).contiguous()
                 sen = (mesh.shard(en)[s] - lo[s]).contiguous()
                 neg += int((sen < 0).sum())
+                halo_layout_check(qk, win, wk, sst, sen,
+                                  f"{label}, shard {s}")
                 got = k10(q, win, sst, sen, dc)
                 check_equal(f"halo_range_count [{label}, shard {s}]", [got],
                             [k10_plain(q, win, sst, sen, dc)])
@@ -1767,6 +1863,8 @@ def dist_check_shapes(cases, card: str) -> dict:
                                      dtype=torch.int32, device=dev)
                 wst = whole[:, 0].expand(q.shape[0], 3).contiguous()
                 wen = whole[:, 1].expand(q.shape[0], 3).contiguous()
+                halo_layout_check(qk, win, wk, wst, wen,
+                                  f"{label}, shard {s}, whole window")
                 check_equal(f"halo_range_count [{label}, shard {s}]",
                             [k10(q, win, wst, wen, dc)],
                             [ops.local_density_xy(q, win, dc)],
@@ -1782,7 +1880,7 @@ def dist_check_shapes(cases, card: str) -> dict:
             line += (f"; halo_range_count, halo_masked_nn == plain, and == "
                      f"K4 / d_cut-masked K2 on whole-window spans: W={W}, "
                      f"hops {hf} forward {hb} back, {neg} negative span "
-                     f"bounds")
+                     f"bounds; their layouts built on the card == plain")
         print(line, flush=True)
         if not times:
             s1 = slice(per, per + cut)
@@ -2326,23 +2424,26 @@ def k16_work(x, xk, win, wk, st, en, wl, d2cut: float, parent,
 
 
 def halo_layout_check(x_key, win, wk, st, en, what: str) -> None:
-    """The layout K11 and K16 build on the card (``ops.halo_layout``)
-    equal to its plain version (``packing.halo_layout``) array for array,
-    both forms, the records bit for bit."""
+    """The layouts K11/K16 and, with no key, K10/K15 build on the card
+    (``ops.halo_layout``) equal to their plain version
+    (``packing.halo_layout``) array for array, both forms of each, the
+    records bit for bit."""
     from repro_torch.kernels import ops, packing
     splits = (torch.cuda.get_device_properties(x_key.device)
               .multi_processor_count * ops.HALO_SPLITS_PER_SM)
-    for ring in (False, True):
-        got = ops.halo_layout(x_key, win, wk, st, en, ring=ring)
-        want = packing.halo_layout(x_key, win, wk, st, en, ring=ring,
-                                   splits=splits)
-        for name, g, w in zip(got._fields, got, want):
-            same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
-                    if name == "rec" else torch.equal(g, w.to(g.dtype)))
-            if not same:
-                raise AssertionError(f"halo layout [{what}, ring={ring}]: "
-                                     f"{name} differs from its plain "
-                                     f"version")
+    for xk, k in ((x_key, wk), (None, None)):
+        for ring in (False, True):
+            got = ops.halo_layout(xk, win, k, st, en, ring=ring)
+            want = packing.halo_layout(xk, win, k, st, en, ring=ring,
+                                       splits=splits)
+            for name, g, w in zip(got._fields, got, want):
+                same = (torch.equal(g.view(torch.int32), w.view(torch.int32))
+                        if name == "rec" else torch.equal(g, w.to(g.dtype)))
+                if not same:
+                    raise AssertionError(
+                        f"halo layout [{what}, ring={ring}, "
+                        f"{'keyed' if xk is not None else 'no key'}]: "
+                        f"{name} differs from its plain version")
 
 
 def halo_worklist_check_shapes(cases, card: str) -> dict:
@@ -2486,7 +2587,8 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
 
     rec = {"launches": launched, "shards": []}
     tot = {"k15_ms": 0.0, "k16_ms": 0.0, "k15_build_ms": 0.0,
-           "k16_build_ms": 0.0, "k10_ms": 0.0, "k11_ms": 0.0}
+           "k16_build_ms": 0.0, "k10_ms": 0.0, "k11_ms": 0.0,
+           "k15_layout_ms": 0.0}
     work15, work16 = [0.0, 0.0], [0.0, 0.0, 0.0]
     first = None
     for a10, a11 in zip(calls10, calls11):
@@ -2505,7 +2607,9 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
              "k16_build_ms": time_ms(lambda: halo_ring(x11, win11, st11,
                                                        en11, dc)),
              "k10_ms": time_ms(lambda: k10(*a10)),
-             "k11_ms": time_ms(lambda: k11(*a11))}
+             "k11_ms": time_ms(lambda: k11(*a11)),
+             "k15_layout_ms": time_ms(lambda: ops.halo_layout(
+                 None, win, None, st, en, ring=True))}
         for k, v in t.items():
             tot[k] += v
         b15 = k15_work(x, win, st, en, cwl)
@@ -2520,6 +2624,8 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
             "ring": ring.n_kept, "k16_computed": int(live[:, 0].sum()),
             "k16_longest": int(live[:, 1].max()), "total": cwl.n_total,
             "k16_work": b16[2], "runs": halo_runs(st11, en11, win11.shape[0]),
+            "k15_pieces": count_pieces(ops.halo_layout(None, win, None, st,
+                                                       en, ring=True)),
             **t})
         if first is None:
             first = (a10, a11, cwl, ring)
@@ -2565,7 +2671,17 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
         kept = [e["count_kept" if key == "k15_ms" else "ring"] for e in sh]
         if key == "k15_ms":
             comp = f"entries computed {[e['in_cut'] for e in sh]}"
-            more = ""
+            more = (f"; its keyless layout alone {tot['k15_layout_ms']:.3f} "
+                    f"ms; ptxas (registers, spill bytes) "
+                    f"{regs.get('K15', 'not measured')}; pieces a shard "
+                    f"(splits, pieces; a column a lane, a row a lane, two "
+                    f"rows a lane): " + "; ".join(
+                        f"{e['k15_pieces']['splits']}, "
+                        f"{e['k15_pieces']['pieces']}; "
+                        f"{e['k15_pieces']['col_a_lane']}, "
+                        f"{e['k15_pieces']['row_a_lane']}, "
+                        f"{e['k15_pieces']['two_rows_a_lane']}"
+                        for e in sh))
         else:
             comp = (f"entries its pieces computed "
                     f"{[e['k16_computed'] for e in sh]}, longest walk "
@@ -2647,8 +2763,8 @@ def main() -> int:
     print(f"  ptxas, K12 (registers, spill bytes): {bf16_regs['K12']}")
     print(f"  ptxas, K13 (registers, spill bytes): {bf16_regs['K13']}")
     halo_regs = halo_ptxas(b.log)
-    print(f"  ptxas, K11 and K16 at d = 3 (registers, spill bytes): "
-          f"{halo_regs}")
+    print(f"  ptxas, K10, K11, K15 and K16 at d = 3 (registers, spill "
+          f"bytes): {halo_regs}")
     record.update(card=card, clocks=clocks, build_s=b.seconds,
                   bf16_ptxas=bf16_regs, halo_ptxas=halo_regs)
 
@@ -3560,6 +3676,16 @@ def main() -> int:
                             "plain_ms": p_ms, "plain_rows": r}
         if name == "halo_range_count":
             works = [work(a[0], a[1], a[2], a[3]) for a, _ in calls]
+            k10_info = []
+            for a, _ in calls:
+                lay = ops.halo_layout(None, a[1], None, a[2], a[3],
+                                      ring=False)
+                k10_info.append({
+                    "pieces": count_pieces(lay),
+                    "layout_ms": time_ms(lambda a=a: ops.halo_layout(
+                        None, a[1], None, a[2], a[3], ring=False)),
+                    "skip": k10_skip_share(*a)})
+                del lay
         else:
             works = [work(*a[:6]) for a, _ in calls]
             k11_earlier = bound_ms(sum(w[0] for w in works),
@@ -3572,6 +3698,30 @@ def main() -> int:
         t = main_times[name]
         b_ms, by = bound_ms(*bounds[name])
         more = ""
+        if name == "halo_range_count":
+            sk = {k: sum(i["skip"][k] for i in k10_info)
+                  for k in k10_info[0]["skip"]}
+            no_margin = sk["skip_cols_no_shrink"] / max(sk["cols"], 1)
+            lay_ms = sum(i["layout_ms"] for i in k10_info)
+            more = (f"; its keyless layout alone {lay_ms:.3f} ms; ptxas "
+                    f"(registers, spill bytes) "
+                    f"{halo_regs.get('K10', 'not measured')}; pieces a shard "
+                    f"(splits, pieces; a column a lane, a row a lane, two "
+                    f"rows a lane): " + "; ".join(
+                        f"{i['pieces']['splits']}, {i['pieces']['pieces']}; "
+                        f"{i['pieces']['col_a_lane']}, "
+                        f"{i['pieces']['row_a_lane']}, "
+                        f"{i['pieces']['two_rows_a_lane']}"
+                        for i in k10_info)
+                    + f"; a distance skip of 32-column chunks beyond d_cut "
+                    f"of their piece's rows (LB_SHRINK's margin) could pass "
+                    f"over {100 * sk['skip_cols'] / max(sk['cols'], 1):.1f} "
+                    f"% of the span columns, "
+                    f"{100 * sk['skip_pairs'] / max(sk['pairs'], 1):.1f} % "
+                    f"of the pairs ({100 * no_margin:.1f} % of the columns "
+                    f"with no margin; {sk['chunks']} "
+                    f"chunks)")
+            dist_rec["k10"] = {"shards": k10_info, "skip": sk}
         if name == "halo_masked_nn":
             more = (f" (earlier count {k11_earlier:.3f}, a key test for "
                     f"every span column); ptxas (registers, spill bytes) "

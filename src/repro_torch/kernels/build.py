@@ -117,13 +117,15 @@ def load_library() -> ctypes.CDLL:
     lib.repro_worklist_masked_nn.argtypes = [p, p, p, i, i, i, i, p, p, p, p,
                                              p, p, p, p, p]
     lib.repro_worklist_masked_nn.restype = i
-    lib.repro_halo_range_count.argtypes = [p, p, p, p, i, i, i, i, f, p, p]
+    lib.repro_halo_range_count.argtypes = [p, p, i, p, p, p, p, p, p, i, i,
+                                           i, i, f, p, p, p]
     lib.repro_halo_range_count.restype = i
     lib.repro_halo_masked_nn.argtypes = [p, p, p, i, p, p, p, p, p, p, p, p,
                                          i, i, i, i, f, p, p, p, p, p, p]
     lib.repro_halo_masked_nn.restype = i
-    lib.repro_worklist_halo_range_count.argtypes = [p, p, p, p, i, i, i, i,
-                                                    f, p, p, p, p, p]
+    lib.repro_worklist_halo_range_count.argtypes = [p, p, i, p, p, p, p, p,
+                                                    p, i, i, i, i, f, p, p,
+                                                    p, p, p, p, p]
     lib.repro_worklist_halo_range_count.restype = i
     lib.repro_worklist_halo_masked_nn.argtypes = [p, p, p, i, p, p, p, p, p,
                                                   p, p, p, i, i, i, i, f, p,

@@ -34,7 +34,10 @@
 //                              warp a row (over packed records with the
 //                              key in the slot, kernels/packing.py)
 //   repro_halo_range_count     per query row, the count within d_cut of the
-//                              window rows inside its [start, end) spans
+//                              window rows inside its [start, end) spans,
+//                              a warp a piece of rows sharing their spans
+//                              (over packed records and pieces with no
+//                              key, kernels/packing.py)
 //   repro_halo_masked_nn       per query row, the nearest strictly denser
 //                              window row within d_cut inside its spans, a
 //                              warp a piece of rows sharing their spans
@@ -49,11 +52,18 @@
 //                              of the y rows within d_cut over the in-d_cut
 //                              pairs of a count-only worklist
 //   repro_worklist_halo_range_count    K10's count over the in-d_cut pairs
-//                              of a span count worklist
+//                              of a span count worklist (K10's body on
+//                              each piece's in_cut entries)
 //   repro_worklist_halo_masked_nn      K11's NN walking a halo ring
 //                              worklist (the pairs within d_cut a span
 //                              reaches), each piece of rows stopping where
 //                              none of its rows can improve (K11's body)
+//
+// and one more entry point with a plain version in kernels/packing.py:
+//
+//   repro_halo_layout          the pieces K10/K11/K15/K16 read (rows of
+//                              one run by piece, pieces by work, splits)
+//                              and the window's records, built on the card
 //
 // Launch contract: each entry point launches on the stream it is given,
 // allocates nothing, and returns cudaGetLastError().  Ragged edges are
@@ -1500,150 +1510,6 @@ __global__ void __launch_bounds__(32 * kK9Warps)
   }
 }
 
-// K10 — replaces the reference's density.range_count_halo, i.e.
-// sweep.tile_sweep with SweepSpec(count=True, span=True)
-// (repro/kernels/density.py:68, the span mask at sweep.py:199-205,
-// pallas_call at :432), reached through ops.halo_density: the distributed
-// halo strategy's rho phase, each shard row against its window.
-//
-// Bound: f32 CUDA-core issue, about 3d+1 operations for each column inside
-// a row's spans, and the window columns read once where neighbouring rows
-// share them.  A TPU tile cannot gather, so the TPU kernel masks dense
-// (row tile x window tile) blocks with the spans: rows x W pairs, quadratic
-// in the shard.  Here each thread owns one row and walks its S spans
-// [start, end) directly (clipped to [0, W): empty and negative spans count
-// nothing), reading the window rows from global memory: the work is the
-// spans' lengths.  Rows are grid-sorted, so a warp's rows mostly share one
-// cell and its spans, and the reads coalesce into broadcasts.  The spans of
-// a row are disjoint (distinct candidate-cell prefixes), so the count is the
-// span mask's.
-template <int D>
-__global__ void __launch_bounds__(kRows)
-    halo_range_count_kernel(const float* __restrict__ x,
-                            const float* __restrict__ win,
-                            const int* __restrict__ starts,
-                            const int* __restrict__ ends, int n, int w,
-                            int d, int s, float d2cut,
-                            int* __restrict__ count) {
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  if (i >= n) return;
-  if constexpr (D > 0) d = D;
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(i) * d;
-  if constexpr (D > 0) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-  int cnt = 0;
-  for (int k = 0; k < s; ++k) {
-    const int a = max(starts[static_cast<size_t>(i) * s + k], 0);
-    const int b = min(ends[static_cast<size_t>(i) * s + k], w);
-    for (int j = a; j < b; ++j) {
-      const float* yc = win + static_cast<size_t>(j) * d;
-      float d2;
-      if constexpr (D > 0) {
-        d2 = pair_d2<D>(xr, yc, D);
-      } else {
-        d2 = pair_d2<0>(xg, yc, d);
-      }
-      cnt += d2 < d2cut;
-    }
-  }
-  count[i] = cnt;
-}
-
-// K15 — replaces the reference's density.range_count_halo over a worklist,
-// i.e. sweep.tile_sweep with SweepSpec(count=True, span=True) and wl_meta
-// (repro/kernels/density.py:68-87, the span mask at sweep.py:199-205,
-// pallas_call at :432; PallasBackend.range_count_halo(layout=
-// "block-sparse"), repro/kernels/backend.py:729-740), reached through
-// ops.halo_density(worklist=...) on the span count worklist
-// (blocksparse.build_flat_worklist(nn=None, starts=, ends=)).
-//
-// Bound: f32 CUDA-core issue, about 3d+1 operations for each column of a
-// row's spans inside the row tile's in-d_cut entries.  The design is K8's
-// walk: one block per 256-row tile walks its entries, and each in-cut
-// entry's 512 window columns are staged in shared memory.  Each thread then
-// intersects its S spans with the staged chunk's column range (the chunk
-// lies inside [0, W), so the spans are clipped to the window too) and
-// computes only the columns in that intersection: its work is its spans'
-// lengths inside the in-cut tiles, not 256 x 512 per entry.  The spans stay
-// in global memory, read as K10 reads them (S = 3^(g-1) reaches 2,187 at
-// d = 8), once per staged chunk; the rows are grid-sorted, so a warp's rows
-// mostly share their spans and the reads are broadcasts from L1.  Counts
-// are integers, so K15 equals K10 bit for bit in any order of the walk:
-// every pair within d_cut lies in an in-cut entry, since its tile pair's lb
-// is at most its d2 and a span reaches it.
-template <int D>
-__global__ void __launch_bounds__(kWlRows)
-    worklist_halo_range_count_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ win,
-                                     const int* __restrict__ starts,
-                                     const int* __restrict__ ends, int n,
-                                     int w, int d, int s, float d2cut,
-                                     const int* __restrict__ row_ptr,
-                                     const int* __restrict__ col_tile,
-                                     const unsigned char* __restrict__ in_cut,
-                                     int* __restrict__ count) {
-  __shared__ float tile[kTileFloats];
-  __shared__ int s_col[kWlRows];
-  __shared__ int s_cut[kWlRows];
-  if constexpr (D > 0) d = D;
-  const int per_chunk = min(kWlCols, kTileFloats / d);
-  const int t = blockIdx.x;
-  const int i = t * kWlRows + threadIdx.x;
-  const bool live = i < n;
-  const int row = live ? i : n - 1;
-  const int ns = live ? s : 0;       // dead lanes stage, never compute
-  const int* st = starts + static_cast<size_t>(row) * s;
-  const int* en = ends + static_cast<size_t>(row) * s;
-
-  float xr[D > 0 ? D : 1];
-  const float* xg = x + static_cast<size_t>(row) * d;
-  if constexpr (D > 0) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) xr[k] = xg[k];
-  }
-
-  int cnt = 0;
-  const int e0 = row_ptr[t];
-  const int e1 = row_ptr[t + 1];
-  for (int base = e0; base < e1; base += kWlRows) {
-    const int ne = min(kWlRows, e1 - base);
-    __syncthreads();
-    if (threadIdx.x < ne) {
-      s_col[threadIdx.x] = col_tile[base + threadIdx.x];
-      s_cut[threadIdx.x] = in_cut[base + threadIdx.x];
-    }
-    __syncthreads();
-    for (int e = 0; e < ne; ++e) {
-      if (!s_cut[e]) continue;        // the same for every thread
-      const int j0 = s_col[e] * kWlCols;
-      const int j1 = min(j0 + kWlCols, w);
-      for (int c0 = j0; c0 < j1; c0 += per_chunk) {
-        const int c1 = min(c0 + per_chunk, j1);
-        __syncthreads();
-        stage(tile, win, c0, c1 - c0, d);
-        __syncthreads();
-        for (int k = 0; k < ns; ++k) {
-          const int a = max(st[k], c0);
-          const int b = min(en[k], c1);
-          for (int j = a; j < b; ++j) {
-            float d2;
-            if constexpr (D > 0) {
-              d2 = pair_d2<D>(xr, tile + (j - c0) * D, D);
-            } else {
-              d2 = pair_d2<0>(xg, tile + (j - c0) * d, d);
-            }
-            cnt += d2 < d2cut;
-          }
-        }
-      }
-    }
-  }
-  if (live) count[i] = cnt;
-}
-
 // K11 and K16 — replace the reference's dependent.masked_min_dist_halo,
 // i.e. sweep.tile_sweep with SweepSpec(nn="best1", key=True, span=True,
 // nn_dcut=True) (repro/kernels/dependent.py:56-77, the span mask at
@@ -1959,9 +1825,33 @@ __device__ __forceinline__ void halo_piece(const HaloArgs& g, int4 pc,
 // order (kernels/packing.py::halo_layout: order, the positions, pieces'
 // first ones first, most work first; plen, a piece's rows at its first
 // position, else 0; item_end, the splits' running count along order;
-// meta, the splits and the pieces in all).  Split i belongs to the first
-// order slot q with item_end[q] > i: q <= i, and q >= i - (splits -
-// pieces), found by a 32-way search.
+// meta, the splits and the pieces in all).  halo_next hands a warp its
+// next split i and the order slot lo of its piece: the first slot q with
+// item_end[q] > i, where q <= i and q >= i - (splits - pieces), found by
+// a 32-way search; false when none is left.
+__device__ __forceinline__ bool halo_next(int* next_item,
+                                          const int* __restrict__ item_end,
+                                          const int* __restrict__ meta,
+                                          int lane, int& i, int& lo) {
+  const int items = meta[0];
+  const int pieces = meta[1];
+  i = 0;
+  if (lane == 0) i = atomicAdd(next_item, 1);
+  i = __shfl_sync(0xffffffffu, i, 0);
+  if (i >= items) return false;
+  lo = max(0, i - (items - pieces));
+  int hi = min(i, pieces - 1);
+  while (lo < hi) {                   // the first q in [lo, hi] past i
+    const int step = (hi - lo + 30) / 31;  // lane 31 reaches hi
+    const int q = min(lo + lane * step, hi);
+    const unsigned past = __ballot_sync(0xffffffffu, item_end[q] > i);
+    const int f = __ffs(past) - 1;    // item_end[hi] > i: lane 31 is
+    hi = min(lo + f * step, hi);
+    if (f > 0) lo = lo + (f - 1) * step + 1;
+  }
+  return true;
+}
+
 template <int D, bool kRing>
 __global__ void __launch_bounds__(32 * kHaloWarps)
     halo_nn_kernel(HaloArgs g, const int* __restrict__ plen,
@@ -1977,23 +1867,8 @@ __global__ void __launch_bounds__(32 * kHaloWarps)
   }
   const int lane = threadIdx.x & 31;
   float4* buf = bufs[threadIdx.x >> 5];
-  const int items = meta[0];
-  const int pieces = meta[1];
-  for (;;) {
-    int i = 0;
-    if (lane == 0) i = atomicAdd(next_item, 1);
-    i = __shfl_sync(0xffffffffu, i, 0);
-    if (i >= items) return;
-    int lo = max(0, i - (items - pieces));
-    int hi = min(i, pieces - 1);
-    while (lo < hi) {                 // the first q in [lo, hi] past i
-      const int step = (hi - lo + 30) / 31;  // lane 31 reaches hi
-      const int q = min(lo + lane * step, hi);
-      const unsigned past = __ballot_sync(0xffffffffu, item_end[q] > i);
-      const int f = __ffs(past) - 1;  // item_end[hi] > i: lane 31 is
-      hi = min(lo + f * step, hi);
-      if (f > 0) lo = lo + (f - 1) * step + 1;
-    }
+  int i, lo;
+  while (halo_next(next_item, item_end, meta, lane, i, lo)) {
     const int base = lo > 0 ? item_end[lo - 1] : 0;
     const int at = order[lo];
     const int rows = plen[at];
@@ -2030,11 +1905,341 @@ __global__ void halo_decode_kernel(
   found[i] = f;
 }
 
-// K11's and K16's layout on the card, the arrays of
-// kernels/packing.py::halo_layout (its plain version) built by a few
-// kernels and cub's sort, scan and sum, with no host round trip: the
+// K10 and K15 — replace the reference's density.range_count_halo, i.e.
+// sweep.tile_sweep with SweepSpec(count=True, span=True)
+// (repro/kernels/density.py:68-87, the span mask at sweep.py:199-205,
+// pallas_call at :432), reached through ops.halo_density: the distributed
+// halo strategy's rho phase, each shard row against its window (K10), and
+// the same count over a span count worklist
+// (PallasBackend.range_count_halo(layout="block-sparse"),
+// repro/kernels/backend.py:729-740; blocksparse.build_flat_worklist(
+// nn=None, starts=, ends=)) through ops.halo_density(worklist=...) (K15).
+//
+// Per query row: the count of the window rows inside its [start, end)
+// spans (clipped to [0, W): empty, negative and reversed spans count
+// nothing) with d2 < d_cut^2; K15 counts only the columns of its row
+// tile's in_cut entries.  The spans of a row are disjoint (distinct
+// candidate-cell prefixes), so the count is the span mask's.  A NaN
+// coordinate makes d2 NaN, which is never below d_cut^2.
+//
+// Bound: f32 CUDA-core issue, 3d+1 operations for each column inside a
+// row's spans (K15: inside its in_cut entries).  The parent kernels ran a
+// thread a row (K10), each reading its span columns from global memory
+// once per row, its lanes' walks of different lengths, and a block a
+// 256-row tile (K15), staging each in_cut entry's 512 columns behind two
+// barriers while each thread re-read its spans for every staged chunk.
+//
+// The design is K11's (halo_nn_kernel) without the key.  The wrapper
+// groups the rows whose spans clip to the same columns into runs, the rows
+// in position order, cut into pieces of at most kHaloPiece rows, ordered
+// by their work, most first, the heaviest cut into splits
+// (kernels/packing.py::halo_layout with no key, built on the card by
+// repro_halo_layout; K15's runs are cut at its worklist's row tiles too).
+// Persistent warps take the splits from a counter and stream each span
+// column once for all of a piece's rows, in one of two forms:
+//   * a row a lane (pieces of more than kCountBallot rows; two rows a
+//     lane above 32): the lanes load 32 consecutive window records a
+//     chunk, the next chunk's load issued before the current one is
+//     computed, into a per-warp shared buffer that every lane reads by
+//     broadcast, each row's count in a register;
+//   * a column a lane (pieces of at most kCountBallot rows, d <= 8): each
+//     lane holds one column of the chunk in registers, the piece's rows
+//     sit in the warp's buffer, and for each row the warp counts its
+//     columns within d_cut by __popc(__ballot_sync(...)) into the row's
+//     lane, so no lane idles on a short piece.
+// A split takes the part-th of `parts` equal slices of the piece's span
+// columns; K15 computes only their stretches in the column tiles of its
+// row tile's in_cut entries, read from a bit set its entry point builds
+// first (count_cut_kernel; walking the entries instead, every parts-th
+// one a split, cuts each span at every tile and measured slower, PERF.md
+// §6).  A piece of one split stores its rows' counts; splits add theirs
+// by atomicAdd into the zeroed counts, exact in any order, so K15 equals
+// K10 bit for bit: every pair within d_cut lies in an in_cut entry, since
+// its tile pair's lb is at most its d2 and a span reaches it.
+constexpr int kCountBallot = 16;  // rows of a column-a-lane piece at most
+                                  // (COUNT_BALLOT_ROWS in
+                                  // kernels/packing.py)
+
+struct CountArgs {
+  const float* x;          // (n, d) query rows
+  const float4* rec;       // w records of w4 float4s (the slot unread)
+  const int* starts;       // (n, s) spans, window-local
+  const int* ends;
+  int w4, w, d, s;
+  float d2cut;
+  int* count;              // (n,) zeroed
+  const unsigned* cut;     // K15: per row tile, cut_words words of bits,
+  int cut_words;           // the column tiles of its in_cut entries
+};
+
+// A lane's rows (a row a lane): coordinates and counts.
+template <int D, int R>
+struct CountRows {
+  float xr[R][D > 0 ? D : 1];
+  const float* xg[R];
+  int cnt[R];
+};
+
+// A row a lane: the piece's rows against window columns [a, b), a < b.
+template <int D, int R>
+__device__ __forceinline__ void count_rows(const CountArgs& g, int a, int b,
+                                           float4* buf, int lane,
+                                           CountRows<D, R>& h) {
+  if constexpr (D > 0) {
+    constexpr int V = rec_vecs(D);
+    float4 nx[V];
+    auto fetch = [&](int c0) {
+      const int j = c0 + lane < b ? c0 + lane : a;
+#pragma unroll
+      for (int q = 0; q < V; ++q)
+        nx[q] = g.rec[static_cast<size_t>(j) * V + q];
+    };
+    auto col = [&](int c) {
+      float y[4 * V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float4 f = buf[c * V + q];
+        y[4 * q] = f.x;
+        y[4 * q + 1] = f.y;
+        y[4 * q + 2] = f.z;
+        y[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        h.cnt[r] += pair_d2<D>(h.xr[r], y, D) < g.d2cut;
+    };
+    fetch(a);
+    for (int c0 = a; c0 < b; c0 += 32) {
+      __syncwarp();                   // the previous chunk's reads are done
+#pragma unroll
+      for (int q = 0; q < V; ++q) buf[lane * V + q] = nx[q];
+      __syncwarp();
+      if (c0 + 32 < b) fetch(c0 + 32);
+      if (b - c0 >= 32) {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) col(c);  // constant buffer offsets
+      } else {
+        for (int c = 0; c < b - c0; ++c) col(c);
+      }
+    }
+  } else {
+    const float* recf = reinterpret_cast<const float*>(g.rec);
+    for (int j = a; j < b; ++j) {
+      const float* yg = recf + static_cast<size_t>(j) * 4 * g.w4;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        h.cnt[r] += pair_d2<0>(h.xg[r], yg, g.d) < g.d2cut;
+    }
+  }
+}
+
+// A column a lane: the piece's `rows` rows (in buf, V float4s a row)
+// against window columns [a, b), a < b; lane r adds row r's count.
+template <int D>
+__device__ __forceinline__ void count_cols(const CountArgs& g, int a, int b,
+                                           const float4* buf, int rows,
+                                           int lane, int& cnt) {
+  constexpr int V = rec_vecs(D);
+  float4 nx[V];
+  auto fetch = [&](int c0) {
+    const int j = c0 + lane < b ? c0 + lane : a;
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      nx[q] = g.rec[static_cast<size_t>(j) * V + q];
+  };
+  fetch(a);
+  for (int c0 = a; c0 < b; c0 += 32) {
+    float y[4 * V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      y[4 * q] = nx[q].x;
+      y[4 * q + 1] = nx[q].y;
+      y[4 * q + 2] = nx[q].z;
+      y[4 * q + 3] = nx[q].w;
+    }
+    if (c0 + lane >= b) y[0] = CUDART_NAN_F;  // past b: d2 NaN, uncounted
+    if (c0 + 32 < b) fetch(c0 + 32);
+#pragma unroll 2
+    for (int r = 0; r < rows; ++r) {
+      float xr[4 * V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float4 f = buf[r * V + q];
+        xr[4 * q] = f.x;
+        xr[4 * q + 1] = f.y;
+        xr[4 * q + 2] = f.z;
+        xr[4 * q + 3] = f.w;
+      }
+      const unsigned in =
+          __ballot_sync(0xffffffffu, pair_d2<D>(xr, y, D) < g.d2cut);
+      if (lane == r) cnt += __popc(in);
+    }
+  }
+}
+
+// The columns of split `part` of `parts` of the piece whose first position
+// is p0 (its rows' spans are row p0's), as ranges [a, b) handed to visit:
+// the part-th slice of the spans' columns laid end to end, and for K15
+// only its stretches in the column tiles of the row tile's in_cut entries.
+template <bool kWl, typename Visit>
+__device__ __forceinline__ void count_ranges(const CountArgs& g, int p0,
+                                             int part, int parts,
+                                             Visit&& visit) {
+  const int* st = g.starts + static_cast<size_t>(p0) * g.s;
+  const int* en = g.ends + static_cast<size_t>(p0) * g.s;
+  const unsigned* cut =
+      g.cut + static_cast<size_t>(kWl ? p0 / kWlRows : 0) * g.cut_words;
+  auto in_cut = [&](int j) {
+    const int c = j / kWlCols;
+    return ((__ldg(cut + (c >> 5)) >> (c & 31)) & 1u) != 0;
+  };
+  long long cols = 0;
+  for (int k = 0; k < g.s; ++k)
+    cols += max(min(__ldg(en + k), g.w) - max(__ldg(st + k), 0), 0);
+  const long long c0 = cols * part / parts;
+  const long long c1 = cols * (part + 1) / parts;
+  long long off = 0;
+  for (int k = 0; k < g.s && off < c1; ++k) {
+    const int a0 = max(__ldg(st + k), 0);
+    const int b0 = min(__ldg(en + k), g.w);
+    if (a0 >= b0) continue;
+    const long long len = b0 - a0;
+    const int a = a0 + static_cast<int>(max(c0 - off, 0LL));
+    const int b = a0 + static_cast<int>(min(c1 - off, len));
+    off += len;
+    if constexpr (!kWl) {
+      if (a < b) visit(a, b);
+    } else {
+      int ra = a;
+      while (ra < b) {
+        while (ra < b && !in_cut(ra)) ra = (ra / kWlCols + 1) * kWlCols;
+        int rb = ra;
+        while (rb < b && in_cut(rb)) rb = min(b, (rb / kWlCols + 1) * kWlCols);
+        if (ra < rb) visit(ra, rb);
+        ra = rb;
+      }
+    }
+  }
+}
+
+// A row's count from one split: stored where the piece has one split,
+// else added.
+__device__ __forceinline__ void count_out(const CountArgs& g, int row,
+                                          int cnt, int parts) {
+  if (parts == 1) {
+    g.count[row] = cnt;
+  } else if (cnt != 0) {
+    atomicAdd(g.count + row, cnt);
+  }
+}
+
+template <int D, int R, bool kWl>
+__device__ __forceinline__ void count_piece_rows(const CountArgs& g, int p0,
+                                                 int rows, int part,
+                                                 int parts, float4* buf,
+                                                 int lane) {
+  CountRows<D, R> h;
+  int row[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = lane + 32 * r;
+    row[r] = p < rows ? p0 + p : -1;
+    h.xg[r] = g.x + static_cast<size_t>(row[r] >= 0 ? row[r] : p0) * g.d;
+    if constexpr (D > 0) {
+#pragma unroll
+      for (int k = 0; k < D; ++k) h.xr[r][k] = h.xg[r][k];
+    }
+    h.cnt[r] = 0;
+  }
+  count_ranges<kWl>(g, p0, part, parts, [&](int a, int b) {
+    count_rows<D, R>(g, a, b, buf, lane, h);
+  });
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (row[r] >= 0) count_out(g, row[r], h.cnt[r], parts);
+}
+
+template <int D, bool kWl>
+__device__ __forceinline__ void count_piece_cols(const CountArgs& g, int p0,
+                                                 int rows, int part,
+                                                 int parts, float4* buf,
+                                                 int lane) {
+  constexpr int V = rec_vecs(D);
+  __syncwarp();                       // the previous piece's reads are done
+  if (lane < rows) {
+    float v[4 * V] = {};
+    const float* xg = g.x + static_cast<size_t>(p0 + lane) * D;
+#pragma unroll
+    for (int k = 0; k < D; ++k) v[k] = xg[k];
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      buf[lane * V + q] =
+          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+  __syncwarp();
+  int cnt = 0;
+  count_ranges<kWl>(g, p0, part, parts, [&](int a, int b) {
+    count_cols<D>(g, a, b, buf, rows, lane, cnt);
+  });
+  if (lane < rows) count_out(g, p0 + lane, cnt, parts);
+}
+
+// Persistent warps taking the pieces' splits as halo_nn_kernel does.
+template <int D, bool kWl>
+__global__ void __launch_bounds__(32 * kHaloWarps)
+    halo_count_kernel(CountArgs g, const int* __restrict__ plen,
+                      const int* __restrict__ order,
+                      const int* __restrict__ item_end,
+                      const int* __restrict__ meta,
+                      int* __restrict__ next_item) {
+  constexpr int V = rec_vecs(D > 0 ? D : 1);
+  __shared__ float4 bufs[kHaloWarps][D > 0 ? 32 * V : 1];
+  if constexpr (D > 0) {
+    g.d = D;
+    g.w4 = V;
+  }
+  const int lane = threadIdx.x & 31;
+  float4* buf = bufs[threadIdx.x >> 5];
+  int i, lo;
+  while (halo_next(next_item, item_end, meta, lane, i, lo)) {
+    const int base = lo > 0 ? item_end[lo - 1] : 0;
+    const int p0 = order[lo];
+    const int rows = plen[p0];
+    const int part = i - base;
+    const int parts = item_end[lo] - base;
+    if (rows > 32) {
+      count_piece_rows<D, 2, kWl>(g, p0, rows, part, parts, buf, lane);
+      continue;
+    }
+    if constexpr (D > 0) {
+      if (rows <= kCountBallot) {
+        count_piece_cols<D, kWl>(g, p0, rows, part, parts, buf, lane);
+        continue;
+      }
+    }
+    count_piece_rows<D, 1, kWl>(g, p0, rows, part, parts, buf, lane);
+  }
+}
+
+// K15's in_cut column tiles as bits, a block a row tile (cut zeroed).
+__global__ void count_cut_kernel(const int* __restrict__ row_ptr,
+                                 const int* __restrict__ col_tile,
+                                 const unsigned char* __restrict__ in_cut,
+                                 int words, unsigned* __restrict__ cut) {
+  const int t = blockIdx.x;
+  for (int e = row_ptr[t] + threadIdx.x; e < row_ptr[t + 1];
+       e += blockDim.x) {
+    if (!in_cut[e]) continue;
+    const int c = col_tile[e];
+    atomicOr(cut + static_cast<size_t>(t) * words + (c >> 5), 1u << (c & 31));
+  }
+}
+
+// The layouts of K11/K16 and, with no key, of K10/K15 on the card, the
+// arrays of kernels/packing.py::halo_layout (its plain version) built by a
+// few kernels and cub's sorts, scans and sum, with no host round trip: the
 // torch version's eighty-odd small launches left the card waiting on the
-// host.
+// host.  With no key the rows keep their positions: no sort by key.
 
 // A span clipped to [0, w), an empty one as [0, 0).
 __device__ __forceinline__ void halo_clip(int a, int b, int w, int& ca,
@@ -2046,7 +2251,8 @@ __device__ __forceinline__ void halo_clip(int a, int b, int w, int& ca,
 
 // Per row: whether it starts a run (the first row, a tile's first where
 // tile_rows > 0, clipped spans unlike the previous row's), its span
-// columns, and its key's bits ordered as the keys (NaN as +inf).
+// columns, and, where there are keys, its key's bits ordered as the keys
+// (NaN as +inf).
 __global__ void halo_rows_kernel(const int* __restrict__ starts,
                                  const int* __restrict__ ends,
                                  const float* __restrict__ x_key, int n,
@@ -2071,12 +2277,14 @@ __global__ void halo_rows_kernel(const int* __restrict__ starts,
   }
   newf[i] = nw;
   cols[i] = c;
+  if (x_key == nullptr) return;
   const float key = x_key[i];
   const unsigned bits = __float_as_uint(isnan(key) ? CUDART_INF_F : key);
   korder[i] = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
 }
 
-// The sort keys (run, key order) and each run's first row.
+// Each run's first row, and the sort keys (run, key order) where there
+// are keys (vals: the positions).
 __global__ void halo_keys_kernel(const int* __restrict__ run,
                                  const int* __restrict__ newf,
                                  const unsigned* __restrict__ korder, int n,
@@ -2086,17 +2294,21 @@ __global__ void halo_keys_kernel(const int* __restrict__ run,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int r = run[i] - 1;
-  keys[i] = (static_cast<unsigned long long>(r) << 32) | korder[i];
+  if (korder != nullptr)
+    keys[i] = (static_cast<unsigned long long>(r) << 32) | korder[i];
   vals[i] = i;
   if (newf[i]) rstart[r] = i;
 }
 
 // Per position (a run keeps its positions): its piece's rows where one
-// starts there, else 0, and the piece's work (-1 where none starts).
+// starts there, else 0, and the piece's work (-1 where none starts): its
+// span columns times their cost, K11/K16's a lane's rows (1 or 2), the
+// count's (keyless) in 32nds of a row-a-lane chunk: 64, 32, or 2 a row
+// for a column-a-lane piece (halo_count_kernel).
 __global__ void halo_plen_kernel(const int* __restrict__ run,
                                  const int* __restrict__ rstart,
                                  const long long* __restrict__ cols, int n,
-                                 int* __restrict__ plen,
+                                 int keyless, int* __restrict__ plen,
                                  int* __restrict__ work,
                                  int* __restrict__ vals) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -2107,7 +2319,10 @@ __global__ void halo_plen_kernel(const int* __restrict__ run,
   const int len = (i - first) % kHaloPiece == 0 ? min(end - i, kHaloPiece)
                                                 : 0;
   plen[i] = len;
-  const long long wk = cols[i] * (len > 32 ? 2 : 1);
+  const int cost = !keyless ? (len > 32 ? 2 : 1)
+                            : (len > 32 ? 64
+                                        : len > kCountBallot ? 32 : 2 * len);
+  const long long wk = cols[i] * cost;
   work[i] = len > 0 ? static_cast<int>(min(wk, static_cast<long long>(
                                                    INT_MAX)))
                     : -1;
@@ -2152,7 +2367,8 @@ __global__ void halo_meta_kernel(const int* __restrict__ item_end,
   meta[1] = lo;
 }
 
-// The window's records: coordinates, the key's bits, zeros.
+// The window's records: coordinates, the key's bits (0 with no key),
+// zeros.
 __global__ void halo_pack_kernel(const float* __restrict__ win,
                                  const float* __restrict__ w_key, int w,
                                  int d, int wf, float* __restrict__ rec) {
@@ -2162,7 +2378,7 @@ __global__ void halo_pack_kernel(const float* __restrict__ win,
   const int j = static_cast<int>(t / wf);
   const int k = static_cast<int>(t % wf);
   rec[t] = k < d ? win[static_cast<size_t>(j) * d + k]
-                 : (k == d ? w_key[j] : 0.0f);
+                 : (k == d && w_key != nullptr ? w_key[j] : 0.0f);
 }
 
 // Each column tile's largest key, NaN left out, -inf where none: a warp
@@ -3279,44 +3495,82 @@ extern "C" int repro_worklist_masked_nn(
   return static_cast<int>(cudaGetLastError());
 }
 
-// starts, ends: (n, s) int32, row-major, window-local [start, end) spans.
-extern "C" int repro_halo_range_count(const float* x, const float* win,
-                                      const int* starts, const int* ends,
-                                      int n, int w, int d, int s,
-                                      float d2cut, int* count, void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kRows - 1) / kRows);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
+// K10 and K15: the halo count over packed window records
+// (kernels/packing.py: rec w floats a record; plen, order, item_end and
+// meta from halo_layout with no key, K15's runs cut at its worklist's row
+// tiles; starts, ends: (n, s) int32, row-major, window-local [start, end)
+// spans); scratch: next_item, one int32.  count is zeroed here.
+template <bool kWl>
+int launch_halo_count(CountArgs g, const int* plen, const int* order,
+                      const int* item_end, const int* meta, int n,
+                      int* next_item, cudaStream_t s) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (g.w4 != rec_vecs(g.d)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaMemsetAsync(next_item, 0, sizeof(int), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(g.count, 0, sizeof(int) * static_cast<size_t>(n),
+                          s);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // at most one piece a row, mostly fewer: a warp for every 32 rows
+  const int want = (n + 32 * kHaloWarps - 1) / (32 * kHaloWarps);
 #define REPRO_LAUNCH(D)                                                    \
-  halo_range_count_kernel<D><<<grid, kRows, 0, st>>>(x, win, starts, ends, \
-                                                     n, w, d, s, d2cut, count)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
+  {                                                                        \
+    int per_sm = 0;                                                        \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+        &per_sm, halo_count_kernel<D, kWl>, 32 * kHaloWarps, 0);           \
+    if (err != cudaSuccess) return static_cast<int>(err);                  \
+    const dim3 grid(min(want, sms * max(per_sm, 1)));                      \
+    halo_count_kernel<D, kWl><<<grid, 32 * kHaloWarps, 0, s>>>(            \
+        g, plen, order, item_end, meta, next_item);                        \
   }
+  REPRO_DISPATCH_D(g.d, REPRO_LAUNCH)
+#undef REPRO_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
-// K15: K10's count over the in-cut entries of a span count worklist.
+extern "C" int repro_halo_range_count(
+    const float* x, const float* rec, int w, const int* starts,
+    const int* ends, const int* plen, const int* order, const int* item_end,
+    const int* meta, int n, int m, int d, int s, float d2cut, int* next_item,
+    int* count, void* stream) {
+  const CountArgs g{x, reinterpret_cast<const float4*>(rec), starts, ends,
+                    w / 4, m, d, s, d2cut, count, nullptr, 0};
+  return launch_halo_count<false>(g, plen, order, item_end, meta, n,
+                                  next_item,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// K15: K10's count over the in_cut entries of a span count worklist; cut:
+// scratch of ceil(n / kWlRows) x ceil(ceil(m / kWlCols) / 32) words.
 extern "C" int repro_worklist_halo_range_count(
-    const float* x, const float* win, const int* starts, const int* ends,
-    int n, int w, int d, int s, float d2cut, const int* row_ptr,
-    const int* col_tile, const unsigned char* in_cut, int* count,
-    void* stream) {
-  if (n > 0) {
-    const dim3 grid((n + kWlRows - 1) / kWlRows);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(D)                                                    \
-  worklist_halo_range_count_kernel<D><<<grid, kWlRows, 0, st>>>(           \
-      x, win, starts, ends, n, w, d, s, d2cut, row_ptr, col_tile, in_cut,  \
-      count)
-    REPRO_DISPATCH_D(d, REPRO_LAUNCH)
-#undef REPRO_LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
+    const float* x, const float* rec, int w, const int* starts,
+    const int* ends, const int* plen, const int* order, const int* item_end,
+    const int* meta, int n, int m, int d, int s, float d2cut,
+    const int* row_ptr, const int* col_tile, const unsigned char* in_cut,
+    unsigned* cut, int* next_item, int* count, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (n + kWlRows - 1) / kWlRows;
+  const int words = ((m + kWlCols - 1) / kWlCols + 31) / 32;
+  const cudaError_t err = cudaMemsetAsync(
+      cut, 0, sizeof(unsigned) * static_cast<size_t>(tiles) * words, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  count_cut_kernel<<<tiles, 128, 0, st>>>(row_ptr, col_tile, in_cut, words,
+                                          cut);
+  const CountArgs g{x, reinterpret_cast<const float4*>(rec), starts, ends,
+                    w / 4, m, d, s, d2cut, count, cut, words};
+  return launch_halo_count<true>(g, plen, order, item_end, meta, n,
+                                 next_item, st);
 }
 
-// K11's and K16's layout (kernels/packing.py::halo_layout): scratch of
-// repro_halo_layout_scratch(n) bytes, the outputs sized as there.
+// The halo layouts (kernels/packing.py::halo_layout; x_key and w_key null:
+// the count's, with no key): scratch of
+// repro_halo_layout_scratch(n) bytes, the outputs sized as there (tmax
+// unwritten with no key).
 namespace {
 
 struct HaloScratch {
@@ -3409,14 +3663,19 @@ extern "C" int repro_halo_layout(const int* starts, const int* ends,
   cudaError_t err = cub::DeviceScan::InclusiveSum(h.temp, tb, h.newf, h.run,
                                                   n, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  halo_keys_kernel<<<g, 256, 0, st>>>(h.run, h.newf, h.korder, n, h.keys,
-                                      h.vals, h.rstart);
-  tb = h.temp_bytes;
-  err = cub::DeviceRadixSort::SortPairs(h.temp, tb, h.keys, h.keys_out,
-                                        h.vals, row_id, n, 0, 64, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  halo_plen_kernel<<<g, 256, 0, st>>>(h.run, h.rstart, h.cols, n, plen,
-                                      h.work, h.vals);
+  const bool keyless = x_key == nullptr;
+  halo_keys_kernel<<<g, 256, 0, st>>>(h.run, h.newf,
+                                      keyless ? nullptr : h.korder, n,
+                                      h.keys, keyless ? row_id : h.vals,
+                                      h.rstart);
+  if (!keyless) {
+    tb = h.temp_bytes;
+    err = cub::DeviceRadixSort::SortPairs(h.temp, tb, h.keys, h.keys_out,
+                                          h.vals, row_id, n, 0, 64, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  halo_plen_kernel<<<g, 256, 0, st>>>(h.run, h.rstart, h.cols, n, keyless,
+                                      plen, h.work, h.vals);
   tb = h.temp_bytes;
   err = cub::DeviceRadixSort::SortPairsDescending(
       h.temp, tb, h.work, h.work_sorted, h.vals, order, n, 0, 32, st);
@@ -3437,7 +3696,9 @@ extern "C" int repro_halo_layout(const int* starts, const int* ends,
     halo_pack_kernel<<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
         win, w_key, w, d, wf, rec);
     const int tiles = (w + kWlCols - 1) / kWlCols;
-    halo_tmax_kernel<<<(tiles + 7) / 8, 256, 0, st>>>(w_key, w, tiles, tmax);
+    if (!keyless)
+      halo_tmax_kernel<<<(tiles + 7) / 8, 256, 0, st>>>(w_key, w, tiles,
+                                                        tmax);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,8 +59,8 @@ BF16_MAX_D = 224
 NN_ITEMS_PER_SM = 32
 NN_MIN_CHUNK = 4096
 
-# K11/K16 cut a piece whose work is above 1/(SMs x this) of the call's
-# into splits: about eight times the warps an SM holds
+# K10/K11/K15/K16 cut a piece whose work is above 1/(SMs x this) of the
+# call's into splits: about eight times the warps an SM holds
 HALO_SPLITS_PER_SM = 384
 
 # K6 takes its prefix form from this many slots on, its key form below
@@ -571,7 +571,9 @@ def halo_density(x: torch.Tensor, window: torch.Tensor,
     tensor, its plain version on a CPU one.  ``worklist`` (a span count
     worklist, ``blocksparse.build_flat_worklist(nn=None, starts=,
     ends=)``) restricts the count to its ``in_cut`` tile pairs: K15 on a
-    CUDA tensor, its plain version on a CPU one."""
+    CUDA tensor, its plain version on a CPU one.  Both kernels take the
+    window as packed records and the rows by piece (``halo_layout`` with
+    no key, built here on the device)."""
     _check("halo_density", x, window)
     _check_spans("halo_density", x, starts, ends)
     if worklist is not None:
@@ -587,39 +589,51 @@ def halo_density(x: torch.Tensor, window: torch.Tensor,
     (n, d), w, s = x.shape, window.shape[0], starts.shape[1]
     count = torch.empty((n,), dtype=torch.int32, device=x.device)
     if n:
+        lay = halo_layout(None, window, None, starts, ends,
+                          ring=worklist is not None)
+        nxt = torch.empty((1,), dtype=torch.int32, device=x.device)
+        head = (x.data_ptr(), lay.rec.data_ptr(), lay.rec.shape[1],
+                starts.data_ptr(), ends.data_ptr(), lay.plen.data_ptr(),
+                lay.order.data_ptr(), lay.item_end.data_ptr(),
+                lay.meta.data_ptr(), n, w, d, s, d2cut)
         lib = build.load_library()
         with torch.cuda.device(x.device):
             if worklist is None:
                 name = "halo_range_count"
                 code = lib.repro_halo_range_count(
-                    x.data_ptr(), window.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), n, w, d, s, d2cut, count.data_ptr(),
-                    _stream(x))
+                    *head, nxt.data_ptr(), count.data_ptr(), _stream(x))
             else:
                 name = "worklist_halo_range_count"
+                # a bit for each column tile, per row tile: K15's in_cut
+                words = (-(-w // BLOCK_M) + 31) // 32
+                cut = torch.empty((worklist.num_row_tiles, words),
+                                  dtype=torch.int32, device=x.device)
                 code = lib.repro_worklist_halo_range_count(
-                    x.data_ptr(), window.data_ptr(), starts.data_ptr(),
-                    ends.data_ptr(), n, w, d, s, d2cut,
-                    worklist.row_ptr.data_ptr(), worklist.col_tile.data_ptr(),
-                    worklist.in_cut.data_ptr(), count.data_ptr(), _stream(x))
+                    *head, worklist.row_ptr.data_ptr(),
+                    worklist.col_tile.data_ptr(), worklist.in_cut.data_ptr(),
+                    cut.data_ptr(), nxt.data_ptr(), count.data_ptr(),
+                    _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
     return count.to(torch.float32)
 
 
-def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
-                w_key: torch.Tensor, starts: torch.Tensor,
+def halo_layout(x_key: torch.Tensor | None, window: torch.Tensor,
+                w_key: torch.Tensor | None, starts: torch.Tensor,
                 ends: torch.Tensor, *, ring: bool) -> packing.HaloLayout:
     """K11's (``ring`` False) or K16's layout of the rows keyed ``x_key``
-    with these spans over the window (``packing.halo_layout``, the pieces
-    cut into at most SMs x ``HALO_SPLITS_PER_SM`` splits' worth): on a
-    CUDA tensor built on the card by a few kernels and cub in one call, on
-    a CPU one by ``packing.halo_layout`` itself (as for one SM)."""
-    if x_key.device.type == "cpu":
+    with these spans over the window; with ``x_key`` and ``w_key`` None,
+    K10's or K15's (``packing.halo_layout``, the pieces cut into at most
+    SMs x ``HALO_SPLITS_PER_SM`` splits' worth): on a CUDA tensor built on
+    the card by a few kernels and cub in one call, on a CPU one by
+    ``packing.halo_layout`` itself (as for one SM)."""
+    if (x_key is None) != (w_key is None):
+        raise ValueError("halo_layout: give both keys or neither")
+    if starts.device.type == "cpu":
         return packing.halo_layout(x_key, window, w_key, starts, ends,
                                    ring=ring, splits=HALO_SPLITS_PER_SM)
     (n, s), (w, d) = starts.shape, window.shape
-    dev = x_key.device
+    dev = starts.device
     splits = (torch.cuda.get_device_properties(dev).multi_processor_count
               * HALO_SPLITS_PER_SM)
     lib = build.load_library()
@@ -627,16 +641,16 @@ def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
                           dtype=torch.uint8, device=dev)
     lay = packing.HaloLayout(
         torch.empty((w, packing.record_width(d)), device=dev),
-        torch.empty((-(-w // BLOCK_M),), device=dev),
+        torch.empty((0 if x_key is None else -(-w // BLOCK_M),), device=dev),
         *(torch.empty((n,), dtype=torch.int32, device=dev)
           for _ in range(4)),
         torch.empty((2,), dtype=torch.int32, device=dev))
     with torch.cuda.device(dev):
         code = lib.repro_halo_layout(
-            starts.data_ptr(), ends.data_ptr(), x_key.data_ptr(),
-            window.data_ptr(), w_key.data_ptr(), n, w, d, s, int(ring),
+            starts.data_ptr(), ends.data_ptr(), _ptr(x_key),
+            window.data_ptr(), _ptr(w_key), n, w, d, s, int(ring),
             splits, scratch.data_ptr(), scratch.numel(),
-            *(t.data_ptr() for t in lay), _stream(x_key))
+            *(t.data_ptr() for t in lay), _stream(starts))
     build.check(lib, "halo_layout", code)
     return lay
 

@@ -1,5 +1,5 @@
-"""Host-side layouts of the K1, K2, K3, K6, K9, K11, K12, K13 and K16
-kernels (``csrc/sweep.cu``).
+"""Host-side layouts of the K1, K2, K3, K6, K9, K10, K11, K12, K13, K15
+and K16 kernels (``csrc/sweep.cu``).
 
 The kernels read the columns as packed records of ``record_width(d)``
 floats: the d coordinates, one 32-bit slot, then zeros up to a multiple of
@@ -47,9 +47,13 @@ consecutive rows whose spans clip to the same columns form a run (the
 rows of one candidate cell, grid-sorted), each run's rows sorted by key,
 cut into pieces of at most ``HALO_PIECE`` rows, which one warp walks
 together, most work first, the heaviest cut into splits that several
-warps share; K16's runs are also cut at the ring's row tiles.  On the
-card ``ops.halo_layout`` builds the same arrays in one call
-(``repro_halo_layout``): ``halo_layout`` here is its plain version.
+warps share; K16's runs are also cut at the ring's row tiles.  K10
+(``halo_range_count``) and K15 (``worklist_halo_range_count``) take the
+same layout with no key: the rows keep their positions, the records'
+slots are 0 and no tile keys are made; K15's runs are cut at its
+worklist's row tiles.  On the card ``ops.halo_layout`` builds the same
+arrays in one call (``repro_halo_layout``): ``halo_layout`` here is its
+plain version.
 
 The wrappers build all of this on the tensors' device; the kernels
 allocate nothing.
@@ -293,9 +297,13 @@ def bf16_records(y: torch.Tensor, sel: torch.Tensor | None) -> Bf16Records:
     return Bf16Records(rec, norms, gate)
 
 
-# rows a K11/K16 piece holds at most: one warp, two rows a lane
+# rows a K10/K11/K15/K16 piece holds at most: one warp, two rows a lane
 # (kHaloPiece in csrc/sweep.cu)
 HALO_PIECE = 64
+
+# K10/K15 count a piece of at most this many rows a column a lane
+# (kCountBallot in csrc/sweep.cu), a larger one a row a lane
+COUNT_BALLOT_ROWS = 16
 
 
 def clip_spans(starts: torch.Tensor, ends: torch.Tensor, w: int):
@@ -322,10 +330,14 @@ def span_runs(starts: torch.Tensor, ends: torch.Tensor, w: int,
 
 
 class HaloLayout(NamedTuple):
-    """What K11 and K16 read besides the rows, their keys and the spans."""
-    rec: torch.Tensor       # (w, record_width(d)) f32; slot: the key's bits
+    """What K11 and K16 read besides the rows, their keys and the spans;
+    with no key, what K10 and K15 read besides the rows and the spans."""
+    rec: torch.Tensor       # (w, record_width(d)) f32; slot: the key's
+                            # bits (0 with no key)
     tmax: torch.Tensor      # (column tiles,) f32: tile_max_key of the keys
+                            # ((0,) with no key)
     row_id: torch.Tensor    # (n,) int32: the rows by run, key ascending
+                            # (with no key in position order)
     plen: torch.Tensor      # (n,) int32: at a piece's first position its
                             # rows, else 0
     order: torch.Tensor     # (n,) int32: the positions, the pieces' first
@@ -342,32 +354,46 @@ def key_order(key: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
 
 
-def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
-                w_key: torch.Tensor, starts: torch.Tensor,
+def halo_layout(x_key: torch.Tensor | None, window: torch.Tensor,
+                w_key: torch.Tensor | None, starts: torch.Tensor,
                 ends: torch.Tensor, ring: bool,
                 splits: int = 1) -> HaloLayout:
     """K11's (``ring`` False) or K16's (``ring`` True: runs cut at the
-    ``BLOCK_N``-row tiles of its ring) layout.  Each run's rows are sorted by key (NaN as +inf, which seeks nothing),
-    so a piece's keys lie in a narrow band, and cut into pieces of
-    ``HALO_PIECE`` rows from its first, the last one shorter.  A run keeps
-    its positions, so a position's run, and its span columns, are those of
-    the row at that index.  A piece's work is its span columns, twice over
-    where it has more than 32 rows (two a lane); the pieces are ordered by
-    it, most first, and one whose work is above 1/``splits`` of all is cut
-    into that many splits (``splits``: about eight times the warps the
-    card holds), so no piece outlasts the rest."""
+    ``BLOCK_N``-row tiles of its ring) layout; with ``x_key`` and
+    ``w_key`` None, K10's or K15's (runs cut at its worklist's row tiles).
+    Each run's rows are sorted by key (NaN as +inf, which seeks nothing),
+    so a piece's keys lie in a narrow band (with no key they keep their
+    positions), and cut into pieces of ``HALO_PIECE`` rows from its
+    first, the last one shorter.  A run keeps its positions, so a
+    position's run, and its span columns, are those of the row at that
+    index.  A piece's work is its span columns times its cost a column:
+    for K11/K16 its rows a lane (2 above 32 rows, else 1); for the count
+    in 32nds of a row-a-lane chunk, 64 above 32 rows, 32 above
+    ``COUNT_BALLOT_ROWS``, else 2 a row (a column a lane).  The pieces are
+    ordered by work, most first, and one whose work is above 1/``splits``
+    of all is cut into that many splits (``splits``: about eight times the
+    warps the card holds), so no piece outlasts the rest."""
     n, w = starts.shape[0], window.shape[0]
     dev = starts.device
     new = span_runs(starts, ends, w, BLOCK_N if ring else None)
     run = torch.cumsum(new, 0) - 1
-    row_id = torch.sort((run << 32) | key_order(x_key), stable=True).indices
     pos = torch.arange(n, device=dev)
+    if x_key is None:
+        row_id = pos
+    else:
+        row_id = torch.sort((run << 32) | key_order(x_key),
+                            stable=True).indices
     first = torch.searchsorted(run, run)
     end = torch.searchsorted(run, run, right=True)
     plen = torch.where((pos - first) % HALO_PIECE == 0,
                        torch.clamp(end - pos, max=HALO_PIECE), 0)
     a, b = clip_spans(starts, ends, w)
-    work = torch.where(plen > 0, (b - a).sum(1) * (1 + (plen > 32)), -1)
+    if x_key is None:
+        cost = torch.where(plen > 32, 64, torch.where(
+            plen > COUNT_BALLOT_ROWS, 32, 2 * plen))
+    else:
+        cost = 1 + (plen > 32)
+    work = torch.where(plen > 0, (b - a).long().sum(1) * cost, -1)
     work = work.clamp(max=2**31 - 1).to(torch.int32)
     order = torch.sort(work, descending=True, stable=True).indices
     work = work[order].clamp_min(0).long()
@@ -375,7 +401,12 @@ def halo_layout(x_key: torch.Tensor, window: torch.Tensor,
     item_end = torch.cumsum(torch.where(
         plen[order] > 0, torch.clamp((work + cap - 1) // cap, min=1), 0), 0)
     meta = torch.stack([item_end[-1], (plen > 0).sum()])
-    return HaloLayout(pack_records(window, w_key.view(torch.int32)),
-                      tile_max_key(w_key), row_id.to(torch.int32),
+    if w_key is None:
+        rec = pack_records(window, None)
+        tmax = torch.empty((0,), dtype=torch.float32, device=dev)
+    else:
+        rec = pack_records(window, w_key.view(torch.int32))
+        tmax = tile_max_key(w_key)
+    return HaloLayout(rec, tmax, row_id.to(torch.int32),
                       plen.to(torch.int32), order.to(torch.int32),
                       item_end.to(torch.int32), meta.to(torch.int32))

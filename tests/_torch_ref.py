@@ -7,6 +7,25 @@ package's f32 arithmetic.
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture
+def one_thread():
+    """Run a test on one intra-op torch thread, the setting restored
+    after.  The schedule emulations issue many small torch ops; where
+    several test workers share the machine, each worker's default pool of
+    one thread per core makes every such op contend for all the cores,
+    which slowed those tests by one to two orders of magnitude.  Results
+    do not change: the tests compare integers, orders and exact values
+    computed under the same setting."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def f32_d2cut(d_cut: float) -> float:

@@ -45,6 +45,9 @@ from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
 
 from _torch_ref import (clear_dcut, f32_d2cut, f32_ulp, near_threshold_rows,
                         uniform_points)
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 INF = float("inf")
 CHUNK = 32                       # columns a warp loads at once

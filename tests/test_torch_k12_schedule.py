@@ -32,6 +32,9 @@ from repro_torch.kernels import packing, sweep
 from repro_torch.kernels.packing import BF16_GROUP, BF16_HALF
 
 from _torch_ref import f32_d2cut, uniform_points
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 from test_torch_bf16 import _assert_same_kept, _lattice, _ref_sweep
 
 _INT_MAX = 2**31 - 1

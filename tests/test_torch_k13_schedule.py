@@ -34,6 +34,9 @@ from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
 from repro_torch.kernels.packing import BF16_GROUP
 
 from _torch_ref import f32_d2cut, uniform_points
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 from test_torch_bf16 import _assert_same_kept, _lattice, _ref_sweep
 from test_torch_k12_schedule import LANES, WARP_ROWS, cross_bf16, k12_lim
 

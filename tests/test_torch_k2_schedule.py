@@ -20,6 +20,9 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import packing, sweep
 
 from _torch_ref import uniform_points
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _NONE = (1 << 63) - 1          # the kernel's all-ones "no denser column"
 KEY_VALUES = [float("-inf"), -1.0, 0.0, 0.5, 1.0, 2.0, float("inf"),

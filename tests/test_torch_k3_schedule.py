@@ -28,6 +28,9 @@ from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
 
 from _torch_ref import (clear_dcut, f32_d2cut, near_threshold_rows, pair_d2,
                         uniform_points)
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _INT_MAX = 2**31 - 1
 STAGE_VECS = 1024              # float4s of one ring stage (kStageVecs)

@@ -28,6 +28,9 @@ from repro_torch.data.points import gaussian_mixture
 from repro_torch.kernels import ops, packing, sweep
 
 from _torch_ref import uniform_points
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _NONE = (1 << 63) - 1          # the kernel's all-ones "no denser row"
 

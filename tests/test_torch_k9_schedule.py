@@ -32,6 +32,9 @@ from repro_torch.kernels.backend import CudaBackend
 from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
 
 from _torch_ref import clear_dcut, uniform_points
+from _torch_ref import one_thread  # noqa: F401  (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _INT_MAX = 2**31 - 1
 INF = float("inf")
