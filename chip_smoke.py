@@ -232,6 +232,23 @@ Phases, each of which raises on failure (nothing is caught):
    count on each row tile's block-wide walk beside it), K15's and K16's
    registers and spills and the rows per run.
 
+24. The sharded Airline stream: ``StreamDPC(cfg, mesh=ShardMesh.on("cuda",
+   shards=4))`` (window 2^20, batches of 4,096, d_cut of phase 3,
+   rho_min 10, block-sparse), bulk-loaded by ``initialize`` on the first
+   2^20 points, beside a single-device ``StreamDPC`` on the same points:
+   equal on every tick (every ``StreamTick`` field, rho, rho_key, delta,
+   parent, labels, centers), one traced tick each (the stages' times),
+   AIR_TICKS counted ticks (the sharded tick's launch counts zeroed just
+   before it and read just after: K4, K5 and K9 once a shard, no K2 or
+   K6), each counted launch's inputs kept and held against the plain
+   versions on a slice; on the last tick's shard inputs K4, K5, K9 on its
+   ring, K9 as routed (the ring built) and dense K2 timed, K9 equal to K2;
+   a checkpoint saved after the second-to-last counted tick and restored
+   onto one device, whose next two ticks equal the sharded run's (file
+   size, save and restore times); ``DPCEngine(2000.0, mesh=...,
+   window_capacity=65_536)`` streaming the mixture, equal to the engine
+   without a mesh (dense: K2 once a shard a tick).
+
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
 rows, K3 and K9 from the main path, K4 and K5 from the mixture stream, K6
@@ -306,6 +323,10 @@ DIST_PLAIN_TILES = 4             # row tiles of K8/K9's plain checks at 5.8M
 DIST_PLAIN_ROWS = 65536          # shard rows of K10/K11's plain checks
 
 BF16_FULL_REPS = 3               # timed runs of K12 and K1 at 2^20 x 2^20
+
+SHARDED_PLAIN_TILES = 2          # row tiles of each sharded K9's plain check
+ENGINE_WINDOW = 65536            # phase 24's mesh engine: its window
+ENGINE_TICKS = 4                 # and its counted ticks
 
 
 def smi(fields: str) -> str:
@@ -2707,6 +2728,301 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
     return rec
 
 
+def run_sharded_stream(pts: np.ndarray, d_cut: float, card: str) -> dict:
+    """Phase 24: the Airline stream on DIST_SHARDS logical shards of the
+    card beside the single-device stream, both bulk-loaded by
+    ``initialize`` on the first N_WINDOW points and fed the same batches;
+    equal on every tick.  The sharded stream's counted ticks are counted
+    and their K4/K5/K9 inputs kept and held against the plain versions;
+    a checkpoint after the second-to-last counted tick restores onto one
+    device; a mesh engine streams the mixture beside one without."""
+    from repro_torch import DPCEngine, ExecSpec, obs
+    from repro_torch.data.points import gaussian_mixture
+    from repro_torch.kernels import blocksparse, ops, sweep
+    from repro_torch.launch import ShardMesh
+    from repro_torch.stream import StreamDPC, StreamDPCConfig
+    k4, k4_plain, k5, k5_plain, _, _ = stream_kernels()
+    n, B, d, S, ticks = N_WINDOW, STREAM_BATCH, pts.shape[1], DIST_SHARDS, \
+        AIR_TICKS
+    batches = [pts[n + i * B:n + (i + 1) * B] for i in range(ticks + 3)]
+    cfg = StreamDPCConfig(d_cut=d_cut, capacity=n, batch_cap=B, rho_min=10,
+                          exec_spec=ExecSpec(layout="block-sparse"))
+    sh = StreamDPC(cfg, mesh=ShardMesh.on("cuda", shards=S))
+    one = StreamDPC(cfg)
+    assert sh.device.type == "cuda" and sh.mesh.size == S
+
+    def same(what, a, ta, b_res, b_cl, tb):
+        """The sharded tick against the single-device one (or a kept
+        tick), bit for bit: every StreamTick field, rho, rho_key, delta,
+        parent, labels and centers."""
+        for name in ta._fields:
+            assert np.array_equal(np.asarray(getattr(ta, name)),
+                                  np.asarray(getattr(tb, name))), \
+                f"{what}: {name} differs"
+        check_equal(what, [*a.result, a.clustering.labels,
+                           a.clustering.centers],
+                    [*b_res, b_cl.labels, b_cl.centers],
+                    "the single-device stream")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    rec: dict = {"shards": S, "n": n, "d": d, "d_cut": d_cut, "batch": B,
+                 "ticks": ticks}
+    ta, rec["init_sharded_ms"] = timed(lambda: sh.initialize(pts[:n]))
+    tb, rec["init_one_ms"] = timed(lambda: one.initialize(pts[:n]))
+    same("initialize", sh, ta, one.result, one.clustering, tb)
+    ta, rec["first_tick_sharded_ms"] = timed(lambda: sh.ingest(batches[0]))
+    tb, rec["first_tick_one_ms"] = timed(lambda: one.ingest(batches[0]))
+    same("first tick", sh, ta, one.result, one.clustering, tb)
+
+    # one traced tick each: the stages' times
+    stages = ("stream.tick", "stream.grid_apply", "stream.rho_repair",
+              "stream.maxima", "stream.nn_update", "stream.assemble",
+              "labels.assign", "stream.continuity")
+    traced_ms = {}
+    for label, s in (("sharded", sh), ("one", one)):
+        obs.configure("trace")
+        obs.reset_spans()
+        try:
+            t = s.ingest(batches[1])
+        finally:
+            obs.configure("off")
+        traced_ms[label] = {}
+        for sp in obs.spans():
+            traced_ms[label][sp["name"]] = traced_ms[label].get(
+                sp["name"], 0.0) + 1e3 * sp["host_s"]
+        if label == "sharded":
+            ta = t
+    same("traced tick", sh, ta, one.result, one.clustering, t)
+
+    # the counted ticks: the sharded tick with the launch counts zeroed
+    # just before it and read just after, its K4/K5/K9 inputs kept (the
+    # window's shards are views of the table updated in place: cloned)
+    names = ("range_count", "range_count_signed", "worklist_masked_nn")
+    given: dict[str, list] = {k: [] for k in names}
+    launch = (ops.local_density_xy, ops.local_density_delta,
+              ops.dependent_masked)
+    table = sh.window.device.untyped_storage().data_ptr()
+
+    def keep(t):
+        return t.clone() if t.untyped_storage().data_ptr() == table else t
+
+    def rec_k4(x, y, dc, **kw):
+        given["range_count"].append((x, keep(y), dc))
+        return launch[0](x, y, dc, **kw)
+
+    def rec_k5(x, y, signs, dc, **kw):
+        given["range_count_signed"].append((keep(x), y, signs, dc))
+        return launch[1](x, y, signs, dc, **kw)
+
+    def rec_k9(x, xk, y, yk, **kw):
+        given["worklist_masked_nn"].append((x, xk, keep(y), yk,
+                                            kw.get("worklist")))
+        return launch[2](x, xk, y, yk, **kw)
+
+    launches = {k: 0 for k in ops.launch_counts()}
+    per_tick, kept_ticks = [], {}
+    ckpt = ROOT / "build" / "phase24_stream.npz"
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    for i in range(2, ticks + 3):
+        counted = i < ticks + 2
+        if counted:
+            (ops.local_density_xy, ops.local_density_delta,
+             ops.dependent_masked) = rec_k4, rec_k5, rec_k9
+            ops.reset_launch_counts()
+        try:
+            ta, ms_sh = timed(lambda: sh.ingest(batches[i]))
+            got = ops.launch_counts()
+        finally:
+            (ops.local_density_xy, ops.local_density_delta,
+             ops.dependent_masked) = launch
+        tb, ms_one = timed(lambda: one.ingest(batches[i]))
+        same(f"tick {i}", sh, ta, one.result, one.clustering, tb)
+        if i >= ticks + 1:          # the two ticks after the checkpoint
+            kept_ticks[i] = (ta, sh.result, sh.clustering)
+        if not counted:
+            continue
+        for k, v in got.items():
+            launches[k] += v
+        for k in names:
+            assert got[k] == S, f"sharded tick {i}: {k} launched {got[k]} " \
+                f"times, not once a shard"
+        assert got["gather_masked_nn"] == got["masked_nn"] == 0, got
+        st = sh.stats()
+        per_tick.append({"ms": ms_sh, "one_ms": ms_one,
+                         "rebuilt": bool(ta.rebuilt)})
+        if i == ticks:              # after the second-to-last counted tick
+            _, rec["save_ms"] = timed(lambda: sh.save(str(ckpt)))
+            rec["ckpt_bytes"] = ckpt.stat().st_size
+    rec["launches"] = launches
+    rec["launches_per_tick"] = {k: v / ticks for k, v in launches.items()
+                                if v}
+    rec["per_tick"] = per_tick
+    rec["median_tick_ms"] = statistics.median(t["ms"] for t in per_tick)
+    rec["median_tick_one_ms"] = statistics.median(t["one_ms"]
+                                                  for t in per_tick)
+    rec["traced_ms"] = traced_ms
+    rec["stats"] = sh.stats()
+
+    # the checkpoint onto one device: its next two ticks are the sharded
+    # run's, bit for bit
+    r, rec["restore_ms"] = timed(lambda: StreamDPC.restore(str(ckpt)))
+    assert r.mesh is None and r.device.type == "cuda"
+    for i in (ticks + 1, ticks + 2):
+        t_keep, res_keep, cl_keep = kept_ticks[i]
+        tr = r.ingest(batches[i])
+        same(f"restored onto one device, tick {i}", r, tr, res_keep,
+             cl_keep, t_keep)
+    ckpt.unlink()
+    del r, kept_ticks
+
+    # each counted launch against its plain version on a slice
+    gen = torch.Generator().manual_seed(24)
+    rows = TICK_PLAIN_ROWS
+    errs = {k: 0.0 for k in names}
+    for x4, y4, c4 in given["range_count"]:
+        errs["range_count"] = max(errs["range_count"], check_equal(
+            "range_count [sharded stream]", [k4(x4[:rows], y4, c4)],
+            [k4_plain(x4[:rows], y4, c4)]))
+    for x5, y5, s5, c5 in given["range_count_signed"]:
+        xs = x5[:K5_PLAIN_ROWS]
+        errs["range_count_signed"] = max(
+            errs["range_count_signed"], check_equal(
+                "range_count_signed [sharded stream]", [k5(xs, y5, s5, c5)],
+                [k5_plain(xs, y5, s5, c5)]))
+    for x, xk, y, yk, wl in given["worklist_masked_nn"]:
+        sub, sr = row_tile_slice(wl, x.shape[0], SHARDED_PLAIN_TILES)
+        sx, sk = x[sr].contiguous(), xk[sr].contiguous()
+        errs["worklist_masked_nn"] = max(
+            errs["worklist_masked_nn"], check_equal(
+                "worklist_masked_nn [sharded stream]",
+                ops.dependent_masked(sx, sk, y, yk, worklist=sub,
+                                     squared=True),
+                sweep.worklist_masked_nn_plain(sx, sk, y, yk, sub)))
+    rec["max_abs_err"] = errs
+
+    # the last counted tick's per-shard inputs: K4, K5 and K9 as routed
+    # (the best-1 ring built, then K9), K9 on the kept ring and dense K2
+    k9_calls = given["worklist_masked_nn"][-S:]
+    shard = {"k4_ms": 0.0, "k5_ms": 0.0, "k9_ms": 0.0, "route_ms": 0.0,
+             "ring_ms": 0.0, "k2_ms": 0.0, "entries": 0, "longest": 0,
+             "ring": 0}
+    work = {"range_count": [0.0, 0.0], "range_count_signed": [0.0, 0.0],
+            "worklist_masked_nn": [0.0, 0.0], "masked_nn": [0.0, 0.0]}
+    for x4, y4, c4 in given["range_count"][-S:]:
+        shard["k4_ms"] += time_ms(lambda: k4(x4, y4, c4))
+        for j, v in enumerate(k4_work(x4.shape[0], y4.shape[0], d)):
+            work["range_count"][j] += v
+    for x5, y5, s5, c5 in given["range_count_signed"][-S:]:
+        shard["k5_ms"] += time_ms(lambda: k5(x5, y5, s5, c5))
+        for j, v in enumerate(k5_work(x5.shape[0], y5.shape[0], d)):
+            work["range_count_signed"][j] += v
+    for x, xk, y, yk, wl in k9_calls:
+        (d9, p9), entries, longest = k9_walks(x, xk, y, yk, wl)
+        check_equal("worklist_masked_nn [sharded stream, last tick]",
+                    (d9, p9), ops.dependent_masked(x, xk, y, yk), "dense K2")
+        shard["entries"] += entries
+        shard["longest"] = max(shard["longest"], longest)
+        shard["ring"] += wl.n_kept
+        shard["k9_ms"] += time_ms(lambda: ops.dependent_masked(
+            x, xk, y, yk, worklist=wl), reps=3)
+        shard["route_ms"] += time_ms(lambda: ops.dependent_masked(
+            x, xk, y, yk, worklist=blocksparse.build_flat_worklist(
+                x, y, count=False, nn="best1")), reps=3)
+        shard["ring_ms"] += time_ms(lambda: blocksparse.build_flat_worklist(
+            x, y, count=False, nn="best1"), reps=3)
+        shard["k2_ms"] += time_ms(lambda: ops.dependent_masked(
+            x, xk, y, yk), reps=3)
+        b9, o9, _ = k9_work(x, xk, y, yk, wl, torch.square(d9), sample=256,
+                            gen=gen)
+        b2, o2 = k2_work(xk, yk, d)
+        work["worklist_masked_nn"][0] += b9
+        work["worklist_masked_nn"][1] += o9
+        work["masked_nn"][0] += b2
+        work["masked_nn"][1] += o2
+    bounds = {k: bound_ms(*v) for k, v in work.items()}
+    rec["last_tick"] = {**shard, "rows": [c[0].shape[0] for c in k9_calls],
+                        "shard_rows": k9_calls[0][2].shape[0],
+                        "bounds": {k: {"bound_ms": b, "bound_by": by}
+                                   for k, (b, by) in bounds.items()}}
+    del given, k9_calls
+
+    print(f"sharded Airline stream: window {n} on {S} logical shards, d={d}, "
+          f"d_cut={d_cut!r}, block-sparse, {ticks} counted ticks of {B}: "
+          f"median tick {rec['median_tick_ms']:.2f} ms against the "
+          f"single-device stream's {rec['median_tick_one_ms']:.2f} ms beside "
+          f"it; every tick equal bit for bit (StreamTick, rho, rho_key, "
+          f"delta, parent, labels, centers); initialize {rec['init_sharded_ms']:.1f} "
+          f"/ {rec['init_one_ms']:.1f} ms, first tick "
+          f"{rec['first_tick_sharded_ms']:.1f} / "
+          f"{rec['first_tick_one_ms']:.1f} ms  ({card})", flush=True)
+    print(f"  launches per sharded tick {rec['launches_per_tick']}; "
+          f"maxima re-queried/total {sh.stats()['nn_queries']}/"
+          f"{sh.stats()['nn_maxima_total']} over all ticks", flush=True)
+    for name in stages:
+        print(f"  traced {name}: sharded "
+              f"{traced_ms['sharded'].get(name, 0.0):.2f} ms, one device "
+              f"{traced_ms['one'].get(name, 0.0):.2f} ms")
+    print(f"  checkpoint after tick {ticks}: {rec['ckpt_bytes']} bytes, save "
+          f"{rec['save_ms']:.1f} ms, restore onto one device "
+          f"{rec['restore_ms']:.1f} ms; its next two ticks == the sharded "
+          f"run's bit for bit  ({card})", flush=True)
+    lt = rec["last_tick"]
+    print(f"  every counted launch == plain, bit for bit (K4 on {rows} rows, "
+          f"K5 on {K5_PLAIN_ROWS} shard rows, K9 on {SHARDED_PLAIN_TILES} "
+          f"row tiles a call); last tick, summed over the shards "
+          f"({lt['rows'][0]} query rows x {lt['shard_rows']} shard rows): "
+          f"K4 {lt['k4_ms']:.3f} ms (bound "
+          f"{bounds['range_count'][0]:.3f}), K5 {lt['k5_ms']:.3f} ms (bound "
+          f"{bounds['range_count_signed'][0]:.3f}); K9 {lt['k9_ms']:.3f} ms "
+          f"(+ ring {lt['ring_ms']:.3f}: route {lt['route_ms']:.3f} ms; "
+          f"bound {bounds['worklist_masked_nn'][0]:.3f}, entries computed "
+          f"{lt['entries']} of {lt['ring']}, longest walk {lt['longest']}) "
+          f"against dense K2 {lt['k2_ms']:.3f} ms (bound "
+          f"{bounds['masked_nn'][0]:.3f}), equal bit for bit  ({card})",
+          flush=True)
+
+    # a mesh engine streams the mixture, equal to the engine without one
+    mix, _ = gaussian_mixture(ENGINE_WINDOW + ENGINE_TICKS * B, k=15, d=2,
+                              seed=0)
+    kw = dict(rho_min=10, window_capacity=ENGINE_WINDOW, batch_cap=B)
+    ea = DPCEngine(2000.0, mesh=ShardMesh.on("cuda", shards=S), **kw)
+    eb = DPCEngine(2000.0, **kw)
+    eng_launches = {k: 0 for k in ops.launch_counts()}
+    eng_ms = []
+    for t in range(ENGINE_TICKS + 1):
+        batch = mix[:ENGINE_WINDOW] if t == 0 else \
+            mix[ENGINE_WINDOW + (t - 1) * B:ENGINE_WINDOW + t * B]
+        ops.reset_launch_counts()
+        ta, ms = timed(lambda: ea.partial_fit(batch))
+        got = ops.launch_counts()
+        tb = eb.partial_fit(batch)
+        same(f"mesh engine, partial_fit {t}", ea.stream, ta,
+             eb.stream.result, eb.stream.clustering, tb)
+        assert np.array_equal(ea.labels_, eb.labels_)
+        if t:
+            eng_ms.append(ms)
+            assert got["masked_nn"] == S and got["range_count"] == S \
+                and got["range_count_signed"] == S \
+                and got["gather_masked_nn"] == 0, got
+            for k, v in got.items():
+                eng_launches[k] += v
+    rec["engine"] = {"window": ENGINE_WINDOW, "ticks": ENGINE_TICKS,
+                     "median_tick_ms": statistics.median(eng_ms),
+                     "launches": eng_launches}
+    print(f"  DPCEngine(2000.0, mesh=ShardMesh.on('cuda', shards={S}), "
+          f"window_capacity={ENGINE_WINDOW}).partial_fit on the mixture: "
+          f"{ENGINE_TICKS} ticks == the engine without a mesh, bit for bit; "
+          f"median tick {rec['engine']['median_tick_ms']:.2f} ms; dense: "
+          f"K2 masked_nn, K4, K5 once a shard a tick  ({card})", flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4099,6 +4415,14 @@ def main() -> int:
     record["halo_worklist"] = {
         k: v for k, v in halo_wl.items() if k != "work"}
     record["halo_worklist_check_shapes"] = halo_wl_check
+    torch.cuda.empty_cache()
+
+    # ---------- 24. the sharded Airline stream, 4 logical shards, 2^20
+    stamp(24)
+    air, _ = real_proxy("airline", N_WINDOW + (AIR_TICKS + 3) * STREAM_BATCH,
+                        seed=0)
+    record["sharded_stream"] = run_sharded_stream(air, d_cut, card)
+    del air
     torch.cuda.empty_cache()
 
 

@@ -9,16 +9,17 @@
   (``strategy="gather"`` or ``"halo"``; exact DPC only: ``exdpc`` and
   ``scan``).
 * ``partial_fit(batch)`` — sliding-window streaming ingest through
-  :class:`repro_torch.stream.StreamDPC`; a ``fit`` of at most
-  ``window_capacity`` points seeds the window.
+  :class:`repro_torch.stream.StreamDPC`, sharded over the engine's
+  ``mesh`` when it holds one; a ``fit`` of at most ``window_capacity``
+  points seeds the window (a mesh engine's ``fit`` is exact DPC, which
+  does not stream, so it seeds nothing).
 * ``predict(points)`` — read-only nearest-label queries with
   ``StreamService.query``'s semantics (``HIT`` / ``MISS_FALLBACK`` /
   ``MISS``, and ``QUARANTINED`` for rows admission dropped).
 
 Everything runs on the card unless the engine was built with
 ``device="cpu"``: ``device=None`` means ``"cuda"`` and raises where no GPU
-is present, with a mesh too.  ``partial_fit`` with a mesh (the sharded
-stream) is not ported yet (ROADMAP Queue A item 9).
+is present, with a mesh too.
 """
 from __future__ import annotations
 
@@ -201,12 +202,6 @@ class DPCEngine:
         first and they fit the window."""
         from repro_torch.stream.stream_dpc import StreamDPC, StreamDPCConfig
 
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "partial_fit with a mesh runs the sharded stream "
-                "(stream/sharded.py, StreamDPC(mesh=...)), still to be "
-                "ported (ROADMAP Queue A item 9); the distributed fit is "
-                "ported")
         if self.algorithm != "approxdpc":
             raise ValueError(
                 f"partial_fit maintains Approx-DPC state (the stream parity "
@@ -224,7 +219,8 @@ class DPCEngine:
                     batch_cap=self.batch_cap, rho_min=self.rho_min,
                     delta_min=self.delta_min, exec_spec=self.exec_spec,
                     **self.stream_options)
-                self._stream = StreamDPC(cfg, device=self.device)
+                self._stream = StreamDPC(cfg, mesh=self.mesh,
+                                         device=self.device)
                 self._plan = self._stream.plan
                 if self._mode == "batch" \
                         and self._points.shape[0] <= self.window_capacity:

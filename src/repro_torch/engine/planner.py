@@ -8,9 +8,10 @@ block-sparse layout's pruning needs) and the precision — and memoizes
 the plan on ``(PointsSpec, ExecSpec)``, so a re-fit on same-shaped input
 gets the same plan object back.
 
-Not ported: the jaxpr analyzer gate (``_plan_check``), the fault-injection
-sites, the worklist cache and strategy (every block-sparse call builds its
-worklist on the device), and ``resolve_backend``'s
+The plan's two primitive wrappers hold the ``kernel.dispatch``
+fault-injection site.  Not ported: the jaxpr analyzer gate
+(``_plan_check``), the worklist cache and strategy (every block-sparse
+call builds its worklist on the device), and ``resolve_backend``'s
 ``pallas -> interpret -> jnp`` degradation chain — a fallback would hide
 the kernel, and a CUDA tensor reaches the kernel or the call raises.
 """
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 
 from repro_torch.kernels.backend import KernelBackend, get_backend
 from repro_torch.obs import metrics as _obsm
+from repro_torch.resilience import faultinject
 
 from .spec import ExecSpec
 
@@ -65,12 +67,14 @@ class DPCPlan:
     __repr__ = describe
 
     def denser_nn(self, x, x_key, y, y_key):
+        faultinject.fire("kernel.dispatch")
         return self.backend.denser_nn(x, x_key, y, y_key)
 
     def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
                   fallback_interest=None):
         """The backend's fused rho + delta in the plan's layout and
         precision."""
+        faultinject.fire("kernel.dispatch")
         return self.backend.rho_delta(x, y, float(d_cut), jitter=jitter,
                                       y_sel_slots=y_sel_slots,
                                       fallback_interest=fallback_interest,

@@ -77,9 +77,10 @@ class KernelBackend(abc.ABC):
         of them; slots >= len(points) are padding and return (inf, -1)."""
 
     @abc.abstractmethod
-    def denser_nn(self, x, x_key, y, y_key, *, layout=None):
+    def denser_nn(self, x, x_key, y, y_key, *, layout=None, squared=False):
         """(delta, parent): NN among y rows with y_key strictly greater.
-        delta = +inf, parent = -1 where no such row exists."""
+        delta = +inf, parent = -1 where no such row exists.  ``squared``:
+        (d2, parent), the unrooted distance a caller merges on."""
 
     @abc.abstractmethod
     def prefix_nn(self, pts_sorted_desc):
@@ -146,7 +147,7 @@ class CudaBackend(KernelBackend):
 
     name = "cuda"
 
-    def denser_nn(self, x, x_key, y, y_key, *, layout=None):
+    def denser_nn(self, x, x_key, y, y_key, *, layout=None, squared=False):
         """K2 over all of y, or under ``layout="block-sparse"`` K9 on the
         best-1 ring of x over y (every tile pair, ascending lb per row
         tile), built just before the launch and freed with it."""
@@ -154,7 +155,8 @@ class CudaBackend(KernelBackend):
         if _sparse(layout):
             wl = blocksparse.build_flat_worklist(x, y, count=False,
                                                  nn="best1")
-        return dependent.masked_min_dist(x, x_key, y, y_key, worklist=wl)
+        return dependent.masked_min_dist(x, x_key, y, y_key, worklist=wl,
+                                         squared=squared)
 
     def prefix_nn(self, pts_sorted_desc):
         return dependent.prefix_min_dist(pts_sorted_desc)

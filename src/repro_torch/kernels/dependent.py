@@ -26,13 +26,13 @@ def prefix_min_dist(pts_sorted_desc):
     return ops.dependent_prefix(pts_sorted_desc)
 
 
-def masked_min_dist(x, x_key, y, y_key, *, worklist=None):
+def masked_min_dist(x, x_key, y, y_key, *, worklist=None, squared=False):
     """NN among y rows with ``y_key > x_key``, per x row, walking a best-1
     ring worklist when one is given.  Returns (delta (n,), parent (n,)
-    int32); (inf, -1) where none qualifies."""
-    if worklist is None:
-        return ops.dependent_masked(x, x_key, y, y_key)
-    return ops.dependent_masked(x, x_key, y, y_key, worklist=worklist)
+    int32), or (d2, parent) with ``squared``; (inf, -1) where none
+    qualifies."""
+    return ops.dependent_masked(x, x_key, y, y_key, worklist=worklist,
+                                squared=squared)
 
 
 def masked_min_dist_halo(x, x_key, window, w_key, starts, ends, d_cut, *,

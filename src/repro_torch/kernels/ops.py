@@ -303,7 +303,7 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
 
 def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                      y_key: torch.Tensor, *, worklist: Worklist | None = None,
-                     live: torch.Tensor | None = None):
+                     live: torch.Tensor | None = None, squared: bool = False):
     """Per x-row: the nearest y row with ``y_key > x_key`` (Def. 2).
 
     ``worklist`` (a best-1 ring, ``blocksparse.build_flat_worklist(
@@ -315,7 +315,9 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     entries K9's walks of its rows computed and the longest walk.
 
     Returns (delta (n,) f32, parent (n,) int32); (inf, -1) where no y row
-    is strictly denser.
+    is strictly denser.  ``squared`` returns the kernel's d2 itself in
+    place of delta, the pair a caller merges across shards before the
+    square root (two d2 one ulp apart can share an f32 root).
     """
     _check("dependent_masked", x, y, x_key, y_key)
     if worklist is not None:
@@ -327,7 +329,7 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         else:
             best, arg = worklist_masked_nn_plain(x, x_key, y, y_key,
                                                  worklist)
-        return torch.sqrt(best), arg
+        return (best if squared else torch.sqrt(best)), arg
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     best = torch.empty((n,), dtype=torch.float32, device=x.device)
     arg = torch.empty((n,), dtype=torch.int32, device=x.device)
@@ -363,7 +365,7 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                     arg.data_ptr(), _ptr(live), _stream(x))
         build.check(lib, name, code)
         _LAUNCHES[name] += 1
-    return torch.sqrt(best), arg
+    return (best if squared else torch.sqrt(best)), arg
 
 
 def dependent_prefix(points_sorted_desc: torch.Tensor):

@@ -12,7 +12,7 @@ tensors live on its device and a collective copies between them.  DPC is
 data-parallel only, so the mesh has one axis (``flatten``).
 
 A ``torch.distributed`` mesh for hosts with several cards is not ported
-(ROADMAP Queue A item 9).
+(ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
 
@@ -96,6 +96,14 @@ class ShardMesh:
             out[dst] = parts[src].to(self.devices[dst])
         return [torch.zeros_like(parts[s], device=self.devices[s])
                 if o is None else o for s, o in enumerate(out)]
+
+    def psum(self, parts) -> list[torch.Tensor]:
+        """The elementwise sum over the shards in shard order, on every
+        shard (``psum``)."""
+        total = parts[0].to(self.devices[0])
+        for p in parts[1:]:
+            total = total + p.to(self.devices[0])
+        return [total.to(dev) for dev in self.devices]
 
     def pmin(self, parts) -> list[torch.Tensor]:
         """The elementwise minimum over the shards, on every shard

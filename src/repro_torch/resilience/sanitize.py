@@ -1,5 +1,5 @@
 """Poisoned-input admission control, the port of
-``repro/resilience/sanitize.py``'s ``admit``.
+``repro/resilience/sanitize.py``'s ``admit`` and ``finite_or``.
 
 Malformed points are caught at the boundary (``DPCEngine.fit``) under one
 quarantine policy:
@@ -26,7 +26,7 @@ from repro_torch import obs
 from repro_torch.kernels.sweep import PAD_COORD
 
 __all__ = ["POLICIES", "AdmissionConfig", "AdmissionResult",
-           "PoisonedInputError", "admit"]
+           "PoisonedInputError", "admit", "finite_or"]
 
 POLICIES = ("reject", "drop", "clamp")
 
@@ -107,3 +107,11 @@ def admit(points, cfg: AdmissionConfig, *,
     fixed = np.nan_to_num(pts, nan=0.0, posinf=limit, neginf=-limit)
     fixed = np.clip(fixed, -limit, limit)
     return AdmissionResult(fixed, np.ones(len(pts), bool), nbad)
+
+
+def finite_or(x: torch.Tensor, fill) -> torch.Tensor:
+    """``x`` where finite, ``fill`` elsewhere: the non-finite guard of a
+    kernel's epilogue (inf deltas at global density peaks, NaN distances
+    from poisoned rows)."""
+    return torch.where(torch.isfinite(x), x, torch.as_tensor(
+        fill, dtype=x.dtype, device=x.device))

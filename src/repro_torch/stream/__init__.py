@@ -3,8 +3,11 @@
 ``StreamDPC`` maintains Approx-DPC state over a fixed-capacity sliding
 window with micro-batch ``ingest`` (incremental rho repair through K4/K5,
 maxima-only dependent updates through K6, full-rebuild fallback on
-capacity overflow, stable cluster ids across ticks).  ``StreamService``
-wraps it with buffered submits and read-only queries.
+capacity overflow, stable cluster ids across ticks), on one device or
+sharded over a ``ShardMesh`` (``stream.sharded``,
+``incremental.make_sharded_repair``), with checkpoints
+(``save``/``restore``).  ``StreamService`` wraps it with buffered submits
+and read-only queries.
 """
 from .incremental import CellOverflow, IncrementalGrid, repair_rho
 from .service import (QueryResult, QueryStatus, StreamServeConfig,

@@ -23,11 +23,8 @@ rho: the port of ``repro/stream/incremental.py``.
   (2 r + 1)^d offsets are few, and from chunked differences otherwise, both
   on the grid's device.
 * ``repair_rho``: one signed range count over the insert/evict batch (K5)
-  plus fresh counts for the inserted rows (K4).
-
-``make_sharded_repair`` (the sharded stream) waits for the next
-distributed slice (ROADMAP Queue A item 9); the distributed batch phases
-are ported (``repro_torch.distributed``).
+  plus fresh counts for the inserted rows (K4); ``make_sharded_repair`` is
+  the same repair with the window's rows sharded over a ``ShardMesh``.
 """
 from __future__ import annotations
 
@@ -296,3 +293,38 @@ def repair_rho(backend, d_cut: float, window_dev, rho, delta_batch, signs,
     keep = slots < out.shape[0]
     out[slots[keep]] = fresh[keep]
     return out
+
+
+def make_sharded_repair(mesh, axis: str, backend, d_cut: float):
+    """The rho repair over a :class:`~repro_torch.launch.mesh.ShardMesh`:
+    ``repair_rho``'s signature without ``backend`` and ``d_cut``.
+
+    The window's rows and rho split into the mesh's contiguous blocks and
+    the batch is replicated.  Each shard runs dense K5 on its rows against
+    the signed batch and dense K4 for the inserted rows against its rows;
+    the inserted rows' counts sum over the shards (``psum``: exact
+    integers in f32, so the sum equals the single-device count) and are
+    written into their slots.  No layout is passed, as in the reference.
+    """
+    flat = mesh.flatten(axis)
+
+    def repair(window_dev, rho, delta_batch, signs, ins_batch, slots):
+        n = window_dev.shape[0]
+        if n % flat.size:
+            raise ValueError(f"{flat.size} shards do not divide the window "
+                             f"capacity {n}")
+        w_p, rho_p = flat.shard(window_dev), flat.shard(rho)
+        parts, fresh = [], []
+        for s, dev in enumerate(flat.devices):
+            parts.append(rho_p[s] + backend.range_count_delta(
+                w_p[s], delta_batch.to(dev), signs.to(dev), d_cut))
+            fresh.append(backend.range_count(ins_batch.to(dev), w_p[s],
+                                             d_cut))
+        out = flat.unshard(parts)
+        fresh = flat.psum(fresh)[0]
+        slots = torch.as_tensor(slots, dtype=torch.int64, device=out.device)
+        keep = slots < n
+        out[slots[keep]] = fresh[keep]
+        return out
+
+    return repair

@@ -14,8 +14,9 @@
 
 The reference pads each query batch to a multiple of the micro-batch so
 that its jitted programs keep one shape; the kernel takes any row count,
-so the port launches the real rows only.  The fault-injection site waits
-for the resilience slice (ROADMAP Queue A item 7).
+so the port launches the real rows only.  ``submit`` holds the
+``service.submit`` fault-injection site, and ``mesh=`` shards the stream
+(``StreamDPC(mesh=...)``).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.kernels.sweep import PAD_COORD
+from repro_torch.resilience import faultinject
 from repro_torch.resilience.sanitize import AdmissionConfig, admit
 
 from .stream_dpc import StreamDPC, StreamDPCConfig, StreamTick
@@ -129,6 +131,7 @@ class StreamService:
 
         Points pass admission control first (``cfg.admission``).  An empty
         or fully quarantined submit is a no-op."""
+        faultinject.fire("service.submit")
         if self.cfg.admission is not None:
             points = admit(points, self.cfg.admission,
                            where="service.submit").points

@@ -36,10 +36,24 @@ In-place device state: the window table (``SlidingWindow.push``,
 in place, so the transactional snapshot clones both; rho is replaced each
 tick, never modified, and the snapshot keeps a reference to it.
 
-Not ported here: ``mesh=`` (the sharded repair tail, ``stream/sharded.py``:
-the next distributed slice, ROADMAP Queue A item 9; the distributed batch
-fit is ported, ``repro_torch.distributed``), ``save`` / ``restore`` and the
-fault-injection sites (item 7).
+``mesh=`` (a :class:`~repro_torch.launch.mesh.ShardMesh` whose shard count
+divides the capacity) shards the whole repair tail over the window's
+slots: the rho repair (``incremental.make_sharded_repair``: K5 and K4 per
+shard), the dirty maxima's NN (K2, or K9 on a block-sparse plan, per
+shard) and label propagation (``stream.sharded``).  Each stage equals its
+single-device counterpart bit for bit.  The continuity match's center
+distances come from ``stream.sharded.make_sharded_center_dists`` in both
+cases, over the mesh's shards or over one shard of the stream's device.  The stages
+hold no state of their own: they read the window table and rho, whose
+shards are row blocks of them, so the transactional snapshot covers the
+sharded stream as it is.  Warm-up ticks below capacity run the
+single-device labels, as in the reference.
+
+``save`` / ``restore`` write and read the reference's ``repro.stream-ckpt``
+v1 files (``resilience.checkpoint``): a restored stream's next ticks equal
+the uninterrupted run's, onto any mesh whose shard count divides the
+capacity, or onto none.  The ``tick.*`` fault-injection sites sit where the
+reference's do (``resilience.faultinject``).
 """
 from __future__ import annotations
 
@@ -59,8 +73,13 @@ from repro_torch.core.labels import Clustering, assign_labels
 from repro_torch.engine.planner import plan
 from repro_torch.engine.spec import ExecSpec
 from repro_torch.kernels.sweep import PAD_COORD
+from repro_torch.launch.mesh import ShardMesh
+from repro_torch.resilience import faultinject
 
-from .incremental import CellOverflow, IncrementalGrid, repair_rho
+from .incremental import (CellOverflow, IncrementalGrid, make_sharded_repair,
+                          repair_rho)
+from .sharded import (make_sharded_center_dists, make_sharded_labels,
+                      make_sharded_nn_update)
 from .window import SlidingWindow
 
 _M_TICKS = obs.counter("stream_ticks", "StreamDPC ticks across all streams")
@@ -164,20 +183,39 @@ def _assemble(parent1, q_slots, nn_delta, nn_parent, d_cut: float):
 
 
 class StreamDPC:
-    """Micro-batch streaming driver over a sliding window, on one device
-    (``device=None`` means the card, as for ``DPCEngine``)."""
+    """Micro-batch streaming driver over a sliding window.
+
+    ``device=None`` means the card, as for ``DPCEngine``, or with a
+    ``mesh`` the mesh's first device; the mesh's shards must be on the
+    stream's device type and their count must divide ``cfg.capacity``."""
 
     def __init__(self, cfg: StreamDPCConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamDPC(mesh=...) shards the repair tail over a mesh "
-                "(stream/sharded.py); it is still to be ported (ROADMAP "
-                "Queue A item 9), while the distributed fit "
-                "(DPCEngine(mesh=...).fit) is ported")
         self.cfg = cfg
-        self.device = resolve_device(device)
         self.plan = plan(None, cfg.resolved_exec())
         self.be = self.plan.backend
+        if mesh is not None:
+            if not isinstance(mesh, ShardMesh):
+                raise TypeError(f"mesh must be a ShardMesh, got "
+                                f"{type(mesh).__name__}")
+            if device is None:
+                device = mesh.devices[0]
+        self.device = resolve_device(device)
+        if mesh is not None:
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"mesh {mesh} is not on the stream's "
+                                 f"device type {self.device.type!r}")
+            mesh = mesh.flatten(self.plan.data_axis)
+            if cfg.capacity % mesh.size:
+                raise ValueError(f"a mesh of {mesh.size} shards does not "
+                                 f"divide the window capacity "
+                                 f"{cfg.capacity}")
+        self.mesh = mesh
+        self._sharded = self._sharded_nn = self._sharded_labels = None
+        # the continuity match's center distances, over the mesh or, with
+        # none, over one shard of the stream's device
+        self._center_dists = make_sharded_center_dists(
+            mesh or ShardMesh([self.device], self.plan.data_axis),
+            self.plan.data_axis)
         self.window: SlidingWindow | None = None
         self.grid: IncrementalGrid | None = None
         self._rho: torch.Tensor | None = None
@@ -246,15 +284,17 @@ class StreamDPC:
         return tick
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(
-            "stream checkpoints are ported with resilience (ROADMAP Queue A "
-            "item 7)")
+        """Atomic, versioned checkpoint of the complete incremental state
+        (:mod:`repro_torch.resilience.checkpoint`)."""
+        from repro_torch.resilience.checkpoint import save_stream
+        save_stream(self, path)
 
     @classmethod
-    def restore(cls, path: str, mesh=None) -> "StreamDPC":
-        raise NotImplementedError(
-            "stream checkpoints are ported with resilience (ROADMAP Queue A "
-            "item 7)")
+    def restore(cls, path: str, mesh=None, device=None) -> "StreamDPC":
+        """Rebuild a stream from a checkpoint, onto ``mesh`` or one device;
+        its next ticks equal the uninterrupted run's."""
+        from repro_torch.resilience.checkpoint import restore_stream
+        return restore_stream(path, mesh=mesh, device=device)
 
     def window_points(self) -> np.ndarray:
         """Window contents in slot order — run_approxdpc on this array is
@@ -305,6 +345,18 @@ class StreamDPC:
                 self.cfg.d_cut, self.cfg.capacity, dim,
                 cell_slack=self.cfg.cell_slack,
                 extent_margin=self.cfg.extent_margin, device=self.device)
+            if self.mesh is not None:
+                from repro_torch.distributed.dpc import \
+                    shard_blocksparse_layout
+                axis = self.plan.data_axis
+                self._sharded = make_sharded_repair(
+                    self.mesh, axis, self.be, self.cfg.d_cut)
+                # the batch path's shard-phase layout decision, shared
+                self._sharded_nn = make_sharded_nn_update(
+                    self.mesh, axis, self.be,
+                    layout=shard_blocksparse_layout(self.plan, self.mesh))
+                self._sharded_labels = make_sharded_labels(
+                    self.mesh, axis, self.cfg.capacity)
             cap = self.cfg.capacity
             self._nn_delta_cache = np.full(cap, np.inf, np.float32)
             self._nn_parent_cache = np.full(cap, -1, np.int32)
@@ -403,6 +455,7 @@ class StreamDPC:
                 padded[:r] = chunk
                 slots, evicted, ev_valid = w.push(padded, r)
             rebuilt = False
+            faultinject.fire("tick.grid_apply")
             with obs.span("stream.grid_apply") as sp:
                 try:
                     self.grid.apply(slots, padded, evicted, r)
@@ -417,9 +470,12 @@ class StreamDPC:
             signs[:r] = 1.0
             signs[B:][ev_valid] = -1.0
             dev = self.device
+            repair = self._sharded or (
+                lambda *a: repair_rho(self.be, cfg.d_cut, *a))
+            faultinject.fire("tick.rho_repair")
             with obs.span("stream.rho_repair") as sp:
-                self._rho = sp.sync(repair_rho(
-                    self.be, cfg.d_cut, w.device, self._rho,
+                self._rho = sp.sync(repair(
+                    w.device, self._rho,
                     torch.from_numpy(delta_batch).to(dev),
                     torch.from_numpy(signs).to(dev),
                     torch.from_numpy(padded).to(dev), slots))
@@ -460,10 +516,12 @@ class StreamDPC:
         self._nn_queries += len(dq)
         _M_NN_MAXIMA.inc(len(q))
         _M_NN_QUERIES.inc(len(dq))
+        faultinject.fire("tick.nn_update")
 
         if len(dq):
+            nn_fn = self._sharded_nn or self.be.denser_nn_update
             with obs.span("stream.nn_update", queries=len(dq)) as sp:
-                nn_d, nn_p = sp.sync(self.be.denser_nn_update(
+                nn_d, nn_p = sp.sync(nn_fn(
                     self.window.device, rho_key,
                     torch.from_numpy(dq).to(dev)))
                 self._nn_delta_cache[dq] = nn_d.cpu().numpy()
@@ -481,8 +539,16 @@ class StreamDPC:
     # ------------------------------------------------- labels + continuity
     def _finish(self, res: DPCResult, *, rebuilt: bool,
                 full: bool) -> StreamTick:
+        faultinject.fire("tick.finish")
         cfg = self.cfg
-        cl = assign_labels(res, cfg.rho_min, cfg.resolved_delta_min())
+        # warm-up ticks run below capacity, where the sharded propagation's
+        # chunks do not apply: they keep the single-device labels
+        if self._sharded_labels is not None \
+                and res.parent.shape[0] == cfg.capacity:
+            cl = self._sharded_labels(res, cfg.rho_min,
+                                      cfg.resolved_delta_min())
+        else:
+            cl = assign_labels(res, cfg.rho_min, cfg.resolved_delta_min())
         self._result, self._clustering = res, cl
         with obs.span("stream.continuity") as sp:
             labels = cl.labels.cpu().numpy()
@@ -512,8 +578,7 @@ class StreamDPC:
         if self._registry and m:
             prev_pos = np.stack([p for _, p in self._registry])
             prev_ids = np.array([s for s, _ in self._registry])
-            dist = np.sqrt(((positions[:, None, :].astype(np.float64)
-                             - prev_pos[None]) ** 2).sum(-1))
+            dist = self._center_dists(positions, prev_pos)
             radius = self.cfg.resolved_radius()
             used_new = np.zeros(m, bool)
             used_old = np.zeros(len(prev_ids), bool)

@@ -263,7 +263,7 @@ def test_engine_refusals(monkeypatch):
     with pytest.raises(ValueError, match="exact DPC"):
         DPCEngine(dc, algorithm="approxdpc", mesh=mesh, device="cpu").fit(pts)
     eng = DPCEngine(dc, algorithm="exdpc", mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
+    with pytest.raises(ValueError, match="does not stream"):
         eng.partial_fit(pts[:64])
     with pytest.raises(ValueError, match="strategy"):
         DPCEngine(dc, mesh=mesh, strategy="ring", device="cpu")

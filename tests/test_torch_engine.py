@@ -21,6 +21,7 @@ from repro_torch.core.dpc_api import DPCConfig, cluster
 from repro_torch.core.sapproxdpc import run_sapproxdpc
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.backend import get_backend
+from repro_torch.resilience.checkpoint import CheckpointError
 from repro_torch.resilience.sanitize import PoisonedInputError
 from repro_torch.stream import StreamDPC, StreamDPCConfig
 
@@ -135,12 +136,12 @@ def test_unported_axes_and_entry_points_raise():
         assert len(bf.labels_) == 50 and bf.result.rho.shape == (50,)
     eng = DPCEngine(0.1, device="cpu").fit(pts)
     cfg = StreamDPCConfig(d_cut=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         StreamDPC(cfg, mesh=object(), device="cpu")
-    for call in (lambda: StreamDPC(cfg, device="cpu").save("ckpt"),
-                 lambda: StreamDPC.restore("ckpt")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(ValueError, match="window state"):
+        StreamDPC(cfg, device="cpu").save("ckpt")
+    with pytest.raises(CheckpointError):
+        StreamDPC.restore("no-such-ckpt.npz", device="cpu")
     x, be = torch.from_numpy(pts), get_backend("cuda")
     spans = torch.zeros((50, 3), dtype=torch.int32)
     assert torch.equal(be.range_count_delta(x, x, torch.ones(50), 0.1,

@@ -198,9 +198,9 @@ def test_masked_nn_gets_only_the_unresolved_rows(monkeypatch):
     given = []
     launch = ops.dependent_masked
 
-    def recording(xq, xk, y, yk):
+    def recording(xq, xk, y, yk, **kw):
         given.append(xq.shape[0])
-        return launch(xq, xk, y, yk)
+        return launch(xq, xk, y, yk, **kw)
 
     monkeypatch.setattr(ops, "dependent_masked", recording)
     x = _t(pts)

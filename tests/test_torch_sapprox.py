@@ -384,10 +384,10 @@ def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
         seen.append(("sweep", nn_sel is not None, worklist is not None))
         return sweep_fn(x, y, d_cut, nn_sel=nn_sel, worklist=worklist)
 
-    def rec_nn(x, xk, y, yk, worklist=None):
+    def rec_nn(x, xk, y, yk, worklist=None, **kw):
         seen.append(("nn", int(torch.isinf(yk).sum()), y.shape[0],
                      worklist is not None))
-        return nn_fn(x, xk, y, yk, worklist=worklist)
+        return nn_fn(x, xk, y, yk, worklist=worklist, **kw)
 
     monkeypatch.setattr(ops, "fused_sweep", rec_sweep)
     monkeypatch.setattr(ops, "dependent_masked", rec_nn)

@@ -24,6 +24,7 @@ from repro_torch.carry import stream_state
 from repro_torch.core.approxdpc import run_approxdpc
 from repro_torch.core.labels import assign_labels
 from repro_torch.kernels.sweep import direct_d2
+from repro_torch.resilience.checkpoint import CheckpointError
 from repro_torch.stream import (StreamDPC, StreamDPCConfig,
                                 StreamServeConfig, StreamService)
 
@@ -203,15 +204,18 @@ def test_carried_state_continues_the_reference_stream():
         _assert_same_tick(p, j, p.ingest(batch), j.ingest(batch))
 
 
-def test_mesh_and_checkpoints_are_not_ported():
+def test_mesh_and_checkpoints_are_not_ported(tmp_path):
+    """Once the raises of the unported mesh and checkpoints; both are
+    ported now (tests/test_torch_sharded_stream.py,
+    tests/test_torch_checkpoint.py), and these are their refusals."""
     cfg = StreamDPCConfig(d_cut=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         StreamDPC(cfg, mesh=object(), device="cpu")
     s = StreamDPC(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.save("x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamDPC.restore("x")
+    with pytest.raises(ValueError, match="window state"):
+        s.save(str(tmp_path / "x.npz"))
+    with pytest.raises(CheckpointError):
+        StreamDPC.restore(str(tmp_path / "x.npz"), device="cpu")
     with pytest.raises(ValueError):
         StreamDPCConfig(d_cut=1.0, capacity=8, batch_cap=9)
     with pytest.raises(TypeError):
