@@ -249,6 +249,23 @@ Phases, each of which raises on failure (nothing is caught):
    window_capacity=65_536)`` streaming the mixture, equal to the engine
    without a mesh (dense: K2 once a shard a tick).
 
+25. The ``torch`` reference backend on the card (plain PyTorch, no
+   kernel): on the 2^20 Airline proxy (d_cut of phase 3) Approx-DPC,
+   Ex-DPC and S-Approx-DPC (eps 0.8) on the dense stencil route, and
+   Approx-DPC and Ex-DPC block-sparse on the ring walk; distributed Ex-DPC
+   on 4 logical shards, gather and halo, dense, at 2^18 Airline-proxy
+   rows; the mixture stream (window 65,536, batches of 4,096, 8 counted
+   ticks, dense).  Every fit must return CUDA tensors and is held against
+   the ``cuda`` backend's fit of the same input in this run (the
+   distributed fits against the single-device ``torch`` fit, the stream
+   against the ``cuda`` stream on every tick): rho equal off the 4-ulp
+   band around d_cut^2, delta to rtol 1e-6, parents equal except rows
+   shown to be exact distance ties (counted), labels equal away from the
+   rows downstream of them.  Prints each fit's time (the second fit,
+   untraced, ending in a synchronize), its spans and unresolved rows
+   from a traced fit, and its peak device memory, and asserts that no
+   ``torch`` fit launched a kernel of the port.
+
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
 rows, K3 and K9 from the main path, K4 and K5 from the mixture stream, K6
@@ -327,6 +344,9 @@ BF16_FULL_REPS = 3               # timed runs of K12 and K1 at 2^20 x 2^20
 SHARDED_PLAIN_TILES = 2          # row tiles of each sharded K9's plain check
 ENGINE_WINDOW = 65536            # phase 24's mesh engine: its window
 ENGINE_TICKS = 4                 # and its counted ticks
+REF_DIST_N = 1 << 18             # phase 25: the torch distributed fits
+REF_WINDOW = 65536               # phase 25: the torch stream's window
+REF_TICKS = 8                    # and its counted ticks
 
 
 def smi(fields: str) -> str:
@@ -3023,6 +3043,210 @@ def run_sharded_stream(pts: np.ndarray, d_cut: float, card: str) -> dict:
     return rec
 
 
+def hold_against(x, got, want, d_cut: float, what: str) -> dict:
+    """A ``torch`` fit of the table ``x`` against the ``cuda`` fit of the same
+    input: both on the card; rho equal off the 4-ulp band around d_cut^2
+    (each differing row is shown to have a pair there, in float64); delta
+    equal to f32 rounding (rtol 1e-6, the same rows infinite); parents
+    equal except rows shown to be exact distance ties; labels (rho_min 10,
+    delta_min 2 d_cut) equal away from the rows downstream of such a
+    parent.  Returns the counts."""
+    from repro_torch.core.labels import assign_labels
+    from repro_torch.kernels.sweep import direct_d2
+    for t in got:
+        assert t.is_cuda, f"{what}: the torch fit returned a host tensor"
+    thr = float(np.float32(d_cut) ** 2)
+    ulp = float(np.spacing(np.float32(thr)))
+    rows = torch.nonzero(got.rho != want.rho).flatten()
+    x64 = x.double()
+    for r in rows.tolist():
+        d2 = ((x64 - x64[r]) ** 2).sum(1)
+        assert bool(((d2 - thr).abs() <= 4 * ulp).any()), \
+            f"{what}: rho of row {r} differs off the threshold band"
+    assert torch.equal(torch.isinf(got.delta), torch.isinf(want.delta)), \
+        f"{what}: delta is infinite on other rows"
+    fin = torch.isfinite(want.delta)
+    assert torch.allclose(got.delta[fin], want.delta[fin], rtol=1e-6,
+                          atol=0.0), f"{what}: delta differs"
+    differ = got.parent != want.parent
+    prow = torch.nonzero(differ).flatten()
+    pa, pb = got.parent[prow].long(), want.parent[prow].long()
+    assert bool((pa >= 0).all() and (pb >= 0).all() and torch.equal(
+        direct_d2(x[prow], x[pa]), direct_d2(x[prow], x[pb]))), \
+        f"{what}: a parent differs without an exact distance tie"
+    la = assign_labels(got, 10.0, 2 * d_cut).labels
+    lb = assign_labels(want, 10.0, 2 * d_cut).labels
+    tied = downstream(got.parent, differ) | downstream(want.parent, differ)
+    assert torch.equal(la[~tied], lb[~tied]), \
+        f"{what}: labels differ away from tie-decided parents"
+    return {"rho_in_band": rows.numel(), "tied_parents": prow.numel(),
+            "downstream": int(tied.sum()), "labels_differ": int(
+                (la != lb).sum())}
+
+
+def run_reference_backend(main_pts: np.ndarray, d_cut: float,
+                          card: str) -> dict:
+    """Phase 25: the ``torch`` reference backend on the card at its default
+    chunks, every fit held against the ``cuda`` backend's fit of the same
+    input in this run, and none launching a kernel of the port."""
+    from repro_torch import DPCEngine, ExecSpec, obs
+    from repro_torch.core.approxdpc import run_approxdpc
+    from repro_torch.core.exdpc import run_exdpc
+    from repro_torch.core.sapproxdpc import run_sapproxdpc
+    from repro_torch.core.tuning import pick_dcut
+    from repro_torch.data.points import gaussian_mixture, real_proxy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import ShardMesh
+    from repro_torch.stream import StreamDPC, StreamDPCConfig
+    dev = torch.device("cuda")
+    out: dict = {}
+
+    def spec(backend, layout="dense"):
+        return ExecSpec(backend=backend, layout=layout)
+
+    def no_kernel(fn, what):
+        """``fn()``, asserting that it launched no kernel of the port."""
+        ops.reset_launch_counts()
+        res = fn()
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        assert not launched, f"{what}: the torch fit launched {launched}"
+        return res
+
+    fits = {
+        "approxdpc": lambda x, b, lay: run_approxdpc(
+            x, d_cut, exec_spec=spec(b, lay)),
+        "exdpc": lambda x, b, lay: run_exdpc(x, d_cut,
+                                             exec_spec=spec(b, lay)),
+        "sapproxdpc": lambda x, b, lay: run_sapproxdpc(
+            x, d_cut, eps=SAPPROX_EPS, exec_spec=spec(b, lay))}
+
+    def unresolved_of(recs) -> dict:
+        return {r["name"]: r["attrs"]["unresolved"] for r in recs
+                if "unresolved" in r.get("attrs", {})}
+
+    def timed_fit(fn, what):
+        """A traced fit (phase times, peaks, the unresolved rows), then the
+        timed one, untraced, ending in a synchronize, and its peak; neither
+        may launch a kernel of the port."""
+        torch.cuda.synchronize()
+        obs.configure("trace")
+        obs.reset_spans()
+        try:
+            no_kernel(fn, what)
+        finally:
+            obs.configure("off")
+        recs = obs.spans()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = no_kernel(fn, what)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        phases: dict[str, float] = {}
+        for r in recs:
+            phases[r["name"]] = phases.get(r["name"], 0.0) \
+                + 1e3 * r["host_s"]
+        return res, {"ms": ms, "peak_gb": peak, "phases_ms": phases,
+                     "unresolved": unresolved_of(recs)}
+
+    x = torch.from_numpy(main_pts).to(dev)
+    for algo, layout in (("approxdpc", "dense"), ("exdpc", "dense"),
+                         ("sapproxdpc", "dense"),
+                         ("approxdpc", "block-sparse"),
+                         ("exdpc", "block-sparse")):
+        what = f"torch {algo} {layout} n={len(main_pts)}"
+        got, rec = timed_fit(lambda: fits[algo](x, "torch", layout), what)
+        want = fits[algo](x, "cuda", layout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fits[algo](x, "cuda", layout)
+        torch.cuda.synchronize()
+        rec["cuda_ms"] = (time.perf_counter() - t0) * 1e3
+        rec.update(hold_against(x, got, want, d_cut, what))
+        shown = ", ".join(f"{k} {v:.2f}" for k, v in rec["phases_ms"].items())
+        print(f"{what}: {rec['ms']:.1f} ms (cuda {rec['cuda_ms']:.1f} ms), "
+              f"peak {rec['peak_gb']:.3f} GB above the script's; spans "
+              f"(ms, traced run): {shown}; unresolved rows "
+              f"{rec['unresolved']}; == cuda fit: rho off the band, delta "
+              f"rtol 1e-6, {rec['tied_parents']} parents differ at exact "
+              f"ties ({rec['downstream']} rows downstream, "
+              f"{rec['labels_differ']} labels)  ({card})", flush=True)
+        out[f"{algo} {layout}"] = rec
+        del got, want
+        torch.cuda.empty_cache()
+    del x
+
+    # distributed Ex-DPC, 4 logical shards, dense: the gather strategy's
+    # stencil phases and the halo strategy's gather-form halo primitives
+    dpts, _ = real_proxy("airline", REF_DIST_N, seed=0)
+    dc = pick_dcut(dpts, target_rho=30)
+    xd = torch.from_numpy(dpts).to(dev)
+    single = no_kernel(lambda: run_exdpc(xd, dc, exec_spec=spec("torch")),
+                       f"torch exdpc n={REF_DIST_N}")
+    for strategy in ("gather", "halo"):
+        eng = DPCEngine(dc, algorithm="exdpc", rho_min=10, strategy=strategy,
+                        mesh=ShardMesh.on("cuda", shards=DIST_SHARDS),
+                        exec_spec=spec("torch"))
+        what = f"torch distributed exdpc {strategy} n={REF_DIST_N}"
+        no_kernel(lambda: eng.fit(dpts), what)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        no_kernel(lambda: eng.fit(dpts), what)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"ms": ms, **hold_against(xd, eng.result, single, dc, what)}
+        print(f"{what}, {DIST_SHARDS} shards, dense: {ms:.1f} ms; == the "
+              f"single-device torch fit, {rec['tied_parents']} parents "
+              f"differ at exact ties  ({card})", flush=True)
+        out[f"distributed {strategy}"] = rec
+    del xd, single, eng
+    torch.cuda.empty_cache()
+
+    # the mixture stream on a torch plan against the cuda stream, tick by
+    # tick (dense: a full tick is the stencil route)
+    B = STREAM_BATCH
+    mix, _ = gaussian_mixture(REF_WINDOW + (REF_TICKS + 1) * B, k=15, d=2,
+                              seed=0)
+    streams = {b: StreamDPC(StreamDPCConfig(
+        d_cut=2000.0, capacity=REF_WINDOW, batch_cap=B, rho_min=10,
+        exec_spec=spec(b))) for b in ("torch", "cuda")}
+    tick_ms: dict[str, list] = {"torch": [], "cuda": []}
+    tied = 0
+    no_kernel(lambda: streams["torch"].initialize(mix[:REF_WINDOW]),
+              "torch stream initialize")
+    streams["cuda"].initialize(mix[:REF_WINDOW])
+    for t in range(REF_TICKS + 1):
+        batch = mix[REF_WINDOW + t * B:REF_WINDOW + (t + 1) * B]
+        ticks = {}
+        for b, s in streams.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ticks[b] = no_kernel(lambda: s.ingest(batch),
+                                 f"torch stream tick {t}") \
+                if b == "torch" else s.ingest(batch)
+            torch.cuda.synchronize()
+            if t:                       # the first tick is a warm-up
+                tick_ms[b].append((time.perf_counter() - t0) * 1e3)
+        a, c = streams["torch"], streams["cuda"]
+        assert np.array_equal(ticks["torch"].labels, ticks["cuda"].labels)
+        assert np.array_equal(ticks["torch"].stable_ids,
+                              ticks["cuda"].stable_ids)
+        w = torch.from_numpy(a.window_points()).to(dev)
+        tied += hold_against(w, a.result, c.result, 2000.0,
+                             f"torch stream tick {t}")["tied_parents"]
+    rec = {"tick_ms": {b: statistics.median(v) for b, v in tick_ms.items()},
+           "tied_parents": tied}
+    print(f"torch mixture stream, window {REF_WINDOW}, batches of {B}, "
+          f"dense, {REF_TICKS} counted ticks: == the cuda stream on every "
+          f"tick ({tied} parents differ at exact ties); median tick "
+          f"{rec['tick_ms']['torch']:.2f} ms (cuda "
+          f"{rec['tick_ms']['cuda']:.2f} ms)  ({card})", flush=True)
+    out["stream"] = rec
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4423,6 +4647,12 @@ def main() -> int:
                         seed=0)
     record["sharded_stream"] = run_sharded_stream(air, d_cut, card)
     del air
+    torch.cuda.empty_cache()
+
+    # ------------------------ 25. the torch reference backend on the card
+    stamp(25)
+    record["reference_backend"] = run_reference_backend(main_pts, d_cut,
+                                                        card)
     torch.cuda.empty_cache()
 
 

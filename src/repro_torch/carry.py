@@ -7,8 +7,8 @@ functions take that state as numpy arrays and plain dicts — what
 ``np.asarray`` and ``dataclasses.asdict`` give for the reference's objects
 — and build the port's counterparts, so one stage's reference output can
 feed the port's next stage.  Backend names map
-``pallas``/``pallas-interpret`` -> ``cuda``; ``jnp`` is refused until the
-port has a reference backend.  ``stream_state`` reads a reference
+``pallas``/``pallas-interpret`` -> ``cuda`` and ``jnp`` -> ``torch``, the
+direct-difference reference backend.  ``stream_state`` reads a reference
 ``StreamDPC`` by its attributes, through ``np.asarray``, and imports
 nothing of the reference.
 """
@@ -33,7 +33,8 @@ __all__ = ["dpc_result", "grid", "exec_spec", "dist_config",
            "flat_worklist", "stream_state"]
 
 _BACKENDS = {None: None, "auto": None, "pallas": "cuda",
-             "pallas-interpret": "cuda", "cuda": "cuda"}
+             "pallas-interpret": "cuda", "cuda": "cuda", "jnp": "torch",
+             "torch": "torch"}
 
 _GRID_ARRAYS = ("points", "order", "inv_order", "cand_key", "group_key",
                 "cand_coords", "cand_extent", "cand_strides", "cell_keys",
@@ -72,10 +73,6 @@ def grid(arrays: Mapping, static: Mapping, device="cpu") -> Grid:
 def exec_spec(fields: Mapping) -> ExecSpec:
     """An ``ExecSpec`` from the reference spec's fields."""
     backend = fields.get("backend")
-    if backend == "jnp":
-        raise NotImplementedError(
-            "backend 'jnp' has no counterpart yet: the port's direct-"
-            "difference reference backend comes with ROADMAP Queue A item 1")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown reference backend {backend!r}")
     return ExecSpec(backend=_BACKENDS[backend], layout=fields.get("layout"),

@@ -9,14 +9,21 @@ diameter < d_cut):
 3. otherwise (a cell maximum with no denser point within d_cut): the exact
    nearest denser point and its distance — the "stem" roots, |roots| << n.
 
-This is the reference's engine branch (``repro/core/approxdpc.py:60-135``):
-one fused ``rho_delta`` call counts every row's density and answers Def. 2
-for the cell maxima, whose nearest denser point decides rules 2 and 3.
-Under the block-sparse layout that call runs on the grid-sorted table (its
-tiles are compact, so the worklist prunes) and its answers map back through
-``unsort_dpc`` (``exdpc.fused_dpc``, shared with Ex-DPC and Scan).  The
-stencil branch, which the reference takes on its ``jnp`` backend, comes
-with the reference-backend slice (ROADMAP Queue A).
+Both of the reference's branches, chosen as it chooses
+(``repro/core/approxdpc.py:66``, ``use_engine = mxu_dense or sparse``):
+
+* the engine branch (``cuda``, and any backend under the block-sparse
+  layout): one fused ``rho_delta`` call counts every row's density and
+  answers Def. 2 for the cell maxima, whose nearest denser point decides
+  rules 2 and 3.  Under the block-sparse layout that call runs on the
+  grid-sorted table and its answers map back through ``unsort_dpc``
+  (``exdpc.fused_dpc``, shared with Ex-DPC and Scan);
+* the stencil branch (``torch`` in the dense layout): rho by the joint
+  per-cell range count (``stencil.density_per_cell``, span
+  ``approxdpc.rho``), rule 2 by the d_cut stencil
+  (``stencil.dependent_stencil``, span ``approxdpc.stencil``; computed for
+  every row, read for the cell maxima) and rule 3 by
+  ``exdpc.resolve_fallback`` (span ``approxdpc.fallback``).
 """
 from __future__ import annotations
 
@@ -25,9 +32,10 @@ import torch
 from .. import obs
 from ..engine.planner import as_plan
 from .device import as_points
-from .dpc_types import DPCResult
-from .exdpc import fused_dpc
-from .grid import Grid, build_grid
+from .dpc_types import DPCResult, with_jitter
+from .exdpc import fused_dpc, resolve_fallback
+from .grid import Grid, build_grid, unsort_nn
+from .stencil import density_per_cell, dependent_stencil
 
 
 def _group_segments(grid: Grid) -> torch.Tensor:
@@ -51,9 +59,48 @@ def _maxima_mask(grid: Grid, seg: torch.Tensor, rho_key: torch.Tensor):
     return (rk_s == _segment_max(rk_s, seg)[seg])[grid.inv_order]
 
 
+def _run_stencil(points, d_cut: float, pl, grid: Grid,
+                 seg: torch.Tensor) -> DPCResult:
+    """The stencil branch (``repro/core/approxdpc.py:96-161``)."""
+    n = points.shape[0]
+    with obs.span("approxdpc.rho", n=n) as sp:
+        rho = sp.sync(density_per_cell(grid)[grid.inv_order])
+    rho_key = with_jitter(rho)
+    rk_sorted = rho_key[grid.order]
+
+    # --- rule 1: in-cell O(1) dependents via segment argmax ---
+    is_cellmax = rk_sorted == _segment_max(rk_sorted, seg)[seg]
+    slot = torch.arange(n, dtype=torch.int64, device=points.device)
+    parent_s = _segment_max(torch.where(is_cellmax, slot, -1), seg)[seg]
+    delta_s = torch.full((n,), d_cut, dtype=torch.float32,
+                         device=points.device)
+
+    # --- rule 2: cell maxima consult the d_cut stencil (computed for every
+    #     row, as the reference's; only the cell maxima read it) ---
+    with obs.span("approxdpc.stencil", n=n) as sp:
+        _, st_parent, st_found = dependent_stencil(grid, rk_sorted,
+                                                   block=pl.block)
+        use2 = is_cellmax & st_found
+        parent_s = torch.where(use2, st_parent.long(), parent_s)
+        resolved_s = ~is_cellmax | use2
+        delta, parent = unsort_nn(grid, delta_s, parent_s)
+        resolved = sp.sync(resolved_s[grid.inv_order])
+
+    # --- rule 3: the exact fallback for the stem roots ---
+    with obs.span("approxdpc.fallback",
+                  unresolved=int((~resolved).sum())) as sp:
+        delta, parent = sp.sync(resolve_fallback(points, rho_key, delta,
+                                                 parent, resolved,
+                                                 backend=pl.backend))
+    return DPCResult(rho=rho, rho_key=rho_key, delta=delta, parent=parent)
+
+
 def run_approxdpc(points, d_cut: float, *, g: int | None = None,
                   grid: Grid | None = None, exec_spec=None) -> DPCResult:
-    """A tensor runs on its own device; anything else goes to the card."""
+    """A tensor runs on its own device; anything else goes to the card.
+    The stencil branch's joint per-cell count is chunked by the pair budget
+    alone (the reference's ``cell_block`` is not ported), its stencil NN
+    also by ``ExecSpec.block`` where given; no result depends on either."""
     points = as_points(points)
     pl = as_plan(exec_spec, points)
     n = points.shape[0]
@@ -64,6 +111,8 @@ def run_approxdpc(points, d_cut: float, *, g: int | None = None,
             sp.sync(grid.points)
 
     seg = _group_segments(grid)
+    if not (pl.backend.mxu_dense or pl.grid_sort):
+        return _run_stencil(points, d_cut, pl, grid, seg)
 
     # one engine invocation answers Def. 1 for every row AND Def. 2 for the
     # rows that will need it: only cell maxima consume it (rules 2 + 3)

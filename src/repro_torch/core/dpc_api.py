@@ -35,13 +35,11 @@ _RUNNERS = {
                                                  g=c.grid_dims, exec_spec=x),
 }
 
-# the baselines wait for the reference backend (their stencil and LSH
-# routes run on it)
+# the baselines draw with jax.random (LSH projections, k-means pivots):
+# their port decides how both packages get the same draws
 _UNPORTED = {
-    "lsh_ddp": "it waits for ROADMAP Queue A item 1, the reference "
-               "backend (then item 4, core/lsh_ddp.py)",
-    "cfsfdp_a": "it waits for ROADMAP Queue A item 1, the reference "
-                "backend (then item 4, core/cfsfdp_a.py)",
+    "lsh_ddp": "it waits for ROADMAP Queue A item 4 (core/lsh_ddp.py)",
+    "cfsfdp_a": "it waits for ROADMAP Queue A item 4 (core/cfsfdp_a.py)",
 }
 
 

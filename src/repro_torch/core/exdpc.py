@@ -1,25 +1,54 @@
 """Ex-DPC (§3): the exact algorithm, on the kernel backend.
 
-The port of the reference's engine path (``repro/core/exdpc.py:65-103``):
-one fused ``rho_delta`` call counts every row's density and keeps its 8
-nearest candidates; the kept-k resolution answers Def. 2 wherever a denser
-point is among them, and a masked-NN pass answers every other row, so the
-result is exact — the paper's incremental kd-tree invariant ("the tree holds
-exactly the denser points") becomes that static masked search.  Under the
-block-sparse layout the call runs on the grid-sorted table and its answers
-map back through ``unsort_dpc``.
+The paper's incremental kd-tree invariant ("the tree holds exactly the
+denser points") becomes a static masked search, realized two ways, chosen
+by the backend as the reference chooses (``repro/core/exdpc.py:102``):
 
-The reference's stencil route (its ``jnp`` backend, with
-``resolve_fallback``) comes with the reference-backend slice (ROADMAP
-Queue A item 1).
+* the fused route (``cuda``, and any backend under the block-sparse
+  layout): one ``rho_delta`` call counts every row's density and answers
+  Def. 2 — on ``cuda`` by the kept-8 resolution plus a masked-NN pass for
+  the rows it leaves.  Under the block-sparse layout the call runs on the
+  grid-sorted table and its answers map back through ``unsort_dpc``;
+* the stencil route (``torch`` in the dense layout, the reference's
+  ``jnp`` path): the grid-stencil range count for rho, then the d_cut
+  stencil for delta (exact wherever a denser point lies within d_cut, the
+  paper's Lemma-2 alpha fraction) and ``resolve_fallback``, the global
+  masked NN, for the few rows it leaves.
+
+Both are exact; the stencil route breaks exact distance ties by the
+lowest grid-sorted slot, the fused dense route by the lowest original
+index (ROADMAP "Reference gaps").
 """
 from __future__ import annotations
 
+import torch
+
 from .. import obs
 from ..engine.planner import as_plan
+from ..kernels.backend import get_backend
 from .device import as_points
-from .dpc_types import DPCResult, density_jitter
-from .grid import Grid, build_grid, unsort_dpc
+from .dpc_types import DPCResult, density_jitter, with_jitter
+from .grid import Grid, build_grid, unsort_dpc, unsort_nn
+from .stencil import density_per_point, dependent_stencil
+
+
+def resolve_fallback(points, rho_key, delta, parent, resolved, backend=None):
+    """The global denser NN of the stencil-unresolved rows: (delta, parent)
+    with those rows' answers replaced by ``backend.denser_nn`` of them
+    against all points (dense: the reference's ``resolve_fallback``,
+    ``repro/core/exdpc.py:41-61``).  The single global density peak keeps
+    (inf, -1) (Def. 3).  The reference pads the rows to a power of two for
+    its jit; here only the real rows are searched."""
+    unresolved = torch.nonzero(~resolved).flatten()
+    if unresolved.numel() == 0:
+        return delta, parent
+    fd, fp = get_backend(backend).denser_nn(points[unresolved],
+                                            rho_key[unresolved], points,
+                                            rho_key)
+    delta, parent = delta.clone(), parent.clone()
+    delta[unresolved] = fd
+    parent[unresolved] = fp.to(parent.dtype)
+    return delta, parent
 
 
 def fused_dpc(points, d_cut: float, pl, *, phase: str,
@@ -55,7 +84,32 @@ def fused_dpc(points, d_cut: float, pl, *, phase: str,
 
 def run_exdpc(points, d_cut: float, *, g: int | None = None,
               grid: Grid | None = None, exec_spec=None) -> DPCResult:
-    """A tensor runs on its own device; anything else goes to the card."""
+    """A tensor runs on its own device; anything else goes to the card.
+    The stencil route's spans are ``exdpc.grid``, ``exdpc.rho``,
+    ``exdpc.stencil`` and ``exdpc.fallback``; ``ExecSpec.block`` caps its
+    rows evaluated together (``None``: the pair budget alone)."""
     points = as_points(points)
     pl = as_plan(exec_spec, points)
-    return fused_dpc(points, d_cut, pl, phase="exdpc", grid=grid, g=g)
+    if pl.backend.mxu_dense or pl.grid_sort:
+        return fused_dpc(points, d_cut, pl, phase="exdpc", grid=grid, g=g)
+
+    n = points.shape[0]
+    block = pl.block
+    if grid is None:
+        with obs.span("exdpc.grid", n=n) as sp:
+            grid = build_grid(points, d_cut, g=g)
+            sp.sync(grid.points)
+    with obs.span("exdpc.rho", n=n) as sp:
+        rho = sp.sync(density_per_point(grid, block=block)[grid.inv_order])
+    rho_key = with_jitter(rho)
+    with obs.span("exdpc.stencil", n=n) as sp:
+        delta_s, parent_s, resolved_s = dependent_stencil(
+            grid, rho_key[grid.order], block=block)
+        delta, parent = unsort_nn(grid, delta_s, parent_s)
+        resolved = sp.sync(resolved_s[grid.inv_order])
+    with obs.span("exdpc.fallback",
+                  unresolved=int((~resolved).sum())) as sp:
+        delta, parent = sp.sync(resolve_fallback(points, rho_key, delta,
+                                                 parent, resolved,
+                                                 backend=pl.backend))
+    return DPCResult(rho=rho, rho_key=rho_key, delta=delta, parent=parent)

@@ -10,8 +10,9 @@
 Cell boundaries are canonical: coordinates quantize as ``floor(p / side)``
 against the absolute origin.  Keys are int64 and every field equals the
 reference's ``build_grid`` on the same f32 points.  ``point_span_bounds``
-gives each point's candidate spans (the distributed halo strategy's);
-``cell_span_bounds`` comes with the stencil slice.
+gives each point's candidate spans (the stencil's and the distributed
+halo strategy's), ``cell_span_bounds`` each candidate cell's (the joint
+per-cell range count of ``core/stencil.py``).
 """
 from __future__ import annotations
 
@@ -175,12 +176,31 @@ def point_span_bounds(grid: Grid) -> tuple[torch.Tensor, torch.Tensor]:
                         grid.cand_strides, grid.cand_key, grid.g)
 
 
-def unsort_dpc(grid: Grid, rho, rho_key, delta, parent):
-    """Map engine outputs computed on ``grid.points`` (sorted layout) back to
-    the original point order; parents translate from sorted slots to
-    original ids."""
+def cell_span_bounds(grid: Grid) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per unique candidate cell: (n, S) int32 starts and ends of its
+    spans; rows past ``num_cells`` (the padding) are empty."""
+    first = grid.cell_start.clamp(max=grid.points.shape[0] - 1).long()
+    offs = torch.as_tensor(prefix_offsets(grid.g), device=grid.points.device)
+    starts, ends = _span_bounds(grid.cand_coords[first], offs,
+                                grid.cand_extent, grid.cand_strides,
+                                grid.cand_key, grid.g)
+    alive = (torch.arange(first.shape[0], device=first.device)
+             < grid.num_cells)[:, None]
+    return torch.where(alive, starts, 0), torch.where(alive, ends, 0)
+
+
+def unsort_nn(grid: Grid, delta, parent):
+    """(delta, parent) computed in sorted order, back in the original point
+    order; parents translate from sorted slots to original ids (int32,
+    -1 kept)."""
     parent_orig = torch.where(parent >= 0,
                               grid.order[parent.clamp_min(0).long()], -1)
     inv = grid.inv_order
-    return (rho[inv], rho_key[inv], delta[inv],
-            parent_orig[inv].to(torch.int32))
+    return delta[inv], parent_orig[inv].to(torch.int32)
+
+
+def unsort_dpc(grid: Grid, rho, rho_key, delta, parent):
+    """Map engine outputs computed on ``grid.points`` (sorted layout) back to
+    the original point order (``unsort_nn`` for delta and parent)."""
+    inv = grid.inv_order
+    return (rho[inv], rho_key[inv], *unsort_nn(grid, delta, parent))

@@ -13,7 +13,12 @@ over the shards' tensors (``all_gather``, ``ppermute`` rings):
 * **gather** strategy: every shard counts (rho) and searches the nearest
   strictly denser row (delta) over the all-gathered table, dense (K4, K2)
   or under a block-sparse plan on worklists (K8, K9); the delta phase is
-  globally exact, so nothing falls back;
+  globally exact, so nothing falls back.  On a backend that is not
+  ``mxu_dense`` (``torch``) in the dense layout the phases are the
+  reference's gather-form stencil instead (``_make_rho`` /
+  ``_make_delta``): each shard's rows over their candidate spans into the
+  gathered table, the delta within d_cut, and the rows without a denser
+  point there go to the fallback;
 * **halo** strategy: each shard assembles the window ``[lo, lo + W)`` of
   the sorted table its candidate spans reach, through two ``ppermute``
   chains of ``hops_fwd`` / ``hops_bwd`` hops, and runs the span-masked
@@ -21,11 +26,10 @@ over the shards' tensors (``all_gather``, ``ppermute`` rings):
   denser point within d_cut go to the fallback, the denser NN over the
   gathered table (K2, or K9 on a block-sparse plan).
 
-Everything is exact: the output equals ``core.run_exdpc`` / ``run_scan``.
-Not ported: the jnp gather-form stencil phases (``_make_rho`` /
-``_make_delta``), which run only on the reference backend (ROADMAP Queue A
-item 1), and ``_bs_shards_safe``, the probe against a jax XLA SPMD
-miscompile, which has nothing to guard here.
+Everything is exact: the output equals ``core.run_exdpc`` / ``run_scan``
+up to exact distance ties, which every phase breaks by the lowest
+grid-sorted slot.  Not ported: ``_bs_shards_safe``, the probe against a jax
+XLA SPMD miscompile, which has nothing to guard here.
 """
 from __future__ import annotations
 
@@ -177,6 +181,28 @@ def _rho_gather(mesh, be, d_cut, layout, pts_p):
             for s in range(mesh.size)]
 
 
+def _rho_stencil(mesh, be, d_cut, span_w, pts_p, st_p, en_p):
+    """Gather-form stencil rho phase (the reference's ``_make_rho``): my
+    rows over their candidate spans into the all-gathered table, through
+    the backend's gather-form span count (the table is the window)."""
+    tbl = mesh.all_gather(pts_p)
+    return [be.range_count_halo(pts_p[s], tbl[s], st_p[s], en_p[s], d_cut,
+                                span_cap=span_w)
+            for s in range(mesh.size)]
+
+
+def _delta_stencil(mesh, be, d_cut, span_w, pts_p, rkq_p, st_p, en_p,
+                   rk_p):
+    """Gather-form stencil delta phase (the reference's ``_make_delta``):
+    the strictly-denser NN within d_cut over my rows' spans into the
+    all-gathered table and keys, parents in global sorted slots."""
+    tbl = mesh.all_gather(pts_p)
+    keys = mesh.all_gather(rk_p)
+    return [be.denser_nn_halo(pts_p[s], rkq_p[s], tbl[s], keys[s], st_p[s],
+                              en_p[s], d_cut, span_cap=span_w)
+            for s in range(mesh.size)]
+
+
 def _delta_gather(mesh, be, layout, q_p, qk_p, pts_p, rk_p):
     """Denser NN of each shard's query rows over the all-gathered table and
     keys (K2, or K9 on the best-1 ring, built per shard just before its
@@ -276,17 +302,26 @@ def distributed_dpc(points, cfg: DistDPCConfig | None = None,
 
     halo = cfg.strategy == "halo"
     layout = shard_blocksparse_layout(pl, mesh)
-    if halo:
+    # the reference's decision (``repro/distributed/dpc.py:466``): the
+    # stencil phases on a non-mxu_dense backend's dense gather plan
+    stencil = not halo and not be.mxu_dense and layout is None
+    if halo or stencil:
         starts, ends = point_span_bounds(grid)          # (n, S_spans)
         span_w = grid.span_cap
         starts, ends = _pad_rows(starts, m, 0), _pad_rows(ends, m, 0)
-        lo, W, hf, hb = _window_bounds(starts, ends, S)
         st_p, en_p = mesh.shard(starts), mesh.shard(ends)
+    if halo:
+        lo, W, hf, hb = _window_bounds(starts, ends, S)
         with obs.span("dist.rho", n=n, shards=S, strategy=cfg.strategy,
                       window=W, hops_fwd=hf, hops_bwd=hb) as sp:
             rho_sorted = sp.sync(mesh.unshard(_rho_halo(
                 mesh, be, cfg.d_cut, span_w, lo, W, hf, hb, pts_p, st_p,
                 en_p))[:n])
+    elif stencil:
+        with obs.span("dist.rho", n=n, shards=S,
+                      strategy=cfg.strategy) as sp:
+            rho_sorted = sp.sync(mesh.unshard(_rho_stencil(
+                mesh, be, cfg.d_cut, span_w, pts_p, st_p, en_p))[:n])
     else:
         with obs.span("dist.rho", n=n, shards=S,
                       strategy=cfg.strategy) as sp:
@@ -304,6 +339,10 @@ def distributed_dpc(points, cfg: DistDPCConfig | None = None,
         if halo:
             out = _delta_halo(mesh, be, cfg.d_cut, span_w, lo, W, hf, hb,
                               pts_p, rkq_p, st_p, en_p, rk_p)
+            ok_s = mesh.unshard([o[2] for o in out])[:n]
+        elif stencil:
+            out = _delta_stencil(mesh, be, cfg.d_cut, span_w, pts_p, rkq_p,
+                                 st_p, en_p, rk_p)
             ok_s = mesh.unshard([o[2] for o in out])[:n]
         else:
             out = _delta_gather(mesh, be, layout, pts_p, rkq_p, pts_p, rk_p)

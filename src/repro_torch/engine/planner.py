@@ -4,7 +4,8 @@ The port of ``repro/engine/planner.py``.  ``plan(points_spec, exec_spec)``
 resolves the execution axes a single time — the
 :class:`~repro_torch.kernels.backend.KernelBackend` instance, the layout
 (``grid_sort`` tells drivers to lay the points out grid-sorted, which the
-block-sparse layout's pruning needs) and the precision — and memoizes
+block-sparse layout's pruning needs), the precision and the block — and
+memoizes
 the plan on ``(PointsSpec, ExecSpec)``, so a re-fit on same-shaped input
 gets the same plan object back.
 
@@ -13,7 +14,8 @@ fault-injection site.  Not ported: the jaxpr analyzer gate
 (``_plan_check``), the worklist cache and strategy (every block-sparse
 call builds its worklist on the device), and ``resolve_backend``'s
 ``pallas -> interpret -> jnp`` degradation chain — a fallback would hide
-the kernel, and a CUDA tensor reaches the kernel or the call raises.
+the kernel, and a CUDA tensor reaches the kernel or the call raises.  The
+``torch`` backend is planned only where a spec names it.
 """
 from __future__ import annotations
 
@@ -56,7 +58,13 @@ class DPCPlan:
         self.layout: str = spec.resolved_layout
         self.grid_sort: bool = spec.sparse
         self.precision: str = spec.resolved_precision
+        if self.precision == "bf16" and not self.backend.mxu_dense:
+            raise ValueError(
+                f"precision='bf16' needs the cuda backend; resolved backend "
+                f"is {self.backend_name!r} (the f32 reference)")
         self.data_axis: str = spec.data_axis   # the shard mesh's axis
+        # the stencil route's row chunk (None: each algorithm's default)
+        self.block: int | None = spec.block
 
     def describe(self) -> str:
         shape = "" if self.pspec is None \

@@ -8,10 +8,10 @@ validated eagerly at construction and resolved once by
 :func:`repro_torch.engine.planner.plan`.  Names and values are the
 reference's, so a spec carries across (``repro_torch.carry``).
 ``precision="bf16"`` runs the fused sweep's bf16 kernels on the ``cuda``
-backend.  ``block`` is carried for the slices that read it (the CUDA
-kernels' row tile is fixed); ``data_axis`` names the axis of the shard mesh
-the distributed phases run over.  The legacy ``merge_legacy`` shims are not
-ported.
+backend; the ``torch`` reference backend refuses it.  ``block`` caps the
+stencil route's row chunks (the CUDA kernels' row tile is fixed);
+``data_axis`` names the axis of the shard mesh the distributed phases run
+over.  The legacy ``merge_legacy`` shims are not ported.
 """
 from __future__ import annotations
 
@@ -29,11 +29,14 @@ LAYOUTS = ("dense", "block-sparse")
 class ExecSpec:
     """The execution axes.
 
-    * ``backend`` — kernel backend name (``"cuda"``); ``None``/``"auto"``
-      selects the default, ``"cuda"``.
+    * ``backend`` — kernel backend name: ``"cuda"`` (the kernels) or
+      ``"torch"`` (the direct-difference reference math, no kernel);
+      ``None``/``"auto"`` selects the default, ``"cuda"``.
     * ``layout`` — ``"dense"`` (default) or ``"block-sparse"``.
-    * ``precision`` — ``"f32"`` (default) or ``"bf16"``.
-    * ``block`` — row-tile size for the sweep primitives (``None``: native).
+    * ``precision`` — ``"f32"`` (default) or ``"bf16"`` (``cuda`` only).
+    * ``block`` — caps the rows evaluated together by the stencil route
+      (``None``: no cap, the pair budget alone sizes each chunk); results
+      do not depend on it.
     * ``data_axis`` — mesh axis name for the sharded paths.
 
     Frozen and hashable, so it keys the plan cache.
@@ -46,10 +49,6 @@ class ExecSpec:
     data_axis: str = "data"
 
     def __post_init__(self):
-        # bf16 is legal on every registered backend: ``cuda`` is the only
-        # one.  The direct-difference reference backend ``torch`` (ROADMAP
-        # Queue A item 1) must refuse it, as the reference refuses bf16 on
-        # ``jnp`` (``repro/engine/spec.py:74-76``).
         if self.backend not in (None, "auto") \
                 and self.backend not in available_backends():
             raise ValueError(
@@ -61,6 +60,10 @@ class ExecSpec:
         if self.precision not in (None, *PRECISIONS):
             raise ValueError(f"unknown precision {self.precision!r}; "
                              f"expected one of {PRECISIONS}")
+        if self.precision == "bf16" and self.backend == "torch":
+            raise ValueError(
+                "precision='bf16' needs the cuda backend: the torch backend "
+                "is the f32 direct-difference reference")
         if self.block is not None and (not isinstance(self.block, int)
                                        or self.block < 1):
             raise ValueError(f"block must be a positive int or None, "

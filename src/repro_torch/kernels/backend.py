@@ -1,13 +1,17 @@
 """The kernel backend behind DPC's two primitives, and its registry.
 
-The port's counterpart of ``repro/kernels/backend.py``.  One backend is
-registered so far:
+The port's counterpart of ``repro/kernels/backend.py``.  Two backends:
 
 * ``cuda`` — the hand-written Hopper kernels of ``csrc/sweep.cu`` (the
-  counterpart of the reference's ``pallas``).  Its primitives run on the
-  device of the tensors they are given: CUDA tensors launch the kernels,
-  CPU tensors run the kernels' plain versions.  ``rho_delta`` takes the
-  ``dense`` or the ``block-sparse`` layout.
+  counterpart of the reference's ``pallas``), and the default.  Its
+  primitives run on the device of the tensors they are given: CUDA
+  tensors launch the kernels, CPU tensors run the kernels' plain versions.
+  ``rho_delta`` takes the ``dense`` or the ``block-sparse`` layout.
+* ``torch`` — the direct-difference reference math (the counterpart of
+  ``jnp``) in plain PyTorch on whatever device its tensors are on, with
+  no kernel: chosen only by name (``ExecSpec(backend="torch")``).  Its
+  ``mxu_dense`` is False, so the algorithms take the grid-stencil route on
+  it in the dense layout (``core/stencil.py``).
 
 The streaming primitives are K5 (``range_count_delta``; K14 on a
 count-only worklist under ``layout="block-sparse"``) and K6
@@ -18,8 +22,7 @@ K2, or K9 on a best-1 ring.  The halo primitives ``range_count_halo`` /
 under ``layout="block-sparse"`` K15 and K16 on the span-pruned worklists.
 ``rho_delta`` is K1 (K3 on a worklist), or under ``precision="bf16"`` K12
 (K13); its ``y_sel_slots`` (S-Approx-DPC) runs their gated forms.
-``prefix_nn`` is K7.  The direct-difference reference backend (the
-counterpart of ``jnp``) comes with a later slice (ROADMAP Queue A).
+``prefix_nn`` is K7.
 """
 from __future__ import annotations
 
@@ -30,10 +33,13 @@ import torch
 from .. import obs
 from ..core.dpc_types import density_jitter
 from . import blocksparse, density, dependent, ops
-from .sweep import direct_d2
+from .sweep import (d2cut_of, direct_d2, halo_masked_nn_plain,
+                    halo_range_count_plain, masked_nn_plain,
+                    range_count_plain, range_count_signed_plain)
 
-__all__ = ["KernelBackend", "CudaBackend", "available_backends",
-           "default_backend_name", "get_backend"]
+__all__ = ["KernelBackend", "CudaBackend", "TorchBackend",
+           "available_backends", "default_backend_name", "get_backend",
+           "rho_delta_sequential"]
 
 _INT32_MAX = 2**31 - 1
 
@@ -41,9 +47,15 @@ _INT32_MAX = 2**31 - 1
 class KernelBackend(abc.ABC):
     """The DPC primitives: Def. 1 (``range_count``), Def. 2
     (``denser_nn``), the fused Def. 1 + Def. 2 (``rho_delta``) and the
-    stream's batched forms (``range_count_delta``, ``denser_nn_update``)."""
+    stream's batched forms (``range_count_delta``, ``denser_nn_update``).
+
+    ``mxu_dense`` (the reference's name) tells the algorithms the backend
+    wants the dense fused formulation rather than the grid-stencil
+    gathers, which are the reference math: only ``torch`` leaves it
+    False."""
 
     name: str = "abstract"
+    mxu_dense: bool = True
 
     @abc.abstractmethod
     def range_count(self, x, y, d_cut, *, layout=None):
@@ -125,6 +137,28 @@ def _fused_resolve(rho_key, col_key, topv, topi, x=None, y=None):
     resolved = torch.isfinite(best)
     parent = torch.where(resolved, tied.min(dim=1).values, -1)
     return torch.sqrt(best), parent.to(torch.int32), resolved
+
+
+def _sel_slots(y_sel_slots, x, y) -> torch.Tensor:
+    """``rho_delta``'s ``y_sel_slots`` as an int64 tensor on y's device,
+    one y row per query row."""
+    slots = torch.as_tensor(y_sel_slots, device=y.device).long()
+    if slots.shape != (x.shape[0],):
+        raise ValueError(f"rho_delta: y_sel_slots of shape "
+                         f"{tuple(slots.shape)} for {x.shape[0]} query rows")
+    return slots
+
+
+def _col_key(rho_key: torch.Tensor, slots, m: int) -> torch.Tensor:
+    """The NN's column keys: ``rho_key`` itself (y is the query set), or
+    ``rho_key`` at the selected ``slots`` of m y rows and -inf elsewhere,
+    so no other column is ever denser."""
+    if slots is None:
+        return rho_key
+    col_key = torch.full((m,), float("-inf"), dtype=torch.float32,
+                         device=rho_key.device)
+    col_key[slots] = rho_key
+    return col_key
 
 
 def _sparse(layout) -> bool:
@@ -265,11 +299,7 @@ class CudaBackend(KernelBackend):
             jitter = density_jitter(x.shape[0], x.device)
         nn_sel = sel_counts = slots = None
         if y_sel_slots is not None:
-            slots = torch.as_tensor(y_sel_slots, device=y.device).long()
-            if slots.shape != (x.shape[0],):
-                raise ValueError(f"rho_delta: y_sel_slots of shape "
-                                 f"{tuple(slots.shape)} for {x.shape[0]} "
-                                 f"query rows")
+            slots = _sel_slots(y_sel_slots, x, y)
             nn_sel = torch.zeros((y.shape[0],), dtype=torch.bool,
                                  device=y.device)
             nn_sel[slots] = True
@@ -289,12 +319,7 @@ class CudaBackend(KernelBackend):
                 precision=precision))
         with obs.span("rho_delta.resolve") as sp:
             rho_key = rho + jitter
-            if slots is None:
-                col_key = rho_key
-            else:
-                col_key = torch.full((y.shape[0],), float("-inf"),
-                                     dtype=torch.float32, device=y.device)
-                col_key[slots] = rho_key
+            col_key = _col_key(rho_key, slots, y.shape[0])
             delta, parent, resolved = _fused_resolve(
                 rho_key, col_key, topv, topi,
                 x=x if precision == "bf16" else None, y=y)
@@ -314,8 +339,119 @@ class CudaBackend(KernelBackend):
         return rho, rho_key, delta, parent
 
 
+def rho_delta_sequential(be: KernelBackend, x, y, d_cut, *, jitter=None,
+                         y_sel_slots=None, layout=None):
+    """Def. 1 then Def. 2 as two backend calls (the reference's
+    ``rho_delta_sequential``, ``repro/kernels/backend.py:117``): the range
+    count, rho_key = rho + jitter, then the strictly-denser NN.
+    ``y_sel_slots`` (len(x) y rows, x's rows in order) keys every other y
+    row -inf, so the NN runs among them only; ``None`` means y is the query
+    set."""
+    rho = be.range_count(x, y, d_cut, layout=layout)
+    if jitter is None:
+        jitter = density_jitter(x.shape[0], x.device)
+    slots = None
+    if y_sel_slots is not None:
+        slots = _sel_slots(y_sel_slots, x, y)
+    elif x.shape[0] != y.shape[0]:
+        raise ValueError("rho_delta without y_sel_slots needs as many y rows "
+                         "as query rows")
+    rho_key = rho + jitter
+    delta, parent = be.denser_nn(x, rho_key, y,
+                                 _col_key(rho_key, slots, y.shape[0]),
+                                 layout=layout)
+    return rho, rho_key, delta, parent
+
+
+class TorchBackend(KernelBackend):
+    """The reference math in plain PyTorch: the counterpart of the
+    reference's ``JnpBackend`` (``repro/kernels/backend.py:502-570``), on
+    the device of the tensors it is given.
+
+    Dense, every primitive is a plain version of ``kernels/sweep.py`` (the
+    kernels' direct-difference arithmetic, ``sweep.direct_d2``): counts
+    over all of y, the NN as the lowest index among equal d2 — the
+    reference's per-tile first argmin with a strict ``<`` across tiles.
+    Under ``layout="block-sparse"`` the count and the NN walk the ring
+    (``blocksparse.ring_range_count`` / ``ring_denser_nn``, the
+    reference's ``_count_bs_jnp`` / ``_denser_nn_bs_jnp``): the same
+    answers.  The halo primitives are gather form: the spans already are
+    the grid's pruning, so they check ``layout`` and ignore it, as the
+    reference does.  ``rho_delta`` is the count then the NN
+    (``rho_delta_sequential``): the reference's ``_rho_delta_jnp``
+    recovers its argmin from the winning tile only to save TPU memory, and
+    its answer is this one.  It computes f32 only (bf16 raises) and
+    answers every row, so it ignores ``fallback_interest``.
+    """
+
+    name = "torch"
+    mxu_dense = False
+
+    def range_count(self, x, y, d_cut, *, layout=None):
+        if _sparse(layout):
+            return blocksparse.ring_range_count(x, y, d_cut)
+        return range_count_plain(x, y, d2cut_of(d_cut)).to(torch.float32)
+
+    def range_count_delta(self, x, batch, signs, d_cut, *, layout=None):
+        signs = signs.to(torch.float32)
+        if _sparse(layout):
+            return blocksparse.ring_range_count(x, batch, d_cut, signs)
+        return range_count_signed_plain(x, batch, signs, d2cut_of(d_cut))
+
+    def denser_nn(self, x, x_key, y, y_key, *, layout=None, squared=False):
+        if _sparse(layout):
+            best, arg = blocksparse.ring_denser_nn(x, x_key, y, y_key)
+        else:
+            best, arg = masked_nn_plain(x, x_key, y, y_key)
+        return (best if squared else torch.sqrt(best)), arg
+
+    def prefix_nn(self, pts_sorted_desc):
+        """The strict prefix is the strictly greater key when rows are keyed
+        by -row_index (the reference's ``backend.py:536-542``)."""
+        key = -torch.arange(pts_sorted_desc.shape[0],
+                            device=pts_sorted_desc.device)
+        return self.denser_nn(pts_sorted_desc, key, pts_sorted_desc, key)
+
+    def rho_delta(self, x, y, d_cut, *, jitter=None, y_sel_slots=None,
+                  fallback_interest=None, layout=None, precision=None):
+        if precision not in (None, "f32"):
+            raise ValueError("the torch backend is the f32 direct-difference "
+                             "reference; use the cuda backend for bf16")
+        del fallback_interest       # every row is answered exactly
+        return rho_delta_sequential(self, x, y, d_cut, jitter=jitter,
+                                    y_sel_slots=y_sel_slots, layout=layout)
+
+    def range_count_halo(self, x, window, starts, ends, d_cut, *, span_cap,
+                         layout=None):
+        del span_cap                # each chunk takes its own widest row
+        _sparse(layout)
+        return halo_range_count_plain(x, window, starts, ends,
+                                      d2cut_of(d_cut)).to(torch.float32)
+
+    def denser_nn_halo(self, x, x_key, window, w_key, starts, ends, d_cut, *,
+                       span_cap, layout=None):
+        del span_cap
+        _sparse(layout)
+        best, arg = halo_masked_nn_plain(x, x_key, window, w_key, starts,
+                                         ends, d2cut_of(d_cut))
+        return torch.sqrt(best), arg, torch.isfinite(best)
+
+    def denser_nn_update(self, points, rho_key, q_slots, *, layout=None):
+        """The reference's base-class default (``backend.py:248-265``): the
+        rows ``points[q_slots]`` (slots clamped into the table) against all
+        of them; a slot >= len(points) is padding, keyed +inf, and comes
+        back (inf, -1)."""
+        n = points.shape[0]
+        slots = torch.as_tensor(q_slots, device=points.device).long()
+        slot_c = slots.clamp(0, max(n - 1, 0))
+        qk = torch.where(slots < n, rho_key[slot_c], float("inf"))
+        return self.denser_nn(points[slot_c], qk, points, rho_key,
+                              layout=layout)
+
+
 # --------------------------------------------------------------- registry
-_BACKENDS: dict[str, KernelBackend] = {"cuda": CudaBackend()}
+_BACKENDS: dict[str, KernelBackend] = {"cuda": CudaBackend(),
+                                       "torch": TorchBackend()}
 
 
 def available_backends() -> list[str]:
@@ -323,7 +459,7 @@ def available_backends() -> list[str]:
 
 
 def default_backend_name() -> str:
-    """The kernels: ``cuda`` is the only backend so far."""
+    """The kernels: ``cuda``.  ``torch`` is chosen only by name."""
     return "cuda"
 
 

@@ -24,8 +24,11 @@ on the host in numpy; here they are built in torch on the points' device,
 a chunk of row tiles at a time, so the build's own peak memory stays small
 at millions of points.
 
-Not ported: the jnp ring walk (the reference backend's form) and the
-fingerprint cache ``worklist_cache``: every call builds its worklist.
+The reference backend's own block-sparse form, the ring walk
+(:func:`ring_range_count`, :func:`ring_denser_nn`: the ``torch`` backend's
+``layout="block-sparse"``), evaluates the tile pairs of each row tile in
+ascending-lb order with no worklist.  Not ported: the fingerprint cache
+``worklist_cache``: every call builds its worklist.
 """
 from __future__ import annotations
 
@@ -36,8 +39,10 @@ import torch
 
 from ..obs import metrics as _obsm
 
-__all__ = ["LB_SHRINK", "UB_GROW", "BLOCK_N", "BLOCK_M", "Worklist",
-           "tile_bounds", "pair_bounds", "knn_radius", "build_flat_worklist"]
+__all__ = ["LB_SHRINK", "UB_GROW", "BLOCK_N", "BLOCK_M", "BS_BLOCK_N",
+           "BS_BLOCK_M", "Worklist", "tile_bounds", "pair_bounds",
+           "knn_radius", "build_flat_worklist", "ring_range_count",
+           "ring_denser_nn"]
 
 # Conservative slack on the f32 bound arithmetic (the reference's values).
 LB_SHRINK = 1.0 - 1e-5
@@ -48,8 +53,15 @@ UB_GROW = 1.0 + 1e-5
 BLOCK_N = 256
 BLOCK_M = 512
 
+# The ring walk's tile shape, the reference's jnp one: its answers do not
+# depend on it, its work does.
+BS_BLOCK_N = 128
+BS_BLOCK_M = 256
+
 # bound matrices are built over chunks of at most this many tile pairs
 _CHUNK_PAIRS = 1 << 24
+# the ring walk evaluates its tile pairs in batches of this many point pairs
+_ENTRY_PAIRS = 1 << 24
 
 _M_BUILDS = _obsm.counter("worklist_builds", "flat-worklist builds")
 _G_WL_LEN = _obsm.gauge(
@@ -299,3 +311,154 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
     _G_WL_LEN.set(out.n_kept)
     _G_WL_PRUNED.set(round(out.pruned_frac, 6))
     return out
+
+
+# ----------------------------------------------------------- the ring walk
+# The reference backend's block-sparse form (``_count_bs_jnp``,
+# ``_nn_ring_rows``, ``_denser_nn_bs_jnp``,
+# ``repro/kernels/blocksparse.py:119-370``).  The reference selects each
+# step's column tile by a one-hot contraction, only to keep sort-derived
+# gather indices out of a jax 0.4.37 SPMD bug (``:19-34``); here the ring
+# order is an index gather.  Both walks are exact: a pair is passed over
+# only where its tile pair's lb (a lower bound of every d2 in it, shrunk by
+# LB_SHRINK past the bound's own rounding) shows it cannot count or win.
+
+_FINITE_CAP = 3e38
+# (d2 bits << 32 | column) of "no candidate yet": (+inf, int32 max)
+_NO_WINNER = (0x7F800000 << 32) | (2**31 - 1)
+
+
+def _finitize(a: torch.Tensor) -> torch.Tensor:
+    """Coordinates clamped into +-3e38: a padded column row (+inf) at the
+    cap still squares past the f32 max against any row, so it never counts
+    and never wins, and never meets a padded (+inf) row as inf - inf."""
+    return a.clamp(-_FINITE_CAP, _FINITE_CAP)
+
+
+def _tiled(a: torch.Tensor, block: int, value: float) -> torch.Tensor:
+    """(ceil(r / block), block, ...) view of ``a`` padded with ``value``."""
+    r = a.shape[0]
+    nb = -(-r // block)
+    out = torch.full((nb * block, *a.shape[1:]), value, dtype=a.dtype,
+                     device=a.device)
+    out[:r] = a
+    return out.view(nb, block, *a.shape[1:])
+
+
+def _lb_chunks(x: torch.Tensor, y: torch.Tensor, bn: int, bm: int):
+    """(first row tile, lb) over chunks of x's ``bn``-row tiles: lb
+    (tiles, nbc) the lower bounds against y's ``bm``-row tiles."""
+    rlo, rhi = tile_bounds(x, bn)
+    clo, chi = tile_bounds(y, bm)
+    step = max(1, _CHUNK_PAIRS // max(clo.shape[0], 1))
+    for t0 in range(0, rlo.shape[0], step):
+        yield t0, pair_bounds(rlo[t0:t0 + step], rhi[t0:t0 + step], clo,
+                              chi)[0]
+
+
+def _pair_d2(xt: torch.Tensor, yt: torch.Tensor, ti: torch.Tensor,
+             tj: torch.Tensor) -> torch.Tensor:
+    """(E, bn, bm) direct-difference d2 of row tiles ``ti`` against column
+    tiles ``tj`` (``sweep.direct_d2``, the kernels' arithmetic)."""
+    from .sweep import direct_d2       # sweep imports this module
+    return direct_d2(xt[ti][:, :, None, :], yt[tj][:, None, :, :])
+
+
+def ring_range_count(x: torch.Tensor, y: torch.Tensor, d_cut,
+                     weights: torch.Tensor | None = None):
+    """(n,) f32: per x row the count of y rows with d2 < f32(d_cut)^2, or
+    with ``weights`` ((m,), the signs of the stream's delta batch) their
+    sum over those rows.  Only the tile pairs with lb <= d_cut^2 (the
+    reference's count prefix of the ring) are evaluated.  Every partial sum
+    is an integer below 2^24, so the result equals the dense count bit for
+    bit, in any order of summation."""
+    from .sweep import d2cut_of
+    n, m = x.shape[0], y.shape[0]
+    bn, bm = BS_BLOCK_N, BS_BLOCK_M
+    if n == 0 or m == 0:
+        return torch.zeros((n,), dtype=torch.float32, device=x.device)
+    xt = _tiled(x.to(torch.float32), bn, float("inf"))
+    yt = _finitize(_tiled(y.to(torch.float32), bm, float("inf")))
+    wt = None if weights is None else _tiled(weights.to(torch.float32), bm,
+                                             0.0)
+    d2cut = d2cut_of(d_cut)
+    acc = torch.zeros((xt.shape[0], bn), dtype=torch.float32,
+                      device=x.device)
+    batch = max(1, _ENTRY_PAIRS // (bn * bm))
+    for t0, lb in _lb_chunks(x, y, bn, bm):
+        ti, tj = torch.nonzero(lb <= d2cut, as_tuple=True)
+        ti = ti + t0
+        for e0 in range(0, ti.numel(), batch):
+            a, b = ti[e0:e0 + batch], tj[e0:e0 + batch]
+            inside = _pair_d2(xt, yt, a, b) < d2cut
+            upd = (inside.sum(2, dtype=torch.float32) if wt is None
+                   else torch.where(inside, wt[b][:, None, :], 0.0).sum(2))
+            acc.index_add_(0, a, upd)
+    return acc.flatten()[:n]
+
+
+def ring_denser_nn(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
+                   y_key: torch.Tensor):
+    """Per x row: the nearest y row with a key strictly greater (keys in
+    f32, as the reference casts them), as (best d2 f32, index i32),
+    lexicographic on (d2, index); (+inf, -1) where none qualifies.
+
+    Each row tile walks its column tiles in ascending lb (ties in tile
+    order) and stops at the first whose lb exceeds the worst current best
+    among its real rows: every later pair is strictly worse for every row.
+    The walk advances all live row tiles together, a step of entries at a
+    time, the step doubling each round, so the longest walk takes a
+    logarithmic count of rounds; a step may pass a tile's stop, which
+    evaluates more pairs and changes no answer.  Winners merge as the
+    minimum of (d2 bits << 32 | column), the reference's lexicographic tie
+    rule (``_nn_ring_rows``)."""
+    n, m = x.shape[0], y.shape[0]
+    bn, bm = BS_BLOCK_N, BS_BLOCK_M
+    dev = x.device
+    best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    parent = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if n == 0 or m == 0:
+        return best, parent
+    xt = _tiled(x.to(torch.float32), bn, float("inf"))
+    yt = _finitize(_tiled(y.to(torch.float32), bm, float("inf")))
+    rk = _tiled(x_key.to(torch.float32), bn, float("inf"))
+    ck = _tiled(y_key.to(torch.float32), bm, float("-inf"))
+    nbr, nbc = xt.shape[0], yt.shape[0]
+    real = (torch.arange(nbr * bn, device=dev) < n).view(nbr, bn)
+    win = torch.full((nbr, bn), _NO_WINNER, dtype=torch.int64, device=dev)
+    lane = torch.arange(bn, device=dev)
+    batch = max(1, _ENTRY_PAIRS // (bn * bm))
+    for t0, lb in _lb_chunks(x, y, bn, bm):
+        t1 = t0 + lb.shape[0]
+        lbs, order = torch.sort(lb, dim=1, stable=True)
+        p = torch.zeros((t1 - t0,), dtype=torch.int64, device=dev)
+        step = 1
+        while True:
+            cur = (win[t0:t1] >> 32).to(torch.int32).view(torch.float32)
+            worst = torch.where(real[t0:t1], cur, float("-inf")).amax(1)
+            next_lb = lbs.gather(1, p.clamp(max=nbc - 1)[:, None])[:, 0]
+            live = torch.nonzero((p < nbc) & (next_lb <= worst)).flatten()
+            if live.numel() == 0:
+                break
+            pos = p[live, None] + torch.arange(step, device=dev)
+            ok = pos < nbc
+            ti = (live[:, None] + t0).expand_as(pos)[ok]
+            tj = order[live[:, None], pos.clamp(max=nbc - 1)][ok]
+            for e0 in range(0, ti.numel(), batch):
+                a, b = ti[e0:e0 + batch], tj[e0:e0 + batch]
+                d2 = _pair_d2(xt, yt, a, b)
+                d2 = torch.where(ck[b][:, None, :] > rk[a][:, :, None], d2,
+                                 float("inf"))
+                v, j = d2.min(dim=2)          # the first column among equal
+                key = (v.view(torch.int32).to(torch.int64) << 32) \
+                    | (b[:, None] * bm + j)
+                win.view(-1).scatter_reduce_(
+                    0, (a[:, None] * bn + lane).flatten(), key.flatten(),
+                    "amin")
+            p[live] += step
+            step = min(2 * step, nbc)
+    win = win.view(-1)[:n]
+    best = (win >> 32).to(torch.int32).view(torch.float32)
+    found = torch.isfinite(best)
+    parent = torch.where(found, win & 0xFFFFFFFF, -1).to(torch.int32)
+    return best, parent

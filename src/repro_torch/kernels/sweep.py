@@ -461,54 +461,106 @@ def _span_rows(starts, ends) -> int:
                       else 1)
 
 
+def clipped_spans(starts, ends, w: int):
+    """Each row's spans clipped to ``[0, w)`` and laid end to end: (first
+    column (r, S) int64, running total (r, S + 1) int64 of the clipped
+    lengths, whose last column is the row's candidate count)."""
+    st = starts.long().clamp(0, w)
+    ln = (ends.long().clamp(max=w) - st).clamp_min(0)
+    cum = torch.cat([torch.zeros_like(ln[:, :1]), ln.cumsum(1)], 1)
+    return st, cum
+
+
+def span_chunks(count: torch.Tensor, block: int | None = None,
+                mult: torch.Tensor | None = None):
+    """Rows in descending order of their candidate ``count`` (r,), cut into
+    chunks: yields (rows (k,) int64, width, widest mult) where width is the
+    chunk's largest count and k * width * (the chunk's largest ``mult``, 1
+    without it) stays within ``_PLAIN_PAIRS``; ``block`` caps k.  Rows with
+    no candidate are left out.  Padding each chunk only to its own widest
+    row, not to the widest row overall, keeps skewed data from paying the
+    densest row's width on every row."""
+    order = torch.argsort(count, descending=True, stable=True)
+    widths = count[order].cpu().numpy()
+    mults = None if mult is None else mult[order].cpu().numpy()
+    i, r = 0, int(widths.size)
+    while i < r and widths[i] > 0:
+        width = int(widths[i])
+        top = 1 if mults is None else max(int(mults[i]), 1)
+        k = max(1, _PLAIN_PAIRS // (width * top))
+        if block is not None:
+            k = min(k, block)
+        if mults is not None:
+            cm = np.maximum.accumulate(np.maximum(mults[i:i + k], 1))
+            k = max(1, int((np.arange(1, cm.size + 1) * width * cm
+                            <= _PLAIN_PAIRS).sum()))
+            top = int(cm[k - 1])
+        k = int((widths[i:i + k] > 0).sum())
+        yield order[i:i + k], width, top
+        i += k
+
+
+def span_columns(st: torch.Tensor, cum: torch.Tensor, width: int):
+    """Window columns of rows' spans laid end to end (``clipped_spans``):
+    (col (k, width) int64, valid (k, width) bool), position j of a row
+    valid below its candidate count; an invalid position's column is 0."""
+    j = torch.arange(width, device=st.device)
+    valid = j < cum[:, -1:]
+    jj = j.expand(st.shape[0], width)
+    if st.shape[1] == 1:
+        s = torch.zeros_like(jj)
+    else:   # the span of position j: the span ends at or before it
+        s = torch.searchsorted(cum[:, 1:-1].contiguous(), jj.contiguous(),
+                               right=True)
+    col = st.gather(1, s) + (j - cum.gather(1, s))
+    return torch.where(valid, col, 0), valid
+
+
 def halo_range_count_plain(x: torch.Tensor, window: torch.Tensor,
                            starts: torch.Tensor, ends: torch.Tensor,
-                           d2cut: float):
+                           d2cut: float, block: int | None = None):
     """Per x-row: the count of window rows with d2 < d2cut inside the row's
     ``[start, end)`` spans (each clipped to the window), i32: K10's
-    function.  The spans of a row must be disjoint."""
+    function, and the stencil's range count.  The spans of a row must be
+    disjoint.  ``block`` caps the rows evaluated together
+    (``span_chunks``); the result does not depend on it."""
     n, w = x.shape[0], window.shape[0]
     count = torch.zeros((n,), dtype=torch.int32, device=x.device)
-    if w == 0:
+    if w == 0 or n == 0:
         return count
-    step = _span_rows(starts, ends)
-    for r0 in range(0, n, step):
-        idx, valid = _span_candidates(starts[r0:r0 + step],
-                                      ends[r0:r0 + step], w)
-        d2 = direct_d2(x[r0:r0 + step, None, None, :], window[idx])
-        count[r0:r0 + step] = ((d2 < d2cut) & valid).sum(
-            dim=(1, 2), dtype=torch.int32)
+    st, cum = clipped_spans(starts, ends, w)
+    for rows, width, _ in span_chunks(cum[:, -1], block):
+        col, valid = span_columns(st[rows], cum[rows], width)
+        d2 = direct_d2(x[rows, None, :], window[col])
+        count[rows] = ((d2 < d2cut) & valid).sum(dim=1, dtype=torch.int32)
     return count
 
 
 def halo_masked_nn_plain(x: torch.Tensor, x_key: torch.Tensor,
                          window: torch.Tensor, w_key: torch.Tensor,
                          starts: torch.Tensor, ends: torch.Tensor,
-                         d2cut: float):
+                         d2cut: float, block: int | None = None):
     """Per x-row: the nearest window row inside the row's spans with a key
     strictly greater and d2 < d2cut, as (best d2 f32, window index i32),
     the lowest index among equal distances; (+inf, -1) where none
-    qualifies: K11's function."""
+    qualifies: K11's function, and the stencil's denser NN.  ``block`` as
+    in ``halo_range_count_plain``."""
     n, w = x.shape[0], window.shape[0]
     best = torch.full((n,), float("inf"), dtype=torch.float32,
                       device=x.device)
     arg = torch.full((n,), -1, dtype=torch.int32, device=x.device)
-    if w == 0:
+    if w == 0 or n == 0:
         return best, arg
-    step = _span_rows(starts, ends)
-    for r0 in range(0, n, step):
-        r1 = min(n, r0 + step)
-        idx, valid = _span_candidates(starts[r0:r1], ends[r0:r1], w)
-        d2 = direct_d2(x[r0:r1, None, None, :], window[idx])
-        ok = valid & (w_key[idx] > x_key[r0:r1, None, None]) & (d2 < d2cut)
-        d2 = torch.where(ok, d2, float("inf")).flatten(1)
-        if d2.shape[1] == 0:
-            continue
+    st, cum = clipped_spans(starts, ends, w)
+    for rows, width, _ in span_chunks(cum[:, -1], block):
+        col, valid = span_columns(st[rows], cum[rows], width)
+        d2 = direct_d2(x[rows, None, :], window[col])
+        ok = valid & (w_key[col] > x_key[rows, None]) & (d2 < d2cut)
+        d2 = torch.where(ok, d2, float("inf"))
         b = d2.min(dim=1).values
-        a = torch.where(ok.flatten(1) & (d2 == b[:, None]), idx.flatten(1),
-                        w).min(dim=1).values
-        best[r0:r1] = b
-        arg[r0:r1] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
+        a = torch.where(ok & (d2 == b[:, None]), col, w).min(dim=1).values
+        best[rows] = b
+        arg[rows] = torch.where(torch.isinf(b), -1, a).to(torch.int32)
     return best, arg
 
 

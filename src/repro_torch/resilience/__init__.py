@@ -8,8 +8,8 @@
 * :mod:`.faultinject` — deterministic named-site fault injection for the
   chaos tests.
 
-``degrade`` (the plan-time backend chain) waits for the port's reference
-backend (ROADMAP Queue A items 1 and 7).
+``degrade`` (an explicit, logged plan-time ``cuda -> torch`` choice) is
+still to port (ROADMAP Queue A item 7).
 """
 from repro_torch.resilience import checkpoint, faultinject, sanitize
 from repro_torch.resilience.checkpoint import (CheckpointError,

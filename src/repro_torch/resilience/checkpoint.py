@@ -21,9 +21,8 @@ version, never returning a half-restored stream.
 
 Restore checks the fingerprint as the reference does, on the file's own
 ``exec`` fields, then maps the backend name as ``carry.exec_spec`` does
-(``pallas`` / ``pallas-interpret`` / ``auto`` -> ``cuda``).  A file saved
-with the reference's ``jnp`` backend is refused until the port has a
-direct-difference reference backend (ROADMAP Queue A item 1).
+(``pallas`` / ``pallas-interpret`` / ``auto`` -> ``cuda``, ``jnp`` ->
+``torch``).
 """
 from __future__ import annotations
 
@@ -173,12 +172,6 @@ def _exec_spec(meta: dict):
             f"{meta['fingerprint']!r}, rebuilt {described!r}")
     try:
         return exec_spec(ex)
-    except NotImplementedError as exc:
-        raise CheckpointError(
-            f"the checkpoint was saved with backend {ex.get('backend')!r}, "
-            f"which has no counterpart in the port until its direct-"
-            f"difference reference backend (ROADMAP Queue A item 1)") \
-            from exc
     except ValueError as exc:
         raise CheckpointError(f"checkpoint exec fields {ex}: {exc}") from exc
 

@@ -306,9 +306,10 @@ class TestCheckpoint:
             np.testing.assert_array_equal(r.ingest(_batch(pts, 1)).labels,
                                           want.labels)
         q = self._rewrite(p, str(tmp_path / "jnp.npz"), backend="jnp")
-        with pytest.raises(checkpoint.CheckpointError,
-                           match="Queue A item 1"):
-            StreamDPC.restore(q, device="cpu")
+        r = StreamDPC.restore(q, device="cpu")
+        assert r.plan.backend_name == "torch"
+        np.testing.assert_array_equal(r.ingest(_batch(pts, 1)).labels,
+                                      want.labels)
         q = self._rewrite(p, str(tmp_path / "fp.npz"),
                           fingerprint="auto:block-sparse:f32")
         with pytest.raises(checkpoint.CheckpointError, match="fingerprint"):

@@ -133,8 +133,8 @@ def test_exec_spec_carries_across():
         backend="pallas", layout="block-sparse")))
     assert sparse == ExecSpec(backend="cuda", layout="block-sparse")
     assert planner.plan((10, 2), sparse).grid_sort
-    with pytest.raises(NotImplementedError):
-        carry.exec_spec(dataclasses.asdict(JExecSpec(backend="jnp")))
+    assert carry.exec_spec(dataclasses.asdict(JExecSpec(
+        backend="jnp", block=64))) == ExecSpec(backend="torch", block=64)
 
 
 def test_data_copies_match_reference():

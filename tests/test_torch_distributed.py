@@ -156,7 +156,8 @@ print("RESULT" + json.dumps([np.asarray(a).tolist() for a in res]))
 def test_matches_reference_four_device_block_sparse(tmp_path):
     """The reference's 4-device jnp block-sparse distributed_dpc (its one
     distributed configuration that runs on the installed jax), on the input
-    of its own test, against the port's four shards in both strategies."""
+    of its own test, against the port's four shards in both strategies, on
+    the cuda backend and on the torch backend in both layouts."""
     pts, _ = gaussian_mixture(1024, k=5, d=2, overlap=0.03, seed=3)
     np.save(tmp_path / "pts.npy", pts)
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -174,6 +175,15 @@ def test_matches_reference_four_device_block_sparse(tmp_path):
                               exec_spec=ExecSpec(layout="block-sparse"),
                               strategy=strategy)
         _check_against_reference(pts, res, ref, own)
+    # the torch reference backend, both layouts (the dense gather strategy
+    # runs the gather-form stencil phases)
+    for layout in ("dense", "block-sparse"):
+        spec = ExecSpec(backend="torch", layout=layout)
+        own = run_exdpc(torch.from_numpy(pts), 2500.0, exec_spec=spec)
+        for strategy in ("gather", "halo"):
+            res = distributed_dpc(pts, mesh=mesh, d_cut=2500.0,
+                                  exec_spec=spec, strategy=strategy)
+            _check_against_reference(pts, res, ref, own)
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4])
@@ -282,8 +292,8 @@ def test_engine_refusals(monkeypatch):
 
 def test_carried_dist_config():
     """The reference config's fields build the port's config: the pallas
-    backends map to cuda, the spec's layout and axis carry over, and the
-    legacy fields fold into the spec where it is absent."""
+    backends map to cuda and jnp to torch, the spec's layout and axis carry
+    over, and the legacy fields fold into the spec where it is absent."""
     ref = JDistDPCConfig(d_cut=900.0, strategy="halo",
                          exec_spec=JExecSpec(backend="pallas-interpret",
                                              layout="block-sparse",
@@ -297,6 +307,6 @@ def test_carried_dist_config():
                                 "backend": "pallas", "layout": "dense"})
     assert legacy.exec_spec == ExecSpec(backend="cuda", layout="dense")
     assert legacy.strategy == "gather"
-    with pytest.raises(NotImplementedError, match="Queue A item 1"):
-        carry.dist_config(asdict(JDistDPCConfig(d_cut=1.0, exec_spec=JExecSpec(
-            backend="jnp"))))
+    jnp_cfg = carry.dist_config(asdict(JDistDPCConfig(
+        d_cut=1.0, exec_spec=JExecSpec(backend="jnp"))))
+    assert jnp_cfg.exec_spec == ExecSpec(backend="torch")

@@ -118,9 +118,9 @@ def test_refit_reuses_plan_and_decision_graph():
 def test_unported_axes_and_entry_points_raise():
     pts = uniform_points(50, 2, seed=3)
     for algo in ("lsh_ddp", "cfsfdp_a"):
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
             DPCEngine(0.1, algorithm=algo, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 1"):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
             DPCConfig(d_cut=0.1, algorithm=algo)
     with pytest.raises(ValueError, match="eps"):
         DPCEngine(0.1, algorithm="sapproxdpc", eps=0.0, device="cpu")
