@@ -265,6 +265,27 @@ Phases, each of which raises on failure (nothing is caught):
    untraced, ending in a synchronize), its spans and unresolved rows
    from a traced fit, and its peak device memory, and asserts that no
    ``torch`` fit launched a kernel of the port.
+26. The paper's two baselines on the card: LSH-DDP (M 4, L 3, seed 0;
+   K10 and K11 over each round's bucket spans, the NN unbounded, K2 on the
+   rows no bucket resolves) and CFSFDP-A (k 32; K10 over the windows of
+   the k-means clusters its triangle filter keeps, K2 for delta) at 2^20
+   Airline-proxy rows (d_cut of phase 3), on the ``cuda`` route: after a
+   warm-up, a traced fit (per round the cap and the bucket count,
+   LSH-DDP's unresolved rows, CFSFDP-A's pruned share of (row, cluster)
+   pairs and its empty clusters), the timed fit (untraced, ending in a
+   synchronize; launch counts zeroed just before it and read just after:
+   K10, K11 and K2 must launch for LSH-DDP, K10 and K2 for CFSFDP-A,
+   nothing else), its peak device memory, and each kernel wrapper's calls
+   and CUDA-event ms in a third fit, with the bound of K10's and K2's
+   work, each of its calls held bit for bit against its plain version on
+   a slice of its rows at full window width (K10 and K11 on the rows of
+   the longest spans, up to 65,536 rows and 2^31 span pairs; K2 on 2,048
+   rows at even ranks of the key order); K10 on CFSFDP-A's spans with the
+   rows in the order it hands them (rows with the same kept clusters
+   together) against the cluster-sorted order; ``threefry.choice`` of the
+   pivots on the card equal to the host's at 2^20; at 2^16 rows each held
+   against the ``torch`` backend on the same CUDA tensors (rho off the
+   band, delta rtol 1e-6, parents equal except counted exact ties).
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
@@ -273,7 +294,11 @@ from the Airline stream, gated
 K3 from phase 13, gated K1 from phase 14's dense fit, K7 from phase 15,
 K8 from phase 17's gather fit, K10 and K11 from its halo fit, K12
 and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
-phase 21, K14 from phase 22, K15 and K16 from phase 23), and as its last
+phase 21, K14 from phase 22, K15 and K16 from phase 23; K2, K10 and K11
+also carry ``baselines``: per baseline, their launches in phase 26's timed
+fit, their CUDA-event ms and bound there, and their plain versions' ms,
+rows and max abs error on the checked slices),
+and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 where no CUDA device is present.  ``--out`` also writes the full record
 (check-shape times, bounds, worklist statistics with K3's computed
@@ -347,6 +372,9 @@ ENGINE_TICKS = 4                 # and its counted ticks
 REF_DIST_N = 1 << 18             # phase 25: the torch distributed fits
 REF_WINDOW = 65536               # phase 25: the torch stream's window
 REF_TICKS = 8                    # and its counted ticks
+BASE_N = 1 << 20                 # phase 26: the baselines' timed fits
+BASE_PARITY_N = 1 << 16          # and their torch-backend parity
+BASE_PLAIN_PAIRS = 1 << 31       # span pairs of their K10/K11 plain checks
 
 
 def smi(fields: str) -> str:
@@ -3247,6 +3275,256 @@ def run_reference_backend(main_pts: np.ndarray, d_cut: float,
     return out
 
 
+def heaviest_rows(weight: torch.Tensor) -> torch.Tensor:
+    """The rows of the most span columns (``weight``), at most
+    DIST_PLAIN_ROWS of them and BASE_PLAIN_PAIRS columns in all (one row at
+    least), in the call's row order: rows that share their spans come
+    together, so these are the heaviest runs."""
+    w, idx = torch.sort(weight, descending=True, stable=True)
+    within = int((torch.cumsum(w, 0) <= BASE_PLAIN_PAIRS).sum())
+    return torch.sort(idx[:max(1, min(DIST_PLAIN_ROWS, within))]).values
+
+
+def base_plain_check(algo: str, given: dict, card: str) -> dict:
+    """Each kernel call of a baseline's fit (its arguments and result, as
+    the fit made it) against its plain version on a slice of its rows at
+    full window width, bit for bit: K10 and K11 on the rows of the longest
+    spans (``heaviest_rows``), K2 on K2_PLAIN_ROWS rows at even ranks of
+    the key order (the first scans every denser column, the last none).
+    Per kernel: the plain version's ms (one run a call, summed), the rows
+    it took and the max abs error."""
+    from repro_torch.kernels import sweep
+    _, _, _, _, _, k10_plain, _, k11_plain = dist_kernels()
+    out = {}
+    for kernel, calls in given.items():
+        err, p_ms, rows_n = 0.0, 0.0, 0
+        for i, (a, kw, got) in enumerate(calls):
+            assert kw.get("worklist") is None and not kw.get("squared")
+            if kernel == "masked_nn":           # x, x_key, y, y_key
+                x, xk, y, yk = a
+                cols = y.shape[0]
+                ranks = torch.linspace(0, x.shape[0] - 1,
+                                       min(K2_PLAIN_ROWS, x.shape[0]),
+                                       device=x.device).round().long()
+                rows = torch.sort(torch.argsort(xk, stable=True)[
+                    ranks.unique()]).values
+                want, ms = timed_once(lambda: sweep.masked_nn_plain(
+                    x[rows], xk[rows], y, yk))
+                want = (torch.sqrt(want[0]), want[1])
+            elif kernel == "halo_range_count":  # x, window, starts, ends
+                x, win, st, en, dc = a
+                cols = win.shape[0]
+                rows = heaviest_rows(span_pairs(st, en, win.shape[0]))
+                want, ms = timed_once(lambda: [k10_plain(
+                    x[rows], win, st[rows], en[rows], dc)])
+            else:                               # K11: keys beside each
+                x, xk, win, wk, st, en, dc = a
+                cols = win.shape[0]
+                rows = heaviest_rows(span_pairs(st, en, win.shape[0]))
+                want, ms = timed_once(lambda: k11_plain(
+                    x[rows], xk[rows], win, wk, st[rows], en[rows], dc))
+            err = max(err, check_equal(
+                f"{kernel} [{algo}, call {i}, {rows.numel()} of "
+                f"{x.shape[0]} rows x {cols} columns]",
+                [t[rows] for t in got], want))
+            p_ms, rows_n = p_ms + ms, rows_n + rows.numel()
+        out[kernel] = {"plain_ms": p_ms, "plain_rows": rows_n,
+                       "max_abs_err": err}
+        print(f"{kernel} [{algo}]: the fit's {len(calls)} calls == plain, "
+              f"bit for bit, on {rows_n} of their rows at full window "
+              f"width; plain {p_ms:.3f} ms  ({card})", flush=True)
+    return out
+
+
+def run_baselines(main_pts: np.ndarray, d_cut: float, card: str) -> dict:
+    """Phase 26: the paper's two baselines on the card's kernels.  At
+    ``BASE_N`` Airline-proxy rows (d_cut of phase 3), LSH-DDP (M 4, L 3,
+    seed 0: K10 and K11 over each round's bucket spans, K2 on the rows no
+    bucket resolves) and CFSFDP-A (k 32: K10 over the kept clusters'
+    windows, K2 for delta) on the ``cuda`` route: after a warm-up, a
+    traced fit (its spans and attributes), then the timed fit, untraced,
+    ending in a synchronize, with the launch counts zeroed just before it
+    and read just after (the kernels named must launch), then a fit with
+    each kernel wrapper timed by CUDA events (the wrapper's time: the
+    layout it builds and its launch) whose calls are each held against
+    their plain versions (``base_plain_check``); K10 on CFSFDP-A's spans
+    in two row orders; the k-means pivots drawn on the card against the
+    host's.  At ``BASE_PARITY_N`` rows each is
+    held against the same function on the ``torch`` backend on the same
+    CUDA tensors."""
+    from repro_torch import ExecSpec, obs
+    from repro_torch.core import threefry
+    from repro_torch.core.cfsfdp_a import run_cfsfdp_a
+    from repro_torch.core.lsh_ddp import run_lsh_ddp
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    out: dict = {}
+    runs = {"lsh_ddp": (run_lsh_ddp, ("halo_range_count", "halo_masked_nn",
+                                      "masked_nn")),
+            "cfsfdp_a": (run_cfsfdp_a, ("halo_range_count", "masked_nn"))}
+    wrapped = {"halo_range_count": "halo_density",
+               "halo_masked_nn": "halo_dependent",
+               "masked_nn": "dependent_masked"}
+
+    def work(kernel, a) -> tuple[float, float]:
+        """Bytes and operations of one call, where phase 17's and phase 8's
+        counts apply (K10 over spans, K2 on its keys); K11 unbounded has
+        no count here."""
+        if kernel == "halo_range_count":
+            return k10_work(*a[:4])
+        if kernel == "masked_nn":
+            return k2_work(a[1], a[3], a[0].shape[1])
+        return 0.0, 0.0
+
+    def event_times(fn) -> tuple[dict, dict]:
+        """Per kernel wrapper: calls, summed CUDA-event ms and the bound of
+        its work in one fit; and each call's arguments and result."""
+        times = {k: [] for k in wrapped}
+        given = {k: [] for k in wrapped}
+        saved = {k: getattr(ops, w) for k, w in wrapped.items()}
+
+        def timed(kernel, f):
+            def call(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res = f(*a, **kw)
+                end.record()
+                times[kernel].append((start, end, work(kernel, a)))
+                kept = res if isinstance(res, tuple) else (res,)
+                given[kernel].append((a, kw, [t.clone() for t in kept]))
+                return res
+            return call
+        for k, w in wrapped.items():
+            setattr(ops, w, timed(k, saved[k]))
+        try:
+            fn()
+        finally:
+            for k, w in wrapped.items():
+                setattr(ops, w, saved[k])
+        torch.cuda.synchronize()
+        out = {}
+        for k, v in times.items():
+            if v:
+                nb = sum(w[0] for _, _, w in v)
+                no = sum(w[1] for _, _, w in v)
+                out[k] = {"calls": len(v),
+                          "ms": sum(a.elapsed_time(b) for a, b, _ in v),
+                          "bound_ms": bound_ms(nb, no)[0] if no else None}
+        return out, {k: v for k, v in given.items() if v}
+
+    x = torch.from_numpy(main_pts[:BASE_N]).to(dev)
+    for algo, (run, need) in runs.items():
+        def fit():
+            return run(x, d_cut)
+        fit()                           # a warm-up
+        torch.cuda.synchronize()
+        obs.configure("trace")
+        obs.reset_spans()
+        try:
+            fit()
+        finally:
+            obs.configure("off")
+        spans = obs.spans()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fit()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        for k in need:
+            assert launches.get(k, 0) > 0, f"{algo}: {k} did not launch"
+        assert set(launches) <= set(need), f"{algo} launched {launches}"
+        assert all(t.is_cuda for t in res)
+        assert bool(torch.isfinite(res.rho).all()) and int(
+            torch.isinf(res.delta).sum()) >= 1, f"{algo}: no peak"
+        kernels, given = event_times(fit)
+        for k, checked in base_plain_check(algo, given, card).items():
+            kernels[k].update(checked)
+        del given
+        phases: dict[str, float] = {}
+        attrs: dict[str, list] = {}
+        for r in spans:
+            phases[r["name"]] = phases.get(r["name"], 0.0) \
+                + 1e3 * r["host_s"]
+            for key in ("cap", "buckets", "unresolved", "pruned", "empty"):
+                if key in r.get("attrs", {}):
+                    attrs.setdefault(key, []).append(r["attrs"][key])
+        rec = {"ms": ms, "peak_gb": peak, "launches": launches,
+               "kernels": kernels, "phases_ms": phases, **attrs}
+        out[algo] = rec
+        shown = ", ".join(f"{k} {v:.2f}" for k, v in phases.items())
+        kern = ", ".join(f"{k} {v['calls']} calls {v['ms']:.3f} ms (bound "
+                         f"{v['bound_ms'] or 0:.3f}; plain {v['plain_ms']:.3f}"
+                         f" ms on {v['plain_rows']} of its rows)"
+                         for k, v in kernels.items())
+        print(f"{algo} n={BASE_N}: {ms:.1f} ms, peak {peak:.3f} GB above "
+              f"the script's; launches {launches}; kernels (CUDA events, "
+              f"layout included): {kern}; spans (ms, traced run): {shown}; "
+              f"{attrs}  ({card})",
+              flush=True)
+        del res
+        torch.cuda.empty_cache()
+
+    # the row order CFSFDP-A hands K10 (rows with the same kept clusters
+    # together) against the cluster-sorted order, the same counts
+    from repro_torch.core import cfsfdp_a as cf
+    from repro_torch.kernels.backend import get_backend
+    cents, assign = cf.kmeans_pivots(x, 32)
+    order, start, end = cf.cluster_windows(assign, 32)
+    keep = cf.triangle_keep(x, cents, assign, d_cut)
+    pts_s = x[order]
+    orders: dict[str, float] = {}
+    counts = []
+    for name, rows in (("kept-cluster pattern", cf.pattern_order(keep)),
+                       ("cluster", order)):
+        st, en = cf.row_spans(keep[rows], start, end)
+        xr = x[rows]
+
+        def k10():
+            return get_backend("cuda").range_count_halo(
+                xr, pts_s, st, en, d_cut, span_cap=0)
+        got = torch.empty((x.shape[0],), device=dev)
+        got[rows] = k10()
+        counts.append(got)
+        orders[name] = time_ms(k10)
+    assert torch.equal(counts[0], counts[1])
+    orders["pattern sort"] = time_ms(lambda: cf.pattern_order(keep))
+    out["cfsfdp_a"]["k10_row_order_ms"] = orders
+    print(f"cfsfdp_a K10 by row order (CUDA events, median of {REPS}, "
+          f"layout included): {orders}  ({card})", flush=True)
+    del keep, counts, pts_s, st, en, xr
+
+    # the pivots' draw on the card equals the host's (k-means draws it on
+    # the points' device)
+    n = x.shape[0]
+    host = threefry.choice(threefry.prng_key(0), n, (32,))
+    card_pick = threefry.choice(threefry.prng_key(0, dev), n, (32,))
+    assert torch.equal(card_pick.cpu(), host), "threefry.choice on the card"
+    print(f"threefry.choice(PRNGKey(0), {n}, (32,)) on the card == on the "
+          f"host (two rounds of the sort-based shuffle)", flush=True)
+    del x
+    torch.cuda.empty_cache()
+
+    # parity: the cuda route against the torch backend on the same tensors
+    xs = torch.from_numpy(main_pts[:BASE_PARITY_N]).to(dev)
+    for algo, (run, _) in runs.items():
+        want = run(xs, d_cut)
+        got = run(xs, d_cut, exec_spec=ExecSpec(backend="torch"))
+        what = f"{algo} torch vs cuda n={BASE_PARITY_N}"
+        held = hold_against(xs, got, want, d_cut, what)
+        out[algo]["parity"] = held
+        print(f"{what}: rho off the band, delta rtol 1e-6, "
+              f"{held['tied_parents']} parents differ at exact ties "
+              f"({held['downstream']} rows downstream, "
+              f"{held['labels_differ']} labels)  ({card})", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4655,6 +4933,17 @@ def main() -> int:
                                                         card)
     torch.cuda.empty_cache()
 
+    # ------------------- 26. the paper's baselines, LSH-DDP and CFSFDP-A
+    stamp(26)
+    record["baselines"] = run_baselines(main_pts, d_cut, card)
+    base_kernels = {name: {algo: {"launches": rec["launches"].get(name, 0),
+                                  **rec["kernels"][name]}
+                           for algo, rec in record["baselines"].items()
+                           if name in rec["kernels"]}
+                    for name in ("halo_range_count", "halo_masked_nn",
+                                 "masked_nn")}
+    torch.cuda.empty_cache()
+
 
     # --------------------------------------------------------- the record
     kernels = []
@@ -4685,6 +4974,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
         })
+        if name in base_kernels:    # phase 26's fits, beside the main path
+            kernels[-1]["baselines"] = base_kernels[name]
+            kernels[-1]["max_abs_err"] = max(
+                [errs[name]] + [b["max_abs_err"]
+                                for b in base_kernels[name].values()])
         record.setdefault("bounds", {})[name] = {"bound_ms": b_ms,
                                                  "bound_by": by}
     for name, launched in (

@@ -1,8 +1,8 @@
 """Public DPC API: one config, one entry point.
 
 The port of ``repro/core/dpc_api.py``.  Its dispatch table holds Scan,
-Ex-DPC, Approx-DPC and S-Approx-DPC; the two baselines' names stay valid
-and raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Ex-DPC, Approx-DPC, S-Approx-DPC and the paper's two baselines, LSH-DDP
+and CFSFDP-A, each run on the configured exec spec.
 """
 from __future__ import annotations
 
@@ -12,10 +12,12 @@ from typing import Literal
 from repro_torch.engine.spec import ExecSpec
 
 from .approxdpc import run_approxdpc
+from .cfsfdp_a import run_cfsfdp_a
 from .device import as_points, resolve_device
 from .dpc_types import DPCResult
 from .exdpc import run_exdpc
 from .labels import Clustering, assign_labels, decision_graph
+from .lsh_ddp import run_lsh_ddp
 from .sapproxdpc import run_sapproxdpc
 from .scan import run_scan
 
@@ -33,26 +35,16 @@ _RUNNERS = {
                                                exec_spec=x),
     "sapproxdpc": lambda p, c, x: run_sapproxdpc(p, c.d_cut, eps=c.eps,
                                                  g=c.grid_dims, exec_spec=x),
-}
-
-# the baselines draw with jax.random (LSH projections, k-means pivots):
-# their port decides how both packages get the same draws
-_UNPORTED = {
-    "lsh_ddp": "it waits for ROADMAP Queue A item 4 (core/lsh_ddp.py)",
-    "cfsfdp_a": "it waits for ROADMAP Queue A item 4 (core/cfsfdp_a.py)",
+    "lsh_ddp": lambda p, c, x: run_lsh_ddp(p, c.d_cut, exec_spec=x),
+    "cfsfdp_a": lambda p, c, x: run_cfsfdp_a(p, c.d_cut, exec_spec=x),
 }
 
 
 def check_algorithm(algorithm: str, eps: float = 0.8) -> None:
-    """ValueError for an unknown name or S-Approx-DPC with eps <= 0,
-    NotImplementedError for a known name that is not ported yet."""
+    """ValueError for an unknown name or S-Approx-DPC with eps <= 0."""
     if algorithm not in _ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}; "
                          f"expected one of {_ALGORITHMS}")
-    if algorithm in _UNPORTED:
-        raise NotImplementedError(
-            f"algorithm {algorithm!r} is not ported yet: "
-            f"{_UNPORTED[algorithm]}")
     if algorithm == "sapproxdpc" and not eps > 0.0:
         raise ValueError(f"S-Approx-DPC needs eps > 0 (coarse-grid side "
                          f"eps*d_cut/sqrt(d)); got {eps!r}")

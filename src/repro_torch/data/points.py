@@ -1,6 +1,6 @@
 """Synthetic point-set generators mirroring the paper's datasets (§6); a
 numpy copy of ``repro/data/points.py``'s ``gaussian_mixture``,
-``random_walk``, ``drifting_batches`` and ``real_proxy``.
+``random_walk``, ``with_noise``, ``drifting_batches`` and ``real_proxy``.
 
 ``real_proxy`` differs in one place: the reference offsets the seed by
 ``hash(name)``, which Python salts per process, so its data changes from
@@ -105,3 +105,16 @@ def real_proxy(name: str, n: int, seed: int = 0, domain: float = DOMAIN):
     y = np.concatenate(labels).astype(np.int32)
     p = rng.permutation(len(x))
     return np.clip(x[p], 0, domain), y[p]
+
+
+def with_noise(points: np.ndarray, labels: np.ndarray, rate: float,
+               seed: int = 1, domain: float = DOMAIN):
+    """Add ``int(len(points) * rate)`` uniform noise points; noise gets
+    label -1 (the paper's Table 2 setup).  Returns the shuffled union."""
+    rng = np.random.default_rng(seed)
+    m = int(len(points) * rate)
+    noise = rng.uniform(0, domain, size=(m, points.shape[1])).astype(np.float32)
+    x = np.concatenate([points, noise])
+    y = np.concatenate([labels, np.full(m, -1, np.int32)])
+    p = rng.permutation(len(x))
+    return x[p], y[p]

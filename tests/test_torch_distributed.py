@@ -17,13 +17,13 @@ import pytest
 import torch
 
 from repro.core.exdpc import run_exdpc as jrun_exdpc
-from repro.data.points import gaussian_mixture, with_noise
 from repro.distributed import DistDPCConfig as JDistDPCConfig
 from repro.engine import ExecSpec as JExecSpec
 
 from repro_torch import DPCEngine, ExecSpec, carry, obs
 from repro_torch.core.exdpc import run_exdpc
 from repro_torch.core.grid import build_grid, point_span_bounds
+from repro_torch.data.points import gaussian_mixture, with_noise
 from repro_torch.distributed import DistDPCConfig, distributed_dpc
 from repro_torch.distributed import dpc as ddpc
 from repro_torch.kernels import sweep

@@ -17,7 +17,7 @@ from repro.engine import ExecSpec as JExecSpec
 
 from repro_torch import DPCEngine, ExecSpec
 from repro_torch.core.approxdpc import run_approxdpc
-from repro_torch.core.dpc_api import DPCConfig, cluster
+from repro_torch.core.dpc_api import DPCConfig, cluster, compute_dpc
 from repro_torch.core.sapproxdpc import run_sapproxdpc
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.backend import get_backend
@@ -116,12 +116,15 @@ def test_refit_reuses_plan_and_decision_graph():
 
 
 def test_unported_axes_and_entry_points_raise():
+    """Refused axes raise; the paper's two baselines, once refused, run
+    through the engine as through ``compute_dpc``."""
     pts = uniform_points(50, 2, seed=3)
     for algo in ("lsh_ddp", "cfsfdp_a"):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            DPCEngine(0.1, algorithm=algo, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            DPCConfig(d_cut=0.1, algorithm=algo)
+        fit = DPCEngine(0.1, algorithm=algo, device="cpu").fit(pts)
+        res = compute_dpc(pts, DPCConfig(d_cut=0.1, algorithm=algo),
+                          device="cpu")
+        for a, b in zip(fit.result, res):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="eps"):
         DPCEngine(0.1, algorithm="sapproxdpc", eps=0.0, device="cpu")
     with pytest.raises(ValueError, match="eps"):
