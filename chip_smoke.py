@@ -286,6 +286,25 @@ Phases, each of which raises on failure (nothing is caught):
    pivots on the card equal to the host's at 2^20; at 2^16 rows each held
    against the ``torch`` backend on the same CUDA tensors (rho off the
    band, delta rtol 1e-6, parents equal except counted exact ties).
+27. The plan layer (``run_plan_layer``): on the 5.8M Airline proxy, block-
+   sparse Approx-DPC, after ``plan_cache_clear()`` a cold fit (it builds
+   and caches the K3 worklist, and builds the K9 ring, which is never
+   cached) and a warm refit (no K3 build), twice, with the builds, hits
+   and misses, the K3 worklist's fingerprint and lookup against its
+   build, the ring's build, and the bytes the plan's cache holds; cold,
+   warm and phase 8's fits equal bit for bit; a refit with one coordinate
+   one ulp away misses and equals an uncached fit; the backend probe (K4
+   once) passes and, forced through ``degrade.probe``, ``plan()`` raises;
+   the warm fit's JSON-lines trace renders through ``python -m
+   repro_torch.obs report`` in a subprocess.  The run asserts that every
+   plan resolved to the backend it asked for.
+
+Plans are memoized with their worklists: each phase that fits at 5.8M
+(8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
+(``plan_bytes``).  A timed fit after a warm-up or traced fit of the same
+input serves its worklists from the plan's cache, so it no longer
+includes the K3 worklist's build; phase 27 gives the cold fit beside the
+warm one.
 
 Prints the card line and a ``{"kernels": [...]}`` line (K1 and K2's
 launches from the dense path, K2's times on the main path's unresolved
@@ -311,6 +330,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3367,14 +3387,15 @@ def run_baselines(main_pts: np.ndarray, d_cut: float, card: str) -> dict:
                "masked_nn": "dependent_masked"}
 
     def work(kernel, a) -> tuple[float, float]:
-        """Bytes and operations of one call, where phase 17's and phase 8's
-        counts apply (K10 over spans, K2 on its keys); K11 unbounded has
-        no count here."""
+        """Bytes and operations of one call by phase 17's and phase 8's
+        counts: K10 3d+1 per span column; K11 a key test per span column
+        of a tile keyed above the row plus 3d+1 per denser one (its d_cut,
+        here unbounded, bounds no count); K2 on its keys."""
         if kernel == "halo_range_count":
             return k10_work(*a[:4])
-        if kernel == "masked_nn":
-            return k2_work(a[1], a[3], a[0].shape[1])
-        return 0.0, 0.0
+        if kernel == "halo_masked_nn":
+            return k11_work(*a[:6])[:2]
+        return k2_work(a[1], a[3], a[0].shape[1])
 
     def event_times(fn) -> tuple[dict, dict]:
         """Per kernel wrapper: calls, summed CUDA-event ms and the bound of
@@ -3525,6 +3546,238 @@ def run_baselines(main_pts: np.ndarray, d_cut: float, card: str) -> dict:
     return out
 
 
+def plan_bytes(phase: int, record: dict) -> None:
+    """Print the device bytes all memoized plans' worklist caches hold at
+    the end of a phase that fits at 5.8M, then drop the plans (and their
+    worklists) so they crowd no later phase's peak."""
+    from repro_torch.engine import planner
+    held = planner.plan_cache_bytes()
+    record.setdefault("plan_cache_bytes", {})[phase] = held
+    print(f"  plan caches hold {held} bytes of worklists at the end of "
+          f"phase {phase}; dropped", flush=True)
+    planner.plan_cache_clear()
+    torch.cuda.empty_cache()
+
+
+def run_plan_layer(full_pts: np.ndarray, d_cut: float, want: dict,
+                   card: str) -> dict:
+    """Phase 27: the plan layer on the 5.8M Airline proxy, block-sparse
+    Approx-DPC.  After ``plan_cache_clear()`` a cold fit (builds and caches
+    the K3 worklist, builds the K9 ring) then a warm refit (a hit: only the
+    uncached ring is built), twice, each timed on the host clock ending in
+    a synchronize; the builds, hits and misses across them; per cached
+    build the fingerprint and lookup (a build served from a warm cache)
+    against the build itself, and the ring's build (CUDA events, median of
+    REPS); the bytes the plan's cache holds; the
+    fingerprint on the card equal to the host's.  Asserts: rho, delta,
+    parent and labels equal bit for bit across the cold fit, the warm fit
+    and phase 8's (``want``); a refit with one coordinate one ulp away
+    misses and equals an uncached fit of the same points; the backend
+    probe passes on the card (K4 launched once) and, with ``degrade.probe``
+    forced, ``plan()`` raises; the warm fit's trace, written to
+    ``build/`` through ``configure(trace_path=...)``, renders through
+    ``python -m repro_torch.obs report`` in a subprocess with
+    ``engine.fit`` and the ``rho_delta.*`` spans among its phase rows."""
+    import contextlib
+    from collections import OrderedDict
+
+    from repro_torch import DPCEngine, ExecSpec, obs
+    from repro_torch.engine import planner
+    from repro_torch.kernels import blocksparse, ops
+    from repro_torch.resilience import degrade, faultinject
+    out: dict = {}
+    spec = ExecSpec(layout="block-sparse")
+
+    def counters() -> tuple[int, int, int]:
+        return (blocksparse.worklist_build_count(),
+                blocksparse.worklist_cache_hits(),
+                blocksparse.worklist_fingerprint_misses())
+
+    def fit_ms(eng, pts) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.fit(pts)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def result_of(eng) -> dict:
+        r = eng.result
+        return {"rho": r.rho, "delta": r.delta, "parent": r.parent,
+                "labels": eng.clustering.labels}
+
+    def same(got: dict, ref: dict, what: str) -> None:
+        for k, v in ref.items():
+            assert torch.equal(got[k].cpu(), v.cpu()), f"{what}: {k} differs"
+
+    # cold and warm, twice; the build calls of the first cold fit are kept
+    builds: list = []
+    real_build = blocksparse.build_flat_worklist
+
+    def recording_build(*a, **kw):
+        builds.append((a, kw))
+        return real_build(*a, **kw)
+
+    pairs = []
+    for rep in range(2):
+        planner.plan_cache_clear()
+        torch.cuda.empty_cache()
+        eng = DPCEngine(d_cut, rho_min=10, exec_spec=spec)
+        c0 = counters()
+        blocksparse.build_flat_worklist = recording_build if rep == 0 \
+            else real_build
+        try:
+            cold = fit_ms(eng, full_pts)
+        finally:
+            blocksparse.build_flat_worklist = real_build
+        c1 = counters()
+        cold_res = {k: v.clone() for k, v in result_of(eng).items()}
+        warm = fit_ms(eng, full_pts)
+        c2 = counters()
+        built, cached = c1[0] - c0[0], c1[2] - c0[2]
+        assert built > cached >= 1 and c1[1] == c0[1], (c0, c1)
+        assert c2[0] - c1[0] == built - cached, \
+            "the warm refit built a sweep worklist"
+        assert c2[1] - c1[1] == cached and c2[2] == c1[2], (c1, c2)
+        same(cold_res, want, "cold fit vs phase 8")
+        same(result_of(eng), cold_res, "warm fit vs cold fit")
+        pairs.append({"cold_ms": cold, "warm_ms": warm, "builds": built,
+                      "cold_counts": [c1[i] - c0[i] for i in range(3)],
+                      "warm_counts": [c2[i] - c1[i] for i in range(3)]})
+        print(f"plan layer, pair {rep}: cold fit {cold:.1f} ms (worklist "
+              f"builds, hits, misses {pairs[-1]['cold_counts']}), warm refit "
+              f"{warm:.1f} ms ({pairs[-1]['warm_counts']}); cold == warm == "
+              f"phase 8's fit, bit for bit  ({card})", flush=True)
+    out["pairs"] = pairs
+    tele = eng.plan.telemetry()["worklists"]
+    held = eng.plan.worklist_bytes()
+    out.update(cache=tele, bytes_held=held)
+    print(f"plan cache: {tele['cache_entries']} worklists, {held} bytes "
+          f"({[(c['n_kept'], c['bytes']) for c in tele['cached']]} kept "
+          f"entries and bytes each), cap {blocksparse.WL_CACHE_MAX_BYTES}",
+          flush=True)
+
+    # per build of the cold fit: the fingerprint and lookup against the
+    # build where it is cached, the build alone for the ring
+    per_build = []
+    for a, kw in builds:
+        warm_cache: OrderedDict = OrderedDict()
+        with blocksparse.worklist_cache(warm_cache):
+            wl = real_build(*a, **kw)
+
+        def lookup():
+            with blocksparse.worklist_cache(warm_cache):
+                return real_build(*a, **kw)
+        ring = kw.get("nn") == "best1"
+        assert (len(warm_cache) == 0) == ring
+        rows = a[0].shape[0]
+        rec = {"rows": rows, "cols": a[1].shape[0],
+               "form": {k: v for k, v in kw.items()
+                        if not isinstance(v, torch.Tensor)},
+               "entries": wl.n_kept, "bytes": wl.nbytes, "cached": not ring,
+               "build_ms": time_ms(lambda: real_build(*a, **kw))}
+        if not ring:
+            assert lookup() is wl
+            rec["fingerprint_ms"] = time_ms(lookup)
+        per_build.append(rec)
+        print(f"  worklist of {rows} x {rec['cols']} rows {rec['form']}: "
+              f"{rec['entries']} entries, {rec['bytes']} bytes; "
+              + ("not cached" if ring else
+                 f"fingerprint and lookup {rec['fingerprint_ms']:.3f} ms")
+              + f" against the build {rec['build_ms']:.3f} ms (CUDA events, "
+              f"median of {REPS})  ({card})", flush=True)
+        del wl, warm_cache
+    out["builds"] = per_build
+    x = builds[0][0][0]
+    head = x[:1 << 20]
+    out["fingerprint_x_ms"] = time_ms(lambda: blocksparse.fingerprint(x))
+    assert blocksparse.fingerprint(head) == \
+        blocksparse.fingerprint(head.cpu()), "the card's fingerprint"
+    print(f"  fingerprint of the grid-sorted points ({x.shape[0]} x "
+          f"{x.shape[1]} f32): {out['fingerprint_x_ms']:.3f} ms; its two "
+          f"lanes on the card == on the host (first 2^20 rows)", flush=True)
+    del builds, x, head
+
+    # one coordinate one ulp away misses, and equals an uncached fit
+    nudged = full_pts.copy()
+    nudged[N_FULL // 3, 1] = np.nextafter(nudged[N_FULL // 3, 1],
+                                          np.float32(np.inf))
+    c0 = counters()
+    eng.fit(nudged)
+    c1 = counters()
+    assert c1[2] > c0[2] and c1[0] > c0[0], (c0, c1)
+    got = result_of(eng)
+    ctx = planner.DPCPlan._ctx
+    planner.DPCPlan._ctx = lambda self: contextlib.nullcontext()
+    try:
+        plain = DPCEngine(d_cut, rho_min=10, exec_spec=spec).fit(nudged)
+    finally:
+        planner.DPCPlan._ctx = ctx
+    same(got, result_of(plain), "nudged refit vs an uncached fit")
+    out["nudged_counts"] = [c1[i] - c0[i] for i in range(3)]
+    print(f"refit with one coordinate one ulp away: builds, hits, misses "
+          f"{out['nudged_counts']}; == an uncached fit of the same points, "
+          f"bit for bit", flush=True)
+    del plain, got, nudged
+    torch.cuda.empty_cache()
+
+    # the warm fit's trace, rendered by the report CLI in a subprocess
+    eng.fit(full_pts)                                   # warm again
+    trace = ROOT / "build" / "phase27_trace.jsonl"
+    snap = ROOT / "build" / "phase27_snapshot.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    trace.unlink(missing_ok=True)
+    c0 = counters()
+    obs.configure(level="trace", trace_path=str(trace))
+    obs.reset_spans()
+    try:
+        eng.fit(full_pts)
+        obs.flush()
+    finally:
+        obs.configure(level="off", trace_path=None)
+    c1 = counters()
+    assert c1[2] == c0[2] and c1[1] > c0[1], "the traced warm fit missed"
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "report", "--trace",
+         str(trace), "--json", str(snap)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    phases = json.loads(snap.read_text())["phases"]
+    names = {p.rsplit("/", 1)[-1] for p in phases}
+    need = {"engine.fit", "rho_delta.worklist", "worklist.fingerprint",
+            "rho_delta.sweep", "rho_delta.resolve", "rho_delta.fallback"}
+    assert "engine.fit" in phases and need <= names, sorted(names)
+    out["warm_trace_ms"] = {p: 1e3 * r["host_s"] for p, r in phases.items()}
+    print("warm fit's trace through `python -m repro_torch.obs report`:")
+    print(run.stdout, flush=True)
+    trace.unlink()
+    snap.unlink()
+
+    # the backend probe: K4 once on the card; a forced failure raises
+    ops.reset_launch_counts()
+    degrade.reset()
+    assert degrade.probe_backend("cuda") is None
+    probe_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    assert probe_launches == {"range_count": 1}, probe_launches
+    faultinject.activate("degrade.probe", trigger=0)
+    degrade.reset()
+    try:
+        planner.plan((8, 2), ExecSpec())
+        raise AssertionError("a failed probe did not raise at plan()")
+    except RuntimeError as e:
+        out["forced_probe"] = str(e)
+    finally:
+        faultinject.deactivate()
+        degrade.reset()
+    print(f"backend probe on the card: passed, launches {probe_launches}; "
+          f"forced through degrade.probe, plan() raised: "
+          f"{out['forced_probe']}", flush=True)
+    del eng
+    planner.plan_cache_clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3550,6 +3803,16 @@ def main() -> int:
     record: dict = {}
     t_start = time.perf_counter()
     phase_s: dict[int, float] = {}
+
+    # every plan the run makes, with the backend it asked for and got
+    from repro_torch.engine import planner
+    plans_made: list[tuple] = []
+    plan_init = planner.DPCPlan.__init__
+
+    def recording_init(self, pspec, spec):
+        plan_init(self, pspec, spec)
+        plans_made.append((spec.backend, self.backend_name))
+    planner.DPCPlan.__init__ = recording_init
 
     def stamp(phase: int) -> None:
         """Seconds since the start at which a phase begins."""
@@ -4005,6 +4268,8 @@ def main() -> int:
         assert launches[name] == 0, \
             f"the block-sparse main path launched the dense {name}"
     fres, fcl = engine.result, engine.clustering
+    phase8_fit = {"rho": fres.rho.cpu(), "delta": fres.delta.cpu(),
+                  "parent": fres.parent.cpu(), "labels": fcl.labels.cpu()}
 
     pts64 = torch.from_numpy(full_pts).to(dev, torch.float64)
     rows = torch.randperm(N_FULL, generator=gen)[:Q_CHECK].to(dev)
@@ -4053,7 +4318,7 @@ def main() -> int:
     stamp(9)
     n_clusters_full = int(fcl.num_clusters)
     del engine, fres, fcl
-    torch.cuda.empty_cache()
+    plan_bytes(8, record)
     stream_cases = [("airline", cases[0][1], pick_dcut(cases[0][1],
                                                        target_rho=30), False)]
     for label, pts_c in cases[1:4]:
@@ -4161,7 +4426,7 @@ def main() -> int:
         "clusters": int(scl.num_clusters), "phase1_rows": n_ph1,
         "phase2_rows": n_ph2, "k9": sa_k9, "worklist": sa_wl, **trace_sa}
     del sa_engine, sres, scl
-    torch.cuda.empty_cache()
+    plan_bytes(13, record)
 
     # --------------------------- 14. the eps sweep at 2^20 (Table 5)
     stamp(14)
@@ -4574,7 +4839,7 @@ def main() -> int:
                   for name in ("halo_range_count", "halo_masked_nn")}
     del dist_given, g8, x8, y8, kw8, sub, x9, xk9, y9, yk9, kw9, sx, sk
     del single, fx
-    torch.cuda.empty_cache()
+    plan_bytes(17, record)
 
     # ------------- 18. the dense gather strategy at 2^20, four shards
     stamp(18)
@@ -4769,6 +5034,8 @@ def main() -> int:
     stamp(21)
     f32_air = DPCEngine(d_full, rho_min=10,
                         exec_spec=ExecSpec(layout="block-sparse"))
+    f32_air.fit(full_pts)                                  # warm-up
+    torch.cuda.synchronize()
     f32_air_s, _ = counted_fit(f32_air, full_pts)
     bf_air = DPCEngine(d_full, rho_min=10, exec_spec=ExecSpec(
         layout="block-sparse", precision="bf16"))
@@ -4839,7 +5106,7 @@ def main() -> int:
           f"{t['ptxas']}; == plain within d*2^-20*(|x|^2+|y|^2) on "
           f"{t['plain_rows']} rows: {tol}  ({card})", flush=True)
     del f32_air, bf_air, fr, br
-    torch.cuda.empty_cache()
+    plan_bytes(21, record)
 
     # ------- 22. K14 at the stream's shape: Airline window 2^20, batch 8192
     stamp(22)
@@ -4944,6 +5211,16 @@ def main() -> int:
                                  "masked_nn")}
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------- 27. the plan layer
+    stamp(27)
+    record["plan_layer"] = run_plan_layer(full_pts, d_full, phase8_fit,
+                                          card)
+    wrong = [(a, b) for a, b in plans_made
+             if b != (a if a not in (None, "auto") else "cuda")]
+    assert not wrong, f"plans resolved to another backend: {wrong}"
+    planner.DPCPlan.__init__ = plan_init
+    print(f"{len(plans_made)} plans made, each on the backend it asked for",
+          flush=True)
 
     # --------------------------------------------------------- the record
     kernels = []

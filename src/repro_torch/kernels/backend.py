@@ -52,10 +52,13 @@ class KernelBackend(abc.ABC):
     ``mxu_dense`` (the reference's name) tells the algorithms the backend
     wants the dense fused formulation rather than the grid-stencil
     gathers, which are the reference math: only ``torch`` leaves it
-    False."""
+    False.  ``builds_worklists`` tells the planner the block-sparse layout
+    builds tile-pair worklists (the ``cuda`` backend's, cached per plan)
+    rather than walking the ring with none (``torch``)."""
 
     name: str = "abstract"
     mxu_dense: bool = True
+    builds_worklists: bool = True
 
     @abc.abstractmethod
     def range_count(self, x, y, d_cut, *, layout=None):
@@ -386,6 +389,7 @@ class TorchBackend(KernelBackend):
 
     name = "torch"
     mxu_dense = False
+    builds_worklists = False
 
     def range_count(self, x, y, d_cut, *, layout=None):
         if _sparse(layout):

@@ -27,21 +27,37 @@ at millions of points.
 The reference backend's own block-sparse form, the ring walk
 (:func:`ring_range_count`, :func:`ring_denser_nn`: the ``torch`` backend's
 ``layout="block-sparse"``), evaluates the tile pairs of each row tile in
-ascending-lb order with no worklist.  Not ported: the fingerprint cache
-``worklist_cache``: every call builds its worklist.
+ascending-lb order with no worklist.
+
+Inside a :func:`worklist_cache` scope (a plan's ``rho_delta`` wrapper,
+``engine/planner.py``) :func:`build_flat_worklist` memoizes its sweep
+worklists by a content fingerprint of everything the build reads, so a
+refit of the same data builds no K3 worklist (the reference's
+``worklist_cache``, ``repro/kernels/blocksparse.py:420-523``).  Three
+things differ: the fingerprint is taken on the points' device
+(:func:`fingerprint`), never from a host copy; the cache's cap counts the
+worklists' device bytes; and the best-1 rings are never cached, since
+fingerprinting their columns costs more than building them.  Direct
+backend calls, with no scope active, build every time.
 """
 from __future__ import annotations
 
+import hashlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..obs import metrics as _obsm
 
 __all__ = ["LB_SHRINK", "UB_GROW", "BLOCK_N", "BLOCK_M", "BS_BLOCK_N",
-           "BS_BLOCK_M", "Worklist", "tile_bounds", "pair_bounds",
-           "knn_radius", "build_flat_worklist", "ring_range_count",
+           "BS_BLOCK_M", "WL_CACHE_MAX_ENTRIES", "WL_CACHE_MAX_BYTES",
+           "Worklist", "tile_bounds", "pair_bounds", "knn_radius",
+           "build_flat_worklist", "worklist_cache", "suspend_counters",
+           "fingerprint", "worklist_build_count", "worklist_cache_hits",
+           "worklist_fingerprint_misses", "ring_range_count",
            "ring_denser_nn"]
 
 # Conservative slack on the f32 bound arithmetic (the reference's values).
@@ -63,7 +79,13 @@ _CHUNK_PAIRS = 1 << 24
 # the ring walk evaluates its tile pairs in batches of this many point pairs
 _ENTRY_PAIRS = 1 << 24
 
-_M_BUILDS = _obsm.counter("worklist_builds", "flat-worklist builds")
+_M_BUILDS = _obsm.counter(
+    "worklist_builds", "flat-worklist builds (cache misses included)")
+_M_CACHE_HITS = _obsm.counter(
+    "worklist_cache_hits", "fingerprint hits inside a worklist_cache scope")
+_M_FP_MISSES = _obsm.counter(
+    "worklist_fingerprint_misses",
+    "cache was active but the content fingerprint was absent (true rebuild)")
 _G_WL_LEN = _obsm.gauge(
     "worklist_len", "kept tile-pair count of the most recent build")
 _G_WL_PRUNED = _obsm.gauge(
@@ -92,6 +114,12 @@ class Worklist:
     @property
     def num_row_tiles(self) -> int:
         return self.row_ptr.numel() - 1
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of its four tensors on their device (9 an entry)."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.row_ptr, self.col_tile, self.in_cut, self.lb))
 
     def row_tile(self) -> torch.Tensor:
         """(W,) int64 row tile of every entry."""
@@ -191,6 +219,142 @@ _FORMS = {(True, "topk", False, False), (True, None, False, False),
           (False, "best1", True, True)}
 
 
+# ------------------------------------------------------- the worklist cache
+# A plan keeps an LRU of its built worklists, as the reference's does
+# (8 entries), trimmed by size.  The reference caps host tables at 64 MiB
+# (``repro/kernels/blocksparse.py:443``); here the cap counts the
+# worklists' device bytes, and the planner holds all plans' worklists
+# together to it.  It is sized for the 5.8M Airline Approx-DPC fit, whose
+# K3 worklist holds 46,762,768 entries of 9 bytes (col_tile int32, in_cut
+# bool, lb f32) and 22,699 row pointers, about 421 MB: 64 MiB would never
+# hold it, and 1 GiB holds two such plans' (the f32 and bf16 fits of the
+# same points), 1.3 % of an 80 GB card.
+WL_CACHE_MAX_ENTRIES = 8
+WL_CACHE_MAX_BYTES = 1 << 30
+
+_WL_CACHE_STACK: list = []
+
+
+@contextmanager
+def worklist_cache(cache):
+    """Activate ``cache`` (a MutableMapping, LRU-trimmed, oldest first, to
+    ``WL_CACHE_MAX_ENTRIES`` and to ``WL_CACHE_MAX_BYTES`` of worklist
+    device bytes; the newest entry always stays) for the
+    ``build_flat_worklist`` calls inside the context; the innermost active
+    cache serves them."""
+    _WL_CACHE_STACK.append(cache)
+    try:
+        yield cache
+    finally:
+        _WL_CACHE_STACK.pop()
+
+
+@contextmanager
+def suspend_counters():
+    """Scope inside which worklist instrumentation is discarded: on exit
+    every worklist metric family is restored to its value at entry."""
+    saved = [(m, m._state()) for m in
+             (_M_BUILDS, _M_CACHE_HITS, _M_FP_MISSES, _G_WL_LEN,
+              _G_WL_PRUNED)]
+    try:
+        yield
+    finally:
+        for m, state in saved:
+            m._restore(state)
+
+
+def worklist_build_count() -> int:
+    return int(_M_BUILDS.value())
+
+
+def worklist_cache_hits() -> int:
+    return int(_M_CACHE_HITS.value())
+
+
+def worklist_fingerprint_misses() -> int:
+    return int(_M_FP_MISSES.value())
+
+
+# The fingerprint's two lanes: a prime below 2^31 and a multiplier each.
+# The primes' product exceeds 2^32, so no change of one 32-bit word is a
+# multiple of both.
+_FP_LANES = ((2_147_483_647, 1_000_003), (2_147_483_629, 7_919))
+_FP_CHUNK = 1 << 22     # words a step
+_FP_ROW = 1 << 14       # products (each < 2^48) summed before a reduction
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """(k,) int32 words of ``t``'s values in row-major order, on its device:
+    4-byte types as they are, 8-byte ones as two words each, narrower ones
+    widened (2-byte floats by their bits)."""
+    t = t.reshape(-1).contiguous()
+    if t.dtype in (torch.float16, torch.bfloat16):
+        return t.view(torch.int16).to(torch.int32)
+    if t.dtype == torch.bool or t.element_size() < 4:
+        return t.to(torch.int32)
+    return t.view(torch.int32)
+
+
+def fingerprint(t: torch.Tensor) -> tuple[int, int]:
+    """Two residues of ``t``'s words, computed where ``t`` lies with integer
+    torch ops (so the same on the CPU and the card; nothing is copied to
+    the host but the two results).
+
+    Each 32-bit word u_i (as unsigned) enters lane p as
+    lo_i * a_i + hi_i * (a_i * 2^16 mod p), its 16-bit halves weighted by a
+    position-dependent multiplier a_i = 1 + (i * mult mod (p - 1)), nonzero
+    mod p: that is u_i * a_i mod p, summed over i mod p.  Products stay
+    below 2^48 and are summed 2^14 at a time before a reduction, so no int64
+    overflows.  One changed word moves lane p by (u' - u) * a_i, nonzero
+    unless p divides u' - u; as 0 < |u' - u| < 2^32 is below the lanes'
+    product of primes, at least one lane changes."""
+    w = _words(t)
+    n = w.numel()
+    acc = torch.zeros((len(_FP_LANES),), dtype=torch.int64, device=w.device)
+    for s0 in range(0, n, _FP_CHUNK):
+        u = w[s0:s0 + _FP_CHUNK].to(torch.int64) & 0xFFFFFFFF
+        lo, hi = u & 0xFFFF, u >> 16
+        idx = torch.arange(s0, s0 + u.numel(), dtype=torch.int64,
+                           device=w.device)
+        pad = -u.numel() % _FP_ROW
+        for j, (p, mult) in enumerate(_FP_LANES):
+            a = (idx % (p - 1)) * mult % (p - 1) + 1
+            v = lo * a + hi * ((a << 16) % p)
+            if pad:
+                v = torch.nn.functional.pad(v, (0, pad))
+            acc[j] = (acc[j] + (v.view(-1, _FP_ROW).sum(1) % p).sum()) % p
+    return tuple(acc.tolist())
+
+
+def _fp_part(h, a) -> None:
+    """Feed ``a`` (a tensor, an array or None) into the blake2b ``h``: its
+    shape, dtype and fingerprint."""
+    if a is None:
+        h.update(b"\x00none")
+        return
+    t = torch.as_tensor(a)
+    h.update(repr((tuple(t.shape), str(t.dtype), fingerprint(t))).encode())
+
+
+def _wl_key(x, y, src_dtypes, thr, knobs, nn_col_counts, starts,
+            ends) -> bytes:
+    """The cache key: blake2b over the fingerprints, shapes and dtypes of
+    everything the build reads (the f32 points, the column counts, the
+    spans), the source dtypes, the device, the f32 threshold, the tile
+    shape and the form knobs."""
+    h = hashlib.blake2b(digest_size=16)
+    _fp_part(h, x)
+    if y is x:
+        h.update(b"\x00same")
+    else:
+        _fp_part(h, y)
+    for a in (nn_col_counts, starts, ends):
+        _fp_part(h, a)
+    h.update(repr((src_dtypes, str(x.device), thr, BLOCK_N, BLOCK_M,
+                   knobs)).encode())
+    return h.digest()
+
+
 def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
                         count: bool = True, nn: str | None = "topk",
                         k: int = 8, nn_dcut: bool = False,
@@ -223,6 +387,12 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
     ((column tiles,) int) counts the columns of each tile that may enter
     the kept k (a gated sweep's selected columns); by default every column
     may.
+
+    Inside a :func:`worklist_cache` scope a sweep worklist (every form but
+    ``nn="best1"``) is memoized by the content fingerprint of the inputs
+    and every knob (:func:`_wl_key`).  A best-1 ring is built every time:
+    on the 5.8M fit the ring's lookup, which fingerprints all its columns,
+    took longer than its build (PERF.md §5).
     """
     halo = starts is not None or ends is not None
     if (count, nn, bool(nn_dcut), halo) not in _FORMS:
@@ -232,15 +402,36 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
                          f"with spans count alone or best1 with nn_dcut)")
     if BLOCK_M < k:
         raise ValueError(f"BLOCK_M={BLOCK_M} must hold the kept k={k}")
+    # the dtypes the caller handed in, before the cast to f32: the same
+    # coordinates at another source precision are another cache identity,
+    # as in the reference (the sweeps read the original tensors)
+    src_dtypes = (str(x.dtype), str(y.dtype))
+    same = y is x
     x = x.to(torch.float32)
-    y = y.to(torch.float32)
+    y = x if same else y.to(torch.float32)
+    thr = float(np.float32(float(d_cut) ** 2)) if count or nn_dcut else 0.0
+    key = None
+    if _WL_CACHE_STACK and nn != "best1":
+        cache = _WL_CACHE_STACK[-1]
+        with obs.span("worklist.fingerprint", n=x.shape[0],
+                      m=y.shape[0]) as sp:
+            # the lanes reached the host, so the device work is done
+            key = sp.sync(_wl_key(x, y, src_dtypes, thr,
+                                  (bool(count), nn, int(k), bool(nn_dcut)),
+                                  nn_col_counts, starts, ends))
+        hit = cache.get(key)
+        if hit is not None:
+            _M_CACHE_HITS.inc()
+            if hasattr(cache, "move_to_end"):
+                cache.move_to_end(key)
+            return hit
+        _M_FP_MISSES.inc()
     dev = x.device
     n, m = x.shape[0], y.shape[0]
     nbr, nbc = -(-n // BLOCK_N), -(-m // BLOCK_M)
     _M_BUILDS.inc()
     rlo, rhi = tile_bounds(x, BLOCK_N)
     clo, chi = tile_bounds(y, BLOCK_M)
-    thr = float(np.float32(float(d_cut) ** 2)) if count or nn_dcut else 0.0
     if nn_col_counts is None:
         col_counts = (m - torch.arange(nbc, device=dev) * BLOCK_M).clamp(
             0, BLOCK_M)
@@ -310,6 +501,13 @@ def build_flat_worklist(x: torch.Tensor, y: torch.Tensor, d_cut=None, *,
         n_kept=n_kept, n_total=nbr * nbc)
     _G_WL_LEN.set(out.n_kept)
     _G_WL_PRUNED.set(round(out.pruned_frac, 6))
+    if key is not None:
+        cache[key] = out
+        while len(cache) > 1 and (
+                len(cache) > WL_CACHE_MAX_ENTRIES
+                or sum(w.nbytes for w in cache.values())
+                > WL_CACHE_MAX_BYTES):
+            cache.pop(next(iter(cache)))    # the oldest entry
     return out
 
 

@@ -1,7 +1,9 @@
-"""Phase-scoped span tracer with host wall-time and device fencing.
+"""Phase-scoped span tracer with host wall-time and device fencing, the
+port of ``repro/obs/tracer.py``.
 
-The port's counterpart of ``repro/obs/tracer.py``, cut to what the drivers
-call: ``with span("rho") as sp: ...; sp.sync(out); sp.set(rows=...)``.
+``with span("rho") as sp: ...; sp.sync(out); sp.set(rows=...)`` opens a
+nested span.  Spans are host-side bookkeeping: a perf-counter pair and a
+thread-local stack that records parentage.
 
 Levels (``configure(level=...)``):
 
@@ -18,19 +20,31 @@ Levels (``configure(level=...)``):
   so a caller's own ``torch.cuda.max_memory_allocated`` reading spans only
   the time since the last span opened.
 
-Closed spans are kept in memory (:func:`spans`); the report CLI and the
-JSON-lines sink of the reference are not ported.
+Closed spans are kept in memory (:func:`spans`) and, where
+``configure(trace_path=...)`` names a file, appended to it as JSON lines
+as each closes — the reference's record format, so a trace written here
+loads in ``repro.obs.report`` and the other way round.
+``configure(profile_dir=...)`` starts a ``torch.profiler`` capture into
+that directory (TensorBoard's trace format); it stops when the level
+returns to ``"off"``.  ``REPRO_OBS=metrics|trace`` (and
+``REPRO_OBS_TRACE=path``) set the level and the file at import.
+
+A leaf module: torch and the standard library only.
 """
 from __future__ import annotations
 
 import itertools
+import json
+import os
 import threading
 import time
+import warnings
 from typing import Any
 
 import torch
 
-__all__ = ["LEVELS", "configure", "span", "spans", "reset_spans"]
+__all__ = ["LEVELS", "configure", "level", "enabled", "tracing", "span",
+           "spans", "reset_spans", "flush"]
 
 LEVELS = ("off", "metrics", "trace")
 
@@ -39,15 +53,98 @@ _MAX_SPANS = 200_000      # retention cap for the in-memory span list
 _LOCK = threading.RLock()
 _TLS = threading.local()
 _IDS = itertools.count(1)
-_STATE = {"level": "off"}
+_ORIGIN = time.perf_counter()
+
+
+class _State:
+    level: str = "off"
+    trace_path: str | None = None
+    file: Any = None            # the JSON-lines file, opened at first write
+    profile_dir: str | None = None
+    profiler: Any = None        # the running torch.profiler capture
+
+
+_STATE = _State()
 _DONE: list[dict] = []
 
+_KEEP = object()    # configure() sentinel: leave this setting unchanged
 
-def configure(level: str) -> None:
-    """Set the process-wide observability level (one of ``LEVELS``)."""
-    if level not in LEVELS:
-        raise ValueError(f"level must be one of {LEVELS}, got {level!r}")
-    _STATE["level"] = level
+
+def configure(level: Any = _KEEP, trace_path: Any = _KEEP,
+              profile_dir: Any = _KEEP) -> None:
+    """Set the process-wide level and trace sinks.
+
+    ``level`` is one of ``LEVELS``.  ``trace_path`` names a JSON-lines file
+    that closed spans are appended to (``None`` stops writing; spans stay
+    in memory).  ``profile_dir`` starts a ``torch.profiler`` capture into
+    that directory; it stops when the level returns to ``"off"`` or
+    ``profile_dir=None`` is passed.  Arguments left out keep their value.
+    """
+    with _LOCK:
+        if level is not _KEEP:
+            if level not in LEVELS:
+                raise ValueError(f"level must be one of {LEVELS}, "
+                                 f"got {level!r}")
+            _STATE.level = level
+        if trace_path is not _KEEP and trace_path != _STATE.trace_path:
+            if _STATE.file is not None:
+                try:
+                    _STATE.file.close()
+                except OSError:
+                    pass
+                _STATE.file = None
+            _STATE.trace_path = trace_path
+        if profile_dir is not _KEEP and profile_dir != _STATE.profile_dir:
+            _stop_profile()
+            _STATE.profile_dir = profile_dir
+            if profile_dir is not None:
+                _start_profile(profile_dir)
+        if _STATE.level == "off":
+            _stop_profile()
+
+
+def _start_profile(profile_dir: str) -> None:
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=acts,
+                       on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof.start()
+        _STATE.profiler = prof
+    except Exception as e:  # noqa: BLE001 - the capture is optional
+        warnings.warn(f"obs: torch.profiler capture unavailable: {e}",
+                      stacklevel=3)
+
+
+def _stop_profile() -> None:
+    """Stop a running capture (which writes its trace); a later
+    ``configure(profile_dir=...)`` starts a new one."""
+    prof = _STATE.profiler
+    if prof is None:
+        return
+    _STATE.profiler = _STATE.profile_dir = None
+    try:
+        prof.stop()
+    except Exception as e:  # noqa: BLE001
+        warnings.warn(f"obs: torch.profiler capture failed: {e}",
+                      stacklevel=3)
+
+
+def level() -> str:
+    return _STATE.level
+
+
+def enabled() -> bool:
+    """True when any instrumentation level is active."""
+    return _STATE.level != "off"
+
+
+def tracing() -> bool:
+    """True when spans fence device work (``level="trace"``)."""
+    return _STATE.level == "trace"
 
 
 def _on_cuda(value: Any) -> bool:
@@ -61,7 +158,7 @@ def _on_cuda(value: Any) -> bool:
 def _tracks_memory() -> bool:
     """Peak memory is recorded at trace level once CUDA is initialized
     (never initializing it here)."""
-    return _STATE["level"] == "trace" and torch.cuda.is_initialized()
+    return _STATE.level == "trace" and torch.cuda.is_initialized()
 
 
 class _NullSpan:
@@ -104,7 +201,7 @@ class Span:
         """At trace level, wait for the device work behind ``value`` (a
         tensor or a tuple/list of them) and add the window since the span's
         start (or its previous fence) to ``device_s``.  Returns ``value``."""
-        if _STATE["level"] == "trace" and value is not None:
+        if _STATE.level == "trace" and value is not None:
             if _on_cuda(value):
                 torch.cuda.synchronize()
             now = time.perf_counter()
@@ -147,8 +244,9 @@ class Span:
         rec: dict[str, Any] = {
             "name": self.name, "path": self.path, "id": self.id,
             "parent": self.parent, "depth": self.depth,
+            "t0": self._t0 - _ORIGIN,
             "host_s": t1 - self._t0,
-            "device_s": self._fence_s if _STATE["level"] == "trace" else None,
+            "device_s": self._fence_s if _STATE.level == "trace" else None,
         }
         if self._peak is not None:
             rec["peak_bytes"] = self._peak
@@ -160,12 +258,17 @@ class Span:
             _DONE.append(rec)
             if len(_DONE) > _MAX_SPANS:
                 del _DONE[: len(_DONE) - _MAX_SPANS]
+            if _STATE.trace_path is not None:
+                if _STATE.file is None:
+                    _STATE.file = open(_STATE.trace_path, "a")
+                json.dump(rec, _STATE.file, default=str)
+                _STATE.file.write("\n")
         return False
 
 
 def span(name: str, **attrs: Any) -> "Span | _NullSpan":
     """Open a named span; the shared null span when the level is off."""
-    if _STATE["level"] == "off":
+    if _STATE.level == "off":
         return NULL_SPAN
     return Span(name, attrs)
 
@@ -179,3 +282,22 @@ def spans() -> list[dict]:
 def reset_spans() -> None:
     with _LOCK:
         _DONE.clear()
+
+
+def flush() -> None:
+    """Flush the JSON-lines trace file, if one is open, to disk."""
+    with _LOCK:
+        if _STATE.file is not None:
+            _STATE.file.flush()
+
+
+# activation from the environment, so a run can be traced without touching
+# code: REPRO_OBS=metrics|trace [REPRO_OBS_TRACE=/path/to/trace.jsonl]
+_env_level = os.environ.get("REPRO_OBS", "").strip().lower()
+if _env_level:
+    if _env_level in LEVELS:
+        configure(level=_env_level,
+                  trace_path=os.environ.get("REPRO_OBS_TRACE") or None)
+    else:
+        warnings.warn(f"REPRO_OBS={_env_level!r} ignored (not in {LEVELS})",
+                      stacklevel=1)

@@ -6,14 +6,15 @@
 * :mod:`.sanitize` — admission control (``reject`` | ``drop`` |
   ``clamp``) and the :func:`finite_or` guard;
 * :mod:`.faultinject` — deterministic named-site fault injection for the
-  chaos tests.
-
-``degrade`` (an explicit, logged plan-time ``cuda -> torch`` choice) is
-still to port (ROADMAP Queue A item 7).
+  chaos tests;
+* :mod:`.degrade` — the plan-time backend probe (K4 launched once on the
+  card): a failed probe raises at ``plan()``, never a fallback to the
+  plain PyTorch math.
 """
-from repro_torch.resilience import checkpoint, faultinject, sanitize
+from repro_torch.resilience import checkpoint, degrade, faultinject, sanitize
 from repro_torch.resilience.checkpoint import (CheckpointError,
                                                restore_stream, save_stream)
+from repro_torch.resilience.degrade import probe_backend, resolve_backend
 from repro_torch.resilience.faultinject import (KILL_EXIT_CODE, KNOWN_SITES,
                                                 FaultError, activate,
                                                 deactivate, fire)
@@ -23,8 +24,9 @@ from repro_torch.resilience.sanitize import (AdmissionConfig,
                                              finite_or)
 
 __all__ = [
-    "AdmissionConfig", "AdmissionResult", "CheckpointError", "FaultError",
-    "KILL_EXIT_CODE", "KNOWN_SITES", "PoisonedInputError", "activate",
-    "admit", "checkpoint", "deactivate", "faultinject", "finite_or", "fire",
-    "restore_stream", "sanitize", "save_stream",
+    "AdmissionConfig", "AdmissionResult", "CheckpointError",
+    "FaultError", "KILL_EXIT_CODE", "KNOWN_SITES",
+    "PoisonedInputError", "activate", "admit", "checkpoint", "deactivate",
+    "degrade", "faultinject", "finite_or", "fire", "probe_backend",
+    "resolve_backend", "restore_stream", "sanitize", "save_stream",
 ]

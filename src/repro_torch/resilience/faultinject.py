@@ -47,7 +47,7 @@ KNOWN_SITES = (
     "checkpoint.serialize",  # StreamDPC.save entry (before the temp write)
     "checkpoint.write",      # after the temp write, before the atomic rename
     "kernel.dispatch",       # DPCPlan primitive wrappers
-    "degrade.probe",         # backend probe; no caller until degrade.py
+    "degrade.probe",         # resilience.degrade.probe_backend
 )
 MODES = ("raise", "kill", "corrupt")
 KILL_EXIT_CODE = 42
