@@ -298,6 +298,27 @@ Phases, each of which raises on failure (nothing is caught):
    the warm fit's JSON-lines trace renders through ``python -m
    repro_torch.obs report`` in a subprocess.  The run asserts that every
    plan resolved to the backend it asked for.
+28. The serving path: ``ServeEngine`` on gemma-2b at full width (18
+   layers, d_model 2048, 8 heads, MQA, head_dim 256, d_ff 16384, vocab
+   256,000) in bf16, random weights from a seeded generator on the card:
+   8 prompts of 64-512 tokens (numpy seed 0) left-padded to 512, 32 new
+   greedy tokens (shape and range checked; a second engine on the same
+   weights gives the same tokens); prefill and decode timed from a traced
+   ``generate``.  ``compress_prompt_cache`` with ``DPCKVConfig(budget=64)``
+   on ``cuda``, counted (counts zeroed just before, read just after: K4
+   and K2 once per (layer, sequence, kv-head), 144 each, nothing else):
+   DPC-KV's shape of K4 and K2 is one 544-row problem (512 valid rows) at
+   d = 4 per head, each with its own d_cut; every launch held bit for bit
+   against its plain version; K4, K2 (all 144 calls, CUDA events) and the
+   compression timed, with their bounds; the same card cache through
+   ``ExecSpec(backend="torch")`` equal in d_cut, rho, ordered centers and
+   counts on every head off the 4-ulp band around d_cut^2 (band heads
+   counted), with no kernel launched; the attention error of the
+   compressed cache against the full one per layer beside random
+   eviction at the same budget (reported); the peak device memory; and
+   gemma-2b's full width cut to 2 layers in f32: its prefill logits on the
+   card within 1e-3 of the largest |logit| of the CPU's on the same
+   weights, TF32 off.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -316,7 +337,9 @@ and gated K12/K13 from phase 20's dense and S-Approx-DPC fits, K13 from
 phase 21, K14 from phase 22, K15 and K16 from phase 23; K2, K10 and K11
 also carry ``baselines``: per baseline, their launches in phase 26's timed
 fit, their CUDA-event ms and bound there, and their plain versions' ms,
-rows and max abs error on the checked slices),
+rows and max abs error on the checked slices; K4 and K2 carry ``dpc_kv``:
+their shape, launches, ms, plain ms, bound and max abs error in phase 28's
+compression of gemma-2b's prompt cache, 144 x (544 x 544, d 4)),
 and as its last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result,
 where no CUDA device is present.  ``--out`` also writes the full record
@@ -395,6 +418,13 @@ REF_TICKS = 8                    # and its counted ticks
 BASE_N = 1 << 20                 # phase 26: the baselines' timed fits
 BASE_PARITY_N = 1 << 16          # and their torch-backend parity
 BASE_PLAIN_PAIRS = 1 << 31       # span pairs of their K10/K11 plain checks
+SERVE_ARCH = "gemma-2b"          # phase 28: the served model, full width
+SERVE_BATCH = 8                  # its batch,
+SERVE_PROMPT = 512               # prompt slots (prompts of 64-512 tokens),
+SERVE_NEW = 32                   # new tokens
+SERVE_BUDGET = 64                # and DPC-KV's kept pairs a head
+SERVE_CHECK_LAYERS = 2           # the f32 card-vs-CPU check's depth
+SERVE_CHECK_PROMPT = 64          # and its prompt length
 
 
 def smi(fields: str) -> str:
@@ -3778,6 +3808,261 @@ def run_plan_layer(full_pts: np.ndarray, d_cut: float, want: dict,
     return out
 
 
+# ------------------------------------------------ serving (phase 28)
+def serve_band_heads(pts: torch.Tensor, d_cut: torch.Tensor,
+                     valid: torch.Tensor) -> torch.Tensor:
+    """(H,) bool: the head has a pair of valid rows whose float64 d^2
+    lies within 4 f32 ulp of d_cut^2 (where rounding may decide a
+    count)."""
+    x = pts.double()
+    d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+    thr = (d_cut.float() ** 2).double()
+    ulp = (torch.nextafter(thr.float(), torch.tensor(
+        float("inf"), device=thr.device)).double() - thr)
+    near = (d2 - thr[:, None, None]).abs() <= 4 * ulp[:, None, None]
+    pair = valid[:, :, None] & valid[:, None, :]
+    return (near & pair).flatten(1).any(dim=1)
+
+
+def attention_errors(eng, comp, gen) -> dict:
+    """Per layer: the relative error of attention over the compressed
+    prompt cache against the full one for a seeded query, beside keeping
+    as many random rows (counts 1)."""
+    from repro_torch.serve.dpc_kv import attend_compressed
+    cfg = eng.model.cfg
+    k_c, v_c, counts = comp
+    L, B, M, K, hd = k_c.shape
+    Lp = eng.cfg.max_prompt
+    q = torch.from_numpy(gen.normal(size=(B, cfg.n_heads, hd)).astype(
+        np.float32)).to(k_c.device)
+    keep = torch.from_numpy(gen.choice(Lp, M, replace=False)).to(k_c.device)
+    ones = torch.ones((B, M, K), device=k_c.device)
+    dpc, rand = [], []
+    for layer in range(L):
+        k = eng.cache.k[layer, :, :Lp]
+        v = eng.cache.v[layer, :, :Lp]
+        full = attend_compressed(q, k, v, torch.ones((B, Lp, K),
+                                                     device=k.device))
+        got = attend_compressed(q, k_c[layer], v_c[layer], counts[layer])
+        got_r = attend_compressed(q, k[:, keep], v[:, keep], ones)
+        norm = float(torch.linalg.norm(full))
+        dpc.append(float(torch.linalg.norm(got - full)) / norm)
+        rand.append(float(torch.linalg.norm(got_r - full)) / norm)
+    return {"dpc_kv": dpc, "random": rand}
+
+
+def run_serving(card: str) -> tuple[dict, dict]:
+    """Phase 28: ``ServeEngine`` on gemma-2b at full width in bf16 (random
+    weights from a seeded generator on the card), 8 prompts of 64-512
+    tokens, 32 new tokens, DPC-KV at budget 64 on the ``cuda`` route.
+    Returns the record and, for K4 and K2, their DPC-KV entries."""
+    from repro_torch import obs
+    from repro_torch.configs import ARCHS
+    from repro_torch.engine.spec import ExecSpec
+    from repro_torch.kernels import ops, sweep
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import DPCKVConfig, ServeConfig, ServeEngine
+    from repro_torch.serve import dpc_kv
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    dev = torch.device("cuda")
+    out: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[SERVE_ARCH]
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    (params, init_ms) = timed_once(lambda: model.init(generator=gen))
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_params:,} parameters in {cfg.dtype}, initialized on the card "
+          f"in {init_ms:.1f} ms", flush=True)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, SERVE_PROMPT + 1, SERVE_BATCH)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+    kv = DPCKVConfig(budget=SERVE_BUDGET)
+    scfg = ServeConfig(batch=SERVE_BATCH, max_prompt=SERVE_PROMPT,
+                       max_new_tokens=SERVE_NEW, dpc_kv=kv)
+    eng = ServeEngine(model, params, scfg)
+    eng.generate(prompts)                                    # warm-up
+    obs.reset_spans()
+    obs.configure(level="trace")
+    try:
+        tokens = eng.generate(prompts)
+    finally:
+        obs.configure(level="off")
+    spans = {s["name"]: s for s in obs.spans()}
+    prefill_ms = 1e3 * spans["serve.prefill"]["host_s"]
+    decode_ms = 1e3 * spans["serve.decode"]["host_s"] / SERVE_NEW
+    assert tokens.shape == (SERVE_BATCH, SERVE_NEW), tokens.shape
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    again = ServeEngine(model, params, scfg).generate(prompts)
+    assert np.array_equal(again, tokens), "a second engine's greedy tokens"
+    print(f"served {SERVE_BATCH} prompts of {lens.tolist()} tokens (left-"
+          f"padded to {SERVE_PROMPT}), {SERVE_NEW} new tokens each: prefill "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms per token "
+          f"(traced, fenced); a second engine on the same weights gave the "
+          f"same greedy tokens  ({card})", flush=True)
+
+    # the compression, counted: every K4 and K2 launch's inputs kept
+    given: dict[str, list] = {"range_count": [], "masked_nn": []}
+    k4_launch, k2_launch = ops.local_density_xy, ops.dependent_masked
+
+    def rec_k4(x, y, dc, **kw):
+        given["range_count"].append((x, y, dc))
+        return k4_launch(x, y, dc, **kw)
+
+    def rec_k2(x, xk, y, yk, **kw):
+        given["masked_nn"].append((x, xk, y, yk))
+        return k2_launch(x, xk, y, yk, **kw)
+
+    ops.local_density_xy, ops.dependent_masked = rec_k4, rec_k2
+    try:
+        ops.reset_launch_counts()
+        comp, comp_once_ms = timed_once(eng.compress_prompt_cache)
+        launches = ops.launch_counts()
+    finally:
+        ops.local_density_xy, ops.dependent_masked = k4_launch, k2_launch
+    L, B, S, K, hd = eng.cache.k.shape
+    H = L * B * K
+    ran = {k: v for k, v in launches.items() if v}
+    assert ran == {"range_count": H, "masked_nn": H}, ran
+    assert all(len(given[k]) == H for k in given)
+    k_c, v_c, counts = comp
+    M = SERVE_BUDGET
+    assert k_c.shape == v_c.shape == (L, B, M, K, hd), k_c.shape
+    assert counts.shape == (L, B, M, K)
+    assert k_c.dtype == cfg.dtype and torch.isfinite(k_c.float()).all()
+    assert float(counts.max()) <= SERVE_PROMPT
+    assert (counts.sum(dim=2) <= SERVE_PROMPT).all()
+    assert (counts.sum(dim=2) > 0).all()
+    errs = {"range_count": 0.0, "masked_nn": 0.0}
+    for x, y, dc in given["range_count"]:
+        want = sweep.range_count_plain(x, y, sweep.d2cut_of(dc)).float()
+        errs["range_count"] = max(errs["range_count"], check_equal(
+            "range_count [DPC-KV]", [k4_launch(x, y, dc)], [want]))
+    for x, xk, y, yk in given["masked_nn"]:
+        best, arg = sweep.masked_nn_plain(x, xk, y, yk)
+        errs["masked_nn"] = max(errs["masked_nn"], check_equal(
+            "masked_nn [DPC-KV]", k2_launch(x, xk, y, yk),
+            [torch.sqrt(best), arg]))
+    comp_ms = time_ms(eng.compress_prompt_cache)
+    kernels = {}
+    for name, launch, plain in (
+            ("range_count", k4_launch,
+             lambda x, y, dc: sweep.range_count_plain(
+                 x, y, sweep.d2cut_of(dc))),
+            ("masked_nn", k2_launch, sweep.masked_nn_plain)):
+        calls = given[name]
+        ms = time_ms(lambda: [launch(*c) for c in calls])
+        _, plain_ms = timed_once(lambda: [plain(*c) for c in calls])
+        work = [k4_work(c[0].shape[0], c[1].shape[0], c[0].shape[1])
+                if name == "range_count" else k2_work(c[1], c[3], c[0].shape[1])
+                for c in calls]
+        b_ms, by = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+        x0, y0 = calls[0][0], calls[0][-2 if name == "masked_nn" else 1]
+        kernels[name] = {"shape": f"{H} x ({x0.shape[0]} x {y0.shape[0]}, "
+                         f"d {x0.shape[1]})", "launches": ran[name],
+                         "max_abs_err": errs[name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": by, "library_ms": None}
+        print(f"{name} at DPC-KV's shape, {kernels[name]['shape']}: "
+              f"{ran[name]} launches, {ms:.3f} ms for all (CUDA events, "
+              f"median of {REPS}; {1e3 * ms / H:.2f} us a launch), bound "
+              f"{b_ms:.4f} ms ({by}), plain {plain_ms:.1f} ms; every "
+              f"launch == plain, bit for bit  ({card})", flush=True)
+    obs.reset_spans()
+    obs.configure(level="trace")
+    try:
+        eng.compress_prompt_cache()
+    finally:
+        obs.configure(level="off")
+    sp = [s for s in obs.spans() if s["name"] == "serve.compress"][-1]
+    assert sp["attrs"]["heads"] == H and sp["attrs"]["launches"] == 2 * H, \
+        sp["attrs"]
+    print(f"compress_prompt_cache: {comp_ms:.2f} ms (CUDA events, median of "
+          f"{REPS}; the counted one {comp_once_ms:.2f}); {H} heads of "
+          f"{SERVE_PROMPT} rows, budget {M}: k_c/v_c {tuple(k_c.shape)}, "
+          f"counts at most {int(counts.max())}; traced span "
+          f"{1e3 * sp['host_s']:.2f} ms, attrs {sp['attrs']}", flush=True)
+
+    # the same card cache through the torch route: equal off the band
+    kh, valid = dpc_kv._heads(eng.cache.k.reshape(L * B, S, K, hd),
+                              SERVE_PROMPT)
+    cu = dpc_kv._cluster_heads(kh, valid, kv)
+    kv_t = DPCKVConfig(budget=M, exec_spec=ExecSpec(backend="torch"))
+    ops.reset_launch_counts()
+    tr = dpc_kv._cluster_heads(kh, valid, kv_t)
+    comp_t = dpc_kv.compress_kv(eng.cache.k.reshape(L * B, S, K, hd),
+                                eng.cache.v.reshape(L * B, S, K, hd),
+                                SERVE_PROMPT, kv_t)
+    assert not any(ops.launch_counts().values()), "the torch route launched"
+    band = serve_band_heads(cu["pts"], cu["d_cut"], valid)
+    off = ~band
+    assert torch.equal(cu["d_cut"], tr["d_cut"])
+    rows = off[:, None] & valid
+    assert torch.equal(cu["rho"][rows], tr["rho"][rows])
+    assert torch.equal(cu["centers"][off], tr["centers"][off])
+    c_cu = counts.reshape(L * B, M, K).permute(0, 2, 1).reshape(H, M)
+    c_tr = comp_t[2].permute(0, 2, 1).reshape(H, M)
+    assert torch.equal(c_cu[off], c_tr[off])
+    print(f"the torch route on the same card cache: d_cut equal, rho, "
+          f"centers (ordered) and counts equal on the {int(off.sum())} of "
+          f"{H} heads off the 4-ulp band around d_cut^2 ({int(band.sum())} "
+          f"in it); no kernel launched", flush=True)
+    att = attention_errors(eng, comp, np.random.default_rng(1))
+    print(f"attention over the compressed cache against the full one, "
+          f"relative error per layer (seeded query; reported, not gated): "
+          f"DPC-KV mean {statistics.mean(att['dpc_kv']):.4f} "
+          f"[{min(att['dpc_kv']):.4f}, {max(att['dpc_kv']):.4f}], random "
+          f"eviction at the same budget mean "
+          f"{statistics.mean(att['random']):.4f} [{min(att['random']):.4f}, "
+          f"{max(att['random']):.4f}]", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serving peak device memory {peak:.3f} GB", flush=True)
+    out.update(arch=SERVE_ARCH, params=n_params, init_ms=init_ms,
+               prompt_lens=lens.tolist(), prefill_ms=prefill_ms,
+               decode_ms_per_token=decode_ms, compress_ms=comp_ms,
+               compress_counted_ms=comp_once_ms, heads=H,
+               band_heads=int(band.sum()), attention_error=att,
+               peak_gb=peak, kernels=kernels)
+    del eng, comp, comp_t, cu, tr, kh, given, params
+    torch.cuda.empty_cache()
+
+    # gemma-2b's full width at 2 layers in f32: the card against the CPU
+    cfg2 = cfg.replace(n_layers=SERVE_CHECK_LAYERS, dtype=torch.float32)
+    gen.manual_seed(1)
+    p2 = build_model(cfg2).init(generator=gen)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, SERVE_CHECK_PROMPT)))
+    with torch.inference_mode():
+        got, _ = tfm.prefill(p2, toks.to(dev), cfg2,
+                             tfm.init_cache(cfg2, 2, SERVE_CHECK_PROMPT))
+        p_cpu = tfm.TransformerParams(cfg2, {k: v.cpu() for k, v in
+                                             p2.state_dict().items()})
+        want, _ = tfm.prefill(p_cpu, toks, cfg2,
+                              tfm.init_cache(cfg2, 2, SERVE_CHECK_PROMPT,
+                                             device="cpu"))
+    got = got.cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all() and got.shape == (2, cfg.vocab)
+    assert err <= 1e-3 * scale, (err, scale)
+    print(f"{SERVE_ARCH} at full width, {SERVE_CHECK_LAYERS} layers, f32, "
+          f"batch 2, {SERVE_CHECK_PROMPT}-token prompts: prefill logits on "
+          f"the card against the CPU on the same weights, max |diff| "
+          f"{err:.3e} against 1e-3 x max |logit| = {1e-3 * scale:.3e} (TF32 "
+          f"off)", flush=True)
+    out.update(f32_check={"max_abs_diff": err, "max_abs_logit": scale})
+    del p2, p_cpu
+    torch.cuda.empty_cache()
+    return out, kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -5215,6 +5500,11 @@ def main() -> int:
     stamp(27)
     record["plan_layer"] = run_plan_layer(full_pts, d_full, phase8_fit,
                                           card)
+
+    # ------------------- 28. the serving path: gemma-2b with DPC-KV
+    stamp(28)
+    torch.cuda.empty_cache()
+    record["serving"], serve_kernels = run_serving(card)
     wrong = [(a, b) for a, b in plans_made
              if b != (a if a not in (None, "auto") else "cuda")]
     assert not wrong, f"plans resolved to another backend: {wrong}"
@@ -5291,6 +5581,11 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
+    for entry in kernels:           # phase 28: DPC-KV's shape of K4 and K2
+        if entry["name"] in serve_kernels:
+            entry["dpc_kv"] = serve_kernels[entry["name"]]
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       entry["dpc_kv"]["max_abs_err"])
     record.update(streams=streams, stream_check_shapes=stream_check,
                   sapprox_check_shapes=sapprox_check,
                   dist_check_shapes=dist_check)

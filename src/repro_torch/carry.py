@@ -2,7 +2,8 @@
 
 DPC has no weights: its state is the point table, the execution spec, the
 distributed configuration, the block-sparse worklists, the intermediate
-results and a live stream.  These
+results and a live stream; the serving path adds a language model's
+weights and its KV cache.  These
 functions take that state as numpy arrays and plain dicts — what
 ``np.asarray`` and ``dataclasses.asdict`` give for the reference's objects
 — and build the port's counterparts, so one stage's reference output can
@@ -25,12 +26,15 @@ from .core.labels import Clustering
 from .distributed.dpc import DistDPCConfig
 from .engine.spec import ExecSpec
 from .kernels.blocksparse import Worklist
+from .models.attention import KVCache
+from .models.common import ArchConfig
+from .models.transformer import TransformerParams
 from .stream.incremental import IncrementalGrid
 from .stream.stream_dpc import StreamDPC, StreamDPCConfig, StreamTick
 from .stream.window import SlidingWindow
 
 __all__ = ["dpc_result", "grid", "exec_spec", "dist_config",
-           "flat_worklist", "stream_state"]
+           "flat_worklist", "stream_state", "model_params", "kv_cache"]
 
 _BACKENDS = {None: None, "auto": None, "pallas": "cuda",
              "pallas-interpret": "cuda", "cuda": "cuda", "jnp": "torch",
@@ -198,3 +202,32 @@ def stream_state(ref_stream, *, exec_spec: ExecSpec | None = None,
             num_clusters=int(last.num_clusters), rebuilt=bool(last.rebuilt),
             full_recompute=bool(last.full_recompute), tick=int(last.tick))
     return s
+
+
+def _weights(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of its own dtype; bf16 (ml_dtypes'
+    ``bfloat16``, what ``np.asarray`` gives for a jax bf16 array) through
+    its 16-bit pattern."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def model_params(cfg: ArchConfig, params: Mapping,
+                 device="cpu") -> TransformerParams:
+    """A dense-family model's weights from the reference's param pytree
+    (nested dicts of numpy arrays, ``params["layers"]`` stacked on axis
+    0), in the same shapes and dtypes."""
+    flat = {f"layers.{k}": _weights(a, device)
+            for k, a in params["layers"].items()}
+    flat.update({k: _weights(a, device) for k, a in params.items()
+                 if k != "layers"})
+    return TransformerParams(cfg, flat)
+
+
+def kv_cache(cache, device="cpu") -> KVCache:
+    """The port's ``KVCache`` from the reference's (its ``k`` and ``v``
+    as numpy arrays)."""
+    return KVCache(k=_weights(cache.k, device), v=_weights(cache.v, device))

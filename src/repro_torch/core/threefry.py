@@ -1,7 +1,9 @@
-"""The part of ``jax.random`` the paper's baselines draw with, in torch.
+"""The part of ``jax.random`` the port draws with, in torch.
 
 LSH-DDP draws its projections with ``normal`` and its offsets with
-``uniform``; CFSFDP-A its k-means pivots with ``choice(replace=False)``.
+``uniform``; CFSFDP-A its k-means pivots with ``choice(replace=False)``;
+DPC-KV its projection with ``normal``; the serving engine samples with
+``categorical`` (the gumbel-max trick over ``gumbel``).
 The same integer seed gives the same draws here as in the JAX package,
 bit for bit, so the two packages' baselines partition the same points the
 same way.
@@ -30,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["prng_key", "split", "random_bits", "uniform", "normal",
-           "permutation", "choice", "erf_inv", "log1p", "div_f32"]
+           "gumbel", "categorical", "permutation", "choice", "erf_inv",
+           "log1p", "div_f32"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -104,6 +107,23 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return erf_inv(u) * float(np.float32(math.sqrt(2.0)))
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default ``"low"``
+    mode: -log(-log(u)) of u uniform in [tiny, 1), through XLA's f32
+    ``log``."""
+    u = uniform(key, shape, _FLT_MIN, 1.0)
+    return -_log(-_log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                axis: int = -1) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis)`` (with replacement,
+    default shape): the argmax of f32 gumbel noise plus the logits, the
+    first index among equal values; int64."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=axis)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

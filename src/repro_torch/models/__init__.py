@@ -1,0 +1,6 @@
+"""Model zoo: the dense, vlm and encoder families in PyTorch (the port of
+``repro.models``)."""
+from .common import ArchConfig
+from .model_api import Model, build_model
+
+__all__ = ["ArchConfig", "build_model", "Model"]

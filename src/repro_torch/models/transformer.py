@@ -1,0 +1,276 @@
+"""Dense transformer family, serving half: the port of
+``repro/models/transformer.py`` for gemma-2b, granite-8b, phi3-mini,
+h2o-danube (causal LMs), hubert-xlarge (bidirectional encoder) and
+paligemma-3b (prefix-LM VLM backbone).  One implementation, configured by
+``ArchConfig``.
+
+Parameters are a ``TransformerParams`` module whose state has the
+reference's pytree shapes and dtypes, layers stacked on axis 0
+(``layers.wq`` is (L, d, H, hd)), so ``repro_torch.carry.model_params``
+moves the reference's weights across unchanged.  Layers run in a Python
+loop, eagerly, over views of the stacked tensors; the KV cache is written
+in place.  Every cast of the reference is kept where it is (the
+``embed_scale`` factor rounded to the dtype before the multiply, logits
+cast to f32 after the bf16 product, then softcapped); left-pad tokens are
+attended as real tokens, as there.  Training (``loss_fn``,
+``chunked_ce_loss``, ``shifted_labels``) waits for ROADMAP item 10c.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from .attention import KVCache, attention, out_project, qkv_project, seq_update
+from .common import (ArchConfig, dense_init, embed_init, glu_ffn, rms_norm,
+                     softcap)
+
+__all__ = ["TransformerParams", "init_params", "param_shapes", "forward",
+           "embed_tokens", "logits_at", "init_cache", "decode_step",
+           "prefill_embedded", "prefill", "vlm_prefill", "encode_step"]
+
+LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_in", "w_out")
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """Name -> shape of every tensor, as the reference's pytree holds it
+    (``layers.*`` stacked on a leading axis of ``n_layers``)."""
+    d, H, K, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    L = cfg.n_layers
+    shapes = {"embed": (cfg.vocab, d), "final_norm": (d,)}
+    shapes.update({f"layers.{k}": (L, *s) for k, s in (
+        ("ln1", (d,)), ("wq", (d, H, hd)), ("wk", (d, K, hd)),
+        ("wv", (d, K, hd)), ("wo", (H, hd, d)), ("ln2", (d,)),
+        ("w_in", (d, 2, ff)), ("w_out", (ff, d)))})
+    if not cfg.tie_embeddings:
+        shapes["unembed"] = (d, cfg.vocab)
+    if cfg.frontend_dim:
+        shapes["frontend"] = (cfg.frontend_dim, d)
+    return shapes
+
+
+class TransformerParams(nn.Module):
+    """The weights of one dense-family model, frozen (no grad).
+
+    ``embed`` (V, d), ``final_norm`` (d,), optional ``unembed`` (d, V) and
+    ``frontend`` (frontend_dim, d), and ``layers`` holding each of
+    ``LAYER_KEYS`` stacked over the layers.  Built from a name -> tensor
+    dict whose names are ``param_shapes``'s."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict):
+        super().__init__()
+        want = param_shapes(cfg)
+        if set(tensors) != set(want):
+            raise ValueError(f"{cfg.name}: tensors {sorted(tensors)}, "
+                             f"expected {sorted(want)}")
+        for name, shape in want.items():
+            t = tensors[name]
+            if tuple(t.shape) != shape or t.dtype != cfg.dtype:
+                raise ValueError(f"{cfg.name}: {name} is {tuple(t.shape)} "
+                                 f"{t.dtype}, expected {shape} {cfg.dtype}")
+        self.cfg = cfg
+        self.layers = nn.ParameterDict({
+            k: nn.Parameter(tensors[f"layers.{k}"], requires_grad=False)
+            for k in LAYER_KEYS})
+        for name in want:
+            if not name.startswith("layers."):
+                setattr(self, name, nn.Parameter(tensors[name],
+                                                 requires_grad=False))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def layer(self, i: int) -> dict:
+        """Layer ``i``'s tensors: views into the stacks."""
+        return {k: self.layers[k][i] for k in LAYER_KEYS}
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
+                generator: torch.Generator | None = None
+                ) -> TransformerParams:
+    """Random weights as the reference initializes them (norm gains 0,
+    truncated normals scaled by 1/sqrt(fan_in), the embedding unscaled),
+    drawn from ``generator`` or a generator seeded with ``seed``, on the
+    card unless ``device`` says otherwise.  The draws are torch's, not
+    jax.random's: carry the reference's weights with
+    ``carry.model_params`` to compare the two."""
+    if generator is None:
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    else:
+        dev = generator.device if device is None else resolve_device(device)
+    g, dt, L = generator, cfg.dtype, cfg.n_layers
+    shapes = param_shapes(cfg)
+    t = {"embed": embed_init(g, shapes["embed"], dt, device=dev),
+         "final_norm": torch.zeros(shapes["final_norm"], dtype=dt,
+                                   device=dev)}
+    for k in LAYER_KEYS:
+        t[f"layers.{k}"] = torch.zeros(shapes[f"layers.{k}"], dtype=dt,
+                                       device=dev)
+    for i in range(L):          # one layer's draws at a time: small temps
+        for k in ("wq", "wk", "wv", "wo", "w_in", "w_out"):
+            t[f"layers.{k}"][i] = dense_init(
+                g, shapes[f"layers.{k}"][1:], dt, device=dev)
+    if not cfg.tie_embeddings:
+        t["unembed"] = dense_init(g, shapes["unembed"], dt, device=dev)
+    if cfg.frontend_dim:
+        t["frontend"] = dense_init(g, shapes["frontend"], dt, device=dev)
+    return TransformerParams(cfg, t)
+
+
+# ------------------------------------------------------------------ forward
+def _block(x, lp: dict, cfg: ArchConfig, positions, prefix_len=None,
+           q_chunk: int = 512):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = qkv_project(h, lp["wq"], lp["wk"], lp["wv"], cfg, positions)
+    o = attention(q, k, v, positions, positions, cfg, causal=cfg.is_causal,
+                  window=cfg.sliding_window, prefix_len=prefix_len,
+                  q_chunk=q_chunk)
+    x = x + out_project(o, lp["wo"])
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + glu_ffn(h, lp["w_in"], lp["w_out"], cfg.activation)
+
+
+def forward(params: TransformerParams, x, cfg: ArchConfig, positions,
+            prefix_len=None, q_chunk: int = 512):
+    """x: (B, L, d) embedded input -> final hidden states (B, L, d)."""
+    for i in range(cfg.n_layers):
+        x = _block(x, params.layer(i), cfg, positions, prefix_len, q_chunk)
+    return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def embed_tokens(params: TransformerParams, tokens, cfg: ArchConfig):
+    x = params.embed[tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
+                             device=x.device)
+    return x
+
+
+def _unembed_matrix(params: TransformerParams, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        return params.embed.T          # (d, V)
+    return params.unembed
+
+
+def logits_at(params: TransformerParams, h, cfg: ArchConfig):
+    """h (..., d) -> f32 logits (..., V): the product in the weights'
+    dtype, then cast to f32, then softcapped."""
+    logits = torch.matmul(h, _unembed_matrix(params, cfg))
+    return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------- serving
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device=None) -> KVCache:
+    """Zeros (L, B, S, K, hd) in the config's dtype, S = max_len or the
+    sliding window; on the card unless ``device`` says otherwise."""
+    S = max_len if cfg.sliding_window is None else min(max_len,
+                                                       cfg.sliding_window)
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev))
+
+
+def decode_step(params: TransformerParams, cache: KVCache, tokens, pos: int,
+                cfg: ArchConfig):
+    """One decode step: tokens (B, 1) at absolute position ``pos``.
+
+    Writes the new keys and values into ``cache`` in place and returns
+    (f32 logits (B, V), cache).  With a sliding window the cache is a ring
+    buffer of size window and the write slot is pos % window.
+    """
+    B = tokens.shape[0]
+    dev = cache.k.device
+    pos = int(pos)
+    x = embed_tokens(params, tokens, cfg)
+    S = cache.k.shape[2]
+    slot = pos if cfg.sliding_window is None else pos % S
+    q_pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    idx = torch.arange(S, dtype=torch.int32, device=dev)
+    if cfg.sliding_window is None:
+        k_pos = idx
+    else:
+        # ring buffer: absolute position of slot s given write head at slot
+        k_pos = torch.where(idx <= slot, pos - slot + idx,
+                            pos - slot - S + idx)
+    k_valid = ((k_pos >= 0) & (k_pos <= pos)).expand(B, S)
+    h = x
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q, k_new, v_new = qkv_project(hn, lp["wq"], lp["wk"], lp["wv"], cfg,
+                                      q_pos)
+        kc = seq_update(cache.k[i], k_new, slot)
+        vc = seq_update(cache.v[i], v_new, slot)
+        o = attention(q, kc, vc, q_pos, k_pos, cfg, causal=True,
+                      window=cfg.sliding_window, k_valid=k_valid)
+        h = h + out_project(o, lp["wo"])
+        hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + glu_ffn(hn, lp["w_in"], lp["w_out"], cfg.activation)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return logits_at(params, h[:, -1, :], cfg), cache
+
+
+def prefill_embedded(params: TransformerParams, x, cfg: ArchConfig,
+                     cache: KVCache, prefix_len=None, q_chunk: int = 512):
+    """Prompt pass over pre-embedded inputs x (B, L, d): returns
+    last-position f32 logits (B, V) and the cache, filled in place (the
+    last S of each layer's keys and values written from slot 0).
+
+    Full-sequence logits are never materialized: serving only needs the
+    last position.
+    """
+    L = x.shape[1]
+    positions = torch.arange(L, dtype=torch.int32, device=x.device)
+    S = cache.k.shape[2]
+    h = x
+    for i in range(cfg.n_layers):
+        lp = params.layer(i)
+        hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+        q, k_new, v_new = qkv_project(hn, lp["wq"], lp["wk"], lp["wv"], cfg,
+                                      positions)
+        o = attention(q, k_new, v_new, positions, positions, cfg,
+                      causal=True, window=cfg.sliding_window,
+                      prefix_len=prefix_len, q_chunk=q_chunk)
+        h = h + out_project(o, lp["wo"])
+        hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + glu_ffn(hn, lp["w_in"], lp["w_out"], cfg.activation)
+        seq_update(cache.k[i], k_new[:, -S:], 0)
+        seq_update(cache.v[i], v_new[:, -S:], 0)
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    return logits_at(params, h[:, -1, :], cfg), cache
+
+
+def prefill(params: TransformerParams, tokens, cfg: ArchConfig,
+            cache: KVCache, q_chunk: int = 512):
+    """Token-prompt prefill (dense LMs)."""
+    x = embed_tokens(params, tokens, cfg)
+    return prefill_embedded(params, x, cfg, cache, q_chunk=q_chunk)
+
+
+def vlm_prefill(params: TransformerParams, batch: dict, cfg: ArchConfig,
+                cache: KVCache, q_chunk: int = 512):
+    """VLM prompt pass: image patches (stub frontend) + text tokens, the
+    patches a bidirectional prefix."""
+    patches = batch["patches"].to(cfg.dtype)
+    img = torch.einsum("bpf,fd->bpd", patches, params.frontend)
+    tok = embed_tokens(params, batch["tokens"], cfg)
+    x = torch.cat([img, tok], dim=1)
+    return prefill_embedded(params, x, cfg, cache,
+                            prefix_len=cfg.num_patches, q_chunk=q_chunk)
+
+
+def encode_step(params: TransformerParams, batch: dict, cfg: ArchConfig,
+                q_chunk: int = 512):
+    """Encoder serving (hubert): frame features -> per-frame f32 unit
+    logits (B, L, V)."""
+    feats = batch["features"].to(cfg.dtype)
+    x = torch.einsum("blf,fd->bld", feats, params.frontend)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    h = forward(params, x, cfg, positions, q_chunk=q_chunk)
+    return logits_at(params, h, cfg)

@@ -96,3 +96,28 @@ def assert_same_fit(port, ref, pts, dc, band_margin):
                                   np.asarray(jr.parent))
     np.testing.assert_allclose(np.asarray(tr.delta), np.asarray(jr.delta),
                                rtol=1e-6)
+
+
+def ref_model_params(rc, seed: int):
+    """The reference model's param pytree for config ``rc`` (its names,
+    shapes and dtypes, from ``jax.eval_shape`` of its init) filled from a
+    numpy seed: weights scaled by 1/sqrt(their first per-layer axis), the
+    embedding unscaled, norm gains small and nonzero.  The port takes the
+    same weights through ``repro_torch.carry.model_params``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import build_model
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(build_model(rc).init, jax.random.PRNGKey(0))
+
+    def draw(path, s):
+        name = jax.tree_util.keystr(path)
+        a = rng.normal(size=s.shape).astype(np.float32)
+        if "ln" in name or "norm" in name:
+            a *= 0.1
+        elif "embed']" not in name or "unembed" in name:
+            a /= np.sqrt(s.shape[1] if "layers" in name else s.shape[0])
+        return jnp.asarray(a).astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
