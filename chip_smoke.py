@@ -319,6 +319,24 @@ Phases, each of which raises on failure (nothing is caught):
    gemma-2b's full width cut to 2 layers in f32: its prefill logits on the
    card within 1e-3 of the largest |logit| of the CPU's on the same
    weights, TF32 off.
+29. Serving the moe, ssm and hybrid families at full width in bf16 with
+   phase 28's traffic (random weights from a seeded generator on the
+   card; each model freed before the next): granite-moe-3b-a800m (32
+   layers, d_model 1536, 40 experts padded to 48, top-8), mamba2-130m (24
+   layers, state 128, chunk 256), recurrentgemma-9b (38 layers = 12 x
+   (rec, rec, attn) + 2 rec, d_model 4096, window 2048) and
+   qwen3-moe-30b-a3b cut to 12 of its 48 layers (128 experts, head_dim
+   128): parameters, init, prefill and decode times from a traced
+   ``generate`` that launches no kernel of the port, a second engine's
+   greedy tokens equal, the MoE prefill's share of top-k assignments
+   dropped past capacity per layer, the cache's shapes, the peak device
+   memory.  On granite-moe's prompt cache ``compress_prompt_cache`` with
+   budget 64 as phase 28 runs it: 32 x 8 x 8 = 2,048 launches each of K4
+   and K2 (counted; nothing else), every one bit for bit against its
+   plain version, timed with their bounds, the ``torch`` route equal off
+   the band.  Per family its full width cut to 2 layers in f32 (the
+   hybrid 3, one superblock; the ssm's prompt 256, a chunk), prefill
+   logits on the card within 1e-3 of the largest |logit| of the CPU's.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -425,6 +443,16 @@ SERVE_NEW = 32                   # new tokens
 SERVE_BUDGET = 64                # and DPC-KV's kept pairs a head
 SERVE_CHECK_LAYERS = 2           # the f32 card-vs-CPU check's depth
 SERVE_CHECK_PROMPT = 64          # and its prompt length
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "mamba2-130m", "recurrentgemma-9b",
+                "qwen3-moe-30b-a3b")   # phase 29: served at full width,
+FAMILY_DEPTH = {"qwen3-moe-30b-a3b": 12}  # qwen3-moe cut to 12 of 48 layers
+FAMILY_DPC_KV = "granite-moe-3b-a800m"    # DPC-KV on its prompt cache
+FAMILY_REPS = 3                  # timed runs of its compression, K4 and K2
+# per family, the f32 card-vs-CPU check's (layers, prompt): the ssm's
+# prompt a multiple of its chunk of 256, the hybrid's 3 layers one
+# (rec, rec, attn) superblock
+FAMILY_CHECK = {"granite-moe-3b-a800m": (2, 64), "mamba2-130m": (2, 256),
+                "recurrentgemma-9b": (3, 64)}
 
 
 def smi(fields: str) -> str:
@@ -3808,20 +3836,25 @@ def run_plan_layer(full_pts: np.ndarray, d_cut: float, want: dict,
     return out
 
 
-# ------------------------------------------------ serving (phase 28)
+# ------------------------------------------- serving (phases 28 and 29)
 def serve_band_heads(pts: torch.Tensor, d_cut: torch.Tensor,
-                     valid: torch.Tensor) -> torch.Tensor:
+                     valid: torch.Tensor, chunk: int = 64) -> torch.Tensor:
     """(H,) bool: the head has a pair of valid rows whose float64 d^2
     lies within 4 f32 ulp of d_cut^2 (where rounding may decide a
-    count)."""
-    x = pts.double()
-    d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
-    thr = (d_cut.float() ** 2).double()
-    ulp = (torch.nextafter(thr.float(), torch.tensor(
-        float("inf"), device=thr.device)).double() - thr)
-    near = (d2 - thr[:, None, None]).abs() <= 4 * ulp[:, None, None]
-    pair = valid[:, :, None] & valid[:, None, :]
-    return (near & pair).flatten(1).any(dim=1)
+    count).  ``chunk`` heads at a time bound the (chunk, S, S) float64
+    pair tensors."""
+    out = []
+    for h0 in range(0, pts.shape[0], chunk):
+        x = pts[h0:h0 + chunk].double()
+        d2 = ((x[:, :, None, :] - x[:, None, :, :]) ** 2).sum(-1)
+        thr = (d_cut[h0:h0 + chunk].float() ** 2).double()
+        ulp = (torch.nextafter(thr.float(), torch.tensor(
+            float("inf"), device=thr.device)).double() - thr)
+        near = (d2 - thr[:, None, None]).abs() <= 4 * ulp[:, None, None]
+        v = valid[h0:h0 + chunk]
+        out.append((near & v[:, :, None] & v[:, None, :]).flatten(1)
+                   .any(dim=1))
+    return torch.cat(out)
 
 
 def attention_errors(eng, comp, gen) -> dict:
@@ -3851,64 +3884,24 @@ def attention_errors(eng, comp, gen) -> dict:
     return {"dpc_kv": dpc, "random": rand}
 
 
-def run_serving(card: str) -> tuple[dict, dict]:
-    """Phase 28: ``ServeEngine`` on gemma-2b at full width in bf16 (random
-    weights from a seeded generator on the card), 8 prompts of 64-512
-    tokens, 32 new tokens, DPC-KV at budget 64 on the ``cuda`` route.
-    Returns the record and, for K4 and K2, their DPC-KV entries."""
+def compress_and_check(eng, kv, card: str, label: str,
+                       reps: int = REPS) -> tuple[dict, dict]:
+    """``compress_prompt_cache`` on an engine's prefilled 5-d cache,
+    counted (counts zeroed just before, read just after: K4 and K2 once
+    per (layer, sequence, kv-head), nothing else), every launch held bit
+    for bit against its plain version; K4, K2 (all calls, CUDA events)
+    and the compression timed with their bounds; the ``torch`` route on
+    the same cache equal in d_cut, rho, ordered centers and counts on
+    every head off the 4-ulp band; the attention error.  Returns the
+    record and, for K4 and K2, their entries at this shape."""
     from repro_torch import obs
-    from repro_torch.configs import ARCHS
     from repro_torch.engine.spec import ExecSpec
     from repro_torch.kernels import ops, sweep
-    from repro_torch.models import build_model
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serve import DPCKVConfig, ServeConfig, ServeEngine
+    from repro_torch.serve import DPCKVConfig
     from repro_torch.serve import dpc_kv
 
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert torch.get_float32_matmul_precision() == "highest"
-    dev = torch.device("cuda")
-    out: dict = {}
-    torch.cuda.reset_peak_memory_stats()
-    cfg = ARCHS[SERVE_ARCH]
-    model = build_model(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    (params, init_ms) = timed_once(lambda: model.init(generator=gen))
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, head_dim "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"{n_params:,} parameters in {cfg.dtype}, initialized on the card "
-          f"in {init_ms:.1f} ms", flush=True)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, SERVE_PROMPT + 1, SERVE_BATCH)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
-    kv = DPCKVConfig(budget=SERVE_BUDGET)
-    scfg = ServeConfig(batch=SERVE_BATCH, max_prompt=SERVE_PROMPT,
-                       max_new_tokens=SERVE_NEW, dpc_kv=kv)
-    eng = ServeEngine(model, params, scfg)
-    eng.generate(prompts)                                    # warm-up
-    obs.reset_spans()
-    obs.configure(level="trace")
-    try:
-        tokens = eng.generate(prompts)
-    finally:
-        obs.configure(level="off")
-    spans = {s["name"]: s for s in obs.spans()}
-    prefill_ms = 1e3 * spans["serve.prefill"]["host_s"]
-    decode_ms = 1e3 * spans["serve.decode"]["host_s"] / SERVE_NEW
-    assert tokens.shape == (SERVE_BATCH, SERVE_NEW), tokens.shape
-    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
-    again = ServeEngine(model, params, scfg).generate(prompts)
-    assert np.array_equal(again, tokens), "a second engine's greedy tokens"
-    print(f"served {SERVE_BATCH} prompts of {lens.tolist()} tokens (left-"
-          f"padded to {SERVE_PROMPT}), {SERVE_NEW} new tokens each: prefill "
-          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms per token "
-          f"(traced, fenced); a second engine on the same weights gave the "
-          f"same greedy tokens  ({card})", flush=True)
-
-    # the compression, counted: every K4 and K2 launch's inputs kept
+    cfg = eng.model.cfg
+    prompt = eng.cfg.max_prompt
     given: dict[str, list] = {"range_count": [], "masked_nn": []}
     k4_launch, k2_launch = ops.local_density_xy, ops.dependent_masked
 
@@ -3933,24 +3926,25 @@ def run_serving(card: str) -> tuple[dict, dict]:
     assert ran == {"range_count": H, "masked_nn": H}, ran
     assert all(len(given[k]) == H for k in given)
     k_c, v_c, counts = comp
-    M = SERVE_BUDGET
+    M = kv.budget
     assert k_c.shape == v_c.shape == (L, B, M, K, hd), k_c.shape
     assert counts.shape == (L, B, M, K)
     assert k_c.dtype == cfg.dtype and torch.isfinite(k_c.float()).all()
-    assert float(counts.max()) <= SERVE_PROMPT
-    assert (counts.sum(dim=2) <= SERVE_PROMPT).all()
+    assert float(counts.max()) <= prompt
+    assert (counts.sum(dim=2) <= prompt).all()
     assert (counts.sum(dim=2) > 0).all()
     errs = {"range_count": 0.0, "masked_nn": 0.0}
     for x, y, dc in given["range_count"]:
         want = sweep.range_count_plain(x, y, sweep.d2cut_of(dc)).float()
         errs["range_count"] = max(errs["range_count"], check_equal(
-            "range_count [DPC-KV]", [k4_launch(x, y, dc)], [want]))
+            f"range_count [DPC-KV, {label}]", [k4_launch(x, y, dc)],
+            [want]))
     for x, xk, y, yk in given["masked_nn"]:
         best, arg = sweep.masked_nn_plain(x, xk, y, yk)
         errs["masked_nn"] = max(errs["masked_nn"], check_equal(
-            "masked_nn [DPC-KV]", k2_launch(x, xk, y, yk),
+            f"masked_nn [DPC-KV, {label}]", k2_launch(x, xk, y, yk),
             [torch.sqrt(best), arg]))
-    comp_ms = time_ms(eng.compress_prompt_cache)
+    comp_ms = time_ms(eng.compress_prompt_cache, reps)
     kernels = {}
     for name, launch, plain in (
             ("range_count", k4_launch,
@@ -3958,7 +3952,7 @@ def run_serving(card: str) -> tuple[dict, dict]:
                  x, y, sweep.d2cut_of(dc))),
             ("masked_nn", k2_launch, sweep.masked_nn_plain)):
         calls = given[name]
-        ms = time_ms(lambda: [launch(*c) for c in calls])
+        ms = time_ms(lambda: [launch(*c) for c in calls], reps)
         _, plain_ms = timed_once(lambda: [plain(*c) for c in calls])
         work = [k4_work(c[0].shape[0], c[1].shape[0], c[0].shape[1])
                 if name == "range_count" else k2_work(c[1], c[3], c[0].shape[1])
@@ -3970,11 +3964,12 @@ def run_serving(card: str) -> tuple[dict, dict]:
                          "max_abs_err": errs[name], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": by, "library_ms": None}
-        print(f"{name} at DPC-KV's shape, {kernels[name]['shape']}: "
-              f"{ran[name]} launches, {ms:.3f} ms for all (CUDA events, "
-              f"median of {REPS}; {1e3 * ms / H:.2f} us a launch), bound "
-              f"{b_ms:.4f} ms ({by}), plain {plain_ms:.1f} ms; every "
-              f"launch == plain, bit for bit  ({card})", flush=True)
+        print(f"{name} at DPC-KV's shape on {label}, "
+              f"{kernels[name]['shape']}: {ran[name]} launches, {ms:.3f} ms "
+              f"for all (CUDA events, median of {reps}; "
+              f"{1e3 * ms / H:.2f} us a launch), bound {b_ms:.4f} ms "
+              f"({by}), plain {plain_ms:.1f} ms; every launch == plain, bit "
+              f"for bit  ({card})", flush=True)
     obs.reset_spans()
     obs.configure(level="trace")
     try:
@@ -3984,22 +3979,18 @@ def run_serving(card: str) -> tuple[dict, dict]:
     sp = [s for s in obs.spans() if s["name"] == "serve.compress"][-1]
     assert sp["attrs"]["heads"] == H and sp["attrs"]["launches"] == 2 * H, \
         sp["attrs"]
-    print(f"compress_prompt_cache: {comp_ms:.2f} ms (CUDA events, median of "
-          f"{REPS}; the counted one {comp_once_ms:.2f}); {H} heads of "
-          f"{SERVE_PROMPT} rows, budget {M}: k_c/v_c {tuple(k_c.shape)}, "
-          f"counts at most {int(counts.max())}; traced span "
+    print(f"compress_prompt_cache on {label}: {comp_ms:.2f} ms (CUDA events, "
+          f"median of {reps}; the counted one {comp_once_ms:.2f}); {H} heads "
+          f"of {prompt} rows, budget {M}: k_c/v_c {tuple(k_c.shape)}, counts "
+          f"at most {int(counts.max())}; traced span "
           f"{1e3 * sp['host_s']:.2f} ms, attrs {sp['attrs']}", flush=True)
 
     # the same card cache through the torch route: equal off the band
-    kh, valid = dpc_kv._heads(eng.cache.k.reshape(L * B, S, K, hd),
-                              SERVE_PROMPT)
+    kh, valid = dpc_kv._heads(eng.cache.k.reshape(L * B, S, K, hd), prompt)
     cu = dpc_kv._cluster_heads(kh, valid, kv)
     kv_t = DPCKVConfig(budget=M, exec_spec=ExecSpec(backend="torch"))
     ops.reset_launch_counts()
     tr = dpc_kv._cluster_heads(kh, valid, kv_t)
-    comp_t = dpc_kv.compress_kv(eng.cache.k.reshape(L * B, S, K, hd),
-                                eng.cache.v.reshape(L * B, S, K, hd),
-                                SERVE_PROMPT, kv_t)
     assert not any(ops.launch_counts().values()), "the torch route launched"
     band = serve_band_heads(cu["pts"], cu["d_cut"], valid)
     off = ~band
@@ -4008,58 +3999,250 @@ def run_serving(card: str) -> tuple[dict, dict]:
     assert torch.equal(cu["rho"][rows], tr["rho"][rows])
     assert torch.equal(cu["centers"][off], tr["centers"][off])
     c_cu = counts.reshape(L * B, M, K).permute(0, 2, 1).reshape(H, M)
-    c_tr = comp_t[2].permute(0, 2, 1).reshape(H, M)
+    c_tr = torch.zeros((H, M + 1), device=c_cu.device).scatter_add_(
+        1, tr["member_slot"], torch.ones_like(tr["member_slot"],
+                                              dtype=torch.float32))[:, :M]
     assert torch.equal(c_cu[off], c_tr[off])
-    print(f"the torch route on the same card cache: d_cut equal, rho, "
-          f"centers (ordered) and counts equal on the {int(off.sum())} of "
-          f"{H} heads off the 4-ulp band around d_cut^2 ({int(band.sum())} "
-          f"in it); no kernel launched", flush=True)
+    print(f"the torch route on the same card cache ({label}): d_cut equal, "
+          f"rho, centers (ordered) and counts equal on the {int(off.sum())} "
+          f"of {H} heads off the 4-ulp band around d_cut^2 "
+          f"({int(band.sum())} in it); no kernel launched", flush=True)
     att = attention_errors(eng, comp, np.random.default_rng(1))
-    print(f"attention over the compressed cache against the full one, "
-          f"relative error per layer (seeded query; reported, not gated): "
-          f"DPC-KV mean {statistics.mean(att['dpc_kv']):.4f} "
+    print(f"attention over the compressed cache against the full one "
+          f"({label}), relative error per layer (seeded query; reported, not "
+          f"gated): DPC-KV mean {statistics.mean(att['dpc_kv']):.4f} "
           f"[{min(att['dpc_kv']):.4f}, {max(att['dpc_kv']):.4f}], random "
           f"eviction at the same budget mean "
           f"{statistics.mean(att['random']):.4f} [{min(att['random']):.4f}, "
           f"{max(att['random']):.4f}]", flush=True)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"serving peak device memory {peak:.3f} GB", flush=True)
-    out.update(arch=SERVE_ARCH, params=n_params, init_ms=init_ms,
-               prompt_lens=lens.tolist(), prefill_ms=prefill_ms,
-               decode_ms_per_token=decode_ms, compress_ms=comp_ms,
-               compress_counted_ms=comp_once_ms, heads=H,
-               band_heads=int(band.sum()), attention_error=att,
-               peak_gb=peak, kernels=kernels)
-    del eng, comp, comp_t, cu, tr, kh, given, params
-    torch.cuda.empty_cache()
+    return {"compress_ms": comp_ms, "compress_counted_ms": comp_once_ms,
+            "heads": H, "band_heads": int(band.sum()),
+            "attention_error": att, "kernels": kernels}, kernels
 
-    # gemma-2b's full width at 2 layers in f32: the card against the CPU
-    cfg2 = cfg.replace(n_layers=SERVE_CHECK_LAYERS, dtype=torch.float32)
-    gen.manual_seed(1)
-    p2 = build_model(cfg2).init(generator=gen)
+
+def f32_card_check(cfg, layers: int, prompt: int, gen, card: str) -> dict:
+    """``cfg``'s full width cut to ``layers`` layers in f32, weights from
+    ``gen`` on the card: its prefill logits on the card within 1e-3 of
+    the largest |logit| of the CPU's on the same weights, TF32 off."""
+    from repro_torch.models import build_model
+
+    cfg2 = cfg.replace(n_layers=layers, dtype=torch.float32)
+    model = build_model(cfg2)
+    p2 = model.init(generator=gen)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab, (2, SERVE_CHECK_PROMPT)))
+        0, cfg.vocab, (2, prompt)))
     with torch.inference_mode():
-        got, _ = tfm.prefill(p2, toks.to(dev), cfg2,
-                             tfm.init_cache(cfg2, 2, SERVE_CHECK_PROMPT))
-        p_cpu = tfm.TransformerParams(cfg2, {k: v.cpu() for k, v in
-                                             p2.state_dict().items()})
-        want, _ = tfm.prefill(p_cpu, toks, cfg2,
-                              tfm.init_cache(cfg2, 2, SERVE_CHECK_PROMPT,
-                                             device="cpu"))
+        got, _ = model.prefill(p2, {"tokens": toks.to(p2.device)},
+                               model.init_cache(2, prompt))
+        p_cpu = type(p2)(cfg2, {k: v.cpu() for k, v in
+                                p2.state_dict().items()})
+        want, _ = model.prefill(p_cpu, {"tokens": toks},
+                                model.init_cache(2, prompt, device="cpu"))
     got = got.cpu()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     assert torch.isfinite(got).all() and got.shape == (2, cfg.vocab)
-    assert err <= 1e-3 * scale, (err, scale)
-    print(f"{SERVE_ARCH} at full width, {SERVE_CHECK_LAYERS} layers, f32, "
-          f"batch 2, {SERVE_CHECK_PROMPT}-token prompts: prefill logits on "
-          f"the card against the CPU on the same weights, max |diff| "
-          f"{err:.3e} against 1e-3 x max |logit| = {1e-3 * scale:.3e} (TF32 "
-          f"off)", flush=True)
-    out.update(f32_check={"max_abs_diff": err, "max_abs_logit": scale})
+    assert err <= 1e-3 * scale, (cfg.name, err, scale)
+    print(f"{cfg.name} at full width, {layers} layers, f32, batch 2, "
+          f"{prompt}-token prompts: prefill logits on the card against the "
+          f"CPU on the same weights, max |diff| {err:.3e} against 1e-3 x max "
+          f"|logit| = {1e-3 * scale:.3e} (TF32 off)  ({card})", flush=True)
     del p2, p_cpu
     torch.cuda.empty_cache()
+    return {"layers": layers, "prompt": prompt, "max_abs_diff": err,
+            "max_abs_logit": scale}
+
+
+def serve_prompts(vocab: int) -> tuple[np.ndarray, list]:
+    """Phases 28 and 29's traffic: SERVE_BATCH prompts of 64 to
+    SERVE_PROMPT tokens (numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, SERVE_PROMPT + 1, SERVE_BATCH)
+    return lens, [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def run_serving(card: str) -> tuple[dict, dict]:
+    """Phase 28: ``ServeEngine`` on gemma-2b at full width in bf16 (random
+    weights from a seeded generator on the card), 8 prompts of 64-512
+    tokens, 32 new tokens, DPC-KV at budget 64 on the ``cuda`` route.
+    Returns the record and, for K4 and K2, their DPC-KV entries."""
+    from repro_torch import obs
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serve import DPCKVConfig, ServeConfig, ServeEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    dev = torch.device("cuda")
+    out: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[SERVE_ARCH]
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    (params, init_ms) = timed_once(lambda: model.init(generator=gen))
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"{SERVE_ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, kv {cfg.n_kv_heads}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{n_params:,} parameters in {cfg.dtype}, initialized on the card "
+          f"in {init_ms:.1f} ms", flush=True)
+    lens, prompts = serve_prompts(cfg.vocab)
+    kv = DPCKVConfig(budget=SERVE_BUDGET)
+    scfg = ServeConfig(batch=SERVE_BATCH, max_prompt=SERVE_PROMPT,
+                       max_new_tokens=SERVE_NEW, dpc_kv=kv)
+    eng = ServeEngine(model, params, scfg)
+    eng.generate(prompts)                                    # warm-up
+    obs.reset_spans()
+    obs.configure(level="trace")
+    try:
+        tokens = eng.generate(prompts)
+    finally:
+        obs.configure(level="off")
+    spans = {s["name"]: s for s in obs.spans()}
+    prefill_ms = 1e3 * spans["serve.prefill"]["host_s"]
+    decode_ms = 1e3 * spans["serve.decode"]["host_s"] / SERVE_NEW
+    assert tokens.shape == (SERVE_BATCH, SERVE_NEW), tokens.shape
+    assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+    again = ServeEngine(model, params, scfg).generate(prompts)
+    assert np.array_equal(again, tokens), "a second engine's greedy tokens"
+    print(f"served {SERVE_BATCH} prompts of {lens.tolist()} tokens (left-"
+          f"padded to {SERVE_PROMPT}), {SERVE_NEW} new tokens each: prefill "
+          f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms per token "
+          f"(traced, fenced); a second engine on the same weights gave the "
+          f"same greedy tokens  ({card})", flush=True)
+    comp, kernels = compress_and_check(eng, kv, card, SERVE_ARCH)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serving peak device memory {peak:.3f} GB", flush=True)
+    out.update(arch=SERVE_ARCH, params=n_params, init_ms=init_ms,
+               prompt_lens=lens.tolist(), prefill_ms=prefill_ms,
+               decode_ms_per_token=decode_ms, peak_gb=peak, **comp)
+    del eng, params
+    torch.cuda.empty_cache()
+    # gemma-2b's full width at 2 layers in f32: the card against the CPU
+    gen.manual_seed(1)
+    out["f32_check"] = f32_card_check(cfg, SERVE_CHECK_LAYERS,
+                                      SERVE_CHECK_PROMPT, gen, card)
+    return out, kernels
+
+
+def prefill_drops(moe_mod, tokens: int, shares: list):
+    """A stand-in for ``moe.moe_ffn`` that appends, for each call over
+    ``tokens`` tokens (the prefill's), the share of its top-k assignments
+    that fall past their expert's capacity, then calls the real one."""
+    real = moe_mod.moe_ffn
+
+    def counted(x, lp, cfg):
+        T = x.shape[0] * x.shape[1]
+        if T == tokens:
+            probs = torch.softmax(x.reshape(T, -1).float() @ lp["router"],
+                                  dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[:, :cfg.top_k]
+            per = torch.bincount(top.flatten(), minlength=cfg.n_experts)
+            over = torch.clamp_min(per - moe_mod.capacity(cfg, T), 0)
+            shares.append(float(over.sum()) / (T * cfg.top_k))
+        return real(x, lp, cfg)
+    return counted
+
+
+def run_serving_families(card: str) -> tuple[dict, dict]:
+    """Phase 29: ``ServeEngine`` on the moe, ssm and hybrid families at
+    full width in bf16 (random weights from a seeded generator on the
+    card), phase 28's traffic; DPC-KV on granite-moe's cache.  Returns the
+    record and, for K4 and K2, their entries at granite-moe's shape."""
+    from repro_torch import obs
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import DPCKVConfig, ServeConfig, ServeEngine
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dev = torch.device("cuda")
+    out: dict = {}
+    kernels: dict = {}
+    for arch in FAMILY_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ARCHS[arch]
+        cut = {}
+        if arch in FAMILY_DEPTH:
+            cut = {"n_layers": f"{FAMILY_DEPTH[arch]} of {cfg.n_layers}"}
+            cfg = cfg.replace(n_layers=FAMILY_DEPTH[arch])
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params, init_ms = timed_once(lambda: model.init(generator=gen))
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"{arch} [{cfg.family}]: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, vocab {cfg.vocab}, {n_params:,} parameters "
+              f"in {cfg.dtype}, initialized on the card in {init_ms:.1f} ms"
+              f"{'; cut: ' + str(cut) if cut else ''}", flush=True)
+        lens, prompts = serve_prompts(cfg.vocab)
+        kv = DPCKVConfig(budget=SERVE_BUDGET) if arch == FAMILY_DPC_KV \
+            else None
+        scfg = ServeConfig(batch=SERVE_BATCH, max_prompt=SERVE_PROMPT,
+                           max_new_tokens=SERVE_NEW, dpc_kv=kv)
+        eng = ServeEngine(model, params, scfg)
+        eng.generate(prompts)                                # warm-up
+        ops.reset_launch_counts()
+        obs.reset_spans()
+        obs.configure(level="trace")
+        try:
+            tokens = eng.generate(prompts)
+        finally:
+            obs.configure(level="off")
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+        spans = {s["name"]: s for s in obs.spans()}
+        prefill_ms = 1e3 * spans["serve.prefill"]["host_s"]
+        decode_ms = 1e3 * spans["serve.decode"]["host_s"] / SERVE_NEW
+        assert tokens.shape == (SERVE_BATCH, SERVE_NEW), tokens.shape
+        assert ((tokens >= 0) & (tokens < cfg.vocab)).all()
+        drops: list = []
+        if cfg.family == "moe":
+            real = moe.moe_ffn
+            moe.moe_ffn = prefill_drops(moe, SERVE_BATCH * SERVE_PROMPT,
+                                        drops)
+        try:
+            again = ServeEngine(model, params, scfg).generate(prompts)
+        finally:
+            if cfg.family == "moe":
+                moe.moe_ffn = real
+        assert np.array_equal(again, tokens), \
+            f"{arch}: a second engine's greedy tokens"
+        rec = {"family": cfg.family, "layers": cfg.n_layers, "cut": cut,
+               "params": n_params, "init_ms": init_ms,
+               "prompt_lens": lens.tolist(), "prefill_ms": prefill_ms,
+               "decode_ms_per_token": decode_ms,
+               "cache": {k: list(v.shape) for k, v in
+                         (eng.cache._asdict() if hasattr(eng.cache, "_asdict")
+                          else eng.cache).items()}}
+        print(f"{arch}: served {SERVE_BATCH} prompts (left-padded to "
+              f"{SERVE_PROMPT}), {SERVE_NEW} new tokens each: prefill "
+              f"{prefill_ms:.2f} ms, decode {decode_ms:.3f} ms per token "
+              f"(traced, fenced); no kernel of the port launched; a second "
+              f"engine gave the same greedy tokens; cache {rec['cache']}  "
+              f"({card})", flush=True)
+        if drops:
+            assert len(drops) == cfg.n_layers, len(drops)
+            rec["prefill_drop_share"] = drops
+            print(f"{arch}: share of the prefill's top-{cfg.top_k} "
+                  f"assignments dropped past capacity "
+                  f"{moe.capacity(cfg, SERVE_BATCH * SERVE_PROMPT)}, per "
+                  f"layer: {[round(d, 4) for d in drops]}", flush=True)
+        if kv is not None:
+            rec["dpc_kv"], kernels = compress_and_check(
+                eng, kv, card, arch, reps=FAMILY_REPS)
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{arch}: serving peak device memory {rec['peak_gb']:.3f} GB",
+              flush=True)
+        del eng, params
+        torch.cuda.empty_cache()
+        if arch in FAMILY_CHECK:
+            gen.manual_seed(1)
+            rec["f32_check"] = f32_card_check(ARCHS[arch],
+                                              *FAMILY_CHECK[arch], gen, card)
+        out[arch] = rec
     return out, kernels
 
 
@@ -5505,6 +5688,11 @@ def main() -> int:
     stamp(28)
     torch.cuda.empty_cache()
     record["serving"], serve_kernels = run_serving(card)
+
+    # -------- 29. serving the moe, ssm and hybrid families, DPC-KV on moe
+    stamp(29)
+    torch.cuda.empty_cache()
+    record["serving_families"], family_kernels = run_serving_families(card)
     wrong = [(a, b) for a, b in plans_made
              if b != (a if a not in (None, "auto") else "cuda")]
     assert not wrong, f"plans resolved to another backend: {wrong}"
@@ -5581,11 +5769,13 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None})
-    for entry in kernels:           # phase 28: DPC-KV's shape of K4 and K2
+    for entry in kernels:   # phases 28 and 29: DPC-KV's shapes of K4 and K2
         if entry["name"] in serve_kernels:
-            entry["dpc_kv"] = serve_kernels[entry["name"]]
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       entry["dpc_kv"]["max_abs_err"])
+            entry["dpc_kv"] = {SERVE_ARCH: serve_kernels[entry["name"]],
+                               FAMILY_DPC_KV: family_kernels[entry["name"]]}
+            entry["max_abs_err"] = max(
+                [entry["max_abs_err"]] + [k["max_abs_err"] for k in
+                                          entry["dpc_kv"].values()])
     record.update(streams=streams, stream_check_shapes=stream_check,
                   sapprox_check_shapes=sapprox_check,
                   dist_check_shapes=dist_check)

@@ -3,7 +3,8 @@
 DPC has no weights: its state is the point table, the execution spec, the
 distributed configuration, the block-sparse worklists, the intermediate
 results and a live stream; the serving path adds a language model's
-weights and its KV cache.  These
+weights and its cache (a KV cache, or the ssm and hybrid families' dict
+of recurrent state).  These
 functions take that state as numpy arrays and plain dicts — what
 ``np.asarray`` and ``dataclasses.asdict`` give for the reference's objects
 — and build the port's counterparts, so one stage's reference output can
@@ -26,15 +27,17 @@ from .core.labels import Clustering
 from .distributed.dpc import DistDPCConfig
 from .engine.spec import ExecSpec
 from .kernels.blocksparse import Worklist
+from .models import moe, rglru, ssm
 from .models.attention import KVCache
-from .models.common import ArchConfig
+from .models.common import ArchConfig, StackedParams
 from .models.transformer import TransformerParams
 from .stream.incremental import IncrementalGrid
 from .stream.stream_dpc import StreamDPC, StreamDPCConfig, StreamTick
 from .stream.window import SlidingWindow
 
 __all__ = ["dpc_result", "grid", "exec_spec", "dist_config",
-           "flat_worklist", "stream_state", "model_params", "kv_cache"]
+           "flat_worklist", "stream_state", "model_params", "kv_cache",
+           "model_cache"]
 
 _BACKENDS = {None: None, "auto": None, "pallas": "cuda",
              "pallas-interpret": "cuda", "cuda": "cuda", "jnp": "torch",
@@ -215,19 +218,40 @@ def _weights(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+_PARAMS = {"dense": TransformerParams, "vlm": TransformerParams,
+           "encoder": TransformerParams, "moe": moe.MoEParams,
+           "ssm": ssm.SSMParams, "hybrid": rglru.RGLRUParams}
+
+
+def _flat(tree: Mapping, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict's leaves."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
 def model_params(cfg: ArchConfig, params: Mapping,
-                 device="cpu") -> TransformerParams:
-    """A dense-family model's weights from the reference's param pytree
-    (nested dicts of numpy arrays, ``params["layers"]`` stacked on axis
-    0), in the same shapes and dtypes."""
-    flat = {f"layers.{k}": _weights(a, device)
-            for k, a in params["layers"].items()}
-    flat.update({k: _weights(a, device) for k, a in params.items()
-                 if k != "layers"})
-    return TransformerParams(cfg, flat)
+                 device="cpu") -> StackedParams:
+    """A model's weights from the reference's param pytree (nested dicts
+    of numpy arrays: ``layers`` stacked on axis 0, the hybrid's
+    ``supers``/``tail`` stacks), in the same shapes and dtypes, as the
+    params module of ``cfg.family``."""
+    return _PARAMS[cfg.family](cfg, {name: _weights(a, device)
+                                     for name, a in _flat(params)})
 
 
 def kv_cache(cache, device="cpu") -> KVCache:
     """The port's ``KVCache`` from the reference's (its ``k`` and ``v``
     as numpy arrays)."""
     return KVCache(k=_weights(cache.k, device), v=_weights(cache.v, device))
+
+
+def model_cache(cache, device="cpu"):
+    """Any family's cache from the reference's: the ssm and hybrid
+    families' dict of arrays as a dict of tensors, a ``KVCache`` through
+    ``kv_cache``."""
+    if isinstance(cache, Mapping):
+        return {k: _weights(a, device) for k, a in cache.items()}
+    return kv_cache(cache, device)

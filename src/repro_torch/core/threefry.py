@@ -217,6 +217,28 @@ def _log(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v == float("inf"), float("inf"), r)
 
 
+# XLA's f32 exp: Cephes' range reduction x = n log 2 + r (r by two fused
+# steps of log 2's two parts), a degree-5 polynomial, times 2^n; results
+# below the smallest normal flush to 0
+_EXP_P = tuple(_f32(c) for c in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+_LOG2E = _f32(1.44269504088896341)
+_EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(-2.12194440e-4)
+
+
+def _exp(v: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``exp`` (the CPU code it emits), bit for bit."""
+    x = torch.clamp(v, -88.8, 88.8)
+    n = torch.floor(_fma(x, _LOG2E, 0.5))
+    r = _fma(n, -_EXP_C2, _fma(n, -_EXP_C1, x))
+    y = _fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = _fma(y, r, c)
+    y = (1.0 + _fma(y, r * r, r)).double() * torch.pow(2.0, n.double())
+    return torch.where(y < _FLT_MIN, 0.0, y).to(torch.float32)
+
+
 # XLA's log1p: Cephes' rational approximation for |x| < sqrt(2) - 1,
 # log(1 + x) elsewhere
 _LOG1P_NUM = tuple(_f32(c) for c in (

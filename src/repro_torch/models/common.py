@@ -3,10 +3,11 @@
 
 Parameters are stored in the config's dtype (bf16 by default); norms,
 RoPE, the GLU activation and softmax compute in f32 and cast back, at
-the same points as the reference.  The sharding helpers (``MeshRules``,
-``logical_to_spec``, ``constrain``) and the dry-run's ``mscan`` are not
-ported: they wait for the tooling and the multi-card mesh (ROADMAP Queue
-A items 11 and 9b).
+the same points as the reference.  ``StackedParams`` holds any family's
+weights under the reference's pytree names.  The sharding helpers
+(``MeshRules``, ``logical_to_spec``, ``constrain``) and the dry-run's
+``mscan`` are not ported: they wait for the tooling and the multi-card
+mesh (ROADMAP Queue A items 11 and 9b).
 """
 from __future__ import annotations
 
@@ -17,9 +18,13 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-__all__ = ["ArchConfig", "rms_norm", "rope_angles", "apply_rope", "softcap",
-           "glu_ffn", "dense_init", "embed_init"]
+from ..core.device import resolve_device
+
+__all__ = ["ArchConfig", "StackedParams", "rms_norm", "rope_angles",
+           "apply_rope", "softcap", "softplus", "glu_ffn", "init_generator",
+           "dense_init", "embed_init"]
 
 
 @dataclass(frozen=True)
@@ -70,6 +75,54 @@ class ArchConfig:
         return self.n_heads // max(self.n_kv_heads, 1)
 
 
+class StackedParams(nn.Module):
+    """The weights of one model, frozen (no grad), from a name -> tensor
+    dict checked against ``specs`` (name -> (shape, dtype)).  The names are
+    the reference's pytree paths joined by dots; each dotted prefix is a
+    ``ParameterDict`` (or a ``ModuleDict`` of them), so ``layers.wq`` is
+    ``self.layers["wq"]``, ``supers.rec1.wg`` ``self.supers["rec1"]["wg"]``,
+    and ``state_dict()`` gives back the same names."""
+
+    def __init__(self, cfg: ArchConfig, tensors: dict, specs: dict):
+        super().__init__()
+        if set(tensors) != set(specs):
+            raise ValueError(f"{cfg.name}: tensors {sorted(tensors)}, "
+                             f"expected {sorted(specs)}")
+        tree: dict = {}
+        for name, (shape, dtype) in specs.items():
+            t = tensors[name]
+            if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+                raise ValueError(f"{cfg.name}: {name} is {tuple(t.shape)} "
+                                 f"{t.dtype}, expected {tuple(shape)} "
+                                 f"{dtype}")
+            *path, leaf = name.split(".")
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = nn.Parameter(t, requires_grad=False)
+        self.cfg = cfg
+        for key, node in tree.items():
+            if isinstance(node, dict):
+                self.add_module(key, _frozen(node))
+            else:
+                self.register_parameter(key, node)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @staticmethod
+    def stacked(group, i: int) -> dict:
+        """Layer ``i`` of a ``ParameterDict`` of stacks: views."""
+        return {k: t[i] for k, t in group.items()}
+
+
+def _frozen(node: dict) -> nn.Module:
+    if all(isinstance(v, dict) for v in node.values()):
+        return nn.ModuleDict({k: _frozen(v) for k, v in node.items()})
+    return nn.ParameterDict(node)
+
+
 # ----------------------------------------------------------------- layers
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float):
     xf = x.to(torch.float32)
@@ -106,6 +159,12 @@ def softcap(x: torch.Tensor, cap: float | None):
     return torch.tanh(x / cap) * cap
 
 
+def softplus(x: torch.Tensor):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))
+    (``F.softplus`` takes log1p(exp(x)) below its threshold)."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
             activation: str):
     """SwiGLU/GeGLU: w_in (d, 2, ff) fused gate+up, w_out (ff, d).  The
@@ -121,6 +180,19 @@ def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
 
 
 # -------------------------------------------------------------------- init
+def init_generator(seed: int, device, generator: torch.Generator | None):
+    """(generator, device) of a family's ``init_params``: ``generator``
+    where given (on its own device unless ``device`` says otherwise),
+    else one seeded with ``seed`` on ``device``, the card by default."""
+    if generator is None:
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        return generator, dev
+    return generator, (generator.device if device is None
+                       else resolve_device(device))
+
+
 def _truncated_normal(shape, generator: torch.Generator,
                       device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)

@@ -1,18 +1,22 @@
 """A uniform ``Model`` facade over the model families: the port of
 ``repro/models/model_api.py``.
 
-``build_model(cfg)`` dispatches on ``cfg.family``.  The dense, vlm and
-encoder families (``models/transformer.py``) are ported; the moe, ssm and
-hybrid families are not yet (ROADMAP Queue A item 10b) and raise.  The
-training and sharding members of the reference's facade (``loss_fn``,
-``param_specs``, ``cache_specs``) wait for items 10c and 11.
+``build_model(cfg)`` dispatches on ``cfg.family``: the dense, vlm and
+encoder families (``models/transformer.py``), moe (``models/moe.py``),
+ssm (``models/ssm.py``) and hybrid (``models/rglru.py``).  Every decoder
+has ``init(seed=0, device=None, generator=None)``, ``init_cache(batch,
+max_len, device=None)``, ``prefill`` and ``decode_step``; the moe family
+keeps the dense family's 5-d ``KVCache``, the ssm and hybrid families a
+dict of recurrent state.  The training and sharding members of the
+reference's facade (``loss_fn``, ``param_specs``, ``cache_specs``) wait
+for items 10c and 11.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from . import transformer as tfm
+from . import moe, rglru, ssm, transformer as tfm
 from .common import ArchConfig
 
 __all__ = ["Model", "build_model"]
@@ -37,25 +41,30 @@ def _tfm_prefill(params, batch, cfg, cache, q_chunk: int = 512):
     return tfm.prefill(params, batch["tokens"], cfg, cache, q_chunk=q_chunk)
 
 
+# family -> (its module, the module of its cache)
+_FAMILIES = {"dense": (tfm, tfm), "vlm": (tfm, tfm), "encoder": (tfm, tfm),
+             "moe": (moe, tfm), "ssm": (ssm, ssm), "hybrid": (rglru, rglru)}
+
+
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family in ("dense", "encoder", "vlm"):
-        decoder = cfg.family != "encoder"
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family: {cfg.family}")
+    mod, cache_mod = _FAMILIES[cfg.family]
 
-        def init(seed: int = 0, *, device=None, generator=None):
-            return tfm.init_params(cfg, seed, device=device,
-                                   generator=generator)
+    def init(seed: int = 0, *, device=None, generator=None):
+        return mod.init_params(cfg, seed, device=device, generator=generator)
 
-        if not decoder:          # encoders serve through tfm.encode_step
-            return Model(cfg=cfg, init=init)
-        return Model(
-            cfg=cfg, init=init,
-            init_cache=lambda b, s, device=None: tfm.init_cache(
-                cfg, b, s, device=device),
-            prefill=lambda p, b, c, **kw: _tfm_prefill(p, b, cfg, c, **kw),
-            decode_step=lambda p, c, t, pos: tfm.decode_step(p, c, t, pos,
-                                                             cfg))
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue A item 10b: models/moe.py, ssm.py, rglru.py)")
-    raise ValueError(f"unknown family: {cfg.family}")
+    if cfg.family == "encoder":      # encoders serve through tfm.encode_step
+        return Model(cfg=cfg, init=init)
+
+    def prefill(params, batch, cache, **kw):
+        if mod is tfm:
+            return _tfm_prefill(params, batch, cfg, cache, **kw)
+        return mod.prefill(params, batch["tokens"], cfg, cache, **kw)
+
+    return Model(
+        cfg=cfg, init=init,
+        init_cache=lambda b, s, device=None: cache_mod.init_cache(
+            cfg, b, s, device=device),
+        prefill=prefill,
+        decode_step=lambda p, c, t, pos: mod.decode_step(p, c, t, pos, cfg))

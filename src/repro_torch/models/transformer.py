@@ -18,12 +18,11 @@ attended as real tokens, as there.  Training (``loss_fn``,
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..core.device import resolve_device
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
-from .common import (ArchConfig, dense_init, embed_init, glu_ffn, rms_norm,
-                     softcap)
+from .common import (ArchConfig, StackedParams, dense_init, embed_init,
+                     glu_ffn, init_generator, rms_norm, softcap)
 
 __all__ = ["TransformerParams", "init_params", "param_shapes", "forward",
            "embed_tokens", "logits_at", "init_cache", "decode_step",
@@ -50,7 +49,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
     return shapes
 
 
-class TransformerParams(nn.Module):
+class TransformerParams(StackedParams):
     """The weights of one dense-family model, frozen (no grad).
 
     ``embed`` (V, d), ``final_norm`` (d,), optional ``unembed`` (d, V) and
@@ -59,32 +58,12 @@ class TransformerParams(nn.Module):
     dict whose names are ``param_shapes``'s."""
 
     def __init__(self, cfg: ArchConfig, tensors: dict):
-        super().__init__()
-        want = param_shapes(cfg)
-        if set(tensors) != set(want):
-            raise ValueError(f"{cfg.name}: tensors {sorted(tensors)}, "
-                             f"expected {sorted(want)}")
-        for name, shape in want.items():
-            t = tensors[name]
-            if tuple(t.shape) != shape or t.dtype != cfg.dtype:
-                raise ValueError(f"{cfg.name}: {name} is {tuple(t.shape)} "
-                                 f"{t.dtype}, expected {shape} {cfg.dtype}")
-        self.cfg = cfg
-        self.layers = nn.ParameterDict({
-            k: nn.Parameter(tensors[f"layers.{k}"], requires_grad=False)
-            for k in LAYER_KEYS})
-        for name in want:
-            if not name.startswith("layers."):
-                setattr(self, name, nn.Parameter(tensors[name],
-                                                 requires_grad=False))
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
+        super().__init__(cfg, tensors, {n: (s, cfg.dtype) for n, s in
+                                        param_shapes(cfg).items()})
 
     def layer(self, i: int) -> dict:
         """Layer ``i``'s tensors: views into the stacks."""
-        return {k: self.layers[k][i] for k in LAYER_KEYS}
+        return self.stacked(self.layers, i)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
@@ -96,13 +75,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     card unless ``device`` says otherwise.  The draws are torch's, not
     jax.random's: carry the reference's weights with
     ``carry.model_params`` to compare the two."""
-    if generator is None:
-        dev = resolve_device(device)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
-    else:
-        dev = generator.device if device is None else resolve_device(device)
-    g, dt, L = generator, cfg.dtype, cfg.n_layers
+    g, dev = init_generator(seed, device, generator)
+    dt, L = cfg.dtype, cfg.n_layers
     shapes = param_shapes(cfg)
     t = {"embed": embed_init(g, shapes["embed"], dt, device=dev),
          "final_norm": torch.zeros(shapes["final_norm"], dtype=dt,

@@ -214,6 +214,7 @@ def compress_kv(k: torch.Tensor, v: torch.Tensor, length,
                 cfg: DPCKVConfig):
     """k/v: (B, S, n_kv, hd); length: an int or (B,) valid prefix lengths.
 
+    Raises ``ValueError`` where the budget M exceeds S.
     Returns (k_c, v_c, counts): (B, M, n_kv, hd) x2 in k's and v's dtypes
     and (B, M, n_kv) f32, on k's device.  ``counts`` feed the attention
     correction log(count) added to logits: a merged center stands for
@@ -221,6 +222,9 @@ def compress_kv(k: torch.Tensor, v: torch.Tensor, length,
     """
     B, S, K, hd = k.shape
     M = cfg.budget
+    if M > S:
+        raise ValueError(f"DPC-KV budget {M} exceeds the cache's {S} slots "
+                         f"(the reference's top_k raises there)")
     H = B * K
     dev = k.device
     before = sum(ops.launch_counts()[n] for n in _KERNELS)

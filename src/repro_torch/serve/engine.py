@@ -7,7 +7,8 @@ port of ``repro/serve/engine.py``.
   splits ``PRNGKey(seed)`` as the reference does and samples with
   ``threefry.categorical``, so the same logits give the same tokens;
 * optional DPC-KV compression of the prompt cache after the prefill
-  (dense-attention models).
+  (the dense and moe families' 5-d ``KVCache``; the ssm and hybrid
+  families' dict caches are O(1) in length and refuse it).
 
 It runs eagerly under ``torch.inference_mode()``, on the card unless
 given ``device="cpu"``; with no device named and no GPU present it raises.
@@ -23,6 +24,7 @@ from .. import obs
 from ..core import threefry
 from ..core.device import resolve_device
 from ..models import Model
+from ..models.attention import KVCache
 from .dpc_kv import DPCKVConfig, compress_kv
 
 __all__ = ["ServeConfig", "ServeEngine"]
@@ -35,7 +37,7 @@ class ServeConfig:
     max_new_tokens: int = 64
     temperature: float = 0.0      # 0 = greedy
     seed: int = 0
-    # Optional DPC-KV compression of the prompt cache (dense-attention
+    # Optional DPC-KV compression of the prompt cache (5-d KVCache
     # models only).  Its DPC primitives run on dpc_kv.exec_spec.
     dpc_kv: DPCKVConfig | None = None
 
@@ -68,19 +70,20 @@ class ServeEngine:
     def compress_prompt_cache(self):
         """DPC-KV compression of the prefilled prompt KV cache.
 
-        Needs ``cfg.dpc_kv`` and a dense-attention cache (L, B, S, K, hd);
-        call after ``generate``.  Returns the per-layer compressed caches
-        stacked over layers: (k_c, v_c, counts), (L, B, M, K, hd) x2 and
-        (L, B, M, K).  Every prompt slot takes part (prompts are
-        left-padded, so slots [0, max_prompt) all hold prefill keys).
+        Needs ``cfg.dpc_kv`` and a dense-attention ``KVCache`` (L, B, S,
+        K, hd), the dense and moe families'; call after ``generate``.
+        Returns the per-layer compressed caches stacked over layers:
+        (k_c, v_c, counts), (L, B, M, K, hd) x2 and (L, B, M, K).  Every
+        prompt slot takes part (prompts are left-padded, so slots
+        [0, max_prompt) all hold prefill keys).
         """
         kv_cfg = self.cfg.dpc_kv
         if kv_cfg is None:
             raise ValueError("ServeConfig.dpc_kv is not set")
-        k, v = self.cache.k, self.cache.v
-        if k.ndim != 5:
+        if not (isinstance(self.cache, KVCache) and self.cache.k.ndim == 5):
             raise ValueError(f"{self.model.cfg.name}: cache is not a "
                              f"dense-attention KVCache")
+        k, v = self.cache.k, self.cache.v
         L, B, S, K, hd = k.shape
         length = min(self.cfg.max_prompt, S)
         # fold the layers into the batch axis

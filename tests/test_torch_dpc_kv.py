@@ -278,3 +278,21 @@ def test_legal_set_matches_reference():
                                            layout="block-sparse"))
     assert cfg.resolved_exec().sparse
     assert T.DPCKVConfig().resolved_exec() == ExecSpec()
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_budget_above_the_cache_raises(route):
+    """A budget above the cache's S slots: the reference's top_k raises,
+    and so does the port, rather than return budget - S empty slots."""
+    k = np.random.default_rng(0).normal(size=(1, 16, 1, 8)).astype(np.float32)
+    with pytest.raises(ValueError, match="top_k"):
+        R.compress_kv(jnp.asarray(k), jnp.asarray(k), jnp.int32(16),
+                      R.DPCKVConfig(budget=20,
+                                    exec_spec=RefSpec(backend="jnp")))
+    cfg = T.DPCKVConfig(budget=20, exec_spec=ROUTES[route])
+    with pytest.raises(ValueError, match="exceeds the cache's 16 slots"):
+        T.compress_kv(torch.from_numpy(k), torch.from_numpy(k), 16, cfg)
+    k_c, _, counts = T.compress_kv(torch.from_numpy(k), torch.from_numpy(k),
+                                   16, T.DPCKVConfig(budget=16,
+                                                     exec_spec=ROUTES[route]))
+    assert k_c.shape == (1, 16, 1, 8) and float(counts.sum()) == 16

@@ -291,8 +291,19 @@ def test_init_params_on_the_host(one_thread):
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
                                   "mamba2-130m", "recurrentgemma-9b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="10b"):
-        tbuild(tconfigs.ARCHS[arch])
+def test_every_family_builds(arch):
+    """The moe, ssm and hybrid families build decoders (their numerics:
+    tests/test_torch_moe.py, test_torch_ssm.py, test_torch_rglru.py); an
+    unknown family raises."""
+    model = tbuild(tconfigs.ARCHS[arch])
+    assert model.is_decoder and model.cfg is tconfigs.ARCHS[arch]
+    tc = tconfigs.reduce_config(tconfigs.ARCHS[arch])
+    small = tbuild(tc)
+    params = small.init(0, device="cpu")
+    cache = small.init_cache(1, 8, device="cpu")
+    with torch.inference_mode():
+        logits, _ = small.prefill(params, {"tokens": torch.zeros(
+            (1, 8), dtype=torch.long)}, cache)
+    assert logits.shape == (1, tc.vocab) and torch.isfinite(logits).all()
     with pytest.raises(ValueError, match="unknown family"):
         tbuild(tconfigs.ARCHS["gemma-2b"].replace(family="mlp"))

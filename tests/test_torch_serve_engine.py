@@ -161,7 +161,16 @@ def test_engine_needs_a_card_or_cpu():
 
 
 def test_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="10b"):
-        tbuild(tconfigs.ARCHS["mamba2-130m"])
-    with pytest.raises(NotImplementedError, match="10b"):
-        tbuild(tconfigs.reduce_config(tconfigs.ARCHS["mamba2-130m"]))
+    """Every family of the ten configurations builds a model now (mamba2
+    serves on the CPU, its dict cache refusing DPC-KV); a family the port
+    does not know raises."""
+    with pytest.raises(ValueError, match="unknown family"):
+        tbuild(tconfigs.ARCHS["mamba2-130m"].replace(family="mlp"))
+    model = tbuild(tconfigs.reduce_config(tconfigs.ARCHS["mamba2-130m"]))
+    eng = ServeEngine(model, model.init(0, device="cpu"),
+                      ServeConfig(batch=1, max_prompt=8, max_new_tokens=2,
+                                  dpc_kv=DPCKVConfig(budget=4)),
+                      device="cpu")
+    assert eng.generate([[1, 2, 3]]).shape == (1, 2)
+    with pytest.raises(ValueError, match="KVCache"):
+        eng.compress_prompt_cache()
