@@ -337,6 +337,24 @@ Phases, each of which raises on failure (nothing is caught):
    the band.  Per family its full width cut to 2 layers in f32 (the
    hybrid 3, one superblock; the ssm's prompt 256, a chunk), prefill
    logits on the card within 1e-3 of the largest |logit| of the CPU's.
+30. Training: ``launch.train`` (``run``, the body of ``main``) on
+   gemma-2b at full width, bf16 parameters and f32 AdamW state, random
+   init from torch generator seed 0, ``TokenPipeline(seed=0)``, 8 steps
+   of 8 x 512 tokens, one microbatch; the same run checkpointing every 4
+   steps, stopped right after its first checkpoint (35 GB; its save
+   timed); a fresh run restored from it (timed) takes steps 5-8 and ends
+   equal to the uninterrupted run bit for bit (its losses, and every
+   leaf of (params, opt_state) against the first run's, kept in host
+   memory); mamba2-130m at full width, the same traffic.  Each run's step time
+   (median of steps 2-8, each ending in a synchronize), tokens/s, loss
+   and gradient norm per step (all finite) and peak device memory; no
+   kernel of the port launched; one more step of each run's final state
+   under ``torch.profiler``: the device's busy time and idle share, the
+   matrix products' time and the ops with the most device time.  One step of each family's full width
+   cut to 2 layers in f32 (the hybrid 3; the vlm's 256 patches and 64
+   text tokens, the ssm's 256 tokens): the loss on the card within
+   1e-5 of the CPU's, relative, and every leaf's gradient within 1e-4 of
+   its largest |g|, TF32 off.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -453,6 +471,18 @@ FAMILY_REPS = 3                  # timed runs of its compression, K4 and K2
 # (rec, rec, attn) superblock
 FAMILY_CHECK = {"granite-moe-3b-a800m": (2, 64), "mamba2-130m": (2, 256),
                 "recurrentgemma-9b": (3, 64)}
+TRAIN_ARCH = "gemma-2b"          # phase 30: trained at full width,
+TRAIN_SSM = "mamba2-130m"        # and the ssm family's backward,
+TRAIN_BATCH = 8                  # batch,
+TRAIN_SEQ = 512                  # tokens a sequence,
+TRAIN_STEPS = 8                  # steps,
+TRAIN_CKPT_EVERY = 4             # a checkpoint after the 4th (and the 8th)
+# per family, the f32 card-vs-CPU step's (layers, sequence) at full width:
+# the ssm's a chunk, the hybrid's one superblock, the vlm's 256 patches
+# and 64 text tokens
+TRAIN_CHECK = {"gemma-2b": (2, 64), "paligemma-3b": (2, 320),
+               "hubert-xlarge": (2, 64), "granite-moe-3b-a800m": (2, 64),
+               "mamba2-130m": (2, 256), "recurrentgemma-9b": (3, 64)}
 
 
 def smi(fields: str) -> str:
@@ -4246,6 +4276,268 @@ def run_serving_families(card: str) -> tuple[dict, dict]:
     return out, kernels
 
 
+def train_argv(arch: str, ckpt_dir: Path | None, ckpt_every: int) -> list:
+    """Phase 30's ``launch.train`` arguments (on the card, seed 0)."""
+    argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0",
+            "--log-every", "1"]
+    if ckpt_dir is not None:
+        argv += ["--ckpt-dir", str(ckpt_dir), "--ckpt-every", str(ckpt_every)]
+    return argv
+
+
+def train_report(arch: str, run, card: str) -> dict:
+    """A ``launch.train`` run's step time (median of steps 2-8, each
+    ending in a synchronize), tokens/s, per-step loss and gradient norm,
+    all finite, and the peak device memory since the last reset."""
+    n_params = sum(p.numel() for p in run.params.parameters())
+    step_ms = 1e3 * statistics.median(run.step_s[1:])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(v) for v in run.losses + run.grad_norms), \
+        (run.losses, run.grad_norms)
+    rec = {"params": n_params, "step_ms": step_ms,
+           "step_ms_all": [1e3 * t for t in run.step_s],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+           "losses": run.losses, "grad_norms": run.grad_norms,
+           "lrs": run.lrs, "peak_gb": peak}
+    print(f"{arch}: {n_params:,} parameters, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: step {step_ms:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}; all "
+          f"{[round(1e3 * t, 1) for t in run.step_s]}), "
+          f"{rec['tokens_per_s']:.0f} tokens/s, peak {peak:.3f} GB; loss "
+          f"{[round(v, 4) for v in run.losses]}, grad norm "
+          f"{[round(v, 4) for v in run.grad_norms]}; no kernel of the port "
+          f"launched  ({card})", flush=True)
+    return rec
+
+
+PRODUCT_OPS = ("aten::bmm", "aten::mm", "aten::addmm", "aten::baddbmm")
+
+
+def profile_step(arch: str, step_fn, params, opt_state, batch: dict,
+                 step_idx: int, card: str) -> dict:
+    """One more training step of a finished run under ``torch.profiler``:
+    its wall time (ending in a synchronize), the device's busy time (the
+    kernels' self time) and idle share, the matrix products' share and
+    the ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch, step_idx)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    ka = prof.key_averages()
+    busy_ms = 1e-3 * sum(e.self_device_time_total for e in ka
+                         if e.device_type == DeviceType.CUDA)
+    ops = sorted(((e.key, 1e-3 * e.self_device_time_total) for e in ka
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda kv: -kv[1])
+    products_ms = sum(ms for name, ms in ops if name in PRODUCT_OPS)
+    launches = sum(e.count for e in ka if e.device_type == DeviceType.CUDA)
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms, "products_ms": products_ms,
+           "kernel_launches": launches,
+           "top_ops_ms": [[name, ms] for name, ms in ops[:8]]}
+    print(f"{arch}: one profiled step {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {rec['idle_share']:.3f}), "
+          f"{launches} kernel launches; matrix products {products_ms:.1f} "
+          f"ms, the rest elementwise and reductions; most device time: "
+          f"{', '.join(f'{n} {ms:.1f}' for n, ms in ops[:8])}  ({card})",
+          flush=True)
+    return rec
+
+
+def profiled_run_step(arch: str, run, card: str) -> dict:
+    """``profile_step`` on a ``launch.train`` run's final state with the
+    next batch of its pipeline and its schedule."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainStepConfig, make_train_step
+
+    cfg = ARCHS[arch]
+    step_fn = make_train_step(build_model(cfg).loss_fn, TrainStepConfig(
+        peak_lr=3e-4, warmup_steps=TRAIN_STEPS, total_steps=TRAIN_STEPS))
+    batch = TokenPipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0).batch_at(
+        TRAIN_STEPS)
+    dev = run.params.device
+    return profile_step(arch, step_fn, run.params, run.opt_state,
+                        {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch.items()}, TRAIN_STEPS, card)
+
+
+class TrainingStopped(Exception):
+    """Raised where phase 30 stops a run right after its first
+    checkpoint, as a crash there would."""
+
+
+def stop_after_save(ckpt_mod, saved: list):
+    """A stand-in for ``checkpoint.save`` that saves, appends (path,
+    seconds, bytes) to ``saved`` and stops the run."""
+    real = ckpt_mod.save
+
+    def save_then_stop(directory, step, tree, extras=None):
+        t0 = time.perf_counter()
+        path = real(directory, step, tree, extras)
+        saved.append((path, time.perf_counter() - t0,
+                      sum(f.stat().st_size for f in Path(path).iterdir())))
+        raise TrainingStopped(path)
+    return save_then_stop
+
+
+def f32_train_check(arch: str, layers: int, seq: int, gen, card: str) -> dict:
+    """One training step's loss and gradients of ``arch``'s full width cut
+    to ``layers`` layers in f32 (weights from ``gen`` on the card, the
+    pipeline's first batch of one sequence): the card's loss within 1e-5
+    of the CPU's, relative, and each leaf's gradient within 1e-4 of its
+    largest |g| there, TF32 off."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainStepConfig
+    from repro_torch.train.step import value_and_grad
+
+    cfg = ARCHS[arch].replace(n_layers=layers, dtype=torch.float32)
+    model = build_model(cfg)
+    p_card = model.init(generator=gen)
+    batch = TokenPipeline(cfg, 1, seq, seed=1).batch_at(0)
+    loss, grads = value_and_grad(
+        model.loss_fn, p_card, {k: torch.from_numpy(v).to(p_card.device)
+                                for k, v in batch.items()}, TrainStepConfig())
+    p_cpu = type(p_card)(cfg, {k: v.detach().cpu() for k, v in
+                               p_card.state_dict().items()})
+    del p_card
+    want_loss, want = value_and_grad(
+        model.loss_fn, p_cpu, {k: torch.from_numpy(v)
+                               for k, v in batch.items()}, TrainStepConfig())
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    assert math.isfinite(float(loss)) and rel <= 1e-5, (arch, rel)
+    worst = 0.0
+    for name, g in want.items():
+        scale = float(g.abs().max())
+        err = float((grads[name].cpu() - g).abs().max())
+        assert err <= 1e-4 * scale, (arch, name, err, scale)
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"{arch} at full width, {layers} layers, f32, one sequence of "
+          f"{seq}: a training step's loss on the card {float(loss):.6f} "
+          f"against the CPU's {float(want_loss):.6f} (relative {rel:.2e}, "
+          f"bound 1e-5); gradients of {len(want)} leaves, the largest "
+          f"|diff| {worst:.2e} of its leaf's max |g| (bound 1e-4), TF32 off "
+          f" ({card})", flush=True)
+    del grads, want, p_cpu
+    torch.cuda.empty_cache()
+    return {"layers": layers, "seq": seq, "loss": float(loss),
+            "cpu_loss": float(want_loss), "loss_rel_diff": rel,
+            "grad_max_rel_diff": worst}
+
+
+def run_training(card: str) -> dict:
+    """Phase 30: ``launch.train`` on gemma-2b at full width (bf16
+    parameters, f32 AdamW state, random init from torch generator seed
+    0, ``TokenPipeline(seed=0)``), 8 steps of 8 x 512 tokens; the same
+    run checkpointing every 4 steps, stopped right after its first
+    checkpoint; a fresh run restored from it takes steps 5-8 and must
+    end where the uninterrupted run did, bit for bit; mamba2-130m at
+    full width, 8 steps; each family's f32 cut on the card against the
+    CPU.  No kernel of the port may launch.  One checkpoint of gemma-2b
+    is 35 GB: the run writes only that one (the card's machine takes
+    45 GiB of writes a call)."""
+    import gc
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out: dict = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = train_cli.run(train_argv(TRAIN_ARCH, None, 0))
+    wall = time.perf_counter() - t0
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    rec = train_report(TRAIN_ARCH, first, card)
+    rec["run_s"] = wall
+    # the uninterrupted run's end, kept in host memory (35 GB)
+    want = [t.detach().cpu() for _, t in ckpt.leaves((first.params,
+                                                      first.opt_state))]
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = ROOT / "build" / "phase30_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    saved: list = []
+    real_save = ckpt.save
+    ckpt.save = stop_after_save(ckpt, saved)
+    try:
+        train_cli.run(train_argv(TRAIN_ARCH, ckpt_dir, TRAIN_CKPT_EVERY))
+        raise AssertionError("the run was not stopped at its checkpoint")
+    except TrainingStopped:
+        pass
+    finally:
+        ckpt.save = real_save
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        assert os.listdir(ckpt_dir) == [f"step_{TRAIN_CKPT_EVERY - 1}"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        # the fresh run saves no checkpoint of its own
+        again = train_cli.run(train_argv(TRAIN_ARCH, ckpt_dir,
+                                         10 * TRAIN_STEPS))
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    assert again.start_step == TRAIN_CKPT_EVERY
+    assert again.losses == rec["losses"][TRAIN_CKPT_EVERY:], \
+        (again.losses, rec["losses"])
+    got = list(ckpt.leaves((again.params, again.opt_state)))
+    assert len(got) == len(want)
+    for (name, t), w in zip(got, want):
+        assert torch.equal(w.to(t.device), t.detach()), name
+    _, save_s, ckpt_bytes = saved[0]
+    rec.update(resume_s=resume_s, restore_s=again.restore_s, save_s=save_s,
+               checkpoint_bytes=ckpt_bytes, resumed_leaves=len(got))
+    print(f"{TRAIN_ARCH}: the same run checkpointing every "
+          f"{TRAIN_CKPT_EVERY} steps, stopped after its first checkpoint "
+          f"({ckpt_bytes / 1e9:.2f} GB saved in {save_s:.1f} s); a fresh "
+          f"run restored it in {again.restore_s:.1f} s, took steps "
+          f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} ({resume_s:.1f} s in all) "
+          f"and ended equal to the uninterrupted run, bit for bit: its "
+          f"losses and all {len(got)} leaves of (params, opt_state)  "
+          f"({card})", flush=True)
+    del got, want
+    rec["profile"] = profiled_run_step(TRAIN_ARCH, again, card)
+    out[TRAIN_ARCH] = rec
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ssm = train_cli.run(train_argv(TRAIN_SSM, None, 0))
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    out[TRAIN_SSM] = train_report(TRAIN_SSM, ssm, card)
+    out[TRAIN_SSM]["profile"] = profiled_run_step(TRAIN_SSM, ssm, card)
+    del ssm
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    checks = {}
+    for arch, (layers, seq) in TRAIN_CHECK.items():
+        gen.manual_seed(1)
+        checks[arch] = f32_train_check(arch, layers, seq, gen, card)
+    out["f32_check"] = checks
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -5693,6 +5985,10 @@ def main() -> int:
     stamp(29)
     torch.cuda.empty_cache()
     record["serving_families"], family_kernels = run_serving_families(card)
+
+    # ------------------------------------------------------------ 30. training
+    stamp(30)
+    record["training"] = run_training(card)
     wrong = [(a, b) for a, b in plans_made
              if b != (a if a not in (None, "auto") else "cuda")]
     assert not wrong, f"plans resolved to another backend: {wrong}"

@@ -227,7 +227,7 @@ _LOG2E = _f32(1.44269504088896341)
 _EXP_C1, _EXP_C2 = _f32(0.693359375), _f32(-2.12194440e-4)
 
 
-def _exp(v: torch.Tensor) -> torch.Tensor:
+def _exp_xla(v: torch.Tensor) -> torch.Tensor:
     """XLA's f32 ``exp`` (the CPU code it emits), bit for bit."""
     x = torch.clamp(v, -88.8, 88.8)
     n = torch.floor(_fma(x, _LOG2E, 0.5))
@@ -237,6 +237,28 @@ def _exp(v: torch.Tensor) -> torch.Tensor:
         y = _fma(y, r, c)
     y = (1.0 + _fma(y, r * r, r)).double() * torch.pow(2.0, n.double())
     return torch.where(y < _FLT_MIN, 0.0, y).to(torch.float32)
+
+
+class _Exp(torch.autograd.Function):
+    """exp's derivative is exp: the backward is the gradient times the
+    forward's output, as JAX differentiates ``jnp.exp`` (the emulation's
+    floor, ``nextafter`` and bit views have no useful derivative)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        out = _exp_xla(v)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out, = ctx.saved_tensors
+        return grad * out
+
+
+def _exp(v: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``exp``, bit for bit, with exp's gradient."""
+    return _Exp.apply(v)
 
 
 # XLA's log1p: Cephes' rational approximation for |x| < sqrt(2) - 1,

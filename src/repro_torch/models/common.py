@@ -7,24 +7,27 @@ the same points as the reference.  ``StackedParams`` holds any family's
 weights under the reference's pytree names.  The sharding helpers
 (``MeshRules``, ``logical_to_spec``, ``constrain``) and the dry-run's
 ``mscan`` are not ported: they wait for the tooling and the multi-card
-mesh (ROADMAP Queue A items 11 and 9b).
+mesh (ROADMAP Queue A items 11 and 9b).  ``cross_entropy`` and ``remat``
+serve training: the loss in f32, and a layer recomputed in the backward
+pass where gradients are on.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.device import resolve_device
 
 __all__ = ["ArchConfig", "StackedParams", "rms_norm", "rope_angles",
-           "apply_rope", "softcap", "softplus", "glu_ffn", "init_generator",
-           "dense_init", "embed_init"]
+           "apply_rope", "softcap", "softplus", "glu_ffn", "cross_entropy",
+           "remat", "init_generator", "dense_init", "embed_init"]
 
 
 @dataclass(frozen=True)
@@ -76,12 +79,18 @@ class ArchConfig:
 
 
 class StackedParams(nn.Module):
-    """The weights of one model, frozen (no grad), from a name -> tensor
-    dict checked against ``specs`` (name -> (shape, dtype)).  The names are
-    the reference's pytree paths joined by dots; each dotted prefix is a
-    ``ParameterDict`` (or a ``ModuleDict`` of them), so ``layers.wq`` is
+    """The weights of one model from a name -> tensor dict checked against
+    ``specs`` (name -> (shape, dtype)).  The names are the reference's
+    pytree paths joined by dots; each dotted prefix is a ``ParameterDict``
+    (or a ``ModuleDict`` of them), so ``layers.wq`` is
     ``self.layers["wq"]``, ``supers.rec1.wg`` ``self.supers["rec1"]["wg"]``,
-    and ``state_dict()`` gives back the same names."""
+    and ``state_dict()`` gives back the same names.
+
+    The parameters are built with ``requires_grad=False``: serving needs
+    no graph.  A trainer turns gradients on with
+    ``params.requires_grad_(True)`` (``train.step.make_train_step``'s step
+    does); ``ServeEngine`` runs under ``torch.inference_mode()`` either
+    way, so it builds no graph on trainable parameters."""
 
     def __init__(self, cfg: ArchConfig, tensors: dict, specs: dict):
         super().__init__()
@@ -103,7 +112,7 @@ class StackedParams(nn.Module):
         self.cfg = cfg
         for key, node in tree.items():
             if isinstance(node, dict):
-                self.add_module(key, _frozen(node))
+                self.add_module(key, _node(node))
             else:
                 self.register_parameter(key, node)
 
@@ -117,10 +126,27 @@ class StackedParams(nn.Module):
         return {k: t[i] for k, t in group.items()}
 
 
-def _frozen(node: dict) -> nn.Module:
+def _node(node: dict) -> nn.Module:
     if all(isinstance(v, dict) for v in node.values()):
-        return nn.ModuleDict({k: _frozen(v) for k, v in node.items()})
+        return nn.ModuleDict({k: _node(v) for k, v in node.items()})
     return nn.ParameterDict(node)
+
+
+def remat(fn: Callable, enabled: bool | None, *args):
+    """``fn(*args)``, recomputed in the backward pass (the counterpart of
+    the reference's ``jax.checkpoint`` around each layer): only ``args``
+    are kept for the backward, not the layer's activations.  ``enabled``
+    None means where it matters: grad mode on and a tensor among ``args``
+    (or one layer's dict of weights) requiring grad.  Inference runs
+    ``fn`` as it is."""
+    if enabled is None:
+        enabled = torch.is_grad_enabled() and any(
+            t.requires_grad for a in args
+            for t in (a.values() if isinstance(a, dict) else (a,))
+            if isinstance(t, torch.Tensor))
+    if not enabled:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ----------------------------------------------------------------- layers
@@ -177,6 +203,20 @@ def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
         g, approximate="tanh")
     hidden = act.to(x.dtype) * up
     return torch.einsum("...f,fd->...d", hidden, w_out)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token cross-entropy in f32: logsumexp minus the gold logit, the
+    mean over the positions ``mask`` selects (at least one)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 # -------------------------------------------------------------------- init

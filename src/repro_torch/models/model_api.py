@@ -3,13 +3,14 @@
 
 ``build_model(cfg)`` dispatches on ``cfg.family``: the dense, vlm and
 encoder families (``models/transformer.py``), moe (``models/moe.py``),
-ssm (``models/ssm.py``) and hybrid (``models/rglru.py``).  Every decoder
-has ``init(seed=0, device=None, generator=None)``, ``init_cache(batch,
-max_len, device=None)``, ``prefill`` and ``decode_step``; the moe family
-keeps the dense family's 5-d ``KVCache``, the ssm and hybrid families a
-dict of recurrent state.  The training and sharding members of the
-reference's facade (``loss_fn``, ``param_specs``, ``cache_specs``) wait
-for items 10c and 11.
+ssm (``models/ssm.py``) and hybrid (``models/rglru.py``).  Every family
+has ``init(seed=0, device=None, generator=None)`` and ``loss_fn(params,
+batch, **kw)`` (the f32 training loss); every decoder also
+``init_cache(batch, max_len, device=None)``, ``prefill`` and
+``decode_step``; the moe family keeps the dense family's 5-d
+``KVCache``, the ssm and hybrid families a dict of recurrent state.  The
+sharding members of the reference's facade (``param_specs``,
+``cache_specs``) wait for ROADMAP item 9b.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]                       # (seed=0, device=None, generator=None) -> params
+    loss_fn: Callable[..., Any]                    # (params, batch, **kw) -> f32 loss
     init_cache: Callable[..., Any] | None = None   # (batch, max_len, device=None) -> cache
     prefill: Callable[..., Any] | None = None      # (params, batch, cache) -> (logits, cache)
     decode_step: Callable[..., Any] | None = None  # (params, cache, tokens, pos) -> (logits, cache)
@@ -54,8 +56,11 @@ def build_model(cfg: ArchConfig) -> Model:
     def init(seed: int = 0, *, device=None, generator=None):
         return mod.init_params(cfg, seed, device=device, generator=generator)
 
+    def loss_fn(params, batch, **kw):
+        return mod.loss_fn(params, batch, cfg, **kw)
+
     if cfg.family == "encoder":      # encoders serve through tfm.encode_step
-        return Model(cfg=cfg, init=init)
+        return Model(cfg=cfg, init=init, loss_fn=loss_fn)
 
     def prefill(params, batch, cache, **kw):
         if mod is tfm:
@@ -63,7 +68,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return mod.prefill(params, batch["tokens"], cfg, cache, **kw)
 
     return Model(
-        cfg=cfg, init=init,
+        cfg=cfg, init=init, loss_fn=loss_fn,
         init_cache=lambda b, s, device=None: cache_mod.init_cache(
             cfg, b, s, device=device),
         prefill=prefill,

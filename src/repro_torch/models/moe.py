@@ -20,8 +20,11 @@ Parameters are a ``MoEParams`` module with the reference's pytree shapes
 ``max(n_experts_padded, n_experts)``, the router in f32), so
 ``repro_torch.carry.model_params`` moves the reference's weights across
 unchanged.  The attention half and the cache are the dense family's
-(``models/transformer.py``).  Training (``loss_fn``) waits for ROADMAP
-item 10c.
+(``models/transformer.py``).  Training: ``loss_fn``, the next-token loss
+plus the aux loss (its mean over the layers, times ``aux_weight``); both
+dispatch modes carry gradients (the drop slot's gradient is 0: its row is
+cut off the buffer), and ``forward`` recomputes each layer in the
+backward pass where gradients are on.
 """
 from __future__ import annotations
 
@@ -33,11 +36,11 @@ import torch.nn.functional as F
 from . import transformer as tfm
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
 from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     init_generator, rms_norm)
+                     init_generator, remat as remat_layer, rms_norm)
 
 __all__ = ["MoEParams", "param_shapes", "init_params", "DISPATCH_MODE",
-           "dispatch_mode", "capacity", "moe_ffn", "forward", "decode_step",
-           "prefill"]
+           "dispatch_mode", "capacity", "moe_ffn", "forward", "loss_fn",
+           "decode_step", "prefill"]
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w_gate",
               "w_up", "w_down")
@@ -69,7 +72,7 @@ def _dtype(cfg: ArchConfig, name: str) -> torch.dtype:
 
 
 class MoEParams(StackedParams):
-    """The weights of one MoE-family model, frozen (no grad): ``embed``,
+    """The weights of one MoE-family model: ``embed``,
     ``final_norm``, optional ``unembed``, and ``layers`` holding each of
     ``LAYER_KEYS`` stacked over the layers."""
 
@@ -219,14 +222,33 @@ def _block(x, lp: dict, cfg: ArchConfig, positions, q_chunk: int = 512):
 
 
 def forward(params: MoEParams, x, cfg: ArchConfig, positions,
-            q_chunk: int = 512):
+            remat: bool | None = None, q_chunk: int = 512):
     """x: (B, L, d) embedded input -> (final hidden states, the aux loss
-    summed over the layers)."""
+    summed over the layers).  ``remat``: recompute each layer in the
+    backward pass (None: where gradients are on)."""
+    def block(h, lp):
+        return _block(h, lp, cfg, positions, q_chunk)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _block(x, params.layer(i), cfg, positions, q_chunk)
+        x, a = remat_layer(block, remat, x, params.layer(i))
         aux = aux + a
     return rms_norm(x, params.final_norm, cfg.norm_eps), aux
+
+
+def loss_fn(params: MoEParams, batch: dict, cfg: ArchConfig,
+            aux_weight: float = 0.01, remat: bool | None = None,
+            q_chunk: int = 512):
+    """The next-token loss of ``batch["tokens"]`` plus ``aux_weight``
+    times the aux loss averaged over the layers, f32."""
+    tokens = batch["tokens"]
+    x = tfm.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    h, aux = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+    labels, lmask = tfm.shifted_labels(tokens)
+    ce = tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
+    return ce + aux_weight * aux / cfg.n_layers
 
 
 def decode_step(params: MoEParams, cache: KVCache, tokens, pos: int,

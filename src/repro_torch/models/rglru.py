@@ -20,7 +20,9 @@ states and the local-attention ring (``k``, ``v``), and the tail's
 ``prefill`` keeps the prompt's last min(L, S) keys rolled by L % S, so a
 prompt shorter than the cache's S slots leaves a ring of L slots, which
 decode then treats as the whole ring (ROADMAP "Reference gaps").
-Training (``loss_fn``) waits for ROADMAP item 10c.
+Training: ``loss_fn``, the next-token loss, with each superblock and tail
+layer recomputed in the backward pass where gradients are on; the scan's
+emulated exp carries exp's gradient (``threefry._exp``).
 """
 from __future__ import annotations
 
@@ -32,11 +34,12 @@ from ..core.threefry import _exp
 from . import transformer as tfm
 from .attention import attention, out_project, qkv_project, seq_update
 from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     glu_ffn, init_generator, rms_norm, softplus)
+                     glu_ffn, init_generator, remat as remat_layer, rms_norm,
+                     softplus)
 from .ssm import _causal_conv
 
 __all__ = ["RGLRUParams", "param_shapes", "init_params", "forward",
-           "init_cache", "decode_step", "prefill"]
+           "loss_fn", "init_cache", "decode_step", "prefill"]
 
 _C = 8.0  # Griffin's fixed gate sharpness
 _F32 = ("ba", "bi", "lam")
@@ -86,7 +89,7 @@ def _dtype(cfg: ArchConfig, name: str) -> torch.dtype:
 
 
 class RGLRUParams(StackedParams):
-    """The weights of one hybrid model, frozen (no grad): ``embed``,
+    """The weights of one hybrid model: ``embed``,
     ``final_norm``, ``supers`` (``rec1``, ``rec2``, ``attn``, each a
     ``ParameterDict`` of stacks over the superblocks) and, where the
     layers leave one, ``tail`` (stacks over the tail layers)."""
@@ -182,6 +185,8 @@ def _rglru_scan(x, r, i, lam):
     cancels where a nears 1, which would magnify an ulp of exp."""
     log_a = -_C * r * softplus(lam.to(torch.float32))
     a = _exp(log_a)
+    # the reference's jnp.maximum splits the gradient 0.5/0.5 at an exact
+    # tie with 1e-12; clamp_min passes all of it (no input meets the tie)
     gated = torch.sqrt(torch.clamp_min(1.0 - _exp(2.0 * log_a),
                                        1e-12)) * (i * x)
     return _associative_scan(a, gated)[1]
@@ -225,17 +230,40 @@ def _attn_layer(x, lp: dict, cfg: ArchConfig, positions, q_chunk: int):
 
 # ----------------------------------------------------------------- forward
 def forward(params: RGLRUParams, x, cfg: ArchConfig, positions,
-            q_chunk: int = 512):
-    """x: (B, L, d) embedded input -> final hidden states (B, L, d)."""
+            remat: bool | None = None, q_chunk: int = 512):
+    """x: (B, L, d) embedded input -> final hidden states (B, L, d).
+    ``remat``: recompute each superblock and each tail layer in the
+    backward pass (None: where gradients are on)."""
+    def superblock(h, rec1, rec2, attn):
+        h = _rec_layer(h, rec1, cfg)[0]
+        h = _rec_layer(h, rec2, cfg)[0]
+        return _attn_layer(h, attn, cfg, positions, q_chunk)[0]
+
+    def tail_layer(h, lp):
+        return _rec_layer(h, lp, cfg)[0]
+
     n_super, n_tail = _counts(cfg)
     for s in range(n_super):
         sp = params.superblock(s)
-        x = _rec_layer(x, sp["rec1"], cfg)[0]
-        x = _rec_layer(x, sp["rec2"], cfg)[0]
-        x = _attn_layer(x, sp["attn"], cfg, positions, q_chunk)[0]
+        x = remat_layer(superblock, remat, x, *(sp[p] for p in PARTS))
     for i in range(n_tail):
-        x = _rec_layer(x, params.tail_layer(i), cfg)[0]
+        x = remat_layer(tail_layer, remat, x, params.tail_layer(i))
     return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def loss_fn(params: RGLRUParams, batch: dict, cfg: ArchConfig,
+            remat: bool | None = None, q_chunk: int = 512):
+    """The next-token loss of ``batch["tokens"]`` (an optional bool
+    ``mask`` selects the positions), f32."""
+    tokens = batch["tokens"]
+    x = tfm.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+    labels, lmask = tfm.shifted_labels(tokens)
+    if "mask" in batch:
+        lmask = lmask & batch["mask"]
+    return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
 
 
 # ---------------------------------------------------------------- serving

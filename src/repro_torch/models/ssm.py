@@ -16,7 +16,8 @@ N) f32}``, written in place.  As there, ``prefill`` takes the final
 state from a cumsum over the whole prompt, not from the chunk scan's
 carry, a prompt must be a multiple of ``ssm_chunk`` long (``ValueError``
 where the reference asserts), and ``decode_step`` ignores ``pos``.
-Training (``loss_fn``) waits for ROADMAP item 10c.
+Training: ``loss_fn``, the next-token loss (an optional ``mask``), with
+each layer recomputed in the backward pass where gradients are on.
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from . import transformer as tfm
 from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     init_generator, rms_norm, softplus)
+                     init_generator, remat as remat_layer, rms_norm,
+                     softplus)
 
-__all__ = ["SSMParams", "param_shapes", "init_params", "forward",
+__all__ = ["SSMParams", "param_shapes", "init_params", "forward", "loss_fn",
            "init_cache", "decode_step", "prefill"]
 
 LAYER_KEYS = ("ln", "wz", "wxbc", "wdt", "conv_w", "conv_b", "A_log", "D",
@@ -66,7 +68,7 @@ def _dtype(cfg: ArchConfig, name: str) -> torch.dtype:
 
 
 class SSMParams(StackedParams):
-    """The weights of one mamba2 model, frozen (no grad): ``embed``,
+    """The weights of one mamba2 model: ``embed``,
     ``final_norm`` and ``layers`` holding each of ``LAYER_KEYS`` stacked
     over the layers."""
 
@@ -149,9 +151,12 @@ def _ssd_chunked(xh, dtv, Bm, Cm, A_log, Q: int):
         x_c, dt_c, B_c, C_c = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
         la = dt_c * neg_A                    # log a_t  (B, Q, H)
         cum = torch.cumsum(la, dim=1)
-        # intra-chunk: decay matrix L[i, j] = exp(cum_i - cum_j), j <= i
+        # intra-chunk: decay matrix L[i, j] = exp(cum_i - cum_j), j <= i.
+        # Masked before the exp: above the diagonal cum_i - cum_j > 0 may
+        # overflow, and exp's gradient there, 0 * inf, would be NaN (the
+        # reference masks after it; its forward values are the same)
         diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B, Q, Q, H)
-        decay = torch.where(causal, torch.exp(diff), 0.0)
+        decay = torch.exp(torch.where(causal, diff, float("-inf")))
         CB = torch.einsum("bign,bjgn->bijg", C_c, B_c)
         CB = CB.repeat_interleave(hpg, dim=-1)               # (B, Q, Q, H)
         att = decay * CB * dt_c[:, None, :, :]
@@ -204,12 +209,32 @@ def _mix(x, lp: dict, cfg: ArchConfig):
     return _gate_out(y, xs, z, lp, cfg, x.dtype)
 
 
-def forward(params: SSMParams, x, cfg: ArchConfig):
-    """x: (B, L, d) embedded input -> final hidden states (B, L, d)."""
+def forward(params: SSMParams, x, cfg: ArchConfig,
+            remat: bool | None = None):
+    """x: (B, L, d) embedded input -> final hidden states (B, L, d).
+    ``remat``: recompute each layer in the backward pass (None: where
+    gradients are on)."""
+    def layer(h, lp):
+        return h + _mix(rms_norm(h, lp["ln"], cfg.norm_eps), lp, cfg)
+
     for i in range(cfg.n_layers):
-        lp = params.layer(i)
-        x = x + _mix(rms_norm(x, lp["ln"], cfg.norm_eps), lp, cfg)
+        x = remat_layer(layer, remat, x, params.layer(i))
     return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def loss_fn(params: SSMParams, batch: dict, cfg: ArchConfig,
+            remat: bool | None = None, q_chunk: int = 512):
+    """The next-token loss of ``batch["tokens"]`` (an optional bool
+    ``mask`` selects the positions), f32.  The sequence must be a
+    multiple of ``ssm_chunk`` (``ValueError``).  ``q_chunk`` is unused
+    (no attention)."""
+    tokens = batch["tokens"]
+    x = tfm.embed_tokens(params, tokens, cfg)
+    h = forward(params, x, cfg, remat=remat)
+    labels, lmask = tfm.shifted_labels(tokens)
+    if "mask" in batch:
+        lmask = lmask & batch["mask"]
+    return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
 
 
 # ---------------------------------------------------------------- serving

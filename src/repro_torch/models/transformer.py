@@ -12,8 +12,12 @@ loop, eagerly, over views of the stacked tensors; the KV cache is written
 in place.  Every cast of the reference is kept where it is (the
 ``embed_scale`` factor rounded to the dtype before the multiply, logits
 cast to f32 after the bf16 product, then softcapped); left-pad tokens are
-attended as real tokens, as there.  Training (``loss_fn``,
-``chunked_ce_loss``, ``shifted_labels``) waits for ROADMAP item 10c.
+attended as real tokens, as there.  Training: ``loss_fn`` (the causal
+LM's next-token loss, the encoder's per-frame loss, the vlm's loss over
+its text suffix) through ``chunked_ce_loss``, which forms the f32 logits
+one sequence chunk at a time; ``forward`` recomputes each layer in the
+backward pass where gradients are on (``common.remat``), as the
+reference's ``jax.checkpoint`` does.
 """
 from __future__ import annotations
 
@@ -22,11 +26,13 @@ import torch
 from ..core.device import resolve_device
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
 from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     glu_ffn, init_generator, rms_norm, softcap)
+                     glu_ffn, init_generator, remat as remat_layer, rms_norm,
+                     softcap)
 
 __all__ = ["TransformerParams", "init_params", "param_shapes", "forward",
-           "embed_tokens", "logits_at", "init_cache", "decode_step",
-           "prefill_embedded", "prefill", "vlm_prefill", "encode_step"]
+           "embed_tokens", "logits_at", "shifted_labels", "chunked_ce_loss",
+           "loss_fn", "init_cache", "decode_step", "prefill_embedded",
+           "prefill", "vlm_prefill", "encode_step"]
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w_in", "w_out")
 
@@ -50,7 +56,7 @@ def param_shapes(cfg: ArchConfig) -> dict:
 
 
 class TransformerParams(StackedParams):
-    """The weights of one dense-family model, frozen (no grad).
+    """The weights of one dense-family model.
 
     ``embed`` (V, d), ``final_norm`` (d,), optional ``unembed`` (d, V) and
     ``frontend`` (frontend_dim, d), and ``layers`` holding each of
@@ -109,10 +115,15 @@ def _block(x, lp: dict, cfg: ArchConfig, positions, prefix_len=None,
 
 
 def forward(params: TransformerParams, x, cfg: ArchConfig, positions,
-            prefix_len=None, q_chunk: int = 512):
-    """x: (B, L, d) embedded input -> final hidden states (B, L, d)."""
+            prefix_len=None, remat: bool | None = None, q_chunk: int = 512):
+    """x: (B, L, d) embedded input -> final hidden states (B, L, d).
+    ``remat``: recompute each layer in the backward pass (None: where
+    gradients are on, ``common.remat``)."""
+    def block(h, lp):
+        return _block(h, lp, cfg, positions, prefix_len, q_chunk)
+
     for i in range(cfg.n_layers):
-        x = _block(x, params.layer(i), cfg, positions, prefix_len, q_chunk)
+        x = remat_layer(block, remat, x, params.layer(i))
     return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -135,6 +146,83 @@ def logits_at(params: TransformerParams, h, cfg: ArchConfig):
     dtype, then cast to f32, then softcapped."""
     logits = torch.matmul(h, _unembed_matrix(params, cfg))
     return softcap(logits.to(torch.float32), cfg.final_logit_softcap)
+
+
+def shifted_labels(tokens: torch.Tensor):
+    """Next-token labels at full length: position L-1 is masked out (no
+    target), so callers never slice the hidden states to L-1."""
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
+    mask[:, -1] = False
+    return labels, mask
+
+
+def chunked_ce_loss(params: TransformerParams, h, labels, cfg: ArchConfig,
+                    mask=None, chunk: int = 512):
+    """Cross-entropy with the f32 logits formed one sequence chunk of
+    ``chunk`` positions at a time (the full (B, L, V) would dominate the
+    card's memory); a sequence that does not divide ``chunk`` is padded
+    with masked positions.  The sum over each chunk, then over chunks, in
+    f32, over the masked count (at least one), as the reference's scan."""
+    B, L, d = h.shape
+    chunk = min(chunk, L)
+    if mask is None:
+        mask = torch.ones((B, L), dtype=torch.bool, device=h.device)
+    if L % chunk:
+        pad = chunk - L % chunk
+        h = torch.cat([h, h.new_zeros((B, pad, d))], dim=1)
+        labels = torch.cat([labels, labels.new_zeros((B, pad))], dim=1)
+        mask = torch.cat([mask, mask.new_zeros((B, pad))], dim=1)
+        L += pad
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, L, chunk):
+        logits = logits_at(params, h[:, c0:c0 + chunk], cfg)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+        m = mask[:, c0:c0 + chunk].to(torch.float32)
+        tot = tot + torch.sum((logz - gold) * m)
+        cnt = cnt + torch.sum(m)
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def loss_fn(params: TransformerParams, batch: dict, cfg: ArchConfig,
+            remat: bool | None = None, q_chunk: int = 512):
+    """The f32 training loss of a batch dict: the causal LM's next-token
+    loss over ``tokens`` (an optional bool ``mask`` (B, L) selects the
+    positions), the encoder's per-frame loss of ``features`` against
+    ``labels``, the vlm's next-token loss over the text suffix after the
+    ``patches`` prefix."""
+    if cfg.family == "encoder":
+        feats = batch["features"].to(cfg.dtype)
+        x = torch.einsum("blf,fd->bld", feats, params.frontend)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+        return chunked_ce_loss(params, h, batch["labels"], cfg,
+                               mask=batch.get("mask"))
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cfg.dtype)
+        img = torch.einsum("bpf,fd->bpd", patches, params.frontend)
+        tok = embed_tokens(params, batch["tokens"], cfg)
+        x = torch.cat([img, tok], dim=1)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        h = forward(params, x, cfg, positions, prefix_len=cfg.num_patches,
+                    remat=remat, q_chunk=q_chunk)
+        labels, lmask = shifted_labels(batch["tokens"])
+        return chunked_ce_loss(params, h[:, cfg.num_patches:], labels, cfg,
+                               mask=lmask)
+    tokens = batch["tokens"]
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=x.device)
+    h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+    labels, lmask = shifted_labels(tokens)
+    if "mask" in batch:
+        lmask = lmask & batch["mask"]
+    return chunked_ce_loss(params, h, labels, cfg, mask=lmask)
 
 
 # ---------------------------------------------------------------- serving

@@ -227,3 +227,126 @@ def assert_runs_match(ref, got, dt: str, cache_dtypes: dict):
         for name, r in rcache.items():
             assert tcache[name].dtype == cache_dtypes[name], name
             assert_close(tcache[name], r, dt)
+
+
+# ----------------------------------------------------------------- training
+TRAIN_DTYPES = {"f32": ("float32", torch.float32, 1e-5, 1e-4),
+                "bf16": ("bfloat16", torch.bfloat16, 2e-2, 2e-2)}
+
+
+def train_cfgs(arch: str, dt: str):
+    """(reference, port) ``reduce_config`` of ``arch`` in dtype ``dt``."""
+    import jax.numpy as jnp
+    from repro import configs as rconfigs
+    from repro_torch import configs as tconfigs
+
+    rc = rconfigs.reduce_config(rconfigs.ARCHS[arch]).replace(
+        dtype=getattr(jnp, TRAIN_DTYPES[dt][0]))
+    tc = tconfigs.reduce_config(tconfigs.ARCHS[arch]).replace(
+        dtype=TRAIN_DTYPES[dt][1])
+    return rc, tc
+
+
+def dispatch_modes(mode):
+    """Both packages' MoE dispatch mode inside (``None``: unchanged)."""
+    from repro.models import moe as rmoe
+    from repro_torch.models import moe as tmoe
+
+    stack = contextlib.ExitStack()
+    if mode is not None:
+        stack.enter_context(rmoe.dispatch_mode(mode))
+        stack.enter_context(tmoe.dispatch_mode(mode))
+    return stack
+
+
+def port_loss_and_grads(tc, tparams, tbatch, mode=None, **kw):
+    """The port's f32 ``loss_fn`` and name -> gradient (zeros where the
+    loss does not use a parameter, as JAX gives), one thread."""
+    from repro_torch.models import build_model
+
+    tparams.requires_grad_(True)
+    named = dict(tparams.named_parameters())
+    with dispatch_modes(mode), single_thread():
+        loss = build_model(tc).loss_fn(tparams, tbatch, **kw)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
+    return loss.detach(), dict(zip(named, grads))
+
+
+def loss_grad_runs(arch: str, dt: str, mode=None, batch: int = 2,
+                   seq: int = 48, seed: int = 7) -> dict:
+    """The reference's ``jax.value_and_grad`` of its ``loss_fn`` (under
+    ``jax.jit`` in f32; in bf16 under ``strict_jit``, and under
+    ``jax.jit`` as a second reading of its own precision) and the port's,
+    on ``ref_model_params`` carried across and the reference
+    ``TokenPipeline``'s batch 0 (seed 3)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.data.tokens import TokenPipeline
+    from repro.models import build_model as rbuild
+    from repro_torch import carry
+
+    rc, tc = train_cfgs(arch, dt)
+    rparams = ref_model_params(rc, seed)
+    np_batch = TokenPipeline(rc, batch, seq, seed=3).batch_at(0)
+    rm = rbuild(rc)
+    vg = jax.value_and_grad(lambda p, b: rm.loss_fn(p, b))
+    jb = {k: jnp.asarray(v) for k, v in np_batch.items()}
+    out = {}
+    with dispatch_modes(mode):
+        rloss, rgrads = (jax.jit(vg) if dt == "f32" else strict_jit(vg))(
+            rparams, jb)
+        if dt == "bf16":
+            out["rgrads_xla"] = {n: as_np(g) for n, g in carry._flat(
+                jax.jit(vg)(rparams, jb)[1])}
+    tparams = carry.model_params(tc, jax.tree.map(np.asarray, rparams))
+    tbatch = {k: torch.from_numpy(v) for k, v in np_batch.items()}
+    tloss, tgrads = port_loss_and_grads(tc, tparams, tbatch, mode)
+    out.update(tc=tc, tparams=tparams, tbatch=tbatch, mode=mode,
+               rloss=float(rloss),
+               rgrads={n: as_np(g) for n, g in carry._flat(rgrads)},
+               tloss=tloss, tgrads=tgrads)
+    return out
+
+
+def assert_loss_matches(r: dict, dt: str):
+    """The port's loss within the dtype's share (1e-5 f32, 2e-2 bf16) of
+    the reference's, relative."""
+    assert r["tloss"].dtype == torch.float32 and r["tloss"].shape == ()
+    assert np.isfinite(r["rloss"])
+    assert abs(float(r["tloss"]) - r["rloss"]) <= \
+        TRAIN_DTYPES[dt][2] * abs(r["rloss"]), (float(r["tloss"]),
+                                                r["rloss"])
+
+
+def assert_grads_match(r: dict, dt: str):
+    """Every leaf's gradient in its parameter's dtype, within the dtype's
+    share (1e-4 f32, 2e-2 bf16) of the leaf's largest reference |g|.  In
+    bf16 the reference's own two compilations (``strict_jit`` and
+    ``jax.jit``) may disagree by more on a gradient summed over many
+    positions in bf16 (mamba2's ``conv_b``: 8.3 % of its largest |g|);
+    that disagreement is added to the bound."""
+    assert set(r["tgrads"]) == set(r["rgrads"])
+    for name, want in r["rgrads"].items():
+        got = r["tgrads"][name]
+        assert got.dtype == r["tparams"].get_parameter(name).dtype, name
+        got = as_np(got)
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        bound = TRAIN_DTYPES[dt][3] * np.abs(want).max()
+        if "rgrads_xla" in r:
+            bound += np.abs(r["rgrads_xla"][name] - want).max()
+        err = np.abs(got - want).max()
+        assert err <= bound, (name, err, bound)
+
+
+def assert_remat_changes_no_bit(r: dict):
+    """The port's loss and gradients with each layer recomputed in the
+    backward pass equal those with the activations kept, bit for bit."""
+    args = (r["tc"], r["tparams"], r["tbatch"], r["mode"])
+    loss_off, off = port_loss_and_grads(*args, remat=False)
+    loss_on, on = port_loss_and_grads(*args, remat=True)
+    assert torch.equal(loss_on, loss_off) and torch.equal(loss_on,
+                                                          r["tloss"])
+    for name in off:
+        assert torch.equal(on[name], off[name]), name
+        assert torch.equal(on[name], r["tgrads"][name]), name
