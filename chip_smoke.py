@@ -355,6 +355,31 @@ Phases, each of which raises on failure (nothing is caught):
    text tokens, the ssm's 256 tokens): the loss on the card within
    1e-5 of the CPU's, relative, and every leaf's gradient within 1e-4 of
    its largest |g|, TF32 off.
+31. The static analyzer on the card (``repro_torch.analysis``): the CLI
+   sweep (``run_sweep(device="cuda:0")``) over every valid spec and its
+   plan, distributed, stream and serve targets, with no finding at all and
+   every rule run (targets, skips, kernels launched and each target's host
+   syncs under
+   ``torch.cuda.set_sync_debug_mode("warn")``); the kernel attribute table
+   (``build.kernel_attrs``: every ``__global__`` instantiation's block,
+   registers, static and dynamic shared memory, local bytes and
+   occupancy), its registers and stack frames held equal to ptxas's log
+   of phase 1's build, and ``analysis/limits.py`` held against
+   ``torch.cuda.get_device_properties``; negative controls: a shared-memory
+   budget (``REPRO_LIMIT_SMEM_BYTES``) one byte below K12's makes a fresh
+   bf16 plan raise ``AnalysisError`` at ``plan()``, under
+   ``REPRO_ANALYSIS=0`` the plan is made and ``analysis_findings_total``
+   counts the finding, and a bf16 record stripped of its resolve makes R3
+   fire; the fresh plan's ``telemetry()["memory"]`` built from the gate's
+   own run (no launch), every kernel with its attributes; every kernel whose body merges through an atomic (K2, K3's pair
+   counters, K4, K6 in both forms, K9, K10, K11, K12's insertion counters,
+   K15, K16) and both halo layouts run twice on 65,536 Airline-proxy
+   points, every output equal bit for bit; the four ``@audit_determinism``
+   float sums run twice at phase 28's, 26's, 29's and 25's shapes, the
+   elements that moved and the largest relative difference reported, and
+   a CFSFDP-A fit of phase 26's points twice, its rho and parent equal bit
+   for bit (what the k-means sums' audit claims); the gate's cold ``plan()`` per fresh spec (host clock ending in a
+   synchronize) beside ``plan()`` with ``REPRO_ANALYSIS=suspend``.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -454,6 +479,8 @@ REF_TICKS = 8                    # and its counted ticks
 BASE_N = 1 << 20                 # phase 26: the baselines' timed fits
 BASE_PARITY_N = 1 << 16          # and their torch-backend parity
 BASE_PLAIN_PAIRS = 1 << 31       # span pairs of their K10/K11 plain checks
+ANALYZER_N = 1 << 16             # phase 31: the atomic kernels' rerun input
+WOBBLE_KMEANS_N = 1 << 20        # and the float sums': CFSFDP-A's k-means
 SERVE_ARCH = "gemma-2b"          # phase 28: the served model, full width
 SERVE_BATCH = 8                  # its batch,
 SERVE_PROMPT = 512               # prompt slots (prompts of 64-512 tokens),
@@ -4538,6 +4565,353 @@ def run_training(card: str) -> dict:
     return out
 
 
+def rerun_equal(name: str, fn) -> dict:
+    """``fn()`` twice on the card: every output tensor must be equal bit for
+    bit between the runs."""
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, (tuple, list)) else (first,)
+    seconds = second if isinstance(second, (tuple, list)) else (second,)
+    for i, (a, b) in enumerate(zip(firsts, seconds)):
+        if a is None:
+            continue
+        assert torch.equal(a, b), f"{name}: output {i} moved between runs"
+    return {"outputs": len(firsts),
+            "elements": sum(int(t.numel()) for t in firsts
+                            if t is not None)}
+
+
+def wobble(name: str, fn) -> dict:
+    """``fn()`` twice on the card: the count of elements whose bits moved
+    between the runs and the largest relative difference, reported."""
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, (tuple, list)) else (first,)
+    seconds = second if isinstance(second, (tuple, list)) else (second,)
+    moved, rel, total, each = 0, 0.0, 0, []
+    for a, b in zip(firsts, seconds):
+        a64, b64 = a.double(), b.double()
+        diff = (a64 - b64).abs()
+        each.append(int((a != b).sum()))
+        moved += each[-1]
+        total += a.numel()
+        scale = torch.maximum(a64.abs(), b64.abs()).clamp_min(1e-30)
+        rel = max(rel, float((diff / scale).max()) if diff.numel() else 0.0)
+    print(f"  wobble {name}: {moved} of {total} elements moved between two "
+          f"runs (per output {each}), largest relative difference "
+          f"{rel:.3e}", flush=True)
+    return {"moved": moved, "elements": total, "max_rel": rel,
+            "moved_per_output": each}
+
+
+def run_analyzer(card: str, build_log: str, base_pts: np.ndarray,
+                 base_dcut: float) -> dict:
+    """Phase 31: ``repro_torch.analysis`` on the card.  The sweep over
+    every valid spec and all four target groups on ``cuda:0`` (clean, every
+    rule run; targets, skips, host syncs and launched kernels printed);
+    the kernel attribute table (every instantiation, registers and stack
+    frames held equal to ptxas's log of the phase-1 build, ``limits.py``
+    held against the card's properties); the negative controls at
+    ``plan()`` (a shared-memory budget below K12's, the ``REPRO_ANALYSIS=0``
+    bypass counted, a record stripped of its resolve); the kernels whose
+    bodies merge through atomics run twice, bit for bit; the four blessed
+    float sums run twice, their wobble reported, and a CFSFDP-A fit of
+    ``base_pts`` (phase 26's) twice, its rho and parent held equal bit for
+    bit; the gate's cost per fresh spec."""
+    from repro_torch import analysis
+    from repro_torch.analysis import limits, r3_precision, record, targets
+    from repro_torch.core import cfsfdp_a as cf
+    from repro_torch.core.dpc_types import density_jitter
+    from repro_torch.core.grid import build_grid, point_span_bounds
+    from repro_torch.core.tuning import pick_dcut
+    from repro_torch.data.points import gaussian_mixture, real_proxy
+    from repro_torch.engine import planner
+    from repro_torch.engine.spec import ExecSpec
+    from repro_torch.kernels import blocksparse, build, ops
+    from repro_torch.serve import DPCKVConfig
+    from repro_torch.serve.dpc_kv import compress_kv
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    assert os.environ.get("REPRO_ANALYSIS") is None, "the gate must be on"
+
+    # ------------------------------------------- the attribute table
+    lim = limits.card_limits()
+    props = torch.cuda.get_device_properties(0)
+    for field, want in (("shared_memory_per_block_optin",
+                         lim.smem_optin_bytes),
+                        ("shared_memory_per_block", lim.smem_default_bytes),
+                        ("shared_memory_per_multiprocessor",
+                         lim.smem_sm_bytes),
+                        ("regs_per_multiprocessor", lim.regs_sm),
+                        ("max_threads_per_block", lim.threads_block),
+                        ("multi_processor_count", lim.sms)):
+        got = getattr(props, field)
+        assert got == want, f"limits.py: {field} {want}, the card {got}"
+    rows = build.kernel_attrs(targets.DIM)
+    usage = {build.kernel_name(k): u
+             for k, u in build.ptxas_usage(build_log).items()}
+    held = 0
+    for r in rows:
+        u = usage.get(r["name"])
+        if u is not None:
+            assert (u["registers"], u["stack_frame"]) == \
+                (r["num_regs"], r["local_bytes"]), (r["name"], u, r)
+            held += 1
+        assert r["error"] == 0 and r["occupancy"] >= 1, r
+        spill = "-" if u is None else \
+            f"{u['spill_stores']}/{u['spill_loads']}"
+        print(f"  {r['name']} d{r['d_lo']}{'+' if r['d_hi'] > 224 else ''}"
+              f" {r['threads']}t {r['num_regs']}r smem {r['static_smem']}+"
+              f"{r['dyn_smem']} local {r['local_bytes']} spill {spill} "
+              f"occ {r['occupancy']}")
+    functions = {r["name"].split("<")[0] for r in rows}
+    assert len(functions) == 24, sorted(functions)
+    assert held == len(rows) or not usage, (held, len(rows))
+    print(f"attribute table: {len(rows)} instantiations of "
+          f"{len(functions)} kernels at d = {targets.DIM}; registers and "
+          f"stack frames equal to ptxas's on {held}; limits.py equal to the "
+          f"card's properties", flush=True)
+    out["attributes"] = {"rows": rows, "held_against_ptxas": held}
+
+    # --------------------------------------------------------- the sweep
+    t0 = time.perf_counter()
+    rep = analysis.run_sweep(device="cuda:0")
+    sweep_s = time.perf_counter() - t0
+    # on the card R4's attribute half runs: a clean sweep has no finding
+    # at all, and a target that raised would be a "trace" error
+    assert rep["ok"] and rep["findings"] == [], rep["findings"]
+    assert rep["device"] == "cuda" and \
+        rep["rules_run"] == sorted(rep["rules"]), rep["rules_run"]
+    launched = sorted(set().union(*(set(v) for v in
+                                    rep["launches"].values())))
+    print(f"sweep: {len(rep['targets'])} targets on the card in "
+          f"{sweep_s:.2f} s, rules run {rep['rules_run']}, "
+          f"{len(rep['findings'])} findings "
+          f"{sorted({(f['rule'], f['severity']) for f in rep['findings']})}",
+          flush=True)
+    print(f"  skipped: {rep['skipped']}")
+    print(f"  kernels the sweep launched: {launched}")
+    print("  targets (host syncs): " + "; ".join(
+        f"{t.removeprefix('plan[')} {c}"
+        for t, c in rep["host_syncs"].items()), flush=True)
+    out["sweep"] = {"seconds": sweep_s, "targets": rep["targets"],
+                    "skipped": rep["skipped"], "findings": rep["findings"],
+                    "host_syncs": rep["host_syncs"],
+                    "launches": rep["launches"], "launched": launched}
+
+    # ---------------------------------------------- negative controls
+    k12 = next(r for r in rows
+               if r["name"] == "fused_count_topk_bf16_kernel<1,false>")
+    spec = ExecSpec(precision="bf16", block=31)
+
+    def fresh():
+        planner._ANALYZED.pop(spec, None)
+        planner._PLANS.pop((None, spec), None)
+
+    budget = k12["static_smem"] + k12["dyn_smem"] - 1
+    os.environ["REPRO_LIMIT_SMEM_BYTES"] = str(budget)
+    try:
+        fresh()
+        try:
+            planner.plan(None, spec)
+            raise AssertionError("a shared-memory budget below K12's "
+                                 "passed plan()")
+        except analysis.AnalysisError as exc:
+            hit = [f for f in exc.findings if f.rule == "R9-memory-budget"
+                   and "fused_count_topk_bf16_kernel" in f.message]
+            assert hit, exc.findings
+            print(f"negative control: REPRO_LIMIT_SMEM_BYTES={budget} "
+                  f"(K12 takes {budget + 1} B): plan() raised "
+                  f"AnalysisError: {hit[0].message}", flush=True)
+        before = planner._M_FINDINGS.value(rule="R9-memory-budget",
+                                           level="error")
+        os.environ["REPRO_ANALYSIS"] = "0"
+        fresh()
+        assert planner.plan(None, spec) is not None
+        counted = planner._M_FINDINGS.value(rule="R9-memory-budget",
+                                            level="error") - before
+        assert counted >= 1, counted
+        print(f"  under REPRO_ANALYSIS=0 the plan is made and "
+              f"analysis_findings_total counts {counted} R9 error(s)",
+              flush=True)
+    finally:
+        os.environ.pop("REPRO_LIMIT_SMEM_BYTES", None)
+        os.environ.pop("REPRO_ANALYSIS", None)
+        fresh()
+    pl = planner.plan(None, spec)
+    with record.recording() as again:
+        mem = pl.telemetry()["memory"]
+    assert again == [] and mem["kernels"] and all(
+        k["attributes"] for k in mem["kernels"]), (again, mem)
+    assert mem["live_peak_bytes"] is not None, mem
+    print("  telemetry()['memory'] of the fresh bf16 plan, from the gate's "
+          "run (no launch): " + "; ".join(
+              f"{k['kernel']} " + ", ".join(
+                  f"{a['num_regs']}r {a['static_smem']}+{a['dyn_smem']} B "
+                  f"occ {a['occupancy']}" for a in k["attributes"])
+              for k in mem["kernels"])
+          + f"; peak {mem['live_peak_bytes']} B", flush=True)
+    events = pl._canonical.events["rho_delta"]
+    stripped = [e for e in events if not (isinstance(e, record.Step)
+                                          and e.kind == "resolve")]
+    rule = r3_precision.PrecisionFlowRule()
+    assert rule.check_launches("t", events) == []
+    fired = rule.check_launches("t", stripped)
+    assert fired, "R3 let a bf16 sweep through without its resolve"
+    print(f"  a bf16 record stripped of its resolve: R3 fired "
+          f"({fired[0].message[:60]}...)", flush=True)
+    out["negative_controls"] = {"smem_budget": budget,
+                                "bypass_counted": counted}
+    out["telemetry_memory"] = mem
+
+    # ------------------------------------------ the atomic kernels, twice
+    pts, _ = real_proxy("airline", ANALYZER_N, seed=0)
+    d_cut = pick_dcut(pts, target_rho=30)
+    grid = build_grid(torch.from_numpy(pts).to(dev), d_cut)
+    x = grid.points.contiguous()
+    n = x.shape[0]
+    key = ops.local_density_xy(x, x, d_cut) + density_jitter(n, dev)
+    starts, ends = point_span_bounds(grid)
+    wl = blocksparse.build_flat_worklist(x, x, d_cut)
+    ring = blocksparse.build_flat_worklist(x, x, count=False, nn="best1")
+    span_wl = blocksparse.build_flat_worklist(x, x, d_cut, nn=None,
+                                              starts=starts, ends=ends)
+    halo_ring = blocksparse.build_flat_worklist(
+        x, x, d_cut, count=False, nn="best1", nn_dcut=True, starts=starts,
+        ends=ends)
+    tiles = wl.num_row_tiles
+    slots = torch.arange(0, n, 3, device=dev)
+
+    def with_counter(shape, dtype, fn):
+        def run():
+            c = torch.zeros(shape, dtype=dtype, device=dev)
+            return (*fn(c), c)
+        return run
+
+    cases = {
+        "K4 range_count": lambda: ops.local_density_xy(x, x, d_cut),
+        "K2 masked_nn": lambda: ops.dependent_masked(x, key, x, key),
+        "K6 gather_masked_nn (prefix form)":
+            lambda: ops.dependent_masked_gather(x, key, slots),
+        "K6 gather_masked_nn (key form)":
+            lambda: ops.dependent_masked_gather(x, key, slots[:2048]),
+        "K3 worklist_count_topk (pair counters)": with_counter(
+            (tiles, 2), torch.int64,
+            lambda c: ops.fused_sweep(x, x, d_cut, worklist=wl, ran=c)),
+        "K9 worklist_masked_nn (walk counters)": with_counter(
+            (ring.num_row_tiles, 2), torch.int32,
+            lambda c: ops.dependent_masked(x, key, x, key, worklist=ring,
+                                           live=c)),
+        "K10 halo_range_count": lambda: ops.halo_density(
+            x, x, starts, ends, d_cut),
+        "K15 worklist_halo_range_count": lambda: ops.halo_density(
+            x, x, starts, ends, d_cut, worklist=span_wl),
+        "K11 halo_masked_nn": lambda: ops.halo_dependent(
+            x, key, x, key, starts, ends, d_cut),
+        "K16 worklist_halo_masked_nn (walk counters)": with_counter(
+            (halo_ring.num_row_tiles, 2), torch.int32,
+            lambda c: ops.halo_dependent(x, key, x, key, starts, ends,
+                                         d_cut, worklist=halo_ring, live=c)),
+        "K12 fused_count_topk_bf16 (insert counters)": with_counter(
+            (n,), torch.int32,
+            lambda c: ops.fused_sweep(x, x, d_cut, precision="bf16",
+                                      inserted=c)),
+        "halo_layout (keyed)": lambda: tuple(ops.halo_layout(
+            key, x, key, starts, ends, ring=False)),
+        "halo_layout (count, ring)": lambda: tuple(ops.halo_layout(
+            None, x, None, starts, ends, ring=True)),
+    }
+    reruns = {}
+    for name, fn in cases.items():
+        reruns[name] = rerun_equal(name, fn)
+    print(f"atomics: {len(cases)} kernels and layouts run twice on "
+          f"{n:,} Airline-proxy points (d = {x.shape[1]}, d_cut "
+          f"{d_cut:.6g}), every output equal bit for bit: "
+          f"{sorted(reruns)}", flush=True)
+    out["reruns"] = reruns
+
+    # ------------------------------------------ the blessed float sums
+    sums = {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    kc = torch.randn((SERVE_BATCH, SERVE_PROMPT + 32, 1, 256), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    vc = torch.randn(kc.shape, device=dev, generator=gen).to(torch.bfloat16)
+    kv = DPCKVConfig(budget=SERVE_BUDGET)
+    sums["dpc_kv member sums (phase 28's 8 x 544 x 256 heads)"] = wobble(
+        "compress_kv", lambda: compress_kv(kc, vc, SERVE_PROMPT, kv))
+    del kc, vc
+    bpts, _ = real_proxy("airline", WOBBLE_KMEANS_N, seed=0)
+    bx = torch.from_numpy(bpts).to(dev)
+    sums["cfsfdp_a k-means sums (phase 26's 2^20 points, k = 32)"] = wobble(
+        "kmeans_pivots", lambda: cf.kmeans_pivots(bx, 32)[0])
+    del bx
+    # what kmeans_pivots' audit claims, held: the fit's rho and parent do
+    # not move with the centroids' last bits
+    fx = torch.from_numpy(base_pts).to(dev)
+
+    def fit_twice():
+        res = cf.run_cfsfdp_a(fx, base_dcut)
+        return res.rho, res.parent
+
+    fit = wobble("run_cfsfdp_a", fit_twice)
+    assert fit["moved"] == 0, f"a CFSFDP-A fit moved between runs: {fit}"
+    sums["cfsfdp_a fit, rho and parent (phase 26's 2^20 points)"] = fit
+    del fx
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model, moe
+    mcfg = ARCHS[FAMILY_DPC_KV].replace(n_layers=1)
+    mparams = build_model(mcfg).init(generator=gen)
+    xm = torch.randn((SERVE_BATCH, SERVE_PROMPT, mcfg.d_model), device=dev,
+                     generator=gen).to(mcfg.dtype)
+    with torch.inference_mode(), moe.dispatch_mode("scatter"):
+        sums["moe combine (phase 29's granite-moe prefill, scatter mode)"] \
+            = wobble("moe_ffn", lambda: moe.moe_ffn(
+                xm, mparams.layer(0), mcfg)[0])
+    del mparams, xm
+    mix, _ = gaussian_mixture(REF_WINDOW + STREAM_BATCH, k=15, d=2, seed=0)
+    mix = torch.from_numpy(mix).to(dev)
+    signs = torch.where(torch.arange(STREAM_BATCH, device=dev) % 2 == 0,
+                        1.0, -1.0)
+    sums["ring walk weighted counts (phase 25's stream tick)"] = wobble(
+        "ring_range_count", lambda: blocksparse.ring_range_count(
+            mix[:REF_WINDOW], mix[REF_WINDOW:], 2000.0, signs))
+    out["float_sums"] = sums
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------- the gate's cost
+    costs = {}
+    for s in targets.sweep_specs():
+        planner._ANALYZED.pop(s, None)
+        planner._PLANS.pop((None, s), None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planner.plan(None, s)
+        torch.cuda.synchronize()
+        gate_ms = 1e3 * (time.perf_counter() - t0)
+        planner._PLANS.pop((None, s), None)
+        os.environ["REPRO_ANALYSIS"] = "suspend"
+        try:
+            t0 = time.perf_counter()
+            planner.plan(None, s)
+            torch.cuda.synchronize()
+            bare_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            os.environ.pop("REPRO_ANALYSIS", None)
+        costs[f"{s.backend or 'auto'}:{s.layout or '-'}:"
+              f"{s.precision or '-'}"] = {"plan_ms": gate_ms,
+                                          "suspended_ms": bare_ms}
+    print("gate: cold plan() per fresh spec, ms (host clock ending in a "
+          "synchronize), with the gate / with REPRO_ANALYSIS=suspend: "
+          + "; ".join(f"{k} {v['plan_ms']:.2f} / {v['suspended_ms']:.3f}"
+                      for k, v in costs.items()) + f"  ({card})", flush=True)
+    out["gate_ms"] = costs
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4593,6 +4967,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  SMs {sms}", flush=True)
     b = build.build()
+    build_log = b.log           # phase 31 holds the attribute table to it
     print(f"build: {b.seconds:.2f} s  ({b.path.name})")
     usage = build.ptxas_usage(b.log)
     spills = [name for name, u in usage.items()
@@ -5995,6 +6370,11 @@ def main() -> int:
     planner.DPCPlan.__init__ = plan_init
     print(f"{len(plans_made)} plans made, each on the backend it asked for",
           flush=True)
+
+    # -------------------------------------------- 31. the analyzer on the card
+    stamp(31)
+    record["analyzer"] = run_analyzer(card, build_log, main_pts[:BASE_N],
+                                      d_cut)
 
     # --------------------------------------------------------- the record
     kernels = []

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from .. import obs
+from ..analysis.audit import audit_determinism
 from ..engine.planner import as_plan
 from . import threefry
 from .device import as_points
@@ -48,6 +49,15 @@ def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(a2[:, None] + b2[None, :] - 2.0 * ab, 0.0)
 
 
+@audit_determinism(
+    "the cluster counts are integer-valued, exact in f32 in any order; the "
+    "coordinate sums are float atomics on the card, so the centroids move "
+    "in their last bits between runs; only the triangle filter reads them, "
+    "and it keeps every cluster that can hold a point within d_cut (up to "
+    "f32 rounding at its margin), so the fit's rho and parent do not move: "
+    "phase 31 of chip_smoke.py fits 2^20 points twice and holds both equal "
+    "bit for bit",
+    ops=("index_add_",))
 def kmeans_pivots(points: torch.Tensor, k: int, iters: int = 10,
                   seed: int = 0):
     """k pivots by Lloyd's k-means from ``choice(PRNGKey(seed), n, (k,),

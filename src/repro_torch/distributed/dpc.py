@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.audit import audit_check_rep
 from ..core.device import as_points
 from ..core.dpc_types import DPCResult, with_jitter
 from ..core.grid import build_grid, point_span_bounds
@@ -89,6 +90,11 @@ def _pad_rows(x: torch.Tensor, m: int, value) -> torch.Tensor:
     return out
 
 
+@audit_check_rep(
+    "each shard's window is assembled from the blocks the ppermute ring "
+    "delivers to it, copied into the window rows its own lo[s] names; "
+    "nothing is claimed the same on every shard",
+    collectives=("ppermute",))
 def _halo_window(mesh: ShardMesh, tbl_parts, lo, W: int, hops_fwd: int,
                  hops_bwd: int) -> list[torch.Tensor]:
     """Each shard's candidate window, rows [lo[s], lo[s] + W) of the sorted
@@ -144,6 +150,10 @@ def _window_bounds(starts: torch.Tensor, ends: torch.Tensor, S: int):
     return [int(v) for v in lo], W, hf, hb
 
 
+@audit_check_rep(
+    "window rows arrive via the ppermute ring (_halo_window); every "
+    "output row is shard-local (my rows' counts over my window), nothing "
+    "is claimed replicated", collectives=("ppermute",))
 def _rho_halo(mesh, be, d_cut, span_w, lo, W, hf, hb, pts_p, st_p, en_p):
     """Halo rho phase: ring-assemble each shard's window, then the
     backend's span-masked range count on window-local spans."""
@@ -153,6 +163,11 @@ def _rho_halo(mesh, be, d_cut, span_w, lo, W, hf, hb, pts_p, st_p, en_p):
             for s in range(mesh.size)]
 
 
+@audit_check_rep(
+    "same ppermute-ring window assembly as the rho phase; the outputs "
+    "(delta, parent, found) are all shard-local per-row results, parents "
+    "mapped to global slots through the shard's own lo[s]",
+    collectives=("ppermute",))
 def _delta_halo(mesh, be, d_cut, span_w, lo, W, hf, hb, pts_p, rkq_p,
                 st_p, en_p, rk_p):
     """Halo delta phase: the window of (point, key) rows, then the
@@ -172,6 +187,10 @@ def _delta_halo(mesh, be, d_cut, span_w, lo, W, hf, hb, pts_p, rkq_p,
     return out
 
 
+@audit_check_rep(
+    "the gathered table is the same on every shard by all_gather (one "
+    "concatenation in shard order); the range count reads it and writes "
+    "shard-local per-row counts only", collectives=("all_gather",))
 def _rho_gather(mesh, be, d_cut, layout, pts_p):
     """Gather rho phase: my rows x the all-gathered table (K4, or K8 on the
     count-only worklist: a shard's rows are a contiguous chunk of the
@@ -181,6 +200,10 @@ def _rho_gather(mesh, be, d_cut, layout, pts_p):
             for s in range(mesh.size)]
 
 
+@audit_check_rep(
+    "the gathered table is the same on every shard by all_gather; each "
+    "shard counts its own rows over their global spans into it, "
+    "shard-local per-row counts only", collectives=("all_gather",))
 def _rho_stencil(mesh, be, d_cut, span_w, pts_p, st_p, en_p):
     """Gather-form stencil rho phase (the reference's ``_make_rho``): my
     rows over their candidate spans into the all-gathered table, through
@@ -191,6 +214,10 @@ def _rho_stencil(mesh, be, d_cut, span_w, pts_p, st_p, en_p):
             for s in range(mesh.size)]
 
 
+@audit_check_rep(
+    "table and keys are the same on every shard by all_gather before the "
+    "span-masked NN; outputs (delta, parent in global slots, found) are "
+    "shard-local per-row results", collectives=("all_gather",))
 def _delta_stencil(mesh, be, d_cut, span_w, pts_p, rkq_p, st_p, en_p,
                    rk_p):
     """Gather-form stencil delta phase (the reference's ``_make_delta``):
@@ -203,6 +230,11 @@ def _delta_stencil(mesh, be, d_cut, span_w, pts_p, rkq_p, st_p, en_p,
             for s in range(mesh.size)]
 
 
+@audit_check_rep(
+    "table and keys are the same on every shard by all_gather before the "
+    "NN kernel; outputs are shard-local per-query-row (delta, parent) "
+    "(the gather delta phase and the fallback)",
+    collectives=("all_gather",))
 def _delta_gather(mesh, be, layout, q_p, qk_p, pts_p, rk_p):
     """Denser NN of each shard's query rows over the all-gathered table and
     keys (K2, or K9 on the best-1 ring, built per shard just before its

@@ -19,14 +19,30 @@ recently used plans give theirs up first, and a plan evicted from the memo
 frees its own.  The distributed phases and the stream call
 ``plan.backend`` directly and stay uncached, as in the reference.
 
-The wrappers hold the ``kernel.dispatch`` fault-injection site.  Not
-ported yet (ROADMAP Queue A item 11): the analyzer gate (``_plan_check``,
-``analysis_findings_total``) and ``telemetry()``'s ``memory`` block and
-``include_cost`` estimate.
+The wrappers hold the ``kernel.dispatch`` fault-injection site.
+
+Every memo miss runs the static analyzer's plan-time gate
+(:func:`_plan_check`, ``repro_torch.analysis``) before the plan is handed
+out: the plan's two primitives run once on the analyzer's 96-point
+canonical input on the plan's device (the card wherever one exists),
+under a launch recorder, and the launch and plan rules check what they
+launched (a primitive that raises is an error finding) (row padding, int32 extents, the kernels' attributes against the
+card's limits, the bf16 resolve, the ``d_cut`` spellings).  An error
+finding raises :class:`~repro_torch.analysis.AnalysisError` at
+``plan()``, before any data is touched; every finding is counted on
+``analysis_findings_total{rule, level}``; results are memoized per
+:class:`ExecSpec`.  The canonical run leaves no trace in the launch
+counts, the worklist counters and caches, the fault-injection sites or the
+spans; on the card it resets the peak-allocation statistic once, an open
+span keeping its peak.  ``telemetry()`` carries the ``memory`` block
+(``analysis.plan_memory``), built from the same run.  Not ported yet (ROADMAP Queue A item 11b):
+``telemetry(include_cost=True)``.
 """
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 from collections import OrderedDict
 from dataclasses import dataclass
 
@@ -91,6 +107,9 @@ class DPCPlan:
         else:
             self.worklist_strategy = "ring"
         self._wl: OrderedDict = OrderedDict()   # the worklist LRU
+        self._scratch = False       # inside scratch_worklists()
+        self._memory: dict | None = None
+        self._canonical = None      # the analyzer's canonical run
 
     # ------------------------------------------------------- introspection
     def describe(self) -> str:
@@ -115,7 +134,11 @@ class DPCPlan:
         """What this plan resolved to: its static axes, the row tile its
         sweep pads to (``pad``) and its live worklist cache
         (``worklists``: kept and total tile pairs, the pruned fraction and
-        the bytes of each cached worklist)."""
+        the bytes of each cached worklist), and the ``memory`` block of the
+        analyzer (``analysis.plan_memory``: each kernel the plan's
+        canonical run launched, with its registers, shared memory, spills
+        and occupancy against the card's limits; computed once per
+        plan)."""
         return {
             "backend": self.backend_name,
             "layout": self.layout,
@@ -128,6 +151,7 @@ class DPCPlan:
             else {"n": self.pspec.n, "d": self.pspec.d},
             "pad": self._pad_telemetry(),
             "worklists": self._worklist_telemetry(),
+            "memory": self._memory_estimate(),
         }
 
     def _pad_telemetry(self) -> dict | None:
@@ -158,7 +182,25 @@ class DPCPlan:
                 for w in self._wl.values()]
         return out
 
+    def _memory_estimate(self) -> dict:
+        if self._memory is None:
+            from repro_torch.analysis import plan_memory
+
+            self._memory = plan_memory(self)
+        return self._memory
+
     # ------------------------------------------------------ value helpers
+    @contextlib.contextmanager
+    def scratch_worklists(self):
+        """The plan's wrappers on a throwaway worklist cache for the block
+        (the analyzer's canonical run): this plan's cache and every other
+        plan's are left as they were."""
+        saved, self._wl, self._scratch = self._wl, OrderedDict(), True
+        try:
+            yield
+        finally:
+            self._wl, self._scratch = saved, False
+
     def _ctx(self):
         """Activate this plan's worklist cache for the wrapped call."""
         if self.worklist_strategy == "device":
@@ -184,7 +226,7 @@ class DPCPlan:
                 x, y, float(d_cut), jitter=jitter, y_sel_slots=y_sel_slots,
                 fallback_interest=fallback_interest, layout=self.layout,
                 precision=self.precision)
-        if self._wl:
+        if self._wl and not self._scratch:
             _trim_plans(self)
         return out
 
@@ -196,11 +238,66 @@ _M_MISSES = _obsm.counter("plan_cache_misses", "plan() builds (memo misses)")
 _M_EVICTIONS = _obsm.counter(
     "plan_cache_evictions", "plans LRU-evicted at _PLAN_CACHE_MAX")
 
+# plan-time static analysis results, memoized per ExecSpec (the canonical
+# run depends only on the spec's resolved axes, not the point shape)
+_ANALYZED: dict = {}
+
+# every plan-time finding lands here, bypassed or not — the escape hatch
+# silences the raise, never the telemetry
+_M_FINDINGS = _obsm.counter(
+    "analysis_findings_total",
+    "plan-time static-analyzer findings, labeled by rule and level")
+
+_BYPASS_WARNED = False
+
+
+def _plan_check(pl: DPCPlan) -> None:
+    """Run the static analyzer (``repro_torch.analysis``) over the plan's
+    canonical run and the plan itself, once per spec; raise on
+    error-severity findings so a spec that dispatches into a flagged
+    kernel path fails at ``plan()``, before any data is touched.
+
+    ``REPRO_ANALYSIS=0`` (also ``off``/``no``) is the debugging escape
+    hatch: findings are still computed and recorded on the
+    ``analysis_findings_total`` counter, and the first bypassed error
+    logs one warning — the raise is suppressed, the evidence is not.  The
+    value ``suspend`` (set by the analyzer's own sweep, which builds plans
+    *in order to* analyze them) skips entirely."""
+    global _BYPASS_WARNED
+
+    mode = os.environ.get("REPRO_ANALYSIS", "1").lower()
+    if mode == "suspend":
+        return
+    res = _ANALYZED.get(pl.spec)
+    if res is None:
+        from repro_torch import analysis
+
+        res = tuple(analysis.analyze_plan(pl))
+        _ANALYZED[pl.spec] = res
+        for f in res:
+            _M_FINDINGS.inc(rule=f.rule, level=f.severity)
+    errors = [f for f in res if f.severity == "error"]
+    if not errors:
+        return
+    if mode in ("0", "off", "no"):
+        if not _BYPASS_WARNED:
+            logging.getLogger("repro_torch.analysis").warning(
+                "REPRO_ANALYSIS=%s: bypassing %d error finding(s) for %s "
+                "(recorded on analysis_findings_total; this warning is "
+                "logged once per process)", mode, len(errors),
+                pl.describe())
+            _BYPASS_WARNED = True
+        return
+    from repro_torch.analysis import AnalysisError
+
+    raise AnalysisError(errors)
+
 
 def plan(points_spec: PointsSpec | tuple | None,
          exec_spec: ExecSpec | None = None) -> DPCPlan:
     """Resolve (points_spec, exec_spec) -> DPCPlan, memoized: the same
-    inputs return the same object."""
+    inputs return the same object.  A miss runs the analyzer's gate
+    (:func:`_plan_check`) before the plan is memoized."""
     if isinstance(points_spec, tuple):
         points_spec = PointsSpec(*points_spec)
     spec = exec_spec if exec_spec is not None else ExecSpec()
@@ -212,6 +309,7 @@ def plan(points_spec: PointsSpec | tuple | None,
         return hit
     _M_MISSES.inc()
     pl = DPCPlan(points_spec, spec)
+    _plan_check(pl)
     _PLANS[key] = pl
     while len(_PLANS) > _PLAN_CACHE_MAX:
         _PLANS.popitem(last=False)[1]._wl.clear()

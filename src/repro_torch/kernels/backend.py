@@ -31,6 +31,7 @@ import abc
 import torch
 
 from .. import obs
+from ..analysis import record
 from ..core.dpc_types import density_jitter
 from . import blocksparse, density, dependent, ops
 from .sweep import (d2cut_of, direct_d2, halo_masked_nn_plain,
@@ -128,8 +129,11 @@ def _fused_resolve(rho_key, col_key, topv, topi, x=None, y=None):
     bf16 sweep, whose kept d2 are expanded-form), every kept candidate is
     re-evaluated first in direct-difference f32 (``sweep.direct_d2``, K1's
     order of operations), as the reference does.  Rows with no denser kept
-    candidate report resolved = False.
+    candidate report resolved = False.  The step is reported to the
+    analyzer's launch record (R3: a bf16 sweep's winners pass through the
+    direct-difference re-evaluation).
     """
+    record.note_step("resolve", direct=x is not None)
     ti = topi.clamp_min(0).long()
     if x is not None:
         topv = direct_d2(x[:, None, :], y[ti])

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.audit import audit_determinism
 from ..obs import metrics as _obsm
 
 __all__ = ["LB_SHRINK", "UB_GROW", "BLOCK_N", "BLOCK_M", "BS_BLOCK_N",
@@ -562,6 +563,11 @@ def _pair_d2(xt: torch.Tensor, yt: torch.Tensor, ti: torch.Tensor,
     return direct_d2(xt[ti][:, :, None, :], yt[tj][:, None, :, :])
 
 
+@audit_determinism(
+    "each entry adds an integer partial count (or a sum of +1/-1/0 signs) "
+    "below 2^24 into its row tile's accumulators: integer-valued in f32, "
+    "so every order of the index_add_ gives the same bits",
+    ops=("index_add_",))
 def ring_range_count(x: torch.Tensor, y: torch.Tensor, d_cut,
                      weights: torch.Tensor | None = None):
     """(n,) f32: per x row the count of y rows with d2 < f32(d_cut)^2, or

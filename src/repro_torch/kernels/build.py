@@ -68,22 +68,92 @@ def build() -> Build:
 
 def ptxas_usage(log: str) -> dict[str, dict]:
     """Per compiled kernel (mangled name) in an ``nvcc -Xptxas -v`` log:
-    its registers and its spill stores and loads in bytes."""
+    its registers, its stack frame and its spill stores and loads in
+    bytes."""
     usage: dict[str, dict] = {}
     name = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            usage[name] = {"registers": 0, "spill_stores": 0,
-                           "spill_loads": 0}
+            usage[name] = {"registers": 0, "stack_frame": 0,
+                           "spill_stores": 0, "spill_loads": 0}
         elif name is not None and "bytes spill stores" in line:
             words = line.replace(",", " ").split()
+            usage[name]["stack_frame"] = int(words[0])
             usage[name]["spill_stores"] = int(words[words.index("spill") - 2])
             usage[name]["spill_loads"] = int(words[-4])
         elif name is not None and "Used " in line and " registers" in line:
             usage[name]["registers"] = int(
                 line.split("Used ")[1].split(" registers")[0])
     return usage
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name as ``kernel_attrs`` gives it, from its mangled name
+    in the ptxas log (``_ZN12_GLOBAL__N_123masked_nn_kernelILi2ELb0EEEv...``
+    -> ``masked_nn_kernel<2,false>``); the name itself where it is not one
+    of this source's kernels."""
+    s = mangled
+    if not s.startswith("_Z"):
+        return s
+    i = 3 if s.startswith("_ZN") else 2
+    last = ""
+    while i < len(s) and s[i].isdigit():
+        j = i
+        while s[j].isdigit():
+            j += 1
+        size = int(s[i:j])
+        last, i = s[j:j + size], j + size
+    if not s.startswith("I", i):
+        return last
+    args, i = [], i + 1
+    while s.startswith("L", i):
+        kind, j = s[i + 1], s.index("E", i)
+        value = s[i + 2:j]
+        args.append({"1": "true", "0": "false"}[value] if kind == "b"
+                    else value)
+        i = j + 1
+    return f"{last}<{','.join(args)}>"
+
+
+class KernelAttr(ctypes.Structure):
+    """One row of ``repro_kernel_attrs`` (``csrc/sweep.cu``)."""
+
+    _fields_ = [("dyn_smem", ctypes.c_longlong),
+                ("name", ctypes.c_char * 64),
+                ("launch", ctypes.c_char * 128),
+                *((f, ctypes.c_int) for f in (
+                    "d_lo", "d_hi", "threads", "rows_per_block",
+                    "grid_y_max", "num_regs", "static_smem", "local_bytes",
+                    "max_threads", "max_dyn_smem", "occupancy", "error"))]
+
+
+def kernel_attrs(d: int) -> list[dict]:
+    """The attribute table of every ``__global__`` instantiation the entry
+    points can launch, on the current CUDA device, with dynamic shared
+    memory at dimension ``d`` (clamped into each row's range of d): its
+    name, the launch-count names of the wrappers that launch it
+    (``launch``, a tuple), the d its dispatch routes to it, its block,
+    the query rows a block covers along grid x, the most blocks along y,
+    ``cudaFuncGetAttributes`` (``num_regs``, ``static_smem``,
+    ``local_bytes``, ``max_threads``, ``max_dyn_smem``), its blocks per SM
+    and the CUDA error of its query (0: none).  Launches nothing."""
+    lib = load_library()
+    rows = (KernelAttr * 256)()
+    count = lib.repro_kernel_attrs(int(d), rows, len(rows))
+    if count < 0:
+        msg = lib.repro_error_string(-count).decode()
+        raise RuntimeError(f"kernel_attrs: CUDA error {-count} ({msg})")
+    if count > len(rows):
+        raise RuntimeError(f"kernel_attrs: {count} rows for a table of "
+                           f"{len(rows)}")
+    out = []
+    for r in rows[:count]:
+        row = {f: getattr(r, f) for f, _ in KernelAttr._fields_}
+        row["name"] = r.name.decode()
+        row["launch"] = tuple(r.launch.decode().split(","))
+        out.append(row)
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -147,6 +217,8 @@ def load_library() -> ctypes.CDLL:
                                                    f, p, p, p, p, p, p, p,
                                                    p, p, p, p]
     lib.repro_worklist_count_topk_bf16.restype = i
+    lib.repro_kernel_attrs.argtypes = [i, p, i]
+    lib.repro_kernel_attrs.restype = i
     lib.repro_error_string.argtypes = [i]
     lib.repro_error_string.restype = ctypes.c_char_p
     return lib

@@ -84,6 +84,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
 #include <type_traits>
 
@@ -103,6 +104,11 @@ constexpr int kBfPad = 8;           // bf16 pad of a staged row (16 bytes):
 constexpr int kBfMaxD = 224;        // BF16_MAX_D in kernels/ops.py: K12's
                                     // and K13's staged rows and ring fit
                                     // 227 KB of shared memory
+constexpr int kAuxThreads = 256;    // threads per block of the decoders,
+                                    // the fill and the halo layout's kernels
+constexpr int kAuxWarps = kAuxThreads / 32;  // halo_tmax: a warp a tile
+constexpr int kCutThreads = 128;    // threads per count_cut_kernel block
+constexpr int kMetaThreads = 1;     // halo_meta_kernel: one thread
 
 __host__ __device__ __forceinline__ int tile_cols(int d) {
   const int c = kTileFloats / d;
@@ -766,6 +772,9 @@ __global__ void __launch_bounds__(kNnThreads, kK1MinBlocks)
     }
   }
   if (ran_out != nullptr && lane == 0) {
+    // audit-merge: integer sums of the pairs each phase ran, a row tile's
+    // warps adding into its two 64-bit counters; integer addition is
+    // associative, so no order of arrival changes them
     if (warp == 0)
       atomicAdd(ran_out + 2 * t, cols1 * static_cast<unsigned>(kWlRows));
     atomicAdd(ran_out + 2 * t + 1, cols2);
@@ -945,6 +954,9 @@ __global__ void __launch_bounds__(kNnThreads)
 #pragma unroll
   for (int r = 0; r < kK2R; ++r) {
     const int i = first + r * kNnThreads + threadIdx.x;
+    // audit-merge: 64-bit atomicMin on (d2 bits << 32 | index): a
+    // lexicographic minimum over a total order, so the chunks' bests merge
+    // to the same word whatever order they land in
     if (i < n && best[r] < CUDART_INF_F)
       atomicMin(packed + row_id[i],
                 (static_cast<unsigned long long>(__float_as_uint(best[r]))
@@ -1001,6 +1013,8 @@ __global__ void __launch_bounds__(kRows)
       cnt += d2 < d2cut;
     }
   }
+  // audit-merge: integer range counts of the column chunks, added into
+  // the zeroed counts; integer addition is exact in any order
   if (live && cnt) atomicAdd(count + i, cnt);
 }
 
@@ -1433,6 +1447,9 @@ __global__ void __launch_bounds__(32 * kK9Warps)
   const int lane = threadIdx.x & 31;
   for (;;) {
     int i = 0;
+    // audit-merge: a work-queue cursor that hands each warp its next row;
+    // it schedules rows and holds no data, and every row is computed by
+    // one warp whatever order they are taken in
     if (lane == 0) i = atomicAdd(next_row, 1);
     i = __shfl_sync(0xffffffffu, i, 0);
     if (i >= n) return;
@@ -1503,6 +1520,8 @@ __global__ void __launch_bounds__(32 * kK9Warps)
       best_out[i] = v;
       arg_out[i] = v < CUDART_INF_F ? a : -1;
       if (live_out != nullptr) {
+        // audit-merge: integer walk statistics of a row tile (a sum and a
+        // maximum of entry counts), order-free, and read only as counts
         atomicAdd(live_out + 2 * t, walked);
         atomicMax(live_out + 2 * t + 1, walked);
       }
@@ -1811,10 +1830,15 @@ __device__ __forceinline__ void halo_piece(const HaloArgs& g, int4 pc,
       }
     }
     if (g.live != nullptr && lane == 0) {
+      // audit-merge: integer walk statistics of a row tile (a sum and a
+      // maximum of entry counts), order-free, and read only as counts
       atomicAdd(g.live + 2 * pc.w, walked);
       atomicMax(g.live + 2 * pc.w + 1, walked);
     }
   }
+  // audit-merge: 64-bit atomicMin on (d2 bits << 32 | window index): the
+  // splits of a piece merge by a lexicographic minimum over a total order,
+  // the same word in any order of arrival
 #pragma unroll
   for (int r = 0; r < R; ++r)
     if (row[r] >= 0 && h.best[r] < g.init) atomicMin(g.best + row[r],
@@ -1836,6 +1860,9 @@ __device__ __forceinline__ bool halo_next(int* next_item,
   const int items = meta[0];
   const int pieces = meta[1];
   i = 0;
+  // audit-merge: a work-queue cursor that hands each warp its next split;
+  // it schedules work and holds no data, and every split is computed by
+  // one warp whatever order they are taken in
   if (lane == 0) i = atomicAdd(next_item, 1);
   i = __shfl_sync(0xffffffffu, i, 0);
   if (i >= items) return false;
@@ -2129,6 +2156,8 @@ __device__ __forceinline__ void count_out(const CountArgs& g, int row,
   if (parts == 1) {
     g.count[row] = cnt;
   } else if (cnt != 0) {
+    // audit-merge: integer counts of a piece's splits, added into the
+    // zeroed counts; integer addition is exact in any order
     atomicAdd(g.count + row, cnt);
   }
 }
@@ -2231,6 +2260,8 @@ __global__ void count_cut_kernel(const int* __restrict__ row_ptr,
        e += blockDim.x) {
     if (!in_cut[e]) continue;
     const int c = col_tile[e];
+    // audit-merge: bitwise OR of one column tile's bit; OR is associative
+    // and idempotent, so the bitmap does not depend on the order
     atomicOr(cut + static_cast<size_t>(t) * words + (c >> 5), 1u << (c & 31));
   }
 }
@@ -2897,6 +2928,8 @@ __global__ void __launch_bounds__(kK12Rows, 3)
         if (__any_sync(0xffffffffu, take)) {
           if (take) {
             k12_keep<false>(tv, ti, v, j0 + c0 + s);
+            // audit-merge: an integer count of a row's kept-list
+            // insertions, summed over its lanes; exact in any order
             if (inserted != nullptr && row0 + 8 * q < n)
               atomicAdd(inserted + row0 + 8 * q, 1);
           }
@@ -3354,8 +3387,8 @@ extern "C" int repro_masked_nn(const float* x, const int* row_id,
 #undef REPRO_LAUNCH
     if (code != 0) return code;
   }
-  gather_nn_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(packed, n, best,
-                                                          arg);
+  gather_nn_decode_kernel<<<(n + kAuxThreads - 1) / kAuxThreads,
+                            kAuxThreads, 0, s>>>(packed, n, best, arg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3418,8 +3451,8 @@ extern "C" int repro_gather_masked_nn(const float* x, const float* x_key,
 #undef REPRO_LAUNCH
     if (code != 0) return code;
   }
-  gather_nn_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(packed, n, best,
-                                                          arg);
+  gather_nn_decode_kernel<<<(n + kAuxThreads - 1) / kAuxThreads,
+                            kAuxThreads, 0, s>>>(packed, n, best, arg);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3559,8 +3592,8 @@ extern "C" int repro_worklist_halo_range_count(
   const cudaError_t err = cudaMemsetAsync(
       cut, 0, sizeof(unsigned) * static_cast<size_t>(tiles) * words, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  count_cut_kernel<<<tiles, 128, 0, st>>>(row_ptr, col_tile, in_cut, words,
-                                          cut);
+  count_cut_kernel<<<tiles, kCutThreads, 0, st>>>(row_ptr, col_tile, in_cut,
+                                                  words, cut);
   const CountArgs g{x, reinterpret_cast<const float4*>(rec), starts, ends,
                     w / 4, m, d, s, d2cut, count, cut, words};
   return launch_halo_count<true>(g, plen, order, item_end, meta, n,
@@ -3655,50 +3688,55 @@ extern "C" int repro_halo_layout(const int* starts, const int* ends,
   if (static_cast<long long>(h.bytes) > scratch_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int g = (n + 255) / 256;
+  const int g = (n + kAuxThreads - 1) / kAuxThreads;
   size_t tb = h.temp_bytes;
-  halo_rows_kernel<<<g, 256, 0, st>>>(starts, ends, x_key, n, s, w,
-                                      ring ? kWlRows : 0, h.newf, h.cols,
-                                      h.korder);
+  halo_rows_kernel<<<g, kAuxThreads, 0, st>>>(starts, ends, x_key, n, s, w,
+                                              ring ? kWlRows : 0, h.newf,
+                                              h.cols, h.korder);
   cudaError_t err = cub::DeviceScan::InclusiveSum(h.temp, tb, h.newf, h.run,
                                                   n, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool keyless = x_key == nullptr;
-  halo_keys_kernel<<<g, 256, 0, st>>>(h.run, h.newf,
-                                      keyless ? nullptr : h.korder, n,
-                                      h.keys, keyless ? row_id : h.vals,
-                                      h.rstart);
+  halo_keys_kernel<<<g, kAuxThreads, 0, st>>>(h.run, h.newf,
+                                              keyless ? nullptr : h.korder, n,
+                                              h.keys,
+                                              keyless ? row_id : h.vals,
+                                              h.rstart);
   if (!keyless) {
     tb = h.temp_bytes;
     err = cub::DeviceRadixSort::SortPairs(h.temp, tb, h.keys, h.keys_out,
                                           h.vals, row_id, n, 0, 64, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  halo_plen_kernel<<<g, 256, 0, st>>>(h.run, h.rstart, h.cols, n, keyless,
-                                      plen, h.work, h.vals);
+  halo_plen_kernel<<<g, kAuxThreads, 0, st>>>(h.run, h.rstart, h.cols, n,
+                                              keyless, plen, h.work, h.vals);
   tb = h.temp_bytes;
   err = cub::DeviceRadixSort::SortPairsDescending(
       h.temp, tb, h.work, h.work_sorted, h.vals, order, n, 0, 32, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  halo_w64_kernel<<<g, 256, 0, st>>>(h.work_sorted, n, h.w64);
+  halo_w64_kernel<<<g, kAuxThreads, 0, st>>>(h.work_sorted, n, h.w64);
   tb = h.temp_bytes;
   err = cub::DeviceReduce::Sum(h.temp, tb, h.w64, h.total, n, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  halo_split_kernel<<<g, 256, 0, st>>>(h.w64, plen, order, h.total,
-                                       max(splits, 1LL), n, h.nsplit);
+  halo_split_kernel<<<g, kAuxThreads, 0, st>>>(h.w64, plen, order, h.total,
+                                               max(splits, 1LL), n,
+                                               h.nsplit);
   tb = h.temp_bytes;
   err = cub::DeviceScan::InclusiveSum(h.temp, tb, h.nsplit, item_end, n, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  halo_meta_kernel<<<1, 1, 0, st>>>(item_end, h.work_sorted, n, meta);
+  halo_meta_kernel<<<1, kMetaThreads, 0, st>>>(item_end, h.work_sorted, n,
+                                               meta);
   if (w > 0) {
     const int wf = 4 * rec_vecs(d);
     const long long total = static_cast<long long>(w) * wf;
-    halo_pack_kernel<<<static_cast<int>((total + 255) / 256), 256, 0, st>>>(
+    halo_pack_kernel<<<static_cast<int>((total + kAuxThreads - 1) /
+                                         kAuxThreads),
+                        kAuxThreads, 0, st>>>(
         win, w_key, w, d, wf, rec);
     const int tiles = (w + kWlCols - 1) / kWlCols;
     if (!keyless)
-      halo_tmax_kernel<<<(tiles + 7) / 8, 256, 0, st>>>(w_key, w, tiles,
-                                                        tmax);
+      halo_tmax_kernel<<<(tiles + kAuxWarps - 1) / kAuxWarps, kAuxThreads, 0,
+                         st>>>(w_key, w, tiles, tmax);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -3726,7 +3764,8 @@ int launch_halo_nn(HaloArgs g, const int* plen, const int* order,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  halo_fill_kernel<<<(n + 255) / 256, 256, 0, s>>>(g.best, n, g.init);
+  halo_fill_kernel<<<(n + kAuxThreads - 1) / kAuxThreads, kAuxThreads, 0,
+                     s>>>(g.best, n, g.init);
   // at most one piece a row, mostly fewer: a warp for every 32 rows
   const int want = (n + 32 * kHaloWarps - 1) / (32 * kHaloWarps);
 #define REPRO_LAUNCH(D)                                                    \
@@ -3741,8 +3780,8 @@ int launch_halo_nn(HaloArgs g, const int* plen, const int* order,
   }
   REPRO_DISPATCH_D(g.d, REPRO_LAUNCH)
 #undef REPRO_LAUNCH
-  halo_decode_kernel<<<(n + 255) / 256, 256, 0, s>>>(g.best, n, g.init,
-                                                     delta, arg, found);
+  halo_decode_kernel<<<(n + kAuxThreads - 1) / kAuxThreads, kAuxThreads,
+                       0, s>>>(g.best, n, g.init, delta, arg, found);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -3881,6 +3920,250 @@ extern "C" int repro_worklist_count_topk_bf16(
   }
 #undef REPRO_LAUNCH
   return code;
+}
+
+// The kernel attribute table: one row for each __global__ instantiation
+// that the entry points above can launch, read by the static analyzer
+// (repro_torch/analysis: R4's launch legality and R9's budgets).  It
+// launches nothing.  Each row gives the launch-count names of the wrappers
+// (kernels/ops.py) whose entry points launch it, the dimensions d its
+// dispatch routes to it, the threads a block of its launches has (K12's
+// largest), the query rows a block covers along grid x (0: its grid does
+// not follow the query rows; K12's smallest block), the most blocks its
+// grid takes along y, and the dynamic shared memory its launches ask for
+// at the dimension `d` given, clamped into its range; then
+// cudaFuncGetAttributes and the blocks an SM holds at that block and
+// shared memory (the opt-in set first, as smem_launch does).  The block
+// sizes are the constants the launch sites read.  Returns the number of
+// rows (filling at most `cap`), or a negative CUDA error.
+struct ReproKernelAttr {
+  long long dyn_smem;
+  char name[64];
+  char launch[128];
+  int d_lo;
+  int d_hi;
+  int threads;
+  int rows_per_block;
+  int grid_y_max;
+  int num_regs;
+  int static_smem;
+  int local_bytes;
+  int max_threads;
+  int max_dyn_smem;
+  int occupancy;
+  int error;
+};
+
+namespace {
+
+struct AttrTable {
+  ReproKernelAttr* out;
+  int cap;
+  int count;
+  int d;
+  int sms;
+};
+
+int clamp_d(int d, int lo, int hi) { return d < lo ? lo : (d > hi ? hi : d); }
+
+// the dims REPRO_DISPATCH_D routes to instantiation D (0: the generic one)
+int d_lo_of(int D) { return D > 0 ? D : 9; }
+int d_hi_of(int D) { return D > 0 ? D : INT_MAX; }
+
+// K12 and K13's: KC = 1 up to 8, 2 up to 16, 0 above
+int kc_lo(int KC) { return KC == 1 ? 1 : (KC == 2 ? 9 : 17); }
+int kc_hi(int KC) { return KC == 1 ? 8 : (KC == 2 ? 16 : kBfMaxD); }
+
+// grid_y_max below 0: K6's, -grid_y_max waves of the blocks the card holds
+template <typename Kernel>
+void attr_row(AttrTable& t, Kernel kernel, const char* name,
+              const char* launch, int d_lo, int d_hi, int threads,
+              int rows_per_block, int grid_y_max, size_t dyn) {
+  const int at = t.count++;
+  if (at >= t.cap) return;
+  ReproKernelAttr& r = t.out[at];
+  std::memset(&r, 0, sizeof(r));
+  std::snprintf(r.name, sizeof(r.name), "%s", name);
+  std::snprintf(r.launch, sizeof(r.launch), "%s", launch);
+  r.d_lo = d_lo;
+  r.d_hi = d_hi;
+  r.threads = threads;
+  r.rows_per_block = rows_per_block;
+  r.dyn_smem = static_cast<long long>(dyn);
+  cudaError_t e = cudaSuccess;
+  if (dyn > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dyn));
+  cudaFuncAttributes a{};
+  const cudaError_t ea = cudaFuncGetAttributes(&a, kernel);
+  if (ea == cudaSuccess) {
+    r.num_regs = a.numRegs;
+    r.static_smem = static_cast<int>(a.sharedSizeBytes);
+    r.local_bytes = static_cast<int>(a.localSizeBytes);
+    r.max_threads = a.maxThreadsPerBlock;
+    r.max_dyn_smem = a.maxDynamicSharedSizeBytes;
+  } else if (e == cudaSuccess) {
+    e = ea;
+  }
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, dyn);
+  r.occupancy = e == cudaSuccess ? per_sm : 0;
+  r.grid_y_max = grid_y_max >= 0
+                     ? grid_y_max
+                     : -grid_y_max * t.sms * (per_sm > 0 ? per_sm : 1);
+  r.error = static_cast<int>(e);
+}
+
+template <int D>
+void attr_rows_d(AttrTable& t) {
+  const int lo = d_lo_of(D), hi = d_hi_of(D);
+  const int dd = clamp_d(t.d, lo, hi);
+  const int w4 = rec_vecs(dd);
+  char name[64];
+  std::snprintf(name, sizeof(name), "fused_count_topk_kernel<%d,false>", D);
+  attr_row(t, fused_count_topk_kernel<D, false>, name, "fused_count_topk",
+           lo, hi, kNnThreads, kK1R * kNnThreads, 1, ring_bytes(w4));
+  std::snprintf(name, sizeof(name), "fused_count_topk_kernel<%d,true>", D);
+  attr_row(t, fused_count_topk_kernel<D, true>, name, "fused_count_topk_sel",
+           lo, hi, kNnThreads, kK1R * kNnThreads, 1, ring_bytes(w4));
+  std::snprintf(name, sizeof(name), "worklist_count_topk_kernel<%d,false>",
+                D);
+  attr_row(t, worklist_count_topk_kernel<D, false>, name,
+           "worklist_count_topk", lo, hi, kNnThreads, kWlRows, 1,
+           k3_smem_bytes(w4, dd));
+  std::snprintf(name, sizeof(name), "worklist_count_topk_kernel<%d,true>",
+                D);
+  attr_row(t, worklist_count_topk_kernel<D, true>, name,
+           "worklist_count_topk_sel", lo, hi, kNnThreads, kWlRows, 1,
+           k3_smem_bytes(w4, dd));
+  std::snprintf(name, sizeof(name), "masked_nn_kernel<%d,false>", D);
+  attr_row(t, masked_nn_kernel<D, false>, name, "masked_nn,gather_masked_nn",
+           lo, hi, kNnThreads, kK2R * kNnThreads, 1, ring_bytes(w4));
+  std::snprintf(name, sizeof(name), "masked_nn_kernel<%d,true>", D);
+  attr_row(t, masked_nn_kernel<D, true>, name, "gather_masked_nn", lo, hi,
+           kNnThreads, kK2R * kNnThreads, -kK6Waves, ring_bytes(w4));
+  std::snprintf(name, sizeof(name), "range_count_kernel<%d>", D);
+  attr_row(t, range_count_kernel<D>, name, "range_count", lo, hi, kRows,
+           kRows, kSplitBlocks, 0);
+  std::snprintf(name, sizeof(name), "range_count_signed_kernel<%d>", D);
+  attr_row(t, range_count_signed_kernel<D>, name, "range_count_signed", lo,
+           hi, kRows, kRows, 1, 0);
+  std::snprintf(name, sizeof(name), "prefix_nn_kernel<%d>", D);
+  attr_row(t, prefix_nn_kernel<D>, name, "prefix_nn", lo, hi, kRows, kRows,
+           1, 0);
+  std::snprintf(name, sizeof(name), "worklist_range_count_kernel<%d,false>",
+                D);
+  attr_row(t, worklist_range_count_kernel<D, false>, name,
+           "worklist_range_count", lo, hi, kWlRows, kWlRows, 1, 0);
+  std::snprintf(name, sizeof(name), "worklist_range_count_kernel<%d,true>",
+                D);
+  attr_row(t, worklist_range_count_kernel<D, true>, name,
+           "worklist_range_count_signed", lo, hi, kWlRows, kWlRows, 1, 0);
+  std::snprintf(name, sizeof(name), "worklist_masked_nn_kernel<%d,false>", D);
+  attr_row(t, worklist_masked_nn_kernel<D, false>, name,
+           "worklist_masked_nn", lo, hi, 32 * kK9Warps, kK9Warps, 1, 0);
+  std::snprintf(name, sizeof(name), "worklist_masked_nn_kernel<%d,true>", D);
+  attr_row(t, worklist_masked_nn_kernel<D, true>, name, "worklist_masked_nn",
+           lo, hi, 32 * kK9Warps, kK9Warps, 1, 0);
+  std::snprintf(name, sizeof(name), "halo_count_kernel<%d,false>", D);
+  attr_row(t, halo_count_kernel<D, false>, name, "halo_range_count", lo, hi,
+           32 * kHaloWarps, 32 * kHaloWarps, 1, 0);
+  std::snprintf(name, sizeof(name), "halo_count_kernel<%d,true>", D);
+  attr_row(t, halo_count_kernel<D, true>, name, "worklist_halo_range_count",
+           lo, hi, 32 * kHaloWarps, 32 * kHaloWarps, 1, 0);
+  std::snprintf(name, sizeof(name), "halo_nn_kernel<%d,false>", D);
+  attr_row(t, halo_nn_kernel<D, false>, name, "halo_masked_nn", lo, hi,
+           32 * kHaloWarps, 32 * kHaloWarps, 1, 0);
+  std::snprintf(name, sizeof(name), "halo_nn_kernel<%d,true>", D);
+  attr_row(t, halo_nn_kernel<D, true>, name, "worklist_halo_masked_nn", lo,
+           hi, 32 * kHaloWarps, 32 * kHaloWarps, 1, 0);
+}
+
+template <int KC>
+void attr_rows_kc(AttrTable& t) {
+  const int lo = kc_lo(KC), hi = kc_hi(KC);
+  const int dd = clamp_d(t.d, lo, hi);
+  char name[64];
+  std::snprintf(name, sizeof(name), "fused_count_topk_bf16_kernel<%d,false>",
+                KC);
+  attr_row(t, fused_count_topk_bf16_kernel<KC, false>, name,
+           "fused_count_topk_bf16", lo, hi, kK12Rows, kK12Rows / 2, 1,
+           k12_smem_bytes(dd, false));
+  std::snprintf(name, sizeof(name), "fused_count_topk_bf16_kernel<%d,true>",
+                KC);
+  attr_row(t, fused_count_topk_bf16_kernel<KC, true>, name,
+           "fused_count_topk_bf16_sel", lo, hi, kK12Rows, kK12Rows / 2, 1,
+           k12_smem_bytes(dd, true));
+  std::snprintf(name, sizeof(name),
+                "worklist_count_topk_bf16_kernel<%d,false>", KC);
+  attr_row(t, worklist_count_topk_bf16_kernel<KC, false>, name,
+           "worklist_count_topk_bf16", lo, hi, kK12Rows, kWlRows, 1,
+           k13_smem_bytes(dd, false));
+  std::snprintf(name, sizeof(name),
+                "worklist_count_topk_bf16_kernel<%d,true>", KC);
+  attr_row(t, worklist_count_topk_bf16_kernel<KC, true>, name,
+           "worklist_count_topk_bf16_sel", lo, hi, kK12Rows, kWlRows, 1,
+           k13_smem_bytes(dd, true));
+}
+
+}  // namespace
+
+extern "C" int repro_kernel_attrs(int d, ReproKernelAttr* out, int cap) {
+  int dev = 0;
+  AttrTable t{out, cap, 0, d < 1 ? 1 : d, 0};
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  attr_rows_d<0>(t);
+  attr_rows_d<1>(t);
+  attr_rows_d<2>(t);
+  attr_rows_d<3>(t);
+  attr_rows_d<4>(t);
+  attr_rows_d<5>(t);
+  attr_rows_d<6>(t);
+  attr_rows_d<7>(t);
+  attr_rows_d<8>(t);
+  attr_rows_kc<0>(t);
+  attr_rows_kc<1>(t);
+  attr_rows_kc<2>(t);
+  const char* nn_both = "masked_nn,gather_masked_nn";
+  const char* halo_nn = "halo_masked_nn,worklist_halo_masked_nn";
+  const char* halo_all =
+      "halo_range_count,halo_masked_nn,worklist_halo_range_count,"
+      "worklist_halo_masked_nn";
+  attr_row(t, gather_nn_decode_kernel, "gather_nn_decode_kernel", nn_both, 1,
+           INT_MAX, kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_fill_kernel, "halo_fill_kernel", halo_nn, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_decode_kernel, "halo_decode_kernel", halo_nn, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, count_cut_kernel, "count_cut_kernel",
+           "worklist_halo_range_count", 1, INT_MAX, kCutThreads, kWlRows, 1,
+           0);
+  attr_row(t, halo_rows_kernel, "halo_rows_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_keys_kernel, "halo_keys_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_plen_kernel, "halo_plen_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_w64_kernel, "halo_w64_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_split_kernel, "halo_split_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, kAuxThreads, 1, 0);
+  attr_row(t, halo_meta_kernel, "halo_meta_kernel", halo_all, 1, INT_MAX,
+           kMetaThreads, 0, 1, 0);
+  attr_row(t, halo_pack_kernel, "halo_pack_kernel", halo_all, 1, INT_MAX,
+           kAuxThreads, 0, 1, 0);
+  attr_row(t, halo_tmax_kernel, "halo_tmax_kernel", halo_nn, 1, INT_MAX,
+           kAuxThreads, 0, 1, 0);
+  // a refused opt-in or query leaves its error with its row, not behind
+  // for the next launch's cudaGetLastError
+  cudaGetLastError();
+  return t.count;
 }
 
 extern "C" const char* repro_error_string(int code) {

@@ -7,12 +7,18 @@ outputs with ``torch.empty``, launches on the current stream, and adds one
 to its kernel's plain-integer launch count where it launches, so a run can
 show that its main path went through the kernels.  The counts live in one
 dict keyed by kernel name (``launch_counts()``), so a caller may wrap a
-wrapper without losing them.
+wrapper without losing them; ``suspend_launch_counts()`` keeps a block's
+launches out of them.  Each wrapper also reports its call, on either
+device, to the analyzer's launch record (``analysis.record``), which is a
+no-op unless a recorder is active.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..analysis import record
 from . import build, packing
 from .blocksparse import BLOCK_M, BLOCK_N, Worklist
 from .sweep import (FUSED_TOPK, d2cut_of, fused_count_topk_bf16_plain,
@@ -30,7 +36,7 @@ __all__ = ["fused_sweep", "dependent_masked", "dependent_prefix",
            "local_density_xy", "local_density_delta",
            "dependent_masked_gather", "gather_form", "gather_layout",
            "gather_scan", "halo_density", "halo_layout", "halo_dependent",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "suspend_launch_counts"]
 
 _INT_MAX = 2**31 - 1
 
@@ -233,6 +239,10 @@ def fused_sweep(x: torch.Tensor, y: torch.Tensor, d_cut, *, nn_sel=None,
         raise ValueError("fused_sweep: insertion counts come from the CUDA "
                          "dense bf16 kernel, into (n,) int32 on x's device")
     d2cut = d2cut_of(d_cut)
+    record.note_launch(
+        ("worklist_" if worklist is not None else "fused_") + "count_topk"
+        + ("_bf16" if bf16 else "") + ("_sel" if sel is not None else ""),
+        x, y, sel, d2cut=d2cut, worklist=worklist, row_tile=BLOCK_N)
     if x.device.type == "cpu":
         gate = None if sel is None else sel.bool()
         if worklist is None:
@@ -323,6 +333,10 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
     if worklist is not None:
         _check_worklist("dependent_masked", x, y, worklist)
     _check_live("dependent_masked", x, worklist, live, walks=True)
+    name = "masked_nn" if worklist is None else "worklist_masked_nn"
+    if x.device.type == "cpu" or worklist is not None:
+        record.note_launch(name, x, y, x_key, y_key, worklist=worklist,
+                           row_tile=BLOCK_N)
     if x.device.type == "cpu":
         if worklist is None:
             best, arg = masked_nn_plain(x, x_key, y, y_key)
@@ -337,12 +351,13 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
         lib = build.load_library()
         with torch.cuda.device(x.device):
             if worklist is None:
-                name = "masked_nn"
                 sms = torch.cuda.get_device_properties(
                     x.device).multi_processor_count
                 lay = packing.nn_layout(
                     x, x_key, y, y_key, lib.repro_masked_nn_block_rows(),
                     NN_ITEMS_PER_SM * sms, NN_MIN_CHUNK)
+                record.note_launch(name, x, y, x_key, y_key,
+                                   grid=(lay.items.shape[0],))
                 packed = torch.empty((n,), dtype=torch.int64,
                                      device=x.device)
                 code = lib.repro_masked_nn(
@@ -352,7 +367,6 @@ def dependent_masked(x: torch.Tensor, x_key: torch.Tensor, y: torch.Tensor,
                     lay.items.shape[0], n, d, packed.data_ptr(),
                     best.data_ptr(), arg.data_ptr(), _stream(x))
             else:
-                name = "worklist_masked_nn"
                 rec = packing.pack_records(y, y_key.view(torch.int32))
                 tmax = packing.tile_max_key(y_key)
                 next_row = torch.empty((1,), dtype=torch.int32,
@@ -377,6 +391,7 @@ def dependent_prefix(points_sorted_desc: torch.Tensor):
     """
     x = points_sorted_desc
     _check("dependent_prefix", x, x)
+    record.note_launch("prefix_nn", x, x)
     if x.device.type == "cpu":
         best, arg = prefix_nn_plain(x)
         return torch.sqrt(best), arg
@@ -404,6 +419,9 @@ def local_density_xy(x: torch.Tensor, y: torch.Tensor, d_cut, *,
     if worklist is not None:
         _check_worklist("local_density_xy", x, y, worklist)
     d2cut = d2cut_of(d_cut)
+    record.note_launch("range_count" if worklist is None
+                       else "worklist_range_count", x, y, d2cut=d2cut,
+                       worklist=worklist, row_tile=BLOCK_N)
     if x.device.type == "cpu":
         if worklist is None:
             return range_count_plain(x, y, d2cut).to(torch.float32)
@@ -446,6 +464,9 @@ def local_density_delta(x: torch.Tensor, batch: torch.Tensor,
     if worklist is not None:
         _check_worklist("local_density_delta", x, batch, worklist)
     d2cut = d2cut_of(d_cut)
+    record.note_launch("range_count_signed" if worklist is None
+                       else "worklist_range_count_signed", x, batch, signs,
+                       d2cut=d2cut, worklist=worklist, row_tile=BLOCK_N)
     if x.device.type == "cpu":
         if worklist is None:
             return range_count_signed_plain(x, batch, signs, d2cut)
@@ -551,6 +572,8 @@ def dependent_masked_gather(table: torch.Tensor, keys: torch.Tensor,
             or q_slots.device != table.device:
         raise ValueError("dependent_masked_gather: q_slots must be a 1-D "
                          f"int32/int64 tensor on {table.device}")
+    record.note_launch("gather_masked_nn", table, table, keys, q_slots,
+                       rows=q_slots.numel())
     if table.device.type == "cpu":
         best, arg = gather_masked_nn_plain(table, keys, q_slots)
         return torch.sqrt(best), arg
@@ -581,6 +604,10 @@ def halo_density(x: torch.Tensor, window: torch.Tensor,
     if worklist is not None:
         _check_worklist("halo_density", x, window, worklist)
     d2cut = d2cut_of(d_cut)
+    record.note_launch("halo_range_count" if worklist is None
+                       else "worklist_halo_range_count", x, window, starts,
+                       ends, d2cut=d2cut, worklist=worklist,
+                       row_tile=BLOCK_N)
     if x.device.type == "cpu":
         if worklist is None:
             count = halo_range_count_plain(x, window, starts, ends, d2cut)
@@ -683,6 +710,10 @@ def halo_dependent(x: torch.Tensor, x_key: torch.Tensor,
         _check_worklist("halo_dependent", x, window, worklist)
     _check_live("halo_dependent", x, worklist, live, walks=True)
     d2cut = d2cut_of(d_cut)
+    record.note_launch("halo_masked_nn" if worklist is None
+                       else "worklist_halo_masked_nn", x, window, x_key,
+                       w_key, starts, ends, d2cut=d2cut, worklist=worklist,
+                       row_tile=BLOCK_N)
     if x.device.type == "cpu":
         if worklist is None:
             best, arg = halo_masked_nn_plain(x, x_key, window, w_key, starts,
@@ -731,3 +762,14 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def suspend_launch_counts():
+    """Scope whose launches leave ``launch_counts()`` as it was at entry
+    (the plan-time analyzer's canonical run)."""
+    saved = dict(_LAUNCHES)
+    try:
+        yield
+    finally:
+        _LAUNCHES.update(saved)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis import record
 from .blocksparse import BLOCK_M, BLOCK_N
 
 # The admission bound: a real point at or beyond it is refused at the
@@ -46,9 +47,12 @@ _PLAIN_PAIRS = 1 << 24
 
 def d2cut_of(d_cut) -> float:
     """The f32 threshold ``f32(d_cut)**2``, rounded once, as the reference
-    computes it (``jnp.asarray(d_cut, f32) ** 2``)."""
+    computes it (``jnp.asarray(d_cut, f32) ** 2``); reported to the
+    analyzer's launch record (R7 holds every spelling to one value)."""
     c = np.float32(float(d_cut))
-    return float(c * c)
+    d2cut = float(c * c)
+    record.note_step("threshold", d2cut=d2cut, spelling=type(d_cut).__name__)
+    return d2cut
 
 
 def direct_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from ..analysis.audit import audit_determinism
 from . import transformer as tfm
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
 from .common import (ArchConfig, StackedParams, dense_init, embed_init,
@@ -139,6 +140,13 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
     return -(-C // 32) * 32
 
 
+@audit_determinism(
+    "the scatter dispatch mode's combine adds each token's k expert "
+    "outputs with an index_add_ in the activations' dtype, whose order of "
+    "additions the card does not fix (atomics): a token's output may move "
+    "in its last bits between runs, as the reference's scatter-add "
+    "combine; the default gather mode sums in a fixed order in f32",
+    ops=("index_add_",))
 def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     """x: (B, L, d) -> (y (B, L, d), the f32 aux loss).  Sort-based
     top-k dispatch."""

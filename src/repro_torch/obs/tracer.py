@@ -18,7 +18,8 @@ Levels (``configure(level=...)``):
   device memory allocated while it was open (its children's peaks
   included): the span resets the allocator's peak statistic at its start,
   so a caller's own ``torch.cuda.max_memory_allocated`` reading spans only
-  the time since the last span opened.
+  the time since the last span opened, or since the analyzer's canonical
+  run of a fresh plan (:func:`reset_peak_memory`), whatever the level.
 
 Closed spans are kept in memory (:func:`spans`) and, where
 ``configure(trace_path=...)`` names a file, appended to it as JSON lines
@@ -33,6 +34,7 @@ A leaf module: torch and the standard library only.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -44,7 +46,8 @@ from typing import Any
 import torch
 
 __all__ = ["LEVELS", "configure", "level", "enabled", "tracing", "span",
-           "spans", "reset_spans", "flush"]
+           "spans", "reset_spans", "flush", "suspended",
+           "reset_peak_memory"]
 
 LEVELS = ("off", "metrics", "trace")
 
@@ -271,6 +274,31 @@ def span(name: str, **attrs: Any) -> "Span | _NullSpan":
     if _STATE.level == "off":
         return NULL_SPAN
     return Span(name, attrs)
+
+
+@contextlib.contextmanager
+def suspended():
+    """Record no span inside the block (the analyzer's canonical run): the
+    level reads ``"off"`` there and is restored on exit."""
+    with _LOCK:
+        saved, _STATE.level = _STATE.level, "off"
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _STATE.level = saved
+
+
+def reset_peak_memory(device: Any = None) -> None:
+    """Reset the card's peak-allocation statistic for a measurement of
+    one's own (the analyzer's canonical run), first folding the peak so far
+    into the innermost open span that records one, as a child span's start
+    does: no span's ``peak_bytes`` loses what came before the reset."""
+    stack = getattr(_TLS, "stack", None)
+    if stack and stack[-1]._peak is not None:
+        stack[-1]._peak = max(stack[-1]._peak,
+                              torch.cuda.max_memory_allocated(device))
+    torch.cuda.reset_peak_memory_stats(device)
 
 
 def spans() -> list[dict]:

@@ -22,8 +22,9 @@ reference's ``pallas`` route; on ``torch`` the fused ``rho_delta`` with a
 The member sums are ``index_add_``: on the card they run as atomics, so
 ``k_c``/``v_c`` may differ in the last bit between runs.  The reference
 accepts the same of its scatter-adds (its ``audit_determinism`` note:
-the centroids are approximate summaries by construction); the
-determinism audit itself is analysis tooling (ROADMAP item 11).
+the centroids are approximate summaries by construction), and so does
+``compress_kv``'s own ``@audit_determinism`` (R8 of
+``repro_torch.analysis``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis.audit import audit_determinism
 from ..core import threefry
 from ..core.dpc_types import density_jitter, with_jitter
 from ..engine.planner import as_plan
@@ -210,6 +212,15 @@ def _heads(k: torch.Tensor, length) -> tuple:
     return k.permute(0, 2, 1, 3).reshape(B * K, S, hd), valid
 
 
+@audit_determinism(
+    "the member sums' index_add_ collide by design (every member of a "
+    "cluster lands on its center's slot); the counts are integer-valued, "
+    "exact in f32 in any order, but on the card the k and v sums are float "
+    "atomics whose order of arrival can move k_c and v_c in their last "
+    "bits between runs; the centroids are approximate summaries by "
+    "construction and that wobble is within the compressor's accepted "
+    "error, as the reference accepts of its scatter-adds",
+    ops=("index_add_",))
 def compress_kv(k: torch.Tensor, v: torch.Tensor, length,
                 cfg: DPCKVConfig):
     """k/v: (B, S, n_kv, hd); length: an int or (B,) valid prefix lengths.

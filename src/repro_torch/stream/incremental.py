@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.audit import audit_check_rep
 from repro_torch.core.grid import canonical_group_coords
 
 # dirty_near's work budgets: dilated keys held at once, and query x touched
@@ -308,6 +309,11 @@ def make_sharded_repair(mesh, axis: str, backend, d_cut: float):
     """
     flat = mesh.flatten(axis)
 
+    @audit_check_rep(
+        "per-row repairs are shard-local; the one replicated output (the "
+        "inserted rows' fresh counts) is produced by an explicit psum, the "
+        "same on every shard by construction (integer counts, exact in "
+        "f32, summed in shard order)", collectives=("psum",))
     def repair(window_dev, rho, delta_batch, signs, ins_batch, slots):
         n = window_dev.shape[0]
         if n % flat.size:

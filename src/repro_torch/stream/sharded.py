@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis.audit import audit_check_rep
 from repro_torch.core.labels import Clustering, select_centers
 
 __all__ = ["make_sharded_nn_update", "make_sharded_labels",
@@ -64,6 +65,11 @@ def make_sharded_nn_update(mesh, axis: str, backend, layout: str | None = None):
     flat = _shards(mesh, axis)
     S = flat.size
 
+    @audit_check_rep(
+        "window rows and keys are shard-local; both outputs are made the "
+        "same on every shard by explicit lexicographic pmin reductions "
+        "(best d2, then the lowest global slot among its holders)",
+        collectives=("pmin",))
     def nn_update(window_dev, rho_key, q_slots):
         n = window_dev.shape[0]
         _shards(flat, axis, n)              # the rows must split evenly
@@ -109,6 +115,11 @@ def make_sharded_labels(mesh, axis: str, capacity: int):
     chunk = n // S
     steps = max(int(math.ceil(math.log2(max(n, 2)))), 1)
 
+    @audit_check_rep(
+        "each pointer-jump round jumps my shard's chunk against the "
+        "replicated table and re-replicates it with an explicit "
+        "all_gather, the same on every shard by construction",
+        collectives=("all_gather",))
     def propagate(p0: torch.Tensor) -> torch.Tensor:
         table = flat.all_gather(flat.shard(p0))
         for _ in range(steps):

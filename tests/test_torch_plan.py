@@ -398,7 +398,8 @@ def test_telemetry_static_axes_and_pad(monkeypatch):
     assert t["pad"]["row_block"] == blocksparse.BS_BLOCK_N
     assert t["pad"]["padded_n"] % t["pad"]["row_block"] == 0
     assert 0.0 <= t["pad"]["pad_waste_frac"] < 1.0
-    assert "hlo_cost" not in t and "memory" not in t
+    assert "hlo_cost" not in t and "hlo_cost" not in jt
+    assert set(jt["memory"]) <= set(t["memory"])     # the analyzer's block
     dense = planner.as_plan(ExecSpec(), _t(pts)).telemetry()
     assert dense["pad"] == {"row_block": 1, "n": 200, "padded_n": 200,
                             "pad_waste_frac": 0.0}

@@ -29,6 +29,7 @@ from repro_torch.core.metrics import rand_index
 from repro_torch.core.sapproxdpc import (coarse_cell_key, representatives,
                                          run_sapproxdpc)
 from repro_torch.data.points import gaussian_mixture
+from repro_torch.engine.planner import as_plan
 from repro_torch.kernels import blocksparse, ops, sweep
 from repro_torch.kernels.backend import CudaBackend
 
@@ -389,6 +390,10 @@ def test_rho_delta_gate_reaches_the_backend_in_both_layouts(monkeypatch):
                      worklist is not None))
         return nn_fn(x, xk, y, yk, worklist=worklist, **kw)
 
+    # a spec's first plan() runs the analyzer's canonical sweep through
+    # these wrappers (the plan-time gate): plan both specs before watching
+    for layout in ("dense", "block-sparse"):
+        as_plan(ExecSpec(layout=layout))
     monkeypatch.setattr(ops, "fused_sweep", rec_sweep)
     monkeypatch.setattr(ops, "dependent_masked", rec_nn)
     for layout in ("dense", "block-sparse"):
