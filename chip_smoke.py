@@ -380,6 +380,18 @@ Phases, each of which raises on failure (nothing is caught):
    a CFSFDP-A fit of phase 26's points twice, its rho and parent equal bit
    for bit (what the k-means sums' audit claims); the gate's cold ``plan()`` per fresh spec (host clock ending in a
    synchronize) beside ``plan()`` with ``REPRO_ANALYSIS=suspend``.
+32. The cost tooling (``run_cost``), reported, not gated but for the
+   first check: the 5.8M block-sparse and 2^20 dense plans'
+   ``telemetry(include_cost=True)`` (no launch, no worklist built);
+   ``kernel_cost.record_cost`` of the warm 5.8M fit's launch record beside
+   each kernel wrapper's CUDA-event time in that fit, over the record's
+   bound and phase 8's exact one; ``launch/dryrun.py``'s dot FLOPs of the
+   three model steps phases 28 and 30 timed (gemma-2b's prefill of
+   8 x 512, a decode step at cache 544, the 8 x 512 train step) as
+   achieved TFLOP/s and share of the 989 TFLOP/s bf16 peak; and
+   ``launch/dryrun_dpc.py`` at 5,810,462 x 3 on 4 shards beside phase 17's
+   ``dist.*`` spans.  Every bound in the script is
+   ``launch/kernel_cost.py``'s.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -412,6 +424,7 @@ kernels' direct differences do not contract into FMAs.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -427,16 +440,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): HBM3 rate
-# and bf16 on the tensor cores.  The kernels' f32 work is direct differences
-# that may not contract into FMAs, so its floor is one operation per f32
-# lane per cycle: SMs x 128 lanes x the SM clock, 132 x 128 x 1980 MHz on
-# the data sheet's part, and main() sets it from the card's own SM count
-# and maximum clock (the data sheet's 67 TFLOP/s counts an FMA as two).
-HBM_BYTES_PER_S = 3.35e12
-F32_LANES_PER_SM = 128           # Hopper: 128 f32 lanes per SM
-F32_ISSUE_PER_S = 132 * F32_LANES_PER_SM * 1980e6
-BF16_TC_OPS_PER_S = 989e12       # bf16 on the tensor cores, dense
+# Every bound below is launch/kernel_cost.py's: its work functions and the
+# published H100 SXM peaks, with the f32 lane issue rate taken from the
+# card's own SM count and maximum clock (``card_rates``).
+from repro_torch.launch import kernel_cost  # noqa: E402
 
 N_MAIN = 1 << 20                 # the dense path (quadratic)
 N_FULL = 5_810_462               # Airline's size: the block-sparse main path
@@ -547,19 +554,19 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least time for the work: bytes over the memory rate or f32
-    operations over the lane issue rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_ISSUE_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations")
+@functools.cache
+def card_rates() -> kernel_cost.Rates:
+    """The card's peak rates: kernel_cost's published H100 figures with
+    the f32 lane issue rate of this card (SMs x 128 x its maximum SM
+    clock)."""
+    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kernel_cost.Rates.for_card(sms, max_sm_mhz)
 
 
-def k1_work(n: int, m: int, d: int) -> tuple[float, float]:
-    """Bytes and operations of fused_count_topk: each input read once,
-    each output written once; 3d+1 operations per pair."""
-    nbytes = 4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
-    return nbytes, float(n) * m * (3 * d + 1)
+def card_bound(work: kernel_cost.Work) -> tuple[float, str]:
+    """``kernel_cost.bound_ms`` of the work at this card's rates."""
+    return kernel_cost.bound_ms(work, card_rates())
 
 
 def k3_needed_pairs(wl, m: int, topv: torch.Tensor) -> int:
@@ -587,22 +594,14 @@ def k3_needed_pairs(wl, m: int, topv: torch.Tensor) -> int:
                .sum())
 
 
-def k3_work(x, y, wl, needed: int, sel=None) -> tuple[float, float]:
-    """Bytes and operations of worklist_count_topk on this run's data: the
-    inputs and the worklist read once, the outputs written once, the
-    wrapper's record pack (kernels/packing.py: y's records, and gated the
-    selected columns' with each column tile's range, each written once and
-    read once; the split and the tile order); 3d+1 operations per pair it
-    needs (``needed``, from ``k3_needed_pairs``)."""
-    from repro_torch.kernels.packing import record_width
-    n, m, d = x.shape[0], y.shape[0], x.shape[1]
-    rec = 2 * 4 * record_width(d)
-    nbytes = (4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
-              + 4 * wl.row_ptr.numel() + 9 * wl.n_kept
-              + m * rec + 2 * 4 * wl.num_row_tiles)
-    if sel is not None:
-        nbytes += m + int(sel.sum()) * rec + 4 * (-(-m // 512) + 1)
-    return nbytes, float(needed) * (3 * d + 1)
+def k3_work_on(x, y, wl, needed: int, sel=None) -> kernel_cost.Work:
+    """``kernel_cost.k3_work`` of K3 on these inputs: the pairs it needs
+    (``needed``, from ``k3_needed_pairs``) and, gated, the columns
+    ``sel`` selects."""
+    return kernel_cost.k3_work(
+        x.shape[0], y.shape[0], x.shape[1], wl.n_kept, wl.num_row_tiles,
+        needed=needed, gated=sel is not None,
+        selected=None if sel is None else int(sel.sum()))
 
 
 def k3_schedule(x, y, d_cut, wl, sel=None) -> dict:
@@ -638,25 +637,20 @@ def k3_schedule_line(sch: dict, needed: int) -> str:
             f"needed")
 
 
-def k2_work(x_key, y_key, d: int) -> tuple[float, float]:
-    """Bytes and operations of masked_nn on these keys, as its schedule
-    must do them: 3d+1 operations for each pair whose column is denser
-    (the key-sorted prefix leaves no key test); the inputs read once, the
-    outputs written once, and the sort and pack of the columns (keys
-    sorted with their indices, rows gathered into records) and of the
-    rows."""
-    from repro_torch.kernels.packing import record_width
-    n, m = x_key.numel(), y_key.numel()
-    # counted apart from the wrapper's own key order: #{j : y_key[j] >
-    # x_key[i]}, where a NaN key is never greater and nothing exceeds one
+def k2_denser(x_key, y_key) -> float:
+    """The pairs K2 computes on these keys: #{j : y_key[j] > x_key[i]}
+    summed over the rows, counted apart from the wrapper's own key order
+    (a NaN key is never greater and nothing exceeds one)."""
     neg_inf = torch.tensor(float("-inf"), device=y_key.device)
     ys = torch.sort(torch.where(torch.isnan(y_key), neg_inf, y_key)).values
-    above = m - torch.searchsorted(ys, x_key, right=True)
-    denser = float(torch.where(torch.isnan(x_key), 0, above).sum())
-    nbytes = (4 * (n * d + n + m * d + m) + 8 * n
-              + 16 * m + 4 * m * (d + record_width(d)) + 16 * n
-              + 4 * n * (2 * d + 1))
-    return nbytes, denser * (3 * d + 1)
+    above = y_key.numel() - torch.searchsorted(ys, x_key, right=True)
+    return float(torch.where(torch.isnan(x_key), 0, above).sum())
+
+
+def k2_work_on(x_key, y_key, d: int) -> kernel_cost.Work:
+    """``kernel_cost.k2_work`` of K2 on these keys (``k2_denser``)."""
+    return kernel_cost.k2_work(x_key.numel(), y_key.numel(), d,
+                               denser=k2_denser(x_key, y_key))
 
 
 def check_equal(name: str, got, want, what: str = "its plain version"):
@@ -781,38 +775,18 @@ def same_up_to_ties(x, a, b, lab_a, lab_b, what: str):
     return rows.numel(), int(tied.sum()), int((lab_a != lab_b).sum())
 
 
-def k4_work(n: int, m: int, d: int) -> tuple[float, float]:
-    """Bytes and operations of range_count: x and y read once, the counts
-    written once; 3d+1 operations per pair."""
-    return 4 * (n * d + m * d) + 4 * n, float(n) * m * (3 * d + 1)
-
-
-def k5_work(n: int, m: int, d: int) -> tuple[float, float]:
-    """Bytes and operations of range_count_signed: x, the batch and its
-    signs read once, the sums written once; 3d+1 operations per pair."""
-    return 4 * (n * d + m * d + m) + 4 * n, float(n) * m * (3 * d + 1)
-
-
-def k6_work(keys, slots, d: int) -> tuple[float, float, dict]:
-    """Bytes and operations of gather_masked_nn on these keys and slots,
-    counted as K2's (``k2_work``) on the gathered rows: 3d+1 operations
-    for each pair of a live slot and a strictly denser column, no key test
-    (the prefix form tests none); the table, its keys and the slots read
-    once, (d2, parent) written once, and the sort and pack of the columns
-    and the rows.  ``info`` holds the earlier count, a key
-    test for every pair of a live slot and a column plus 3d+1 for each
-    denser one, with the table, keys and slots as its only bytes."""
+def k6_work_on(keys, slots, d: int) -> tuple:
+    """K6's work on these keys and slots in its prefix form (K2's on the
+    gathered rows, ``kernel_cost.k6_work``) and in its key form (a key
+    test for every pair of a live slot and a column), the earlier count:
+    each needs the strictly denser pairs of the gathered rows."""
     from repro_torch.kernels.packing import gather_rows
     m, q = keys.numel(), slots.numel()
     _, x_key = gather_rows(keys, slots)
-    nbytes, ops = k2_work(x_key, keys, d)
-    nbytes += 8 * q                       # the slots, as int64
+    denser = k2_denser(x_key, keys)
     live = int(((slots >= 0) & (slots < m)).sum())
-    old = (4 * (m * d + m) + 8 * q + 8 * q,
-           float(live) * m + ops)
-    b_ms, by = bound_ms(*old)
-    return nbytes, ops, {"earlier_bytes": old[0], "earlier_ops": old[1],
-                         "earlier_bound_ms": b_ms}
+    return (kernel_cost.k6_work(q, m, d, "prefix", denser),
+            kernel_cost.k6_work(q, m, d, "key", denser, live))
 
 
 def stream_kernels():
@@ -1117,14 +1091,16 @@ def run_stream(label: str, pts: np.ndarray, d_cut: float, ticks: int,
             rows6, k6k[s6].contiguous(), t6, k6k)),
         "form": ops.gather_form(s6.numel()),
         "forms": forms6, "parts": k6_forms(t6, k6k, s6, k6(t6, k6k, s6))}
-    bounds["range_count"] = k4_work(x4.shape[0], y4.shape[0], d)
-    bounds["range_count_signed"] = k5_work(x5.shape[0], y5.shape[0], d)
-    nb6, ops6, k6_info = k6_work(k6k, s6, d)
-    bounds["gather_masked_nn"] = (nb6, ops6)
-    times["gather_masked_nn"].update(k6_info)
+    bounds["range_count"] = kernel_cost.k4_work(x4.shape[0], y4.shape[0], d)
+    bounds["range_count_signed"] = kernel_cost.k5_work(x5.shape[0],
+                                                       y5.shape[0], d)
+    bounds["gather_masked_nn"], k6_key = k6_work_on(k6k, s6, d)
+    times["gather_masked_nn"].update(
+        earlier_bytes=k6_key.bytes, earlier_ops=k6_key.ops,
+        earlier_bound_ms=card_bound(k6_key)[0])
     kernels = {}
     for k in names:
-        b_ms, by = bound_ms(*bounds[k])
+        b_ms, by = card_bound(bounds[k])
         kernels[k] = {**times[k], "launches": launches[k],
                       "launches_per_tick": launches[k] / ticks,
                       "max_abs_err": errs[k], "bound_ms": b_ms,
@@ -1467,7 +1443,7 @@ def k3_row_tile_check(x, y, d_cut, wl, sel, name: str, card: str):
           f"d_cut), {k3_schedule_line(sch, needed)}; kernel "
           f"{times['ms']:.3f} ms, plain {plain_ms:.1f} ms on the row tiles  "
           f"({card})", flush=True)
-    return err, times, k3_work(x, y, wl, needed, sel), rec
+    return err, times, k3_work_on(x, y, wl, needed, sel), rec
 
 
 def k2_fit_check(calls, what: str, card: str):
@@ -1475,7 +1451,8 @@ def k2_fit_check(calls, what: str, card: str):
     first K2_PLAIN_ROWS rows, timed on all.  Returns (max abs err, times,
     the work for the bound)."""
     from repro_torch.kernels import ops, sweep
-    err, ms, plain_ms, nbytes, nops = 0.0, 0.0, 0.0, 0.0, 0.0
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    work = kernel_cost.Work(0.0, 0.0)
     for i, (xq, xk, y, yk) in enumerate(calls):
         r = min(K2_PLAIN_ROWS, xq.shape[0])
         want, p_ms = timed_once(lambda: sweep.masked_nn_plain(
@@ -1486,17 +1463,16 @@ def k2_fit_check(calls, what: str, card: str):
             (torch.sqrt(want[0]), want[1])))
         ms += time_ms(lambda: ops.dependent_masked(xq, xk, y, yk))
         plain_ms += p_ms
-        nb, no = k2_work(xk, yk, xq.shape[1])
-        nbytes, nops = nbytes + nb, nops + no
+        work += k2_work_on(xk, yk, xq.shape[1])
     rows = [c[0].shape[0] for c in calls]
-    b_ms, by = bound_ms(nbytes, nops)
+    b_ms, by = card_bound(work)
     print(f"masked_nn == plain, bit for bit, on the first {K2_PLAIN_ROWS} of "
           f"{rows} rows x {calls[0][2].shape[0]} ({what}); kernel {ms:.3f} "
           f"ms on all rows, bound {b_ms:.3f} ms ({by}), plain "
           f"{plain_ms:.3f} ms on the slice  ({card})", flush=True)
     return err, {"ms": ms, "plain_ms": plain_ms, "rows": rows,
                  "plain_rows": K2_PLAIN_ROWS, "bound_ms": b_ms,
-                 "bound_by": by}, (nbytes, nops)
+                 "bound_by": by}, work
 
 
 def traced(fit, names, card: str, what: str):
@@ -1627,32 +1603,29 @@ def tile_rows(wl, n: int) -> torch.Tensor:
     return (n - t * BLOCK_N).clamp(max=BLOCK_N)
 
 
-def k8_work(x, y, wl) -> tuple[float, float]:
-    """Bytes and operations of worklist_range_count: x, y and the worklist
-    read once (row_ptr, col_tile, in_cut), the counts written once; 3d+1
-    operations per pair of an in-d_cut entry."""
+def k8_work_on(x, y, wl) -> kernel_cost.Work:
+    """``kernel_cost.k8_work`` of K8 on these inputs: the pairs of its
+    in-d_cut entries, each entry's real columns times its row tile's real
+    rows."""
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     pairs = float((entry_widths(wl, m) * wl.in_cut
                    * tile_rows(wl, n)[wl.row_tile()]).sum())
-    nbytes = (4 * (n * d + m * d) + 4 * n + 4 * wl.row_ptr.numel()
-              + 5 * wl.n_kept)
-    return nbytes, pairs * (3 * d + 1)
+    return kernel_cost.k8_work(n, m, d, wl.n_kept, wl.num_row_tiles, pairs)
 
 
-def k9_work(x, xk, y, yk, wl, best_d2, sample: int = 2048,
-            gen=None) -> tuple[float, float, dict]:
-    """Bytes and operations of worklist_masked_nn on this run's data.
-    Bytes: x, its keys, y, its keys and the ring (row_ptr, col_tile, lb)
-    read once, (d2, parent) written once.  Operations, per row: a key test
-    for each column of the entries it needs, those whose lb is at most its
-    final best d2 (a prefix of its ring, found by a search on (row tile,
-    lb's bits) as in ``k3_needed_pairs``) and whose column tile's largest
-    key (``packing.tile_max_key``) is above the row's key, since no column
-    of any other tile can be denser (rows keyed +inf or NaN need none);
-    and 3d+1 for each of those columns that is denser: counted on
-    ``sample`` random rows and scaled by their share of the key tests.
-    ``info`` also holds the earlier count, a key test for every
-    column of the prefix, and its operations."""
+def k9_work_on(x, xk, y, yk, wl, best_d2, sample: int = 2048,
+               gen=None) -> tuple:
+    """K9's work on this run's data (``kernel_cost.k9_work``), the
+    earlier count's and their counts.  Key tests, per row: each column of
+    the entries it needs, those whose lb is at most its final best d2 (a
+    prefix of its ring, found by a search on (row tile, lb's bits) as in
+    ``k3_needed_pairs``) and whose column tile's largest key
+    (``packing.tile_max_key``) is above the row's key, since no column of
+    any other tile can be denser (rows keyed +inf or NaN need none); the
+    denser columns among them counted on ``sample`` random rows and
+    scaled by their share of the key tests.  The earlier count took a key
+    test for every column of the prefix.  Returns (work, earlier work,
+    info)."""
     from repro_torch.kernels import packing
     from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
@@ -1700,14 +1673,14 @@ def k9_work(x, xk, y, yk, wl, best_d2, sample: int = 2048,
     # the same denser columns under either count: the tiles the key test
     # passes over hold none
     denser = total * s_denser / max(s_needed, 1)
-    nbytes = (4 * (n * d + n + m * d + m) + 4 * wl.row_ptr.numel()
-              + 8 * wl.n_kept + 8 * n)
-    ops = total + denser * (3 * d + 1)
-    ops_earlier = earlier + denser * (3 * d + 1)
-    return nbytes, ops, {
+    work = kernel_cost.k9_work(n, m, d, wl.n_kept, wl.num_row_tiles, total,
+                               denser)
+    old = kernel_cost.k9_work(n, m, d, wl.n_kept, wl.num_row_tiles, earlier,
+                              denser)
+    return work, old, {
         "key_tests": total, "denser_est": denser, "sample_rows": rows.numel(),
-        "key_tests_earlier": earlier, "ops_earlier": ops_earlier,
-        "bound_ms_earlier": bound_ms(nbytes, ops_earlier)[0]}
+        "key_tests_earlier": earlier, "ops_earlier": old.ops,
+        "bound_ms_earlier": card_bound(old)[0]}
 
 
 def row_tile_slice(wl, n_rows, count):
@@ -1744,7 +1717,8 @@ def k9_fit_check(calls, what: str, card: str, gen) -> tuple:
     rec = {"rows": [], "k2_ms": 0.0, "k9_ms": 0.0, "route_ms": 0.0,
            "ring_ms": 0.0, "plain_ms": 0.0, "plain_rows": 0, "entries": 0,
            "longest": 0, "ring": 0}
-    err, nb, no, no0 = 0.0, 0.0, 0.0, 0.0
+    err = 0.0
+    work = old = kernel_cost.Work(0.0, 0.0)
 
     def ring_of(x, y):
         return blocksparse.build_flat_worklist(x, y, count=False, nn="best1")
@@ -1774,11 +1748,11 @@ def k9_fit_check(calls, what: str, card: str, gen) -> tuple:
         rec["entries"] += entries
         rec["longest"] = max(rec["longest"], longest)
         rec["ring"] += ring.n_kept
-        b, o, info = k9_work(x, xk, y, yk, ring, torch.square(d9), gen=gen)
-        nb, no, no0 = nb + b, no + o, no0 + info["ops_earlier"]
+        w, w0, _ = k9_work_on(x, xk, y, yk, ring, torch.square(d9), gen=gen)
+        work, old = work + w, old + w0
         del ring
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nb, no)
-    rec["bound_ms_earlier"] = bound_ms(nb, no0)[0]
+    rec["bound_ms"], rec["bound_by"] = card_bound(work)
+    rec["bound_ms_earlier"] = card_bound(old)[0]
     rec["route"] = ("K9" if rec["route_ms"] < rec["k2_ms"] else "K2")
     print(f"worklist_masked_nn [{what}]: == dense K2 bit for bit on all "
           f"{rec['rows']} rows, == plain on {rec['plain_rows']} rows of "
@@ -1790,7 +1764,7 @@ def k9_fit_check(calls, what: str, card: str, gen) -> tuple:
           f"walk each), longest walk {rec['longest']}; bound "
           f"{rec['bound_ms']:.3f} ms ({rec['bound_by']}; earlier count "
           f"{rec['bound_ms_earlier']:.3f})  ({card})", flush=True)
-    return err, rec, (nb, no)
+    return err, rec, work
 
 
 def span_pairs(st, en, w: int) -> torch.Tensor:
@@ -1800,13 +1774,12 @@ def span_pairs(st, en, w: int) -> torch.Tensor:
     return (b - a).clamp_min(0).sum(1)
 
 
-def k10_work(x, win, st, en) -> tuple[float, float]:
-    """Bytes and operations of halo_range_count: x, the window and the
-    spans read once, the counts written once; 3d+1 operations per window
-    column inside a row's spans."""
+def k10_work_on(x, win, st, en) -> kernel_cost.Work:
+    """``kernel_cost.k10_work`` of K10 on these spans: the window columns
+    inside them."""
     (n, d), w = x.shape, win.shape[0]
-    pairs = float(span_pairs(st, en, w).sum())
-    return 4 * (n * d + w * d) + 8 * st.numel() + 4 * n, pairs * (3 * d + 1)
+    return kernel_cost.k10_work(n, w, d, st.shape[1],
+                                float(span_pairs(st, en, w).sum()))
 
 
 def span_tiles(st, en, w: int, rows):
@@ -1839,15 +1812,14 @@ def span_tile_chunks(st, en, w: int, rows=None, budget: int = 40_000_000):
         yield span_tiles(st, en, w, rows[r0:r0 + step])
 
 
-def k11_work(x, xk, win, wk, st, en) -> tuple[float, float, float]:
-    """Bytes and operations of halo_masked_nn: x, its keys, the window, its
-    keys and the spans read once, (delta, parent, found) written once; a
-    key test per window column inside a row's spans whose column tile's
-    largest key (``packing.tile_max_key``) is above the row's, since no
-    column of another tile can be denser (counted exactly, (row, span,
-    tile) by (row, span, tile)), and 3d+1 operations for each denser one
-    (counted exactly, in row blocks).  The third value is the earlier
-    count, a key test for every span column."""
+def k11_work_on(x, xk, win, wk, st, en) -> tuple:
+    """K11's work on these inputs (``kernel_cost.k11_work``) and the
+    earlier count's: a key test per window column inside a row's spans
+    whose column tile's largest key (``packing.tile_max_key``) is above
+    the row's, since no column of another tile can be denser (counted
+    exactly, (row, span, tile) by (row, span, tile)), and the denser
+    columns (counted exactly, in row blocks); the earlier count took a key
+    test for every span column."""
     from repro_torch.kernels import packing, sweep
     (n, d), w = x.shape, win.shape[0]
     pairs = float(span_pairs(st, en, w).sum())
@@ -1862,9 +1834,9 @@ def k11_work(x, xk, win, wk, st, en) -> tuple[float, float, float]:
                                             en[r0:r0 + step], w)
         denser += int((valid & (wk[idx] > xk[r0:r0 + step, None, None]))
                       .sum())
-    nbytes = 4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
-    return (nbytes, tests + denser * (3 * d + 1),
-            pairs + denser * (3 * d + 1))
+    s = st.shape[1]
+    return (kernel_cost.k11_work(n, w, d, s, tests, denser),
+            kernel_cost.k11_work(n, w, d, s, pairs, denser))
 
 
 def halo_runs(st, en, w: int) -> dict:
@@ -2154,41 +2126,6 @@ def bf16_kernels():
             x, b, signs, sweep.d2cut_of(d_cut), wl)
 
     return k12, k12_plain, k13, k13_plain, k14, k14_plain
-
-
-def bf16_bound_ms(nbytes: float, tc_ops: float,
-                  f32_ops: float) -> tuple[float, str]:
-    """The least time for a bf16 sweep's work: bytes over the memory rate,
-    the cross term's operations over the bf16 tensor-core peak, or the
-    epilogue's over the f32 lane issue rate, whichever is largest."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(tc_ops / BF16_TC_OPS_PER_S, f32_ops / F32_ISSUE_PER_S)
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes > t_ops else "operations")
-
-
-def bf16_work(n: int, m: int, d: int, pairs: float, sel=None,
-              wl=None) -> tuple[float, float, float]:
-    """Bytes, tensor-core operations and f32 operations of K12 (K13 given
-    its worklist): x, y (and the gate) and the worklist read once, the
-    outputs written once, K12's record pack (kernels/packing.py: the bf16
-    records, the two f32 norms a column and the gate bytes, written once
-    and read once); per pair 2 * 16 * ceil(d / 16) operations on the
-    tensor cores (d padded to the MMA's k) and 2 f32 ones, the superset
-    test xy >= lim + y2 * (1/2 - 2^-21) that every pair needs (an add and
-    a compare); the exact epilogue on the few pairs that pass it is not
-    counted."""
-    from repro_torch.kernels.packing import BF16_GROUP, bf16_record_width
-    nbytes = 4 * (n * d + m * d) + 4 * n + 2 * 4 * 8 * n
-    if sel is not None:
-        nbytes += m
-    if wl is not None:
-        nbytes += 4 * wl.row_ptr.numel() + 9 * wl.n_kept
-    else:
-        m16 = -(-m // BF16_GROUP) * BF16_GROUP
-        nbytes += 2 * m16 * (2 * bf16_record_width(d) + 8
-                             + (sel is not None))
-    return nbytes, pairs * 32 * -(-d // 16), pairs * 2.0
 
 
 def bf16_ptxas(log: str) -> dict:
@@ -2545,37 +2482,33 @@ def masked_span_pairs(st, en, w: int, mask: torch.Tensor) -> torch.Tensor:
     return (upto(b) - upto(a)).sum(1)
 
 
-def k15_work(x, win, st, en, wl) -> tuple[float, float]:
-    """Bytes and operations of worklist_halo_range_count: x, the window,
-    the spans and the worklist (row_ptr, col_tile, in_cut) read once, the
-    counts written once; 3d+1 operations per span column inside the in-cut
-    entries, every one of which K15 computes."""
+def k15_work_on(x, win, st, en, wl) -> kernel_cost.Work:
+    """``kernel_cost.k15_work`` of K15 on these inputs: the span columns
+    inside its in-d_cut entries."""
     from repro_torch.kernels.blocksparse import BLOCK_M
     (n, d), w = x.shape, win.shape[0]
     mask = tile_mask(wl, -(-w // BLOCK_M), wl.in_cut)
-    pairs = float(masked_span_pairs(st, en, w, mask).sum())
-    nbytes = (4 * (n * d + w * d) + 8 * st.numel() + 4 * n
-              + 4 * wl.row_ptr.numel() + 5 * wl.n_kept)
-    return nbytes, pairs * (3 * d + 1)
+    cols = float(masked_span_pairs(st, en, w, mask).sum())
+    return kernel_cost.k15_work(n, w, d, st.shape[1], wl.n_kept,
+                                wl.num_row_tiles, cols)
 
 
-def k16_work(x, xk, win, wk, st, en, wl, d2cut: float, parent,
-             sample: int = 2048, gen=None) -> tuple[float, float, dict]:
-    """Bytes and operations of worklist_halo_masked_nn on this run's data.
-    Bytes: x, its keys, the window, its keys, the spans and the ring
-    (row_ptr, col_tile, lb) read once, (delta, parent, found) written
-    once.  Operations, per row: a key test per span column inside the ring
-    entries it needs, those whose lb is at most its final best d2 (below
-    d_cut^2 where it found none: no pair at or above it counts) and whose
-    column tile's largest key is above the row's (rows keyed +inf or NaN
-    need none), counted exactly (row, span, tile) by (row, span, tile);
-    and 3d+1 for each of those columns that is denser: counted on
+def k16_work_on(x, xk, win, wk, st, en, wl, d2cut: float, parent,
+                sample: int = 2048, gen=None) -> tuple:
+    """K16's work on this run's data (``kernel_cost.k16_work``), the
+    earlier count's and their counts.  Key tests, per row: each span
+    column inside the ring entries it needs, those whose lb is at most its
+    final best d2 (below d_cut^2 where it found none: no pair at or above
+    it counts) and whose column tile's largest key is above the row's
+    (rows keyed +inf or NaN need none), counted exactly (row, span, tile)
+    by (row, span, tile); the denser columns among them counted on
     ``sample`` random rows and scaled by their share of the key tests.
     The final best d2 is recomputed from ``parent`` with the kernels'
-    arithmetic.  ``info`` also holds the earlier count, on the entries
-    each row tile's block-wide walk computed: those whose lb is at most
-    the largest final best of its seeking rows (+inf where one found
-    none), which is where that walk stopped, since lb ascends."""
+    arithmetic.  The earlier count is on the entries each row tile's
+    block-wide walk computed: those whose lb is at most the largest final
+    best of its seeking rows (+inf where one found none), which is where
+    that walk stopped, since lb ascends.  Returns (work, earlier work,
+    info)."""
     from repro_torch.kernels import packing, sweep
     from repro_torch.kernels.blocksparse import BLOCK_M, BLOCK_N
     (n, d), w = x.shape, win.shape[0]
@@ -2618,13 +2551,15 @@ def k16_work(x, xk, win, wk, st, en, wl, d2cut: float, parent,
         s_denser_old += int((old & denser).sum())
     denser = tests * s_denser / max(s_tests, 1)
     denser_old = tests_old * s_denser_old / max(s_old, 1)
-    nbytes = (4 * (n * d + n + w * d + w) + 8 * st.numel() + 9 * n
-              + 4 * wl.row_ptr.numel() + 8 * wl.n_kept)
-    ops_old = tests_old + denser_old * (3 * d + 1)
-    return nbytes, tests + denser * (3 * d + 1), {
+    s = st.shape[1]
+    work = kernel_cost.k16_work(n, w, d, s, wl.n_kept, wl.num_row_tiles,
+                                tests, denser)
+    old = kernel_cost.k16_work(n, w, d, s, wl.n_kept, wl.num_row_tiles,
+                               tests_old, denser_old)
+    return work, old, {
         "key_tests": tests, "denser_est": denser,
         "sample_rows": rows.numel(), "key_tests_earlier": tests_old,
-        "ops_earlier": ops_old}
+        "ops_earlier": old.ops}
 
 
 def halo_layout_check(x_key, win, wk, st, en, what: str) -> None:
@@ -2793,7 +2728,7 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
     tot = {"k15_ms": 0.0, "k16_ms": 0.0, "k15_build_ms": 0.0,
            "k16_build_ms": 0.0, "k10_ms": 0.0, "k11_ms": 0.0,
            "k15_layout_ms": 0.0}
-    work15, work16 = [0.0, 0.0], [0.0, 0.0, 0.0]
+    work15 = work16 = old16 = kernel_cost.Work(0.0, 0.0)
     first = None
     for a10, a11 in zip(calls10, calls11):
         x, win, st, en, dc = a10
@@ -2816,12 +2751,10 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
                  None, win, None, st, en, ring=True))}
         for k, v in t.items():
             tot[k] += v
-        b15 = k15_work(x, win, st, en, cwl)
-        b16 = k16_work(x11, xk, win11, wk, st11, en11, ring,
-                       sweep.d2cut_of(dc), parent, gen=gen)
-        work15 = [work15[0] + b15[0], work15[1] + b15[1]]
-        work16 = [work16[0] + b16[0], work16[1] + b16[1],
-                  work16[2] + b16[2]["ops_earlier"]]
+        work15 += k15_work_on(x, win, st, en, cwl)
+        b16 = k16_work_on(x11, xk, win11, wk, st11, en11, ring,
+                          sweep.d2cut_of(dc), parent, gen=gen)
+        work16, old16 = work16 + b16[0], old16 + b16[1]
         rec["shards"].append({
             "rows": x.shape[0], "window": win.shape[0], "spans": st.shape[1],
             "count_kept": cwl.n_kept, "in_cut": int(cwl.in_cut.sum()),
@@ -2860,18 +2793,18 @@ def halo_worklist_full(calls10, calls11, row_tile_slice, card: str,
                                           got, want),
                        "plain_ms": p_ms, "plain_rows": rows.numel()}
     del first
-    b16_earlier = bound_ms(work16[0], work16[2])[0]
+    b16_earlier = card_bound(old16)[0]
     rec.update(totals=tot, plain=plain, ptxas=regs, work={
-        "worklist_halo_range_count": tuple(work15),
-        "worklist_halo_masked_nn": tuple(work16[:2])},
+        "worklist_halo_range_count": work15,
+        "worklist_halo_masked_nn": work16},
         k16_bound_ms_earlier=b16_earlier)
     sh = rec["shards"]
     for name, key, bkey, work, ref in (
             ("worklist_halo_range_count", "k15_ms", "k15_build_ms", work15,
              "k10_ms"),
             ("worklist_halo_masked_nn", "k16_ms", "k16_build_ms",
-             work16[:2], "k11_ms")):
-        b_ms, by = bound_ms(*work)
+             work16, "k11_ms")):
+        b_ms, by = card_bound(work)
         kept = [e["count_kept" if key == "k15_ms" else "ring"] for e in sh]
         if key == "k15_ms":
             comp = f"entries computed {[e['in_cut'] for e in sh]}"
@@ -3095,16 +3028,17 @@ def run_sharded_stream(pts: np.ndarray, d_cut: float, card: str) -> dict:
     shard = {"k4_ms": 0.0, "k5_ms": 0.0, "k9_ms": 0.0, "route_ms": 0.0,
              "ring_ms": 0.0, "k2_ms": 0.0, "entries": 0, "longest": 0,
              "ring": 0}
-    work = {"range_count": [0.0, 0.0], "range_count_signed": [0.0, 0.0],
-            "worklist_masked_nn": [0.0, 0.0], "masked_nn": [0.0, 0.0]}
+    zero = kernel_cost.Work(0.0, 0.0)
+    work = {"range_count": zero, "range_count_signed": zero,
+            "worklist_masked_nn": zero, "masked_nn": zero}
     for x4, y4, c4 in given["range_count"][-S:]:
         shard["k4_ms"] += time_ms(lambda: k4(x4, y4, c4))
-        for j, v in enumerate(k4_work(x4.shape[0], y4.shape[0], d)):
-            work["range_count"][j] += v
+        work["range_count"] += kernel_cost.k4_work(x4.shape[0],
+                                                   y4.shape[0], d)
     for x5, y5, s5, c5 in given["range_count_signed"][-S:]:
         shard["k5_ms"] += time_ms(lambda: k5(x5, y5, s5, c5))
-        for j, v in enumerate(k5_work(x5.shape[0], y5.shape[0], d)):
-            work["range_count_signed"][j] += v
+        work["range_count_signed"] += kernel_cost.k5_work(x5.shape[0],
+                                                          y5.shape[0], d)
     for x, xk, y, yk, wl in k9_calls:
         (d9, p9), entries, longest = k9_walks(x, xk, y, yk, wl)
         check_equal("worklist_masked_nn [sharded stream, last tick]",
@@ -3121,14 +3055,10 @@ def run_sharded_stream(pts: np.ndarray, d_cut: float, card: str) -> dict:
             x, y, count=False, nn="best1"), reps=3)
         shard["k2_ms"] += time_ms(lambda: ops.dependent_masked(
             x, xk, y, yk), reps=3)
-        b9, o9, _ = k9_work(x, xk, y, yk, wl, torch.square(d9), sample=256,
-                            gen=gen)
-        b2, o2 = k2_work(xk, yk, d)
-        work["worklist_masked_nn"][0] += b9
-        work["worklist_masked_nn"][1] += o9
-        work["masked_nn"][0] += b2
-        work["masked_nn"][1] += o2
-    bounds = {k: bound_ms(*v) for k, v in work.items()}
+        work["worklist_masked_nn"] += k9_work_on(
+            x, xk, y, yk, wl, torch.square(d9), sample=256, gen=gen)[0]
+        work["masked_nn"] += k2_work_on(xk, yk, d)
+    bounds = {k: card_bound(v) for k, v in work.items()}
     rec["last_tick"] = {**shard, "rows": [c[0].shape[0] for c in k9_calls],
                         "shard_rows": k9_calls[0][2].shape[0],
                         "bounds": {k: {"bound_ms": b, "bound_by": by}
@@ -3501,16 +3431,16 @@ def run_baselines(main_pts: np.ndarray, d_cut: float, card: str) -> dict:
                "halo_masked_nn": "halo_dependent",
                "masked_nn": "dependent_masked"}
 
-    def work(kernel, a) -> tuple[float, float]:
-        """Bytes and operations of one call by phase 17's and phase 8's
-        counts: K10 3d+1 per span column; K11 a key test per span column
-        of a tile keyed above the row plus 3d+1 per denser one (its d_cut,
-        here unbounded, bounds no count); K2 on its keys."""
+    def work(kernel, a) -> kernel_cost.Work:
+        """The work of one call by phase 17's and phase 8's counts: K10
+        3d+1 per span column; K11 a key test per span column of a tile
+        keyed above the row plus 3d+1 per denser one (its d_cut, here
+        unbounded, bounds no count); K2 on its keys."""
         if kernel == "halo_range_count":
-            return k10_work(*a[:4])
+            return k10_work_on(*a[:4])
         if kernel == "halo_masked_nn":
-            return k11_work(*a[:6])[:2]
-        return k2_work(a[1], a[3], a[0].shape[1])
+            return k11_work_on(*a[:6])[0]
+        return k2_work_on(a[1], a[3], a[0].shape[1])
 
     def event_times(fn) -> tuple[dict, dict]:
         """Per kernel wrapper: calls, summed CUDA-event ms and the bound of
@@ -3542,11 +3472,11 @@ def run_baselines(main_pts: np.ndarray, d_cut: float, card: str) -> dict:
         out = {}
         for k, v in times.items():
             if v:
-                nb = sum(w[0] for _, _, w in v)
-                no = sum(w[1] for _, _, w in v)
+                total = sum((w for _, _, w in v), kernel_cost.Work(0.0, 0.0))
                 out[k] = {"calls": len(v),
                           "ms": sum(a.elapsed_time(b) for a, b, _ in v),
-                          "bound_ms": bound_ms(nb, no)[0] if no else None}
+                          "bound_ms": card_bound(total)[0] if total.ops
+                          else None}
         return out, {k: v for k, v in given.items() if v}
 
     x = torch.from_numpy(main_pts[:BASE_N]).to(dev)
@@ -4011,10 +3941,11 @@ def compress_and_check(eng, kv, card: str, label: str,
         calls = given[name]
         ms = time_ms(lambda: [launch(*c) for c in calls], reps)
         _, plain_ms = timed_once(lambda: [plain(*c) for c in calls])
-        work = [k4_work(c[0].shape[0], c[1].shape[0], c[0].shape[1])
-                if name == "range_count" else k2_work(c[1], c[3], c[0].shape[1])
-                for c in calls]
-        b_ms, by = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+        work = [kernel_cost.k4_work(c[0].shape[0], c[1].shape[0],
+                                    c[0].shape[1])
+                if name == "range_count"
+                else k2_work_on(c[1], c[3], c[0].shape[1]) for c in calls]
+        b_ms, by = card_bound(sum(work, kernel_cost.Work(0.0, 0.0)))
         x0, y0 = calls[0][0], calls[0][-2 if name == "masked_nn" else 1]
         kernels[name] = {"shape": f"{H} x ({x0.shape[0]} x {y0.shape[0]}, "
                          f"d {x0.shape[1]})", "launches": ran[name],
@@ -4912,6 +4843,158 @@ def run_analyzer(card: str, build_log: str, base_pts: np.ndarray,
     return out
 
 
+def run_cost(card: str, full_pts: np.ndarray, d_full: float,
+             exact: dict, serving: dict, training: dict,
+             dist: dict) -> dict:
+    """Phase 32, the cost tooling (``launch/kernel_cost.py``,
+    ``launch/dryrun.py``, ``launch/dryrun_dpc.py``), reported, not gated:
+    the main path's plans' ``telemetry(include_cost=True)`` (the 5.8M
+    block-sparse plan and the 2^20 dense one; the call must launch
+    nothing and build no worklist); ``record_cost`` of the warm 5.8M fit's
+    launch record beside that fit's CUDA-event times of each kernel
+    wrapper (the layout it builds and its launch), with ``exact`` (phase
+    8's bounds from the run's own counts) beside the record's upper
+    bound; the dry run's dot FLOPs of the three model steps phases 28 and
+    30 timed (gemma-2b's prefill of 8 x 512, one decode step at cache 544,
+    the 8 x 512 train step), each beside its measured time as achieved
+    TFLOP/s and share of the 989e12 bf16 dense peak; ``dryrun_dpc`` at
+    5,810,462 x 3 on 4 shards beside phase 17's measured ``dist.*``
+    spans (the 4 logical shards of one card run one after another, so a
+    phase's bound there is 4 times a shard's)."""
+    from repro_torch import DPCEngine, ExecSpec
+    from repro_torch.analysis import record as launch_record
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.engine import planner
+    from repro_torch.kernels import blocksparse, ops
+    from repro_torch.launch import dryrun, dryrun_dpc
+
+    out: dict = {}
+    rates = card_rates()
+    # the main path's plans: their cost block launches nothing
+    plans = {"airline 5.8M block-sparse": planner.plan(
+                 (N_FULL, 3), ExecSpec(layout="block-sparse")),
+             "2^20 dense": planner.plan((N_MAIN, 3), ExecSpec())}
+    for pl in plans.values():
+        pl.telemetry()                   # the memory block, built at plan()
+    torch.cuda.synchronize()
+    counts0 = ops.launch_counts()
+    builds0 = blocksparse.worklist_build_count()
+    costs = {k: pl.telemetry(include_cost=True)["cost"]
+             for k, pl in plans.items()}
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == counts0, "the cost block launched"
+    assert blocksparse.worklist_build_count() == builds0, \
+        "the cost block built a worklist"
+    for k, c in costs.items():
+        print(f"telemetry(include_cost=True) of the {k} plan: "
+              f"{c['formulation']}, " + "; ".join(
+                  f"{name} ({v['kernel']}) {v['ops']:.4g} ops, "
+                  f"{v['bytes']:.4g} B, bound {v['bound_ms']:.3f} ms "
+                  f"({v['bound_by']})" for name, v in c["kernels"].items())
+              + "; nothing launched", flush=True)
+    out["plans"] = costs
+
+    # the warm 5.8M fit: its launch record against its kernels' times
+    eng = DPCEngine(d_full, rho_min=10,
+                    exec_spec=ExecSpec(layout="block-sparse"))
+    eng.fit(full_pts)                                      # warm-up
+    torch.cuda.synchronize()
+    events: list = []
+    timed: list = []
+    saved = {w: getattr(ops, w) for w in ("fused_sweep", "dependent_masked")}
+
+    def timing(f):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            first = len(events)
+            start.record()
+            res = f(*a, **kw)
+            end.record()
+            launched = launch_record.launches(events[first:])
+            if launched:                 # nothing launches on no rows
+                timed.append((launched[-1].kernel, start, end))
+            return res
+        return call
+    for w, f in saved.items():
+        setattr(ops, w, timing(f))
+    try:
+        with launch_record.recording() as events:
+            eng.fit(full_pts)
+    finally:
+        for w, f in saved.items():
+            setattr(ops, w, f)
+    torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for name, start, end in timed:
+        ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+    fit_cost = kernel_cost.record_cost(events, rates)
+    for name, c in fit_cost.items():
+        c["ms"] = ms.get(name, 0.0)
+        c["ms_over_bound"] = c["ms"] / c["bound_ms"]
+        if name in exact:
+            c["exact_bound_ms"] = card_bound(exact[name])[0]
+            c["ms_over_exact_bound"] = c["ms"] / c["exact_bound_ms"]
+        print(f"warm 5.8M fit, {name} ({c['kernel']}): {c['launches']} "
+              f"launches, {c['ms']:.3f} ms (CUDA events around the wrapper)"
+              f"; the record's bound {c['bound_ms']:.3f} ms ({c['bound_by']}"
+              f", {'exact' if c['exact'] else 'dense upper bound'}): "
+              f"{c['ms_over_bound']:.3f} x" + (
+                  f"; phase 8's exact bound {c['exact_bound_ms']:.3f} ms: "
+                  f"{c['ms_over_exact_bound']:.3f} x"
+                  if "exact_bound_ms" in c else "") + f"  ({card})",
+              flush=True)
+    out["fit_5.8M"] = fit_cost
+    del eng
+
+    # the model steps phases 28 and 30 timed, counted by the dry run
+    cfg = ARCHS[SERVE_ARCH]
+    steps = {
+        "prefill 8 x 512": (ShapeSpec("prefill", SERVE_PROMPT, SERVE_BATCH,
+                                      "prefill"), serving["prefill_ms"]),
+        "decode at cache 544": (ShapeSpec(
+            "decode", SERVE_PROMPT + SERVE_NEW, SERVE_BATCH, "decode"),
+            serving["decode_ms_per_token"]),
+        "train step 8 x 512": (ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"),
+                               training[TRAIN_ARCH]["step_ms"]),
+    }
+    out["model_steps"] = {}
+    for name, (shape, step_ms) in steps.items():
+        rec = dryrun.trace_step(cfg, shape, microbatches=1)
+        dot = rec["cost"]["dot_flops"]
+        tflops = dot / (step_ms * 1e-3) / 1e12
+        share = tflops * 1e12 / rates.bf16_tc_ops_per_s
+        out["model_steps"][name] = {
+            "dot_flops": dot, "flops": rec["cost"]["flops"],
+            "bytes": rec["cost"]["bytes"], "trace_s": rec["trace_s"],
+            "ms": step_ms, "tflops": tflops, "share_of_bf16_peak": share}
+        print(f"{SERVE_ARCH} {name}: {dot:.4g} dot FLOPs (dry run, traced "
+              f"in {rec['trace_s']} s), measured {step_ms:.3f} ms: "
+              f"{tflops:.1f} TFLOP/s, {100 * share:.1f} % of the "
+              f"{rates.bf16_tc_ops_per_s / 1e12:.0f} TFLOP/s bf16 dense "
+              f"peak  ({card})", flush=True)
+
+    # the distributed phases, costed without data, beside phase 17
+    dpc = dryrun_dpc.phase_costs(N_FULL, 3, 64, DIST_SHARDS, 3)
+    for name, r in dpc.items():
+        strategy = "halo" if name.endswith("halo") else "gather"
+        span = "dist.rho" if name.startswith("rho") else "dist.delta"
+        r["measured_span_ms"] = dist[strategy]["phases_ms"].get(span)
+        r["card_bound_ms"] = DIST_SHARDS * kernel_cost.bound_ms(
+            kernel_cost.Work(r["bytes"], r["flops"]), rates)[0]
+        coll = r["collectives"]["bytes"]
+        print(f"dryrun_dpc {name} ({r['port_phase']}, {r['kernel']}) at "
+              f"n={N_FULL} d=3 on {DIST_SHARDS} shards: "
+              f"{r['pairs']:.4g} pairs a shard (9 spans of 64 columns, an "
+              f"upper bound), collectives {coll} a shard, bound "
+              f"{r['card_bound_ms']:.3f} ms for the 4 shards on one card; "
+              f"phase 17's {strategy} fit: {span} "
+              f"{r['measured_span_ms']:.1f} ms  ({card})", flush=True)
+    out["dryrun_dpc"] = dpc
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4957,11 +5040,8 @@ def main() -> int:
     stamp(1)
     card = smi("name,power.limit")
     clocks = smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
-    max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    issue_rate = sms * F32_LANES_PER_SM * max_sm_mhz * 1e6
-    global F32_ISSUE_PER_S
-    F32_ISSUE_PER_S = issue_rate
+    issue_rate = card_rates().f32_ops_per_s
     print(f"card: {card}")
     print(f"clocks.sm, clocks.max.sm, power.draw, temperature: {clocks}")
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -5192,8 +5272,8 @@ def main() -> int:
     main_times["fused_count_topk"] = {
         "ms": time_ms(lambda: k1(mx, my, mdc)), "plain_ms": plain_ms,
         "plain_rows": K1_PLAIN_ROWS}
-    bounds["fused_count_topk"] = k1_work(mx.shape[0], my.shape[0],
-                                         mx.shape[1])
+    bounds["fused_count_topk"] = kernel_cost.k1_work(
+        mx.shape[0], my.shape[0], mx.shape[1])
     print(f"fused_count_topk == plain, bit for bit, on {K1_PLAIN_ROWS} rows "
           f"x {my.shape[0]} columns; the fit's rho == K1's count on all "
           f"{mx.shape[0]} rows", flush=True)
@@ -5608,8 +5688,8 @@ def main() -> int:
             main_times["fused_count_topk_sel"] = {
                 "ms": time_ms(lambda: k1s(dx, dy, ddc, dsel)),
                 "plain_ms": p_ms, "plain_rows": r}
-            bounds["fused_count_topk_sel"] = k1_work(dx.shape[0],
-                                                     dy.shape[0], dx.shape[1])
+            bounds["fused_count_topk_sel"] = kernel_cost.k1_work(
+                dx.shape[0], dy.shape[0], dx.shape[1])
             eps_rec["dense"] = {"fit_ms": dsecs * 1e3,
                                 "launches": sel_launches,
                                 "parent_ties": ties}
@@ -5659,8 +5739,7 @@ def main() -> int:
     main_times["prefix_nn"] = {"ms": time_ms(lambda: k7(tbl)),
                                "plain_ms": k7_plain_ms,
                                "plain_rows": PREFIX_PLAIN_ROWS}
-    bounds["prefix_nn"] = (4 * N_MAIN * 3 + 8 * N_MAIN,
-                           N_MAIN * (N_MAIN - 1) / 2 * (3 * 3 + 1))
+    bounds["prefix_nn"] = kernel_cost.k7_work(N_MAIN, 3)
     record["prefix_2e20"] = {"key_tie_rows": int(key_tie.sum()),
                              "parent_ties": differ.numel(),
                              "launches": k7_launches}
@@ -5832,29 +5911,30 @@ def main() -> int:
         "ms": sum(time_ms(lambda a=a, kw=kw: k8(*a, kw["worklist"]))
                   for a, kw in g8), "plain_ms": p_ms,
         "plain_rows": rows.numel()}
-    works = [k8_work(a[0], a[1], kw["worklist"]) for a, kw in g8]
-    bounds["worklist_range_count"] = (sum(w[0] for w in works),
-                                      sum(w[1] for w in works))
+    bounds["worklist_range_count"] = sum(
+        (k8_work_on(a[0], a[1], kw["worklist"]) for a, kw in g8),
+        kernel_cost.Work(0.0, 0.0))
 
     k9_rec = {}
     for strategy in ("gather", "halo"):
         calls = dist_given[strategy]["worklist_masked_nn"]
-        ms, nb, no, no0, comp, ring, longest = 0.0, 0.0, 0.0, 0.0, 0, 0, 0
+        ms, comp, ring, longest = 0.0, 0, 0, 0
+        work = old = kernel_cost.Work(0.0, 0.0)
         for (x9, xk9, y9, yk9), kw in calls:
             wl9 = kw["worklist"]
             (d9, _), walked, lng = k9_walks(x9, xk9, y9, yk9, wl9)
             comp, ring = comp + walked, ring + wl9.n_kept
             longest = max(longest, lng)
             ms += time_ms(lambda: k9(x9, xk9, y9, yk9, wl9))
-            b, o, info = k9_work(x9, xk9, y9, yk9, wl9, torch.square(d9),
-                                 gen=gen)
-            nb, no, no0 = nb + b, no + o, no0 + info["ops_earlier"]
+            w9, w9_old, _ = k9_work_on(x9, xk9, y9, yk9, wl9,
+                                       torch.square(d9), gen=gen)
+            work, old = work + w9, old + w9_old
         k9_rec[strategy] = {"ms": ms, "calls": len(calls),
                             "rows": [c[0][0].shape[0] for c in calls],
                             "computed": comp, "longest_walk": longest,
-                            "ring": ring, "bound": bound_ms(nb, no),
-                            "bound_earlier": bound_ms(nb, no0),
-                            "work": (nb, no)}
+                            "ring": ring, "bound": card_bound(work),
+                            "bound_earlier": card_bound(old),
+                            "work": (work.bytes, work.ops)}
     (x9, xk9, y9, yk9), kw9 = dist_given["gather"]["worklist_masked_nn"][-1]
     sub, rows = row_tile_slice(kw9["worklist"], x9.shape[0], DIST_PLAIN_TILES)
     sx, sk = x9[rows].contiguous(), xk9[rows].contiguous()
@@ -5869,8 +5949,8 @@ def main() -> int:
         gather_ms=k9_rec["gather"]["ms"], halo_fallback_ms=k9_rec["halo"]["ms"])
 
     for name, kern, plain, work in (
-            ("halo_range_count", k10, k10_plain, k10_work),
-            ("halo_masked_nn", k11, k11_plain, k11_work)):
+            ("halo_range_count", k10, k10_plain, k10_work_on),
+            ("halo_masked_nn", k11, k11_plain, k11_work_on)):
         calls = dist_given["halo"][name]
         a0 = calls[0][0]
         r = min(DIST_PLAIN_ROWS, a0[0].shape[0])
@@ -5893,7 +5973,7 @@ def main() -> int:
                                       for a, _ in calls),
                             "plain_ms": p_ms, "plain_rows": r}
         if name == "halo_range_count":
-            works = [work(a[0], a[1], a[2], a[3]) for a, _ in calls]
+            works = [(work(a[0], a[1], a[2], a[3]),) for a, _ in calls]
             k10_info = []
             for a, _ in calls:
                 lay = ops.halo_layout(None, a[1], None, a[2], a[3],
@@ -5906,15 +5986,15 @@ def main() -> int:
                 del lay
         else:
             works = [work(*a[:6]) for a, _ in calls]
-            k11_earlier = bound_ms(sum(w[0] for w in works),
-                                   sum(w[2] for w in works))[0]
+            k11_earlier = card_bound(sum(
+                (w[1] for w in works), kernel_cost.Work(0.0, 0.0)))[0]
             k11_runs = [halo_runs(a[4], a[5], a[2].shape[0])
                         for a, _ in calls]
-        bounds[name] = (sum(w[0] for w in works), sum(w[1] for w in works))
+        bounds[name] = sum((w[0] for w in works), kernel_cost.Work(0.0, 0.0))
     for name in ("worklist_range_count", "halo_range_count",
                  "halo_masked_nn"):
         t = main_times[name]
-        b_ms, by = bound_ms(*bounds[name])
+        b_ms, by = card_bound(bounds[name])
         more = ""
         if name == "halo_range_count":
             sk = {k: sum(i["skip"][k] for i in k10_info)
@@ -6112,9 +6192,9 @@ def main() -> int:
                                           "not measured (library reused)")}
         t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
                  f32_ratio=t["ms"] / t["f32_ms"])
-        bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1],
-                                 pairs, sel)
-        t["bound_share"] = bf16_bound_ms(*bounds[name])[0] / t["ms"]
+        bounds[name] = kernel_cost.bf16_work(x.shape[0], y.shape[0],
+                                             x.shape[1], gated=sel is not None)
+        t["bound_share"] = card_bound(bounds[name])[0] / t["ms"]
         print(f"{name} [2^20 lattice]: {t['pairs_per_s']:.4g} pairs/s, "
               f"{100 * t['bound_share']:.1f} % of its bound, "
               f"{t['f32_ratio']:.3f} x f32 K1's time; kept-list insertions "
@@ -6143,10 +6223,11 @@ def main() -> int:
             "ptxas": bf16_regs["K13"].get("d<=8" + (" gated" if gated
                                                     else ""),
                                           "not measured (library reused)")}
-        bounds[name] = bf16_work(x.shape[0], y.shape[0], x.shape[1], pairs,
-                                 sel, wl)
+        bounds[name] = kernel_cost.bf16_work(
+            x.shape[0], y.shape[0], x.shape[1], pairs, gated=sel is not None,
+            entries=wl.n_kept, row_tiles=wl.num_row_tiles)
         t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
-                 bound_share=bf16_bound_ms(*bounds[name])[0] / t["ms"])
+                 bound_share=card_bound(bounds[name])[0] / t["ms"])
         print(f"{name} [2^20 lattice]: {t['pairs_per_s']:.4g} pairs/s, "
               f"{100 * t['bound_share']:.1f} % of its bound; entries "
               f"computed {t['computed']} of {t['kept']} (at most "
@@ -6157,7 +6238,7 @@ def main() -> int:
     for name in ("fused_count_topk_bf16", "worklist_count_topk_bf16",
                  "fused_count_topk_bf16_sel", "worklist_count_topk_bf16_sel"):
         t = main_times[name]
-        b_ms, by = bf16_bound_ms(*bounds[name])
+        b_ms, by = card_bound(bounds[name])
         print(f"{name} [2^20 lattice fit's inputs]: kernel {t['ms']:.3f} ms, "
               f"f32 form {t['f32_ms']:.3f} ms, bound {b_ms:.3f} ms ({by}); "
               f"== f32 and == plain on {t['plain_rows']} rows "
@@ -6210,9 +6291,10 @@ def main() -> int:
         "ptxas": bf16_regs["K13"].get("d<=8", "not measured (library "
                                               "reused)"),
         "tolerance": tol, "lattice": main_times["worklist_count_topk_bf16"]}
-    bounds["worklist_count_topk_bf16"] = bf16_work(
-        x.shape[0], y.shape[0], x.shape[1], pairs, None, wl)
-    b_ms, by = bf16_bound_ms(*bounds["worklist_count_topk_bf16"])
+    bounds["worklist_count_topk_bf16"] = kernel_cost.bf16_work(
+        x.shape[0], y.shape[0], x.shape[1], pairs, entries=wl.n_kept,
+        row_tiles=wl.num_row_tiles)
+    b_ms, by = card_bound(bounds["worklist_count_topk_bf16"])
     t.update(pairs_per_s=pairs / (t["ms"] * 1e-3),
              bound_share=b_ms / t["ms"])
     del x, y, wl, xr, got, want, sub, rows, live
@@ -6280,12 +6362,12 @@ def main() -> int:
         "k5_ms": time_ms(lambda: ops.local_density_delta(win, batch, signs,
                                                          d_cut)),
         "build_ms": build_ms, "kept": wl14.n_kept, "total": wl14.n_total}
-    nb, no = k8_work(win, batch, wl14)     # K8's work, the signs, one add
-    pairs14 = no / (3 * win.shape[1] + 1)  # per in-d_cut pair
-    bounds["worklist_range_count_signed"] = (nb + 4 * batch.shape[0],
-                                             no + pairs14)
+    w8 = k8_work_on(win, batch, wl14)     # K8's work, the signs, one add
+    bounds["worklist_range_count_signed"] = kernel_cost.k14_work(
+        win.shape[0], batch.shape[0], win.shape[1], wl14.n_kept,
+        wl14.num_row_tiles, w8.ops / (3 * win.shape[1] + 1))
     t = main_times["worklist_range_count_signed"]
-    b_ms, by = bound_ms(*bounds["worklist_range_count_signed"])
+    b_ms, by = card_bound(bounds["worklist_range_count_signed"])
     print(f"worklist_range_count_signed [window {N_WINDOW} x batch "
           f"{batch.shape[0]}, grid-sorted]: == dense K5 bit for bit, == plain "
           f"on {rows.numel()} rows; K14 {t['ms']:.3f} ms + worklist build "
@@ -6376,6 +6458,13 @@ def main() -> int:
     record["analyzer"] = run_analyzer(card, build_log, main_pts[:BASE_N],
                                       d_cut)
 
+    # ------------------------------------------------ 32. the cost tooling
+    stamp(32)
+    record["cost"] = run_cost(
+        card, full_pts, d_full,
+        {k: bounds[k] for k in ("worklist_count_topk", "worklist_masked_nn")},
+        record["serving"], record["training"], record["distributed_full"])
+
     # --------------------------------------------------------- the record
     kernels = []
     for name, launched, where in (
@@ -6395,7 +6484,7 @@ def main() -> int:
             ("worklist_halo_masked_nn", halo_wl["launches"],
              "backend.py:742")):
         t = main_times[name]
-        b_ms, by = bound_ms(*bounds[name])
+        b_ms, by = card_bound(bounds[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sweep.cu",
@@ -6420,8 +6509,7 @@ def main() -> int:
              lat_launches["sapproxdpc", "block-sparse"]),
             ("worklist_range_count_signed", k14_launches)):
         t = main_times[name]
-        b_ms, by = (bound_ms(*bounds[name]) if len(bounds[name]) == 2
-                    else bf16_bound_ms(*bounds[name]))
+        b_ms, by = card_bound(bounds[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sweep.cu",

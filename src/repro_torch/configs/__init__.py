@@ -2,17 +2,21 @@
 port of ``repro/configs/__init__.py``.
 
 ``ARCHS`` maps the 10 assigned architecture ids to their exact
-``ArchConfig`` (carried as data: only the dense, vlm and encoder families
-build a model so far); ``SHAPES`` are the 4 assigned input shapes;
-``cells()`` enumerates the 40 (arch x shape) cells with their skip
-reasons; ``reduce_config(cfg)`` is the small same-family config of the
-CPU tests.  ``input_specs`` (the dry-run's abstract inputs) waits for
-ROADMAP Queue A item 11.
+``ArchConfig``, every one of which builds a model (``models.build_model``:
+the dense, vlm, encoder, moe, ssm and hybrid families); ``SHAPES`` are the
+4 assigned input shapes; ``cells()`` enumerates the 40 (arch x shape)
+cells with their skip reasons.  ``input_specs(cfg, shape)`` returns
+stand-ins for every model input on the ``meta`` device (shapes and dtypes,
+no storage: the counterpart of ``jax.ShapeDtypeStruct``), which is what
+``launch/dryrun.py`` traces against; ``reduce_config(cfg)`` is the small
+same-family config of the CPU tests.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.models.common import ArchConfig
 
@@ -71,6 +75,33 @@ def cells():
     return [(a, s, skip_reason(a, s)) for a in ARCHS for s in SHAPES]
 
 
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Stand-ins for the step function's batch argument, on the ``meta``
+    device.
+
+    train / prefill: the full batch dict.  decode: ``{"tokens": (B, 1)}``
+    (the dry run builds the cache itself).  The encoder takes bf16 frame
+    features and int32 labels, the vlm bf16 image patches and the text
+    tokens that fill the rest of ``seq_len``, every other family int32
+    tokens."""
+    B, L = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B, 1), torch.int32)}
+    if cfg.family == "encoder":
+        return {"features": spec((B, L, cfg.frontend_dim), torch.bfloat16),
+                "labels": spec((B, L), torch.int32)}
+    if cfg.family == "vlm":
+        # image patches + text fill the assigned seq_len exactly
+        return {"patches": spec((B, cfg.num_patches, cfg.frontend_dim),
+                                torch.bfloat16),
+                "tokens": spec((B, L - cfg.num_patches), torch.int32)}
+    return {"tokens": spec((B, L), torch.int32)}
+
+
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
     """Small same-family config for CPU smoke tests."""
     kw = dict(
@@ -106,4 +137,4 @@ def get(arch: str) -> ArchConfig:
 
 
 __all__ = ["ARCHS", "SHAPES", "ShapeSpec", "SUB_QUADRATIC", "cells",
-           "skip_reason", "reduce_config", "get"]
+           "skip_reason", "input_specs", "reduce_config", "get"]

@@ -35,8 +35,10 @@ finding raises :class:`~repro_torch.analysis.AnalysisError` at
 counts, the worklist counters and caches, the fault-injection sites or the
 spans; on the card it resets the peak-allocation statistic once, an open
 span keeping its peak.  ``telemetry()`` carries the ``memory`` block
-(``analysis.plan_memory``), built from the same run.  Not ported yet (ROADMAP Queue A item 11b):
-``telemetry(include_cost=True)``.
+(``analysis.plan_memory``), built from the same run;
+``telemetry(include_cost=True)`` adds the ``cost`` block, the plan's
+kernels' work at its shape from ``launch/kernel_cost.py`` (the
+reference's ``hlo_cost``: there is no HLO to read here).
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ class DPCPlan:
         self._wl: OrderedDict = OrderedDict()   # the worklist LRU
         self._scratch = False       # inside scratch_worklists()
         self._memory: dict | None = None
+        self._cost: dict | None = None     # the kernel_cost estimate
         self._canonical = None      # the analyzer's canonical run
 
     # ------------------------------------------------------- introspection
@@ -130,7 +133,7 @@ class DPCPlan:
         """Device bytes of the worklists this plan's cache holds."""
         return sum(w.nbytes for w in self._wl.values())
 
-    def telemetry(self) -> dict:
+    def telemetry(self, include_cost: bool = False) -> dict:
         """What this plan resolved to: its static axes, the row tile its
         sweep pads to (``pad``) and its live worklist cache
         (``worklists``: kept and total tile pairs, the pruned fraction and
@@ -138,8 +141,9 @@ class DPCPlan:
         analyzer (``analysis.plan_memory``: each kernel the plan's
         canonical run launched, with its registers, shared memory, spills
         and occupancy against the card's limits; computed once per
-        plan)."""
-        return {
+        plan).  ``include_cost=True`` adds ``cost`` (``_cost_estimate``),
+        computed once per plan and cached."""
+        t = {
             "backend": self.backend_name,
             "layout": self.layout,
             "precision": self.precision,
@@ -153,6 +157,9 @@ class DPCPlan:
             "worklists": self._worklist_telemetry(),
             "memory": self._memory_estimate(),
         }
+        if include_cost:
+            t["cost"] = self._cost_estimate()
+        return t
 
     def _pad_telemetry(self) -> dict | None:
         """The block-sparse sweeps pad x to whole row tiles: the cuda
@@ -188,6 +195,56 @@ class DPCPlan:
 
             self._memory = plan_memory(self)
         return self._memory
+
+    def _cost_estimate(self) -> dict:
+        """The work of the plan's fused sweep over n x n and of its
+        nearest-denser search at its worst case, every row unresolved, at
+        the plan's (n, d), each with its bytes, operations and bound on
+        the published H100 rates (``launch/kernel_cost.py``).  The sweep
+        is K1 (K12 in bf16) on a dense plan and K3 (K13) on a block-sparse
+        one, the search K2 on a dense plan and K9 on a block-sparse one,
+        in their ungated forms (a caller gates, not the plan).  A
+        block-sparse plan's worklists are built from the data, so at plan
+        time only their bound is known: every tile pair kept, formulation
+        ``"dense-upper-bound"`` (``"dense"`` otherwise).  Nothing is
+        launched and no worklist is built."""
+        if self._cost is not None:
+            return self._cost
+        if self.pspec is None:
+            return {"error": "plan has no bound shape"}
+        from repro_torch.launch import kernel_cost as kc
+
+        n, d = self.pspec.n, self.pspec.d
+        bf16 = self.precision == "bf16"
+        if self.grid_sort:
+            row_tiles = -(-n // blocksparse.BLOCK_N)
+            entries = row_tiles * -(-n // blocksparse.BLOCK_M)
+            sweep = ("worklist_count_topk" + "_bf16" * bf16,
+                     kc.bf16_work(n, n, d, entries=entries,
+                                  row_tiles=row_tiles) if bf16
+                     else kc.k3_work(n, n, d, entries, row_tiles))
+            nn = ("worklist_masked_nn",
+                  kc.k9_work(n, n, d, entries, row_tiles))
+        else:
+            sweep = ("fused_count_topk" + "_bf16" * bf16,
+                     kc.bf16_work(n, n, d) if bf16 else kc.k1_work(n, n, d))
+            nn = ("masked_nn", kc.k2_work(n, n, d))
+        kernels = {}
+        for name, w in (sweep, nn):
+            b_ms, by = kc.bound_ms(w)
+            kernels[name] = {"kernel": kc.KERNELS[name][0], "bytes": w.bytes,
+                             "ops": w.ops, "tc_ops": w.tc_ops,
+                             "bound_ms": b_ms, "bound_by": by,
+                             "exact": w.exact}
+        total = sweep[1] + nn[1]
+        self._cost = {
+            "formulation": "dense-upper-bound" if self.grid_sort
+            else "dense",
+            "n": n, "d": d, "kernels": kernels, "bytes": total.bytes,
+            "ops": total.ops, "tc_ops": total.tc_ops,
+            "bound_ms": sum(k["bound_ms"] for k in kernels.values()),
+            "rates": "H100 SXM published peaks (kernel_cost.H100)"}
+        return self._cost
 
     # ------------------------------------------------------ value helpers
     @contextlib.contextmanager

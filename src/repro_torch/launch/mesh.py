@@ -11,7 +11,9 @@ tensors.  On one card the shards are S logical shards of ``cuda:0``
 tensors live on its device and a collective copies between them.  DPC is
 data-parallel only, so the mesh has one axis (``flatten``).
 
-A ``torch.distributed`` mesh for hosts with several cards is not ported
+Inside ``collective_stats.counting()`` every collective reports its
+per-shard payload (``launch/collective_stats.py``).  A
+``torch.distributed`` mesh for hosts with several cards is not ported
 (ROADMAP Queue A item 9b).
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from . import collective_stats
 
 __all__ = ["ShardMesh"]
 
@@ -83,14 +86,17 @@ class ShardMesh:
         """Every shard gets the row blocks concatenated in shard order
         (``all_gather(tiled=True)``).  On one device the shards share one
         concatenated tensor, so memory holds one table, not S copies."""
+        parts = list(parts)
+        collective_stats.note("all_gather", parts)
         if self.one_device:
-            full = torch.cat(list(parts))
+            full = torch.cat(parts)
             return [full] * self.size
         return [torch.cat([p.to(dev) for p in parts]) for dev in self.devices]
 
     def ppermute(self, parts, perm) -> list:
         """Shard ``dst`` gets shard ``src``'s tensor for each (src, dst) of
         ``perm``; a shard that receives nothing gets zeros (``ppermute``)."""
+        collective_stats.note("ppermute", parts)
         out = [None] * self.size
         for src, dst in perm:
             out[dst] = parts[src].to(self.devices[dst])
@@ -100,6 +106,7 @@ class ShardMesh:
     def psum(self, parts) -> list[torch.Tensor]:
         """The elementwise sum over the shards in shard order, on every
         shard (``psum``)."""
+        collective_stats.note("psum", parts)
         total = parts[0].to(self.devices[0])
         for p in parts[1:]:
             total = total + p.to(self.devices[0])
@@ -108,6 +115,7 @@ class ShardMesh:
     def pmin(self, parts) -> list[torch.Tensor]:
         """The elementwise minimum over the shards, on every shard
         (``pmin``)."""
+        collective_stats.note("pmin", parts)
         low = parts[0].to(self.devices[0])
         for p in parts[1:]:
             low = torch.minimum(low, p.to(self.devices[0]))
