@@ -392,6 +392,23 @@ Phases, each of which raises on failure (nothing is caught):
    ``launch/dryrun_dpc.py`` at 5,810,462 x 3 on 4 shards beside phase 17's
    ``dist.*`` spans.  Every bound in the script is
    ``launch/kernel_cost.py``'s.
+33. The model stack on a mesh (``run_mesh``): gemma-2b at full width and
+   depth (bf16, phase 30's seed 0 and batches of 8 x 512 tokens) trained
+   ``MESH_STEPS`` steps by ``launch.train`` on one device, then, that run
+   freed, by ``launch.train --mesh-shape 1 1`` on a one-rank NCCL process
+   group (``init_method="file://..."`` under a temporary directory) and
+   its 1 x 1 ``("data", "model")`` ``DeviceMesh``: every parameter a
+   DTensor placed by ``param_specs``, the sharded step.  The mesh run's
+   losses are held against the one-device run's (2e-2 relative, the bf16
+   train tests' bound), and so are its f32 master weights, which the last
+   step's update moves (the first runs at learning rate 0): per leaf, the
+   sum of |mesh - one| over the sum of |one - init| (``MESH_MASTER_BOUND``),
+   the update's own size printed beside it; no kernel of the port
+   launches; both runs' step times and peak memory printed.
+   Then ``launch/dryrun.py``'s ``--mesh pod`` cell of gemma-2b
+   ``train_4k`` (one microbatch), traced as rank 0 of a fake process
+   group of 256 ranks: its devices, per-device argument bytes and
+   collectives.
 
 Plans are memoized with their worklists: each phase that fits at 5.8M
 (8, 13, 17, 21) prints the bytes all plans hold at its end and drops them
@@ -4120,7 +4137,7 @@ def prefill_drops(moe_mod, tokens: int, shares: list):
     that fall past their expert's capacity, then calls the real one."""
     real = moe_mod.moe_ffn
 
-    def counted(x, lp, cfg):
+    def counted(x, lp, cfg, rules=None):
         T = x.shape[0] * x.shape[1]
         if T == tokens:
             probs = torch.softmax(x.reshape(T, -1).float() @ lp["router"],
@@ -4130,7 +4147,7 @@ def prefill_drops(moe_mod, tokens: int, shares: list):
             per = torch.bincount(top.flatten(), minlength=cfg.n_experts)
             over = torch.clamp_min(per - moe_mod.capacity(cfg, T), 0)
             shares.append(float(over.sum()) / (T * cfg.top_k))
-        return real(x, lp, cfg)
+        return real(x, lp, cfg, rules)
     return counted
 
 
@@ -4493,6 +4510,170 @@ def run_training(card: str) -> dict:
         gen.manual_seed(1)
         checks[arch] = f32_train_check(arch, layers, seq, gen, card)
     out["f32_check"] = checks
+    return out
+
+
+MESH_STEPS = 2                  # phase 33: steps of each gemma-2b run
+MESH_DRYRUN = ("gemma-2b", "train_4k", 1)  # its pod dry run (microbatches)
+# phase 33's bound on the mesh run's master weights against the one-device
+# run's: per leaf, sum |mesh - one| over sum |one - init| (the update's
+# own size), where a skipped or garbled update reads 1 or more
+MESH_MASTER_BOUND = 1e-2
+
+
+def _master_on_host(run) -> dict:
+    """The run's f32 master weights by name on the host (a DTensor's full
+    value)."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, t in run.opt_state["master"].items():
+        t = t.full_tensor() if isinstance(t, DTensor) else t
+        out[name] = t.cpu()
+    return out
+
+
+def _mesh_report(label: str, run, card: str) -> dict:
+    rec = {"losses": run.losses, "grad_norms": run.grad_norms,
+           "lrs": run.lrs, "step_ms": [1e3 * t for t in run.step_s],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    assert all(math.isfinite(v) for v in run.losses + run.grad_norms), rec
+    print(f"{TRAIN_ARCH} {label}: {MESH_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, step ms {[round(t, 1) for t in rec['step_ms']]}"
+          f", peak {rec['peak_gb']:.3f} GB, loss "
+          f"{[round(v, 5) for v in run.losses]}, lr {run.lrs}  ({card})",
+          flush=True)
+    return rec
+
+
+def _master_diff(one: dict, mesh: dict, init) -> dict:
+    """Per leaf, on the card: what the update moved the one-device run's
+    master weights by (``|one - init|``) and how far the mesh run's lie
+    from them (``|mesh - one|``): sums, maxima and moved elements."""
+    from repro_torch.train.optimizer import named_params
+
+    start = named_params(init)
+    leaves = {}
+    for name, o in one.items():
+        o = o.to("cuda")
+        upd = (o - start[name].detach().float()).abs()
+        diff = (mesh[name].to("cuda") - o).abs()
+        leaves[name] = {
+            "update_sum": float(upd.sum(dtype=torch.float64)),
+            "update_max": float(upd.max()),
+            "diff_sum": float(diff.sum(dtype=torch.float64)),
+            "diff_max": float(diff.max()),
+            "moved": int((diff != 0).sum()), "elements": o.numel()}
+        del o, upd, diff
+    return leaves
+
+
+def run_mesh(card: str) -> dict:
+    """Phase 33: gemma-2b's training on one device, then on a one-rank
+    NCCL group's 1 x 1 mesh through the sharded step, held against each
+    other; then the pod dry run of gemma-2b train_4k."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(MESH_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", "0",
+            "--log-every", "1"]
+    out: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    plain = train_cli.run(argv)
+    out["one_device"] = _mesh_report("on one device", plain, card)
+    assert plain.lrs[-1] > 0, plain.lrs     # the last step updates
+    one_master = _master_on_host(plain)
+    del plain               # the step peaks near 58 GB: one run at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'group')}",
+            rank=0, world_size=1)
+        try:
+            run = train_cli.run(argv + ["--mesh-shape", "1", "1"])
+            params = list(run.params.parameters())
+            assert all(isinstance(p, DTensor) for p in params)
+            dmesh = params[0].device_mesh
+            assert (tuple(dmesh.shape), dmesh.mesh_dim_names,
+                    dmesh.device_type) == ((1, 1), ("data", "model"),
+                                           "cuda"), dmesh
+            out["mesh"] = _mesh_report("on a 1 x 1 mesh (one-rank NCCL)",
+                                       run, card)
+            mesh_master = {n: (t.full_tensor() if isinstance(t, DTensor)
+                               else t)
+                           for n, t in run.opt_state["master"].items()}
+            del run, params
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = build_model(ARCHS[TRAIN_ARCH]).init(0, device="cuda")
+    leaves = _master_diff(one_master, mesh_master, init)
+    del init, mesh_master, one_master
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    one, mesh = out["one_device"], out["mesh"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
+                                                         one["losses"]))
+    upd_sum = sum(v["update_sum"] for v in leaves.values())
+    upd_max = max(v["update_max"] for v in leaves.values())
+    assert upd_sum > 0 and all(v["update_sum"] > 0 for v in leaves.values())
+    ratio = {n: v["diff_sum"] / v["update_sum"] for n, v in leaves.items()}
+    worst = max(ratio, key=ratio.get)
+    moved = sum(v["moved"] for v in leaves.values())
+    elements = sum(v["elements"] for v in leaves.values())
+    out.update(
+        loss_max_rel_diff=loss_rel,
+        master={"update_sum": upd_sum, "update_max": upd_max,
+                "diff_sum": sum(v["diff_sum"] for v in leaves.values()),
+                "diff_max": max(v["diff_max"] for v in leaves.values()),
+                "moved": moved, "elements": elements,
+                "worst_leaf": worst, "worst_ratio": ratio[worst],
+                "bound": MESH_MASTER_BOUND, "leaves": leaves})
+    print(f"{TRAIN_ARCH}: the update of step {MESH_STEPS - 1} (lr "
+          f"{one['lrs'][-1]:.3e}) moved the one-device run's f32 master "
+          f"weights by {upd_sum:.6e} in sum of |change| over {elements:,} "
+          f"elements, largest {upd_max:.6e}", flush=True)
+    print(f"{TRAIN_ARCH}: the mesh run against the one-device run: losses "
+          f"largest relative difference {loss_rel:.3e} (bound 2e-2); master "
+          f"weights {moved:,} of {elements:,} elements differ, sum "
+          f"|mesh - one| {out['master']['diff_sum']:.6e}, largest "
+          f"{out['master']['diff_max']:.6e}; per leaf sum |mesh - one| over "
+          f"sum |one - init| at most {ratio[worst]:.3e} ({worst}; bound "
+          f"{MESH_MASTER_BOUND:g}); no kernel of the port launched  "
+          f"({card})", flush=True)
+    assert loss_rel <= 2e-2, loss_rel
+    assert ratio[worst] <= MESH_MASTER_BOUND, (worst, ratio[worst])
+    arch, shape, microbatches = MESH_DRYRUN
+    rec = dryrun.run_cell(arch, shape, "pod", microbatches=microbatches)
+    assert rec["devices"] == 256 and "error" not in rec, rec
+    coll = rec["collectives"]
+    print(f"dryrun --mesh pod {arch} {shape} ({microbatches} microbatch), "
+          f"rank 0 of a fake group of {rec['devices']}, torch "
+          f"{rec['torch']}: traced in "
+          f"{rec['trace_s']} s, per device {rec['memory']['argument_bytes']:,}"
+          f" argument bytes, {rec['cost']['dot_flops']:.4g} dot FLOPs, "
+          f"collectives {coll['bytes']} bytes in {coll['counts']} calls  "
+          f"({card})", flush=True)
+    out["dryrun_pod"] = {k: rec[k] for k in ("devices", "trace_s", "memory",
+                                              "cost", "microbatches",
+                                              "torch")}
     return out
 
 
@@ -6464,6 +6645,10 @@ def main() -> int:
         card, full_pts, d_full,
         {k: bounds[k] for k in ("worklist_count_topk", "worklist_masked_nn")},
         record["serving"], record["training"], record["distributed_full"])
+
+    # ------------------------------------------ 33. the model stack on a mesh
+    stamp(33)
+    record["mesh"] = run_mesh(card)
 
     # --------------------------------------------------------- the record
     kernels = []

@@ -207,7 +207,12 @@ class DPCPlan:
         block-sparse plan's worklists are built from the data, so at plan
         time only their bound is known: every tile pair kept, formulation
         ``"dense-upper-bound"`` (``"dense"`` otherwise).  Nothing is
-        launched and no worklist is built."""
+        launched and no worklist is built.
+
+        A ``torch`` plan launches no kernel: it runs the reference's
+        ``jnp`` math in plain PyTorch, the stencil route on a dense plan
+        and the ring walk on a block-sparse one.  Its block names that
+        route, holds no kernel and no bound, and says why in ``note``."""
         if self._cost is not None:
             return self._cost
         if self.pspec is None:
@@ -215,6 +220,16 @@ class DPCPlan:
         from repro_torch.launch import kernel_cost as kc
 
         n, d = self.pspec.n, self.pspec.d
+        if self.backend_name == "torch":
+            self._cost = {
+                "formulation": "dense-upper-bound" if self.grid_sort
+                else "dense",
+                "n": n, "d": d,
+                "route": "ring" if self.grid_sort else "stencil",
+                "kernels": {},
+                "note": "the torch backend runs plain PyTorch math and "
+                        "launches no CUDA kernel; no bound is given for it"}
+            return self._cost
         bf16 = self.precision == "bf16"
         if self.grid_sort:
             row_tiles = -(-n // blocksparse.BLOCK_N)

@@ -16,6 +16,16 @@ No link multipliers are applied (a ring all-reduce moves about twice its
 payload): these are raw per-shard payload bytes per collective kind, as
 the reference reports them.  With no counter active each report is one
 list test.
+
+On a ``torch.distributed`` mesh DTensor issues the functional
+collectives (``torch.ops._c10d_functional``) on each rank's local
+shards; ``functional_payload`` gives one call's kind and per-device
+payload with the same conventions (the dry run counts one rank's):
+
+    all_gather_into_tensor -> ``all-gather``: the gathered (output) size
+    all_reduce             -> ``all-reduce``: the tensor size
+    reduce_scatter_tensor  -> ``reduce-scatter``: the output shard
+    all_to_all_single      -> ``all-to-all``: the tensor size
 """
 from __future__ import annotations
 
@@ -23,11 +33,19 @@ import contextlib
 from dataclasses import dataclass, field
 from typing import Iterator
 
-__all__ = ["CollectiveStats", "counting", "note", "KINDS"]
+__all__ = ["CollectiveStats", "counting", "note", "KINDS", "FUNCTIONAL",
+           "functional_payload"]
 
 # ShardMesh's method -> the HLO collective kind it stands for
 KINDS = {"all_gather": "all-gather", "psum": "all-reduce",
          "pmin": "all-reduce", "ppermute": "collective-permute"}
+
+# a functional collective's op name -> (its kind, whether its payload is
+# the output's size (else the input's))
+FUNCTIONAL = {"all_gather_into_tensor": ("all-gather", True),
+              "all_reduce": ("all-reduce", False),
+              "reduce_scatter_tensor": ("reduce-scatter", True),
+              "all_to_all_single": ("all-to-all", False)}
 
 _STACK: list["CollectiveStats"] = []
 
@@ -89,3 +107,17 @@ def note(method: str, parts) -> None:
                    else sizes)
     for stats in _STACK:
         stats.add(KINDS[method], shard_bytes)
+
+
+def functional_payload(func, args, out):
+    """(kind, [bytes]) of one functional collective call on one rank
+    (``FUNCTIONAL``), or None for any other op."""
+    if (func.namespace != "_c10d_functional"
+            or func.overloadpacket.__name__ == "wait_tensor"):
+        return None
+    entry = FUNCTIONAL.get(func.overloadpacket.__name__)
+    if entry is None:
+        raise ValueError(f"{func}: a collective this count does not know")
+    kind, of_output = entry
+    t = out if of_output else args[0]
+    return kind, [t.numel() * t.element_size()]

@@ -9,17 +9,33 @@ there is none).  The model starts from random weights (a torch generator
 seeded with ``--seed``) or, where ``--ckpt-dir`` holds a checkpoint, from
 its latest step: parameters, optimizer state, the pipeline's cursor and
 the step, so a stopped run resumes bit for bit.  Batches are the
-synthetic ``TokenPipeline``'s.  The log lines are the reference's.  One
-device: a ``--mesh-shape`` other than ``1 1`` waits for ROADMAP item 9b.
+synthetic ``TokenPipeline``'s.  The log lines are the reference's.
+
+A mesh: ``--mesh-shape``/``--mesh-names`` build a ``DeviceMesh`` over
+the process group, one rank per device (NCCL on cards, gloo with
+``--device cpu``).  The group is the caller's, or, under ``torchrun``
+(``WORLD_SIZE`` set), one this script starts and ends:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gemma-2b --smoke --mesh-shape 2 2
+
+The mesh's size must be the group's (1 with no group).  On a mesh the
+parameters are placed by ``param_specs``, the optimizer state by
+``opt_state_specs`` and each batch by ``batch_sharding`` (every rank
+draws the same global batch and keeps its own rows), the step is the
+sharded one, checkpoints are gathered and written by rank 0 and restore
+onto any mesh, and rank 0 alone logs.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
 from ..configs import ARCHS, reduce_config
 from ..core.device import resolve_device
@@ -27,7 +43,8 @@ from ..data.tokens import TokenPipeline
 from ..models import build_model
 from ..train import TrainStepConfig, make_train_step
 from ..train import checkpoint as ckpt
-from ..train.optimizer import adamw_init
+from ..train.optimizer import adamw_init, opt_state_specs
+from . import mesh as lmesh
 
 __all__ = ["TrainRun", "run", "main"]
 
@@ -69,15 +86,55 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _build_mesh(args, dev):
+    """The ``DeviceMesh`` of ``--mesh-shape``/``--mesh-names`` over the
+    process group (None with no group: one device)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(args.mesh_shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n != world:
+        raise SystemExit(f"--mesh-shape {args.mesh_shape}: a mesh of {n} "
+                         f"devices, but the world size is {world} (a "
+                         f"process group of {n} ranks runs it)")
+    if len(args.mesh_names) != len(args.mesh_shape):
+        raise SystemExit(f"--mesh-names {args.mesh_names} do not name the "
+                         f"{len(args.mesh_shape)} axes of --mesh-shape")
+    if not dist.is_initialized():
+        return None
+    return init_device_mesh(dev.type, tuple(args.mesh_shape),
+                            mesh_dim_names=tuple(args.mesh_names))
+
+
 def run(argv=None) -> TrainRun:
     """Train as ``python -m repro_torch.launch.train`` does with the
     arguments ``argv``; returns the final state and per-step numbers."""
     args = _parser().parse_args(argv)
-    if math.prod(args.mesh_shape) != 1:
-        raise SystemExit(f"--mesh-shape {args.mesh_shape}: training runs on "
-                         f"one device; a mesh across cards is ROADMAP item "
-                         f"9b")
+    own_group = (not dist.is_initialized()
+                 and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if own_group:               # torchrun's environment
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
+    try:
+        return _run(args)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args) -> TrainRun:
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dist.is_initialized():
+        dev = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count())))
+        torch.cuda.set_device(dev)
+    mesh = _build_mesh(args, dev)
+    rules = None if mesh is None else lmesh.rules_for(mesh)
+    chief = not dist.is_initialized() or dist.get_rank() == 0
+
+    def log(msg: str) -> None:
+        if chief:
+            print(msg, flush=True)
+
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = reduce_config(cfg)
@@ -86,10 +143,16 @@ def run(argv=None) -> TrainRun:
     tcfg = TrainStepConfig(peak_lr=args.lr, warmup_steps=min(20, args.steps),
                            total_steps=args.steps,
                            microbatches=args.microbatches)
-    step_fn = make_train_step(model.loss_fn, tcfg)
+    step_fn = make_train_step(model.loss_fn, tcfg, rules=rules)
 
     params = model.init(args.seed, device=dev)
+    if mesh is not None:
+        pspecs = model.param_specs(rules)
+        params = lmesh.distribute(params, mesh, pspecs)
     opt_state = adamw_init(params)
+    if mesh is not None:
+        opt_state = lmesh.distribute(opt_state, mesh,
+                                     opt_state_specs(pspecs))
     out = TrainRun(params=params, opt_state=opt_state, start_step=0)
     latest = ckpt.latest_step(args.ckpt_dir) if args.ckpt_dir else None
     if latest is not None:
@@ -98,8 +161,7 @@ def run(argv=None) -> TrainRun:
         out.restore_s = time.perf_counter() - t_restore
         pipeline.load_state_dict(extras["pipeline"])
         out.start_step = int(extras["step"]) + 1
-        print(f"[train] restored step {latest} "
-              f"(cursor={pipeline.cursor})", flush=True)
+        log(f"[train] restored step {latest} (cursor={pipeline.cursor})")
     start_step = out.start_step
     t0 = time.time()
     tokens_seen = 0
@@ -107,6 +169,9 @@ def run(argv=None) -> TrainRun:
         t_step = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in next(pipeline).items()}
+        if mesh is not None:
+            batch = lmesh.distribute(batch, mesh,
+                                     lmesh.batch_sharding(rules, batch))
         params, opt_state, metrics = step_fn(params, opt_state, batch, step)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -117,18 +182,18 @@ def run(argv=None) -> TrainRun:
         tokens_seen += args.batch * args.seq
         if step % args.log_every == 0 or step == args.steps - 1:
             dt = time.time() - t0
-            print(f"[train] step {step:5d} loss {out.losses[-1]:.4f}"
-                  f" gnorm {out.grad_norms[-1]:.3f}"
-                  f" lr {out.lrs[-1]:.2e}"
-                  f" tok/s {tokens_seen / max(dt, 1e-9):.0f}", flush=True)
+            log(f"[train] step {step:5d} loss {out.losses[-1]:.4f}"
+                f" gnorm {out.grad_norms[-1]:.3f}"
+                f" lr {out.lrs[-1]:.2e}"
+                f" tok/s {tokens_seen / max(dt, 1e-9):.0f}")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             path = ckpt.save(args.ckpt_dir, step, (params, opt_state),
                              extras={"step": step,
                                      "pipeline": pipeline.state_dict(),
                                      "arch": cfg.name})
-            print(f"[train] checkpoint -> {path}", flush=True)
-    print(f"[train] done: {args.steps - start_step} steps in "
-          f"{time.time() - t0:.1f}s", flush=True)
+            log(f"[train] checkpoint -> {path}")
+    log(f"[train] done: {args.steps - start_step} steps in "
+        f"{time.time() - t0:.1f}s")
     return out
 
 

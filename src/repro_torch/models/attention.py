@@ -58,6 +58,68 @@ def _sdpa(q, k, v, mask, cfg: ArchConfig):
     return torch.einsum("bkgqs,bskh->bqkgh", probs, v)
 
 
+def _sdpa_on_mesh(q, k, v, mask, cfg: ArchConfig):
+    """``_sdpa`` on DTensors, shard by shard: attention is independent per
+    sequence and kv head, so each rank attends its own (batch, kv-head)
+    block (``local_map``), q's other dims gathered first.  DTensor's
+    einsum folds a sharded batch dim and a sharded kv-head dim into one
+    product batch, which torch 2.11 refuses."""
+    import functools
+
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qpl = tuple(Shard(p.dim % q.ndim) if isinstance(p, Shard)
+                and p.dim % q.ndim in (0, 2) else Replicate()
+                for p in q.placements)
+    mpl = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in qpl)
+    k, v, mask = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        for t in (k, v, mask))
+    fn = local_map(functools.partial(_sdpa, cfg=cfg),
+                   out_placements=list(qpl),   # a tuple reads as per output
+                   in_placements=(qpl, qpl, qpl, mpl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k, v, mask)
+
+
+def _groupable(q, K: int):
+    """``q`` as a DTensor may split its heads into (K, G): DTensor splits
+    a sharded dim only where the first factor divides by the shards, so
+    the heads are gathered over any mesh axis that does not divide K
+    (qwen3-moe's 4 kv heads on a 16-way model axis).  A port-added
+    layout: GSPMD splits the heads as they lie.  Returns ``q`` and the
+    mesh dims gathered."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(q, DTensor):
+        return q, ()
+    mesh = q.device_mesh
+    gathered = tuple(i for i, p in enumerate(q.placements)
+                     if isinstance(p, Shard) and p.dim % q.ndim == 2
+                     and K % mesh.size(i))
+    if not gathered:
+        return q, ()
+    placements = [Replicate() if i in gathered else p
+                  for i, p in enumerate(q.placements)]
+    return q.redistribute(mesh, placements), gathered
+
+
+def _regroup(out, gathered):
+    """``out`` (B, L, H, hd) sharded again over the heads on the mesh
+    dims ``_groupable`` gathered (a local slice): the output projection
+    then meets its head-sharded weight as the reference's does."""
+    from torch.distributed.tensor import Shard
+
+    if not gathered:
+        return out
+    placements = [Shard(2) if i in gathered else p
+                  for i, p in enumerate(out.placements)]
+    return out.redistribute(out.device_mesh, placements)
+
+
 def attention(q, k, v, q_positions, k_positions, cfg: ArchConfig, *,
               causal=True, window=None, prefix_len=None, k_valid=None,
               q_chunk: int = 512):
@@ -66,24 +128,30 @@ def attention(q, k, v, q_positions, k_positions, cfg: ArchConfig, *,
     q_positions/k_positions: (Lq,)/(Lk,) absolute positions (RoPE applied
     by the caller).  Returns (B, Lq, H, hd).
     """
+    from torch.distributed.tensor import DTensor
+
     B, Lq, H, hd = q.shape
     K = k.shape[2]
     G = H // K
+    q, gathered = _groupable(q, K)
     qg = q.reshape(B, Lq, K, G, hd)
+    sdpa = _sdpa_on_mesh if isinstance(qg, DTensor) else _sdpa
     kp = k_positions.expand(B, k.shape[1])
     if Lq <= q_chunk:
         mask = attn_mask(q_positions.expand(B, Lq), kp, causal=causal,
                          window=window, prefix_len=prefix_len,
                          k_valid=k_valid)
-        return _sdpa(qg, k, v, mask, cfg).reshape(B, Lq, H, hd)
+        return _regroup(sdpa(qg, k, v, mask, cfg).reshape(B, Lq, H, hd),
+                        gathered)
     assert Lq % q_chunk == 0, "query length must be divisible by q_chunk"
     outs = []
     for s in range(0, Lq, q_chunk):
         mask = attn_mask(q_positions[s:s + q_chunk].expand(B, q_chunk), kp,
                          causal=causal, window=window,
                          prefix_len=prefix_len, k_valid=k_valid)
-        outs.append(_sdpa(qg[:, s:s + q_chunk], k, v, mask, cfg))
-    return torch.cat(outs, dim=1).reshape(B, Lq, H, hd)
+        outs.append(sdpa(qg[:, s:s + q_chunk], k, v, mask, cfg))
+    return _regroup(torch.cat(outs, dim=1).reshape(B, Lq, H, hd),
+                    gathered)
 
 
 def qkv_project(x, wq, wk, wv, cfg: ArchConfig, positions):
@@ -97,6 +165,14 @@ def qkv_project(x, wq, wk, wv, cfg: ArchConfig, positions):
 
 def out_project(o, wo):
     """o: (B, L, H, hd) x wo (H, hd, d) -> (B, L, d)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(o, DTensor) or isinstance(wo, DTensor):
+        # the heads and head_dim flattened in that order: einsum may
+        # flatten them as (hd, heads), which torch 2.11's DTensor refuses
+        # where the heads are sharded
+        B, L, H, hd = o.shape
+        return torch.matmul(o.reshape(B, L, H * hd), wo.reshape(H * hd, -1))
     return torch.einsum("blnh,nhd->bld", o, wo)
 
 

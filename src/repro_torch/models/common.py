@@ -1,18 +1,31 @@
-"""Shared model config, layers and init: the port of
+"""Shared model config, layers, init and sharding helpers: the port of
 ``repro/models/common.py``.
 
 Parameters are stored in the config's dtype (bf16 by default); norms,
 RoPE, the GLU activation and softmax compute in f32 and cast back, at
 the same points as the reference.  ``StackedParams`` holds any family's
-weights under the reference's pytree names.  The sharding helpers
-(``MeshRules``, ``logical_to_spec``, ``constrain``) and the dry-run's
-``mscan`` are not ported: they wait for the tooling and the multi-card
-mesh (ROADMAP Queue A items 11 and 9b).  ``cross_entropy`` and ``remat``
-serve training: the loss in f32, and a layer recomputed in the backward
-pass where gradients are on.
+weights under the reference's pytree names.  ``cross_entropy`` and
+``remat`` serve training: the loss in f32, and a layer recomputed in the
+backward pass where gradients are on.
+
+Sharding: a ``torch.distributed`` ``DeviceMesh`` with DTensor placements
+takes the place of GSPMD.  ``P`` is the port's partition spec (a tuple
+with one entry per dimension: None, a mesh axis name, or a tuple of
+names); ``MeshRules`` resolves the logical axes ``"model"`` and
+``"data"`` against the mesh's axis sizes (a dimension the axis does not
+divide is replicated, e.g. MQA's one kv head), ``logical_to_spec``
+builds a spec, ``spec_to_placements`` turns one into a mesh's placement
+list, and ``constrain`` redistributes a DTensor (the reference's
+``with_sharding_constraint``) and is the identity on anything else.
+Every family's entry points take ``rules=None``: with None they run
+exactly as on one device; with rules their tensors are DTensors, and
+``on_mesh(rules)`` treats the plain tensors they make (positions,
+masks) as replicated.  The dry run's ``mscan`` has no counterpart: the
+port's layers are a Python loop.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -25,9 +38,11 @@ from torch import nn
 
 from ..core.device import resolve_device
 
-__all__ = ["ArchConfig", "StackedParams", "rms_norm", "rope_angles",
-           "apply_rope", "softcap", "softplus", "glu_ffn", "cross_entropy",
-           "remat", "init_generator", "dense_init", "embed_init"]
+__all__ = ["ArchConfig", "StackedParams", "P", "MeshRules",
+           "logical_to_spec", "spec_to_placements", "constrain", "on_mesh",
+           "rms_norm", "rope_angles", "apply_rope", "softcap", "softplus",
+           "glu_ffn", "cross_entropy", "remat", "init_generator",
+           "dense_init", "embed_init"]
 
 
 @dataclass(frozen=True)
@@ -76,6 +91,150 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
+
+
+# ---------------------------------------------------------------- sharding
+class P(tuple):
+    """A partition spec: one entry per tensor dimension, each None
+    (replicated), a mesh axis name, or a tuple of names (sharded over
+    their product, the first the major one).  Dimensions past the last
+    entry are replicated.  Equal to the plain tuple of its entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return "P" + (tuple.__repr__(self) if len(self) != 1
+                      else f"({self[0]!r})")
+
+
+@dataclass(frozen=True)
+class MeshRules:
+    """Logical-axis -> mesh-axis rules, resolved against axis sizes."""
+    data_axes: tuple = ("data",)      # ('pod','data') on the multi-pod mesh
+    model_axis: str | None = "model"
+    axis_sizes: dict | None = None    # name -> size (for divisibility checks)
+
+    def model(self, dim_size: int):
+        """Shard over the model axis if divisible, else replicate.
+
+        model_axis=None disables tensor parallelism entirely (small archs
+        fold the model axis into data parallelism instead)."""
+        if self.model_axis is None:
+            return None
+        if self.axis_sizes is not None:
+            m = self.axis_sizes.get(self.model_axis, 1)
+            if dim_size % m != 0 or dim_size < m:
+                return None
+        return self.model_axis
+
+    @property
+    def data(self):
+        return self.data_axes if len(self.data_axes) > 1 else self.data_axes[0]
+
+    def data_if(self, dim_size: int):
+        """Shard over the data axes if divisible, else replicate."""
+        if self.axis_sizes is not None:
+            total = math.prod(self.axis_sizes.get(a, 1)
+                              for a in self.data_axes)
+            if dim_size % total != 0 or dim_size < total:
+                return None
+        return self.data
+
+
+def logical_to_spec(rules: MeshRules, *axes_and_sizes) -> P:
+    """Build a spec from (logical_axis, dim_size) pairs.
+
+    Logical axes: 'model' (tensor-parallel), 'data' (batch), None
+    (replicated)."""
+    parts = []
+    for logical, size in axes_and_sizes:
+        if logical == "model":
+            parts.append(rules.model(size))
+        elif logical == "data":
+            parts.append(rules.data)
+        else:
+            parts.append(None)
+    return P(*parts)
+
+
+def spec_to_placements(mesh, spec) -> list:
+    """The placement list, one per mesh dimension, of ``spec`` on the
+    ``DeviceMesh`` ``mesh``: ``Shard(d)`` on each mesh axis that tensor
+    dimension d's entry names, ``Replicate()`` on the others and on an
+    axis of size 1 (the same layout; DTensor's view rules refuse some
+    reshapes of a dimension sharded over one device).  An entry's axes
+    must be mesh axes, in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    placements = [Replicate() for _ in names]
+    used = set()
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec!r}: {a!r} is not an axis of "
+                                 f"the mesh {names}")
+            i = names.index(a)
+            if i in used:
+                raise ValueError(f"spec {spec!r}: axis {a!r} used twice")
+            used.add(i)
+            if mesh.size(i) > 1:
+                placements[i] = Shard(dim)
+            idx.append(i)
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec!r}: the axes {axes} are not in "
+                             f"the mesh's order {names}")
+    return placements
+
+
+def constrain(x, spec):
+    """Redistribute the DTensor ``x`` to ``spec`` on its own mesh (the
+    reference's ``with_sharding_constraint``); anything else is returned
+    as it is.  A dimension that the product of its axes' sizes does not
+    divide is replicated over them: GSPMD pads an uneven shard, where
+    DTensor's view rules refuse one (long_500k's batch of 1 over 16 data
+    ranks)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    placements = spec_to_placements(mesh, spec)
+    for dim in range(x.ndim):
+        axes = [i for i, p in enumerate(placements)
+                if isinstance(p, Shard) and p.dim == dim]
+        if x.shape[dim] % math.prod(mesh.size(i) for i in axes):
+            for i in axes:
+                placements[i] = Replicate()
+    if tuple(placements) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+@contextlib.contextmanager
+def on_mesh(rules: MeshRules | None):
+    """The context a model function runs in: with rules, plain tensors
+    that meet DTensors (positions, masks, constants) count as replicated,
+    as under ``implicit_replication``; without, nothing.  It nests:
+    ``implicit_replication`` turns the setting off on exit whatever it
+    was, so this saves and restores the dispatcher's flag itself."""
+    if rules is None:
+        yield
+        return
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    old = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = old
 
 
 class StackedParams(nn.Module):
@@ -196,8 +355,16 @@ def glu_ffn(x: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor,
     """SwiGLU/GeGLU: w_in (d, 2, ff) fused gate+up, w_out (ff, d).  The
     activation runs in f32 and is cast to x's dtype before the product
     with ``up``."""
-    h = torch.einsum("...d,dcf->...cf", x, w_in)
-    gate, up = h[..., 0, :], h[..., 1, :]
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(w_in, DTensor):
+        # on a mesh, the gate and up products apart: the fused product
+        # reshapes (d, 2, ff) with ff over model into a strided layout
+        # whose redistributions DTensor plans by a slow search
+        gate, up = torch.matmul(x, w_in[:, 0]), torch.matmul(x, w_in[:, 1])
+    else:
+        h = torch.einsum("...d,dcf->...cf", x, w_in)
+        gate, up = h[..., 0, :], h[..., 1, :]
     g = gate.to(torch.float32)
     act = F.silu(g) if activation == "swiglu" else F.gelu(
         g, approximate="tanh")

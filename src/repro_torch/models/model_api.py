@@ -8,9 +8,11 @@ has ``init(seed=0, device=None, generator=None)`` and ``loss_fn(params,
 batch, **kw)`` (the f32 training loss); every decoder also
 ``init_cache(batch, max_len, device=None)``, ``prefill`` and
 ``decode_step``; the moe family keeps the dense family's 5-d
-``KVCache``, the ssm and hybrid families a dict of recurrent state.  The
-sharding members of the reference's facade (``param_specs``,
-``cache_specs``) wait for ROADMAP item 9b.
+``KVCache``, the ssm and hybrid families a dict of recurrent state.
+``param_specs(rules)`` and ``cache_specs(rules)`` give the specs of the
+parameters (by dotted name) and of the cache under ``MeshRules``, and
+``loss_fn``, ``prefill`` and ``decode_step`` take ``rules=None``: with
+rules their tensors are DTensors on the rules' mesh.
 """
 from __future__ import annotations
 
@@ -27,20 +29,24 @@ __all__ = ["Model", "build_model"]
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]                       # (seed=0, device=None, generator=None) -> params
-    loss_fn: Callable[..., Any]                    # (params, batch, **kw) -> f32 loss
+    loss_fn: Callable[..., Any]                    # (params, batch, rules=None, **kw) -> f32 loss
+    param_specs: Callable[..., Any]                # (rules) -> name -> P
     init_cache: Callable[..., Any] | None = None   # (batch, max_len, device=None) -> cache
-    prefill: Callable[..., Any] | None = None      # (params, batch, cache) -> (logits, cache)
-    decode_step: Callable[..., Any] | None = None  # (params, cache, tokens, pos) -> (logits, cache)
+    cache_specs: Callable[..., Any] | None = None  # (rules) -> cache of P
+    prefill: Callable[..., Any] | None = None      # (params, batch, cache, rules=None) -> (logits, cache)
+    decode_step: Callable[..., Any] | None = None  # (params, cache, tokens, pos, rules=None) -> (logits, cache)
 
     @property
     def is_decoder(self) -> bool:
         return self.decode_step is not None
 
 
-def _tfm_prefill(params, batch, cfg, cache, q_chunk: int = 512):
+def _tfm_prefill(params, batch, cfg, cache, rules=None, q_chunk: int = 512):
     if cfg.family == "vlm" and "patches" in batch:
-        return tfm.vlm_prefill(params, batch, cfg, cache, q_chunk=q_chunk)
-    return tfm.prefill(params, batch["tokens"], cfg, cache, q_chunk=q_chunk)
+        return tfm.vlm_prefill(params, batch, cfg, cache, rules=rules,
+                               q_chunk=q_chunk)
+    return tfm.prefill(params, batch["tokens"], cfg, cache, rules=rules,
+                       q_chunk=q_chunk)
 
 
 # family -> (its module, the module of its cache)
@@ -56,20 +62,27 @@ def build_model(cfg: ArchConfig) -> Model:
     def init(seed: int = 0, *, device=None, generator=None):
         return mod.init_params(cfg, seed, device=device, generator=generator)
 
-    def loss_fn(params, batch, **kw):
-        return mod.loss_fn(params, batch, cfg, **kw)
+    def loss_fn(params, batch, rules=None, **kw):
+        return mod.loss_fn(params, batch, cfg, rules=rules, **kw)
+
+    def param_specs(rules):
+        return mod.param_specs(cfg, rules)
 
     if cfg.family == "encoder":      # encoders serve through tfm.encode_step
-        return Model(cfg=cfg, init=init, loss_fn=loss_fn)
+        return Model(cfg=cfg, init=init, loss_fn=loss_fn,
+                     param_specs=param_specs)
 
-    def prefill(params, batch, cache, **kw):
+    def prefill(params, batch, cache, rules=None, **kw):
         if mod is tfm:
-            return _tfm_prefill(params, batch, cfg, cache, **kw)
-        return mod.prefill(params, batch["tokens"], cfg, cache, **kw)
+            return _tfm_prefill(params, batch, cfg, cache, rules=rules, **kw)
+        return mod.prefill(params, batch["tokens"], cfg, cache, rules=rules,
+                           **kw)
 
     return Model(
-        cfg=cfg, init=init, loss_fn=loss_fn,
+        cfg=cfg, init=init, loss_fn=loss_fn, param_specs=param_specs,
         init_cache=lambda b, s, device=None: cache_mod.init_cache(
             cfg, b, s, device=device),
+        cache_specs=lambda rules: cache_mod.cache_specs(cfg, rules),
         prefill=prefill,
-        decode_step=lambda p, c, t, pos: mod.decode_step(p, c, t, pos, cfg))
+        decode_step=lambda p, c, t, pos, rules=None: mod.decode_step(
+            p, c, t, pos, cfg, rules=rules))

@@ -25,6 +25,18 @@ plus the aux loss (its mean over the layers, times ``aux_weight``); both
 dispatch modes carry gradients (the drop slot's gradient is 0: its row is
 cut off the buffer), and ``forward`` recomputes each layer in the
 backward pass where gradients are on.
+
+Sharding: ``param_specs`` is the dense family's with the FFN replaced by
+the experts, sharded over ``model`` on the (padded) expert axis, and the
+router replicated.  With ``rules`` the entry points run on DTensors and
+``moe_ffn`` constrains the (Ep, C, d) buffer and the experts' output to
+experts over ``model`` and capacity over the data axes, and each layer's
+output to the batch over the data axes, as the reference does.  The
+port adds constrain points: the routing (the ranks and slot maps) is
+computed on plain tensors from the top-k choices replicated over the
+mesh (``searchsorted`` has no DTensor rule, nor an index write with
+plain indices), and the tokens and the experts' output are replicated
+for the dispatch and combine gathers.
 """
 from __future__ import annotations
 
@@ -36,12 +48,13 @@ import torch.nn.functional as F
 from ..analysis.audit import audit_determinism
 from . import transformer as tfm
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
-from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     init_generator, remat as remat_layer, rms_norm)
+from .common import (ArchConfig, MeshRules, P, StackedParams, constrain,
+                     dense_init, embed_init, init_generator, logical_to_spec,
+                     on_mesh, remat as remat_layer, rms_norm)
 
-__all__ = ["MoEParams", "param_shapes", "init_params", "DISPATCH_MODE",
-           "dispatch_mode", "capacity", "moe_ffn", "forward", "loss_fn",
-           "decode_step", "prefill"]
+__all__ = ["MoEParams", "param_shapes", "init_params", "param_specs",
+           "DISPATCH_MODE", "dispatch_mode", "capacity", "moe_ffn",
+           "forward", "loss_fn", "decode_step", "prefill"]
 
 LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "router", "w_gate",
               "w_up", "w_down")
@@ -114,6 +127,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     return MoEParams(cfg, t)
 
 
+def param_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """Dotted name -> spec of every tensor of ``param_shapes``."""
+    specs = tfm.param_specs(cfg.replace(family="dense"), rules)
+    d, ff, E, L = (cfg.d_model, cfg.d_ff, _padded_experts(cfg),
+                   cfg.n_layers)
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    del specs["layers.w_in"], specs["layers.w_out"]
+    specs.update({
+        "layers.router": P(None, None, None),
+        "layers.w_gate": spec((None, L), ("model", E), (None, d),
+                              (None, ff)),
+        "layers.w_up": spec((None, L), ("model", E), (None, d), (None, ff)),
+        "layers.w_down": spec((None, L), ("model", E), (None, ff),
+                              (None, d)),
+    })
+    return specs
+
+
 # The reference's two dispatch/combine formulations; "gather" is its
 # production default.
 DISPATCH_MODE = "gather"
@@ -147,9 +181,17 @@ def capacity(cfg: ArchConfig, tokens: int) -> int:
     "in its last bits between runs, as the reference's scatter-add "
     "combine; the default gather mode sums in a fixed order in f32",
     ops=("index_add_",))
-def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
+def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig,
+            rules: MeshRules | None = None):
     """x: (B, L, d) -> (y (B, L, d), the f32 aux loss).  Sort-based
-    top-k dispatch."""
+    top-k dispatch.  With ``rules`` (DTensors, the gather mode only) the
+    slot maps are computed from the top-k choices replicated over the
+    mesh, as plain tensors (``searchsorted`` and the index writes have no
+    DTensor rule), and the tokens are replicated before the dispatch
+    gather."""
+    if rules is not None and DISPATCH_MODE != "gather":
+        raise ValueError(f"the {DISPATCH_MODE!r} dispatch mode does not run "
+                         f"on a mesh; the gather mode does")
     B, L, d = x.shape
     T = B * L
     E, k = cfg.n_experts, cfg.top_k
@@ -171,6 +213,8 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     aux = E * torch.sum(dispatch_frac * router_frac)
 
     C = capacity(cfg, T)
+    if rules is not None:       # the integer routing, on plain tensors
+        topi = constrain(topi, P(None, None)).to_local()
     eflat = topi.reshape(-1)                                   # (T*k,)
     sorted_e, sort_idx = torch.sort(eflat, stable=True)
     first = torch.searchsorted(sorted_e, sorted_e)             # side left
@@ -185,18 +229,35 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
         slot_token = torch.full((Ep * C + 1,), T, dtype=torch.long,
                                 device=dev)
         slot_token[dest] = token_of
+        if rules is not None:
+            xt = constrain(xt, P(None, None))
         xt_pad = torch.cat([xt, xt.new_zeros((1, d))])
-        buf = xt_pad[slot_token[:Ep * C]]
+        if rules is None:
+            buf = xt_pad[slot_token[:Ep * C]]
+        else:
+            # a lookup: an indexed gather's backward (an accumulating
+            # index_put) has no working DTensor rule on torch 2.11
+            buf = F.embedding(slot_token[:Ep * C], xt_pad)
     else:
         buf = x.new_zeros((Ep * C + 1, d))
         buf[dest] = xt[token_of]
         buf = buf[:Ep * C]
     buf = buf.reshape(Ep, C, d)
+    if rules is not None:
+        # experts over model and capacity over data: both mesh axes do
+        # expert products
+        buf = constrain(buf, P(rules.model(Ep), rules.data_if(C), None))
 
     gate = torch.bmm(buf, lp["w_gate"])
     up = torch.bmm(buf, lp["w_up"])
     hidden = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    out_flat = torch.bmm(hidden, lp["w_down"]).reshape(Ep * C, d)
+    out = torch.bmm(hidden, lp["w_down"])
+    if rules is not None:
+        out = constrain(out, P(rules.model(Ep), rules.data_if(C), None))
+        # the per-token combine gathers from the experts' output
+        # replicated: merging the two sharded axes has no DTensor view rule
+        out = constrain(out, P(None, None, None))
+    out_flat = out.reshape(Ep * C, d)
 
     if DISPATCH_MODE == "gather":
         # per-token gather of its k expert outputs: the inverse of
@@ -205,7 +266,9 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
         inv_sort[sort_idx] = torch.arange(T * k, device=dev)
         dest_tc = dest[inv_sort].reshape(T, k)
         keep_tc = keep[inv_sort].reshape(T, k)
-        got = out_flat[torch.clamp_max(dest_tc, Ep * C - 1)]   # (T, k, d)
+        slot_tc = torch.clamp_max(dest_tc, Ep * C - 1)
+        got = (out_flat[slot_tc] if rules is None       # (T, k, d)
+               else F.embedding(slot_tc, out_flat))
         got = torch.where(keep_tc[..., None], got, 0)
         y = torch.einsum("tkd,tk->td", got.to(torch.float32),
                          topw).to(x.dtype)
@@ -218,52 +281,65 @@ def moe_ffn(x: torch.Tensor, lp: dict, cfg: ArchConfig):
     return y.reshape(B, L, d), aux
 
 
-def _block(x, lp: dict, cfg: ArchConfig, positions, q_chunk: int = 512):
+def _block(x, lp: dict, cfg: ArchConfig, positions, rules=None,
+           q_chunk: int = 512):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, kk, vv = qkv_project(h, lp["wq"], lp["wk"], lp["wv"], cfg, positions)
     o = attention(q, kk, vv, positions, positions, cfg, causal=True,
                   window=cfg.sliding_window, q_chunk=q_chunk)
     x = x + out_project(o, lp["wo"])
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    y, aux = moe_ffn(h, lp, cfg)
-    return x + y, aux
+    y, aux = moe_ffn(h, lp, cfg, rules)
+    x = x + y
+    if rules is not None:
+        x = constrain(x, tfm.data_spec(rules))
+    return x, aux
 
 
-def forward(params: MoEParams, x, cfg: ArchConfig, positions,
+def forward(params: MoEParams, x, cfg: ArchConfig, positions, rules=None,
             remat: bool | None = None, q_chunk: int = 512):
     """x: (B, L, d) embedded input -> (final hidden states, the aux loss
     summed over the layers).  ``remat``: recompute each layer in the
     backward pass (None: where gradients are on)."""
     def block(h, lp):
-        return _block(h, lp, cfg, positions, q_chunk)
+        return _block(h, lp, cfg, positions, rules, q_chunk)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = remat_layer(block, remat, x, params.layer(i))
-        aux = aux + a
-    return rms_norm(x, params.final_norm, cfg.norm_eps), aux
+    with on_mesh(rules):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.n_layers):
+            x, a = remat_layer(block, remat, x, params.layer(i))
+            aux = aux + a
+        return rms_norm(x, params.final_norm, cfg.norm_eps), aux
 
 
-def loss_fn(params: MoEParams, batch: dict, cfg: ArchConfig,
+def loss_fn(params: MoEParams, batch: dict, cfg: ArchConfig, rules=None,
             aux_weight: float = 0.01, remat: bool | None = None,
             q_chunk: int = 512):
     """The next-token loss of ``batch["tokens"]`` plus ``aux_weight``
     times the aux loss averaged over the layers, f32."""
-    tokens = batch["tokens"]
-    x = tfm.embed_tokens(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
-    h, aux = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
-    labels, lmask = tfm.shifted_labels(tokens)
-    ce = tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
-    return ce + aux_weight * aux / cfg.n_layers
+    with on_mesh(rules):
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        h, aux = forward(params, x, cfg, positions, rules, remat=remat,
+                         q_chunk=q_chunk)
+        labels, lmask = tfm.shifted_labels(tokens)
+        ce = tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask,
+                                 rules=rules)
+        return ce + aux_weight * aux / cfg.n_layers
 
 
 def decode_step(params: MoEParams, cache: KVCache, tokens, pos: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, rules=None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.
     Writes the new keys and values into ``cache`` in place; returns (f32
     logits (B, V), cache)."""
+    with on_mesh(rules):
+        return _decode(params, cache, tokens, pos, cfg, rules)
+
+
+def _decode(params, cache, tokens, pos, cfg, rules):
     B = tokens.shape[0]
     dev = cache.k.device
     pos = int(pos)
@@ -283,16 +359,21 @@ def decode_step(params: MoEParams, cache: KVCache, tokens, pos: int,
                       k_valid=k_valid)
         h = h + out_project(o, lp["wo"])
         hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + moe_ffn(hn, lp, cfg)[0]
+        h = h + moe_ffn(hn, lp, cfg, rules)[0]
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return tfm.logits_at(params, h[:, -1, :], cfg), cache
 
 
 def prefill(params: MoEParams, tokens, cfg: ArchConfig, cache: KVCache,
-            q_chunk: int = 512):
+            rules=None, q_chunk: int = 512):
     """Prompt pass: last-position f32 logits (B, V) and the cache, filled
     in place (each layer's last S keys and values written from slot
     0)."""
+    with on_mesh(rules):
+        return _prefill(params, tokens, cfg, cache, rules, q_chunk)
+
+
+def _prefill(params, tokens, cfg, cache, rules, q_chunk):
     L = tokens.shape[1]
     h = tfm.embed_tokens(params, tokens, cfg)
     positions = torch.arange(L, dtype=torch.int32, device=h.device)
@@ -306,7 +387,7 @@ def prefill(params: MoEParams, tokens, cfg: ArchConfig, cache: KVCache,
                       causal=True, q_chunk=q_chunk)
         h = h + out_project(o, lp["wo"])
         hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + moe_ffn(hn, lp, cfg)[0]
+        h = h + moe_ffn(hn, lp, cfg, rules)[0]
         seq_update(cache.k[i], k_new[:, -S:], 0)
         seq_update(cache.v[i], v_new[:, -S:], 0)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)

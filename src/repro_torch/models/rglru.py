@@ -23,6 +23,12 @@ decode then treats as the whole ring (ROADMAP "Reference gaps").
 Training: ``loss_fn``, the next-token loss, with each superblock and tail
 layer recomputed in the backward pass where gradients are on; the scan's
 emulated exp carries exp's gradient (``threefry._exp``).
+Sharding: ``param_specs`` and ``cache_specs`` as the reference's (the
+recurrence width, the gate blocks, the heads and the MLP width over
+``model``); with ``rules`` the entry points run on DTensors, and the
+training forward constrains each recurrent block's gated output over
+``model`` and each layer's output over the data axes, as there; its
+serving steps take ``rules`` and constrain nothing, as there.
 """
 from __future__ import annotations
 
@@ -33,13 +39,15 @@ from ..core.device import resolve_device
 from ..core.threefry import _exp
 from . import transformer as tfm
 from .attention import attention, out_project, qkv_project, seq_update
-from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     glu_ffn, init_generator, remat as remat_layer, rms_norm,
-                     softplus)
+from .common import (ArchConfig, MeshRules, P, StackedParams, constrain,
+                     dense_init, embed_init, glu_ffn, init_generator,
+                     logical_to_spec, on_mesh, remat as remat_layer,
+                     rms_norm, softplus)
 from .ssm import _causal_conv
 
-__all__ = ["RGLRUParams", "param_shapes", "init_params", "forward",
-           "loss_fn", "init_cache", "decode_step", "prefill"]
+__all__ = ["RGLRUParams", "param_shapes", "init_params", "param_specs",
+           "cache_specs", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill"]
 
 _C = 8.0  # Griffin's fixed gate sharpness
 _F32 = ("ba", "bi", "lam")
@@ -139,6 +147,86 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 
 
 # ------------------------------------------------------------------ blocks
+def _rec_specs(cfg: ArchConfig, rules: MeshRules, L: int) -> dict:
+    d, w, nb, ff = cfg.d_model, cfg.rnn_width, cfg.n_heads, cfg.d_ff
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    return {
+        "ln1": P(None, None),
+        "wg": spec((None, L), (None, d), ("model", w)),
+        "wx": spec((None, L), (None, d), ("model", w)),
+        "conv_w": spec((None, L), (None, 0), ("model", w)),
+        "conv_b": spec((None, L), ("model", w)),
+        "wa": spec((None, L), ("model", nb), (None, 0), (None, 0)),
+        "ba": spec((None, L), ("model", w)),
+        "wi": spec((None, L), ("model", nb), (None, 0), (None, 0)),
+        "bi": spec((None, L), ("model", w)),
+        "lam": spec((None, L), ("model", w)),
+        "wo": spec((None, L), ("model", w), (None, d)),
+        "ln2": P(None, None),
+        "w_in": spec((None, L), (None, d), (None, 2), ("model", ff)),
+        "w_out": spec((None, L), ("model", ff), (None, d)),
+    }
+
+
+def _attn_specs(cfg: ArchConfig, rules: MeshRules, L: int) -> dict:
+    d, H, K, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    return {
+        "ln1": P(None, None),
+        "wq": spec((None, L), (None, d), ("model", H), (None, hd)),
+        "wk": spec((None, L), (None, d), ("model", K), (None, hd)),
+        "wv": spec((None, L), (None, d), ("model", K), (None, hd)),
+        "wo": spec((None, L), ("model", H), (None, hd), (None, d)),
+        "ln2": P(None, None),
+        "w_in": spec((None, L), (None, d), (None, 2), ("model", ff)),
+        "w_out": spec((None, L), ("model", ff), (None, d)),
+    }
+
+
+def param_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """Dotted name -> spec of every tensor of ``param_shapes``."""
+    n_super, n_tail = _counts(cfg)
+    specs = {"embed": logical_to_spec(rules, ("model", cfg.vocab),
+                                      (None, cfg.d_model))}
+    for part in PARTS:
+        group = (_attn_specs if part == "attn" else _rec_specs)(
+            cfg, rules, n_super)
+        specs.update({f"supers.{part}.{k}": v for k, v in group.items()})
+    specs["final_norm"] = P(None)
+    if n_tail:
+        specs.update({f"tail.{k}": v
+                      for k, v in _rec_specs(cfg, rules, n_tail).items()})
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """The batch over the data axes, the recurrence width and the kv
+    heads over ``model`` where they divide."""
+    n_super, n_tail = _counts(cfg)
+    w = cfg.rnn_width
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    conv = spec((None, 0), ("data", 0), (None, 0), ("model", w))
+    hsp = spec((None, 0), ("data", 0), ("model", w))
+    kv = spec((None, 0), ("data", 0), (None, 0),
+              ("model", cfg.n_kv_heads), (None, 0))
+    out = {"conv1": conv, "h1": hsp, "conv2": conv, "h2": hsp,
+           "k": kv, "v": kv}
+    if n_tail:
+        out["tconv"] = conv
+        out["th"] = hsp
+    return out
+
+
 def _blockdiag(x, w, b):
     """x: (..., width) -> block-diagonal linear; w: (nb, bs, bs).  The f32
     bias is cast to x's dtype before the add."""
@@ -206,64 +294,76 @@ def _rec_mix(x, lp: dict):
     return _rglru_scan(conv.to(torch.float32), r, i, lp["lam"]), gate, u
 
 
-def _mlp(x, lp: dict, cfg: ArchConfig):
+def _mlp(x, lp: dict, cfg: ArchConfig, rules=None):
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + glu_ffn(h, lp["w_in"], lp["w_out"], cfg.activation)
+    x = x + glu_ffn(h, lp["w_in"], lp["w_out"], cfg.activation)
+    if rules is not None:
+        x = constrain(x, tfm.data_spec(rules))
+    return x
 
 
-def _rec_layer(x, lp: dict, cfg: ArchConfig):
+def _rec_layer(x, lp: dict, cfg: ArchConfig, rules=None):
     """A recurrent layer: (output, its conv tail (B, K-1, w), its last
     state (B, w))."""
     hs, gate, u = _rec_mix(rms_norm(x, lp["ln1"], cfg.norm_eps), lp)
-    x = x + torch.matmul((hs * gate).to(x.dtype), lp["wo"])
-    return _mlp(x, lp, cfg), u[:, -(cfg.ssm_conv - 1):, :], hs[:, -1, :]
+    y = (hs * gate).to(x.dtype)
+    if rules is not None:
+        y = constrain(y, P(rules.data, None, rules.model(cfg.rnn_width)))
+    x = x + torch.matmul(y, lp["wo"])
+    return (_mlp(x, lp, cfg, rules), u[:, -(cfg.ssm_conv - 1):, :],
+            hs[:, -1, :])
 
 
-def _attn_layer(x, lp: dict, cfg: ArchConfig, positions, q_chunk: int):
+def _attn_layer(x, lp: dict, cfg: ArchConfig, positions, q_chunk: int,
+                rules=None):
     """A local-attention layer: (output, its keys, its values)."""
     hn = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(hn, lp["wq"], lp["wk"], lp["wv"], cfg, positions)
     o = attention(q, k, v, positions, positions, cfg, causal=True,
                   window=cfg.local_window, q_chunk=q_chunk)
-    return _mlp(x + out_project(o, lp["wo"]), lp, cfg), k, v
+    return _mlp(x + out_project(o, lp["wo"]), lp, cfg, rules), k, v
 
 
 # ----------------------------------------------------------------- forward
-def forward(params: RGLRUParams, x, cfg: ArchConfig, positions,
+def forward(params: RGLRUParams, x, cfg: ArchConfig, positions, rules=None,
             remat: bool | None = None, q_chunk: int = 512):
     """x: (B, L, d) embedded input -> final hidden states (B, L, d).
     ``remat``: recompute each superblock and each tail layer in the
     backward pass (None: where gradients are on)."""
     def superblock(h, rec1, rec2, attn):
-        h = _rec_layer(h, rec1, cfg)[0]
-        h = _rec_layer(h, rec2, cfg)[0]
-        return _attn_layer(h, attn, cfg, positions, q_chunk)[0]
+        h = _rec_layer(h, rec1, cfg, rules)[0]
+        h = _rec_layer(h, rec2, cfg, rules)[0]
+        return _attn_layer(h, attn, cfg, positions, q_chunk, rules)[0]
 
     def tail_layer(h, lp):
-        return _rec_layer(h, lp, cfg)[0]
+        return _rec_layer(h, lp, cfg, rules)[0]
 
     n_super, n_tail = _counts(cfg)
-    for s in range(n_super):
-        sp = params.superblock(s)
-        x = remat_layer(superblock, remat, x, *(sp[p] for p in PARTS))
-    for i in range(n_tail):
-        x = remat_layer(tail_layer, remat, x, params.tail_layer(i))
-    return rms_norm(x, params.final_norm, cfg.norm_eps)
+    with on_mesh(rules):
+        for s in range(n_super):
+            sp = params.superblock(s)
+            x = remat_layer(superblock, remat, x, *(sp[p] for p in PARTS))
+        for i in range(n_tail):
+            x = remat_layer(tail_layer, remat, x, params.tail_layer(i))
+        return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
-def loss_fn(params: RGLRUParams, batch: dict, cfg: ArchConfig,
+def loss_fn(params: RGLRUParams, batch: dict, cfg: ArchConfig, rules=None,
             remat: bool | None = None, q_chunk: int = 512):
     """The next-token loss of ``batch["tokens"]`` (an optional bool
     ``mask`` selects the positions), f32."""
-    tokens = batch["tokens"]
-    x = tfm.embed_tokens(params, tokens, cfg)
-    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                             device=x.device)
-    h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
-    labels, lmask = tfm.shifted_labels(tokens)
-    if "mask" in batch:
-        lmask = lmask & batch["mask"]
-    return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
+    with on_mesh(rules):
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, tokens, cfg)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        h = forward(params, x, cfg, positions, rules, remat=remat,
+                    q_chunk=q_chunk)
+        labels, lmask = tfm.shifted_labels(tokens)
+        if "mask" in batch:
+            lmask = lmask & batch["mask"]
+        return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask,
+                                   rules=rules)
 
 
 # ---------------------------------------------------------------- serving
@@ -340,9 +440,14 @@ def _attn_layer_step(h, lp: dict, cfg: ArchConfig, kc, vc, pos: int):
 
 
 def decode_step(params: RGLRUParams, cache: dict, tokens, pos: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, rules=None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.
     Updates ``cache`` in place; returns (f32 logits (B, V), cache)."""
+    with on_mesh(rules):
+        return _decode(params, cache, tokens, pos, cfg)
+
+
+def _decode(params, cache, tokens, pos, cfg):
     pos = int(pos)
     n_super, n_tail = _counts(cfg)
     h = tfm.embed_tokens(params, tokens, cfg)                  # (B, 1, d)
@@ -362,13 +467,18 @@ def decode_step(params: RGLRUParams, cache: dict, tokens, pos: int,
 
 
 def prefill(params: RGLRUParams, tokens, cfg: ArchConfig, cache: dict,
-            q_chunk: int = 512):
+            rules=None, q_chunk: int = 512):
     """Prompt pass.  The recurrent states and conv windows are written
     into ``cache`` in place; the ring becomes each attention layer's last
     min(L, S) keys and values rolled by L % S (slot of position p: p % S),
     a new tensor, so a prompt shorter than S leaves a ring of L slots, as
     the reference's does.  Returns (last-position f32 logits (B, V), the
     cache)."""
+    with on_mesh(rules):
+        return _prefill(params, tokens, cfg, cache, q_chunk)
+
+
+def _prefill(params, tokens, cfg, cache, q_chunk):
     L = tokens.shape[1]
     n_super, n_tail = _counts(cfg)
     h = tfm.embed_tokens(params, tokens, cfg)

@@ -18,6 +18,11 @@ carry, a prompt must be a multiple of ``ssm_chunk`` long (``ValueError``
 where the reference asserts), and ``decode_step`` ignores ``pos``.
 Training: ``loss_fn``, the next-token loss (an optional ``mask``), with
 each layer recomputed in the backward pass where gradients are on.
+Sharding: ``param_specs`` and ``cache_specs`` as the reference's (the
+heads and the inner width over ``model``; ``wxbc`` and the conv
+replicated, since the conv's width mixes x, B and C); with ``rules`` the
+entry points run on DTensors, the x heads constrained over ``model``
+before the SSD and each layer's output over the data axes, as there.
 """
 from __future__ import annotations
 
@@ -28,12 +33,14 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from . import transformer as tfm
-from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     init_generator, remat as remat_layer, rms_norm,
-                     softplus)
+from .common import (ArchConfig, MeshRules, P, StackedParams, constrain,
+                     dense_init, embed_init, init_generator,
+                     logical_to_spec, on_mesh, remat as remat_layer,
+                     rms_norm, softplus)
 
-__all__ = ["SSMParams", "param_shapes", "init_params", "forward", "loss_fn",
-           "init_cache", "decode_step", "prefill"]
+__all__ = ["SSMParams", "param_shapes", "init_params", "param_specs",
+           "cache_specs", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill"]
 
 LAYER_KEYS = ("ln", "wz", "wxbc", "wdt", "conv_w", "conv_b", "A_log", "D",
               "dt_bias", "gnorm", "wo")
@@ -112,11 +119,64 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     return SSMParams(cfg, t)
 
 
+def param_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """Dotted name -> spec of every tensor of ``param_shapes``."""
+    d = cfg.d_model
+    d_inner, H, _, _, _, _ = _dims(cfg)
+    L = cfg.n_layers
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    layers = {
+        "ln": P(None, None),
+        "wz": spec((None, L), (None, d), ("model", d_inner)),
+        "wxbc": P(None, None, None),   # conv_dim mixes x/B/C: replicate
+        "wdt": spec((None, L), (None, d), ("model", H)),
+        "conv_w": P(None, None, None),
+        "conv_b": P(None, None),
+        "A_log": spec((None, L), ("model", H)),
+        "D": spec((None, L), ("model", H)),
+        "dt_bias": spec((None, L), ("model", H)),
+        "gnorm": spec((None, L), ("model", d_inner)),
+        "wo": spec((None, L), ("model", d_inner), (None, d)),
+    }
+    specs = {"embed": spec(("model", cfg.vocab), (None, d))}
+    specs.update({f"layers.{k}": v for k, v in layers.items()})
+    specs["final_norm"] = P(None)
+    return specs
+
+
+def _cumsum_seq(x):
+    """The cumulative sum over dim 1.  On a DTensor, shard by shard
+    (``local_map``, dim 1 gathered where sharded): torch 2.11's DTensor
+    has no rule for the ``flip`` of cumsum's backward."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x, DTensor):
+        return torch.cumsum(x, dim=1)
+    placements = [Replicate() if isinstance(p, Shard)
+                  and p.dim % x.ndim == 1 else p for p in x.placements]
+    cumsum = local_map(lambda t: torch.cumsum(t, dim=1),
+                       out_placements=placements, in_placements=(placements,),
+                       device_mesh=x.device_mesh, redistribute_inputs=True)
+    return cumsum(x)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """Depthwise causal conv1d, tap by tap in x's dtype. x: (B, L, C);
     w: (K, C)."""
+    from torch.distributed.tensor import DTensor
+
     K, L = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    if isinstance(x, DTensor):
+        # zeros on x's own placements: F.pad's redistribution plan fails
+        # in torch 2.11's DTensor
+        xp = torch.cat([torch.zeros_like(x[:, :1]).expand(-1, K - 1, -1), x],
+                       dim=1)
+    else:
+        xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for k in range(K):
         out = out + xp[:, k:k + L, :] * w[k]
@@ -150,7 +210,7 @@ def _ssd_chunked(xh, dtv, Bm, Cm, A_log, Q: int):
     for c in range(nc):
         x_c, dt_c, B_c, C_c = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
         la = dt_c * neg_A                    # log a_t  (B, Q, H)
-        cum = torch.cumsum(la, dim=1)
+        cum = _cumsum_seq(la)
         # intra-chunk: decay matrix L[i, j] = exp(cum_i - cum_j), j <= i.
         # Masked before the exp: above the diagonal cum_i - cum_j > 0 may
         # overflow, and exp's gradient there, 0 * inf, would be NaN (the
@@ -191,50 +251,64 @@ def _project(x, lp: dict, cfg: ArchConfig):
     return z, xbc_in, xs, Bm, Cm, dtv
 
 
-def _gate_out(y, xs, z, lp: dict, cfg: ArchConfig, dtype):
+def _gate_out(y, xs, z, lp: dict, cfg: ArchConfig, dtype, rules=None):
     """D skip, the silu(z) gate, the group norm and the out projection of
     the f32 SSD output y (B, L, H, P)."""
     B, L = y.shape[:2]
     y = y + lp["D"][:, None] * xs.to(torch.float32)
     y = y.reshape(B, L, -1).to(dtype)
+    if rules is not None:
+        # the inner width sharded as z's: the gradient then reaches the
+        # (heads, head_dim) view as the heads lie, which torch 2.11's
+        # DTensor needs where they do not divide the model axis (mamba2)
+        y = constrain(y, P(rules.data, None, rules.model(y.shape[-1])))
     y = y * F.silu(z.to(torch.float32)).to(dtype)
     y = rms_norm(y, lp["gnorm"], cfg.norm_eps)
     return torch.matmul(y, lp["wo"])
 
 
-def _mix(x, lp: dict, cfg: ArchConfig):
+def _mix(x, lp: dict, cfg: ArchConfig, rules: MeshRules | None = None):
     """One mamba2 mixing block (the pre-norm residual is the caller's)."""
     z, _, xs, Bm, Cm, dtv = _project(x, lp, cfg)
+    if rules is not None:
+        xs = constrain(xs, P(rules.data, None, rules.model(_dims(cfg)[1]),
+                             None))
     y = _ssd_chunked(xs, dtv, Bm, Cm, lp["A_log"], cfg.ssm_chunk)
-    return _gate_out(y, xs, z, lp, cfg, x.dtype)
+    return _gate_out(y, xs, z, lp, cfg, x.dtype, rules)
 
 
-def forward(params: SSMParams, x, cfg: ArchConfig,
+def forward(params: SSMParams, x, cfg: ArchConfig, rules=None,
             remat: bool | None = None):
     """x: (B, L, d) embedded input -> final hidden states (B, L, d).
     ``remat``: recompute each layer in the backward pass (None: where
     gradients are on)."""
     def layer(h, lp):
-        return h + _mix(rms_norm(h, lp["ln"], cfg.norm_eps), lp, cfg)
+        h = h + _mix(rms_norm(h, lp["ln"], cfg.norm_eps), lp, cfg, rules)
+        if rules is not None:
+            h = constrain(h, tfm.data_spec(rules))
+        return h
 
-    for i in range(cfg.n_layers):
-        x = remat_layer(layer, remat, x, params.layer(i))
-    return rms_norm(x, params.final_norm, cfg.norm_eps)
+    with on_mesh(rules):
+        for i in range(cfg.n_layers):
+            x = remat_layer(layer, remat, x, params.layer(i))
+        return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
-def loss_fn(params: SSMParams, batch: dict, cfg: ArchConfig,
+def loss_fn(params: SSMParams, batch: dict, cfg: ArchConfig, rules=None,
             remat: bool | None = None, q_chunk: int = 512):
     """The next-token loss of ``batch["tokens"]`` (an optional bool
     ``mask`` selects the positions), f32.  The sequence must be a
     multiple of ``ssm_chunk`` (``ValueError``).  ``q_chunk`` is unused
     (no attention)."""
-    tokens = batch["tokens"]
-    x = tfm.embed_tokens(params, tokens, cfg)
-    h = forward(params, x, cfg, remat=remat)
-    labels, lmask = tfm.shifted_labels(tokens)
-    if "mask" in batch:
-        lmask = lmask & batch["mask"]
-    return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask)
+    with on_mesh(rules):
+        tokens = batch["tokens"]
+        x = tfm.embed_tokens(params, tokens, cfg)
+        h = forward(params, x, cfg, rules, remat=remat)
+        labels, lmask = tfm.shifted_labels(tokens)
+        if "mask" in batch:
+            lmask = lmask & batch["mask"]
+        return tfm.chunked_ce_loss(params, h, labels, cfg, mask=lmask,
+                                   rules=rules)
 
 
 # ---------------------------------------------------------------- serving
@@ -249,6 +323,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                                  conv_dim), dtype=cfg.dtype, device=dev),
             "state": torch.zeros((cfg.n_layers, batch, H, P, N),
                                  dtype=torch.float32, device=dev)}
+
+
+def cache_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """The batch over the data axes, the state's heads over ``model``."""
+    H = _dims(cfg)[1]
+    return {
+        "conv": logical_to_spec(rules, (None, cfg.n_layers), ("data", 0),
+                                (None, 0), (None, 0)),
+        "state": logical_to_spec(rules, (None, cfg.n_layers), ("data", 0),
+                                 ("model", H), (None, 0), (None, 0)),
+    }
 
 
 def _mix_step(x1, conv_st, state, lp: dict, cfg: ArchConfig):
@@ -283,9 +368,14 @@ def _mix_step(x1, conv_st, state, lp: dict, cfg: ArchConfig):
 
 
 def decode_step(params: SSMParams, cache: dict, tokens, pos,
-                cfg: ArchConfig):
+                cfg: ArchConfig, rules=None):
     """tokens: (B, 1).  ``pos`` is unused (the state has no position).
     Updates ``cache`` in place; returns (f32 logits (B, V), cache)."""
+    with on_mesh(rules):
+        return _decode(params, cache, tokens, cfg)
+
+
+def _decode(params, cache, tokens, cfg):
     h = tfm.embed_tokens(params, tokens, cfg)[:, 0, :]      # (B, d)
     for i in range(cfg.n_layers):
         lp = params.layer(i)
@@ -300,11 +390,16 @@ def decode_step(params: SSMParams, cache: dict, tokens, pos,
 
 
 def prefill(params: SSMParams, tokens, cfg: ArchConfig, cache: dict,
-            q_chunk: int = 512):
+            rules=None, q_chunk: int = 512):
     """Prompt pass through the chunked SSD; each layer's trailing conv
     inputs and final state written into ``cache`` in place.  Returns
     (last-position f32 logits (B, V), cache).  ``q_chunk`` is unused
     (no attention)."""
+    with on_mesh(rules):
+        return _prefill(params, tokens, cfg, cache)
+
+
+def _prefill(params, tokens, cfg, cache):
     B, L = tokens.shape
     H = _dims(cfg)[1]
     h = tfm.embed_tokens(params, tokens, cfg)

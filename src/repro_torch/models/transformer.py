@@ -18,18 +18,33 @@ its text suffix) through ``chunked_ce_loss``, which forms the f32 logits
 one sequence chunk at a time; ``forward`` recomputes each layer in the
 backward pass where gradients are on (``common.remat``), as the
 reference's ``jax.checkpoint`` does.
+
+Sharding: ``layer_specs``, ``param_specs`` (by dotted name) and
+``cache_specs`` give each tensor's ``P`` under ``MeshRules``, as the
+reference's do.  Every entry point takes ``rules=None``; with rules its
+tensors are DTensors on the rules' mesh, and ``constrain`` redistributes
+them where the reference's ``with_sharding_constraint``s stand (the
+queries' heads over ``model``, each layer's output over the data axes,
+the loss's logits' vocabulary over ``model``).  The port adds two
+points the reference has not: ``chunked_ce_loss`` replicates a chunk's
+logits over ``model`` before the gold logit's ``gather``, whose DTensor
+rule on a vocabulary-sharded input fails, and ``embed_tokens`` looks the
+tokens up in the table replicated over the mesh.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from .attention import KVCache, attention, out_project, qkv_project, seq_update
-from .common import (ArchConfig, StackedParams, dense_init, embed_init,
-                     glu_ffn, init_generator, remat as remat_layer, rms_norm,
-                     softcap)
+from .common import (ArchConfig, MeshRules, P, StackedParams, constrain,
+                     dense_init, embed_init, glu_ffn, init_generator,
+                     logical_to_spec, on_mesh, remat as remat_layer,
+                     rms_norm, softcap)
 
-__all__ = ["TransformerParams", "init_params", "param_shapes", "forward",
+__all__ = ["TransformerParams", "init_params", "param_shapes",
+           "layer_specs", "param_specs", "cache_specs", "forward",
            "embed_tokens", "logits_at", "shifted_labels", "chunked_ce_loss",
            "loss_fn", "init_cache", "decode_step", "prefill_embedded",
            "prefill", "vlm_prefill", "encode_step"]
@@ -101,34 +116,106 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
     return TransformerParams(cfg, t)
 
 
+# ---------------------------------------------------------------- sharding
+def layer_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """The stacked layer tensors' specs, by their names under
+    ``layers``; the leading (layer) axis is never sharded."""
+    d, H, K, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    L = cfg.n_layers
+
+    def spec(*ax):
+        return logical_to_spec(rules, *ax)
+
+    return {
+        "ln1": P(None, None),
+        "wq": spec((None, L), (None, d), ("model", H), (None, hd)),
+        "wk": spec((None, L), (None, d), ("model", K), (None, hd)),
+        "wv": spec((None, L), (None, d), ("model", K), (None, hd)),
+        "wo": spec((None, L), ("model", H), (None, hd), (None, d)),
+        "ln2": P(None, None),
+        "w_in": spec((None, L), (None, d), (None, 2), ("model", ff)),
+        "w_out": spec((None, L), ("model", ff), (None, d)),
+    }
+
+
+def param_specs(cfg: ArchConfig, rules: MeshRules) -> dict:
+    """Dotted name -> spec of every tensor of ``param_shapes``."""
+    specs = {"embed": logical_to_spec(rules, ("model", cfg.vocab),
+                                      (None, cfg.d_model))}
+    specs.update({f"layers.{k}": v
+                  for k, v in layer_specs(cfg, rules).items()})
+    specs["final_norm"] = P(None)
+    if not cfg.tie_embeddings:
+        specs["unembed"] = logical_to_spec(rules, (None, cfg.d_model),
+                                           ("model", cfg.vocab))
+    if cfg.frontend_dim:
+        specs["frontend"] = P(None, None)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, rules: MeshRules) -> KVCache:
+    """(L, B, S, K, hd): the batch over the data axes, the kv heads over
+    ``model`` where they divide."""
+    s = logical_to_spec(rules, (None, cfg.n_layers), ("data", 0),
+                        (None, 0), ("model", cfg.n_kv_heads), (None, 0))
+    return KVCache(k=s, v=s)
+
+
+def data_spec(rules: MeshRules) -> P:
+    """(B, L, d) activations: the batch over the data axes."""
+    return P(rules.data, None, None)
+
+
 # ------------------------------------------------------------------ forward
-def _block(x, lp: dict, cfg: ArchConfig, positions, prefix_len=None,
-           q_chunk: int = 512):
+def _block(x, lp: dict, cfg: ArchConfig, positions, rules=None,
+           prefix_len=None, q_chunk: int = 512):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = qkv_project(h, lp["wq"], lp["wk"], lp["wv"], cfg, positions)
+    if rules is not None:
+        q = constrain(q, P(rules.data, None, rules.model(cfg.n_heads), None))
     o = attention(q, k, v, positions, positions, cfg, causal=cfg.is_causal,
                   window=cfg.sliding_window, prefix_len=prefix_len,
                   q_chunk=q_chunk)
     x = x + out_project(o, lp["wo"])
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + glu_ffn(h, lp["w_in"], lp["w_out"], cfg.activation)
+    x = x + glu_ffn(h, lp["w_in"], lp["w_out"], cfg.activation)
+    if rules is not None:
+        x = constrain(x, data_spec(rules))
+    return x
 
 
 def forward(params: TransformerParams, x, cfg: ArchConfig, positions,
-            prefix_len=None, remat: bool | None = None, q_chunk: int = 512):
+            rules=None, prefix_len=None, remat: bool | None = None,
+            q_chunk: int = 512):
     """x: (B, L, d) embedded input -> final hidden states (B, L, d).
     ``remat``: recompute each layer in the backward pass (None: where
     gradients are on, ``common.remat``)."""
     def block(h, lp):
-        return _block(h, lp, cfg, positions, prefix_len, q_chunk)
+        return _block(h, lp, cfg, positions, rules, prefix_len, q_chunk)
 
-    for i in range(cfg.n_layers):
-        x = remat_layer(block, remat, x, params.layer(i))
-    return rms_norm(x, params.final_norm, cfg.norm_eps)
+    with on_mesh(rules):
+        for i in range(cfg.n_layers):
+            x = remat_layer(block, remat, x, params.layer(i))
+        return rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 def embed_tokens(params: TransformerParams, tokens, cfg: ArchConfig):
-    x = params.embed[tokens]
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(params.embed, DTensor):
+        # on a mesh, the lookup in the table replicated over the mesh:
+        # DTensor's vocabulary-parallel lookup leaves a masked partial sum
+        # that loses its mask in a recomputed layer or fails to take its
+        # gradient, and the backward of an indexed lookup (an accumulating
+        # index_put) has no working rule in every torch release
+        from torch.distributed.tensor import Replicate
+
+        mesh = params.embed.device_mesh
+        x = F.embedding(tokens, params.embed.redistribute(
+            mesh, [Replicate()] * mesh.ndim))
+    else:
+        x = params.embed[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.dtype,
                              device=x.device)
@@ -158,7 +245,8 @@ def shifted_labels(tokens: torch.Tensor):
 
 
 def chunked_ce_loss(params: TransformerParams, h, labels, cfg: ArchConfig,
-                    mask=None, chunk: int = 512):
+                    mask=None, rules: MeshRules | None = None,
+                    chunk: int = 512):
     """Cross-entropy with the f32 logits formed one sequence chunk of
     ``chunk`` positions at a time (the full (B, L, V) would dominate the
     card's memory); a sequence that does not divide ``chunk`` is padded
@@ -178,7 +266,14 @@ def chunked_ce_loss(params: TransformerParams, h, labels, cfg: ArchConfig,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, L, chunk):
         logits = logits_at(params, h[:, c0:c0 + chunk], cfg)
+        if rules is not None:
+            logits = constrain(logits, P(rules.data, None,
+                                         rules.model(cfg.vocab)))
         logz = torch.logsumexp(logits, dim=-1)
+        if rules is not None:
+            # DTensor's gather on a vocabulary-sharded input fails: the
+            # gold logit is gathered from the chunk replicated over model
+            logits = constrain(logits, P(rules.data, None, None))
         gold = torch.gather(logits, -1,
                             labels[:, c0:c0 + chunk, None].long())[..., 0]
         m = mask[:, c0:c0 + chunk].to(torch.float32)
@@ -188,20 +283,26 @@ def chunked_ce_loss(params: TransformerParams, h, labels, cfg: ArchConfig,
 
 
 def loss_fn(params: TransformerParams, batch: dict, cfg: ArchConfig,
-            remat: bool | None = None, q_chunk: int = 512):
+            rules=None, remat: bool | None = None, q_chunk: int = 512):
     """The f32 training loss of a batch dict: the causal LM's next-token
     loss over ``tokens`` (an optional bool ``mask`` (B, L) selects the
     positions), the encoder's per-frame loss of ``features`` against
     ``labels``, the vlm's next-token loss over the text suffix after the
     ``patches`` prefix."""
+    with on_mesh(rules):
+        return _loss(params, batch, cfg, rules, remat, q_chunk)
+
+
+def _loss(params, batch, cfg, rules, remat, q_chunk):
     if cfg.family == "encoder":
         feats = batch["features"].to(cfg.dtype)
         x = torch.einsum("blf,fd->bld", feats, params.frontend)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+        h = forward(params, x, cfg, positions, rules, remat=remat,
+                    q_chunk=q_chunk)
         return chunked_ce_loss(params, h, batch["labels"], cfg,
-                               mask=batch.get("mask"))
+                               mask=batch.get("mask"), rules=rules)
     if cfg.family == "vlm":
         patches = batch["patches"].to(cfg.dtype)
         img = torch.einsum("bpf,fd->bpd", patches, params.frontend)
@@ -209,20 +310,21 @@ def loss_fn(params: TransformerParams, batch: dict, cfg: ArchConfig,
         x = torch.cat([img, tok], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        h = forward(params, x, cfg, positions, prefix_len=cfg.num_patches,
-                    remat=remat, q_chunk=q_chunk)
+        h = forward(params, x, cfg, positions, rules,
+                    prefix_len=cfg.num_patches, remat=remat, q_chunk=q_chunk)
         labels, lmask = shifted_labels(batch["tokens"])
         return chunked_ce_loss(params, h[:, cfg.num_patches:], labels, cfg,
-                               mask=lmask)
+                               mask=lmask, rules=rules)
     tokens = batch["tokens"]
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=x.device)
-    h = forward(params, x, cfg, positions, remat=remat, q_chunk=q_chunk)
+    h = forward(params, x, cfg, positions, rules, remat=remat,
+                q_chunk=q_chunk)
     labels, lmask = shifted_labels(tokens)
     if "mask" in batch:
         lmask = lmask & batch["mask"]
-    return chunked_ce_loss(params, h, labels, cfg, mask=lmask)
+    return chunked_ce_loss(params, h, labels, cfg, mask=lmask, rules=rules)
 
 
 # ---------------------------------------------------------------- serving
@@ -239,13 +341,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(params: TransformerParams, cache: KVCache, tokens, pos: int,
-                cfg: ArchConfig):
+                cfg: ArchConfig, rules=None):
     """One decode step: tokens (B, 1) at absolute position ``pos``.
 
     Writes the new keys and values into ``cache`` in place and returns
     (f32 logits (B, V), cache).  With a sliding window the cache is a ring
     buffer of size window and the write slot is pos % window.
     """
+    with on_mesh(rules):
+        return _decode(params, cache, tokens, pos, cfg, rules)
+
+
+def _decode(params, cache, tokens, pos, cfg, rules):
     B = tokens.shape[0]
     dev = cache.k.device
     pos = int(pos)
@@ -274,12 +381,15 @@ def decode_step(params: TransformerParams, cache: KVCache, tokens, pos: int,
         h = h + out_project(o, lp["wo"])
         hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + glu_ffn(hn, lp["w_in"], lp["w_out"], cfg.activation)
+        if rules is not None:
+            h = constrain(h, data_spec(rules))
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     return logits_at(params, h[:, -1, :], cfg), cache
 
 
 def prefill_embedded(params: TransformerParams, x, cfg: ArchConfig,
-                     cache: KVCache, prefix_len=None, q_chunk: int = 512):
+                     cache: KVCache, rules=None, prefix_len=None,
+                     q_chunk: int = 512):
     """Prompt pass over pre-embedded inputs x (B, L, d): returns
     last-position f32 logits (B, V) and the cache, filled in place (the
     last S of each layer's keys and values written from slot 0).
@@ -287,6 +397,11 @@ def prefill_embedded(params: TransformerParams, x, cfg: ArchConfig,
     Full-sequence logits are never materialized: serving only needs the
     last position.
     """
+    with on_mesh(rules):
+        return _prefill(params, x, cfg, cache, rules, prefix_len, q_chunk)
+
+
+def _prefill(params, x, cfg, cache, rules, prefix_len, q_chunk):
     L = x.shape[1]
     positions = torch.arange(L, dtype=torch.int32, device=x.device)
     S = cache.k.shape[2]
@@ -302,6 +417,8 @@ def prefill_embedded(params: TransformerParams, x, cfg: ArchConfig,
         h = h + out_project(o, lp["wo"])
         hn = rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + glu_ffn(hn, lp["w_in"], lp["w_out"], cfg.activation)
+        if rules is not None:
+            h = constrain(h, data_spec(rules))
         seq_update(cache.k[i], k_new[:, -S:], 0)
         seq_update(cache.v[i], v_new[:, -S:], 0)
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
@@ -309,30 +426,35 @@ def prefill_embedded(params: TransformerParams, x, cfg: ArchConfig,
 
 
 def prefill(params: TransformerParams, tokens, cfg: ArchConfig,
-            cache: KVCache, q_chunk: int = 512):
+            cache: KVCache, rules=None, q_chunk: int = 512):
     """Token-prompt prefill (dense LMs)."""
-    x = embed_tokens(params, tokens, cfg)
-    return prefill_embedded(params, x, cfg, cache, q_chunk=q_chunk)
+    with on_mesh(rules):
+        x = embed_tokens(params, tokens, cfg)
+        return prefill_embedded(params, x, cfg, cache, rules=rules,
+                                q_chunk=q_chunk)
 
 
 def vlm_prefill(params: TransformerParams, batch: dict, cfg: ArchConfig,
-                cache: KVCache, q_chunk: int = 512):
+                cache: KVCache, rules=None, q_chunk: int = 512):
     """VLM prompt pass: image patches (stub frontend) + text tokens, the
     patches a bidirectional prefix."""
-    patches = batch["patches"].to(cfg.dtype)
-    img = torch.einsum("bpf,fd->bpd", patches, params.frontend)
-    tok = embed_tokens(params, batch["tokens"], cfg)
-    x = torch.cat([img, tok], dim=1)
-    return prefill_embedded(params, x, cfg, cache,
-                            prefix_len=cfg.num_patches, q_chunk=q_chunk)
+    with on_mesh(rules):
+        patches = batch["patches"].to(cfg.dtype)
+        img = torch.einsum("bpf,fd->bpd", patches, params.frontend)
+        tok = embed_tokens(params, batch["tokens"], cfg)
+        x = torch.cat([img, tok], dim=1)
+        return prefill_embedded(params, x, cfg, cache, rules=rules,
+                                prefix_len=cfg.num_patches, q_chunk=q_chunk)
 
 
 def encode_step(params: TransformerParams, batch: dict, cfg: ArchConfig,
-                q_chunk: int = 512):
+                rules=None, q_chunk: int = 512):
     """Encoder serving (hubert): frame features -> per-frame f32 unit
     logits (B, L, V)."""
-    feats = batch["features"].to(cfg.dtype)
-    x = torch.einsum("blf,fd->bld", feats, params.frontend)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    h = forward(params, x, cfg, positions, q_chunk=q_chunk)
-    return logits_at(params, h, cfg)
+    with on_mesh(rules):
+        feats = batch["features"].to(cfg.dtype)
+        x = torch.einsum("blf,fd->bld", feats, params.frontend)
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        h = forward(params, x, cfg, positions, rules, q_chunk=q_chunk)
+        return logits_at(params, h, cfg)

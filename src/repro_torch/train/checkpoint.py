@@ -17,6 +17,11 @@
   its 16-bit pattern (``uint16``) under the dtype name ``bfloat16``, as
   there.  So a checkpoint of ``(params, opt_state)`` written by either
   package restores into the other.
+* **Elasticity**: the leaves are global arrays.  ``save`` on a mesh
+  gathers each DTensor (every rank calls it) and rank 0 alone writes;
+  ``restore`` places each saved array on the placements of its
+  ``tree_like`` leaf, so a checkpoint written on one mesh restores on any
+  mesh whose axes divide the shapes, or on one device.
 * **Determinism**: the data pipeline's cursor rides along in ``extras``,
   so a restarted run replays the stream the stopped one would have read.
 """
@@ -29,6 +34,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["leaves", "save", "latest_step", "restore"]
@@ -63,12 +69,21 @@ def leaves(tree, path: str = ""):
         yield path, tree
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
-    """A leaf as the array stored on disk and its dtype's name."""
+    """A leaf as the array stored on disk and its dtype's name (a
+    DTensor's full value)."""
     if not isinstance(leaf, torch.Tensor):
         arr = np.asarray(leaf)
         return arr, arr.dtype.name
     t = leaf.detach()
+    if _is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16), _BF16
     arr = t.cpu().numpy()
@@ -77,7 +92,26 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
 
 def save(directory: str, step: int, tree, extras: dict | None = None) -> str:
     """Write ``tree`` (tensors, arrays, nested in tuples, lists, dicts and
-    params modules) as ``<directory>/step_<step>``; returns that path."""
+    params modules) as ``<directory>/step_<step>``; returns that path.
+    A tree holding DTensors is saved by every rank of the process group
+    together: each DTensor is gathered, rank 0 writes, and every rank
+    returns once the step is committed."""
+    flat = list(leaves(tree))
+    arrays = (_to_numpy(leaf) for _, leaf in flat)    # one leaf at a time
+    if not any(_is_dtensor(leaf) for _, leaf in flat):
+        return _write(directory, step, flat, arrays, extras)
+    if dist.get_rank() == 0:
+        final = _write(directory, step, flat, arrays, extras)
+    else:       # take part in each gather, in the writer's order
+        final = os.path.join(directory, f"step_{step}")
+        for _, leaf in flat:
+            if _is_dtensor(leaf):
+                leaf.detach().full_tensor()
+    dist.barrier()
+    return final
+
+
+def _write(directory, step, flat, arrays, extras) -> str:
     os.makedirs(directory, exist_ok=True)
     for name in os.listdir(directory):          # stale partial writes
         if name.endswith(".tmp"):
@@ -86,8 +120,7 @@ def save(directory: str, step: int, tree, extras: dict | None = None) -> str:
     final = os.path.join(directory, f"step_{step}")
     os.makedirs(tmp)
     meta = {"step": int(step), "extras": extras or {}, "leaves": []}
-    for i, (path, leaf) in enumerate(leaves(tree)):
-        arr, dtype = _to_numpy(leaf)
+    for i, ((path, _), (arr, dtype)) in enumerate(zip(flat, arrays)):
         np.save(os.path.join(tmp, f"arr_{i}.npy"), arr)
         meta["leaves"].append({"path": path, "shape": list(arr.shape),
                                "dtype": dtype})
@@ -115,7 +148,9 @@ def latest_step(directory: str) -> int | None:
 def restore(directory: str, step: int, tree_like):
     """Load ``<directory>/step_<step>`` into the tensors of ``tree_like``
     in place (each cast to its tensor's dtype and device); the leaves must
-    match in count, path and shape.  Returns (tree_like, extras)."""
+    match in count, path and shape.  A DTensor leaf takes its own slice
+    of the saved array, on its placements (nothing moves between ranks).
+    Returns (tree_like, extras)."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -136,5 +171,12 @@ def restore(directory: str, step: int, tree_like):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        like.copy_(t)
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            t = distribute_tensor(t.to(like.dtype), like.device_mesh,
+                                  like.placements, src_data_rank=None)
+            like.to_local().copy_(t.to_local())
+        else:
+            like.copy_(t)
     return tree_like, meta["extras"]

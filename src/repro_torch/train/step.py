@@ -10,17 +10,32 @@ axis; ``accumulation="grad"`` takes each slice's gradients and adds them
 into f32 buffers (the reference's f32 scan carry: ``.grad`` would add
 bf16 gradients in bf16), ``"loss"`` averages the k losses, each slice
 recomputed in the backward pass, and takes one gradient.
+
+On a mesh (``rules`` given, the reference's ``make_train_step(...,
+rules=rules)``) the parameters and the optimizer state are DTensors and
+the batch leaves DTensors sharded over the data axes; ``loss_fn`` gets
+``rules=rules``.  The microbatch split cuts each rank's local rows (so a
+microbatch holds rows of every data shard, not the reference's
+contiguous block of the global batch: the same result wherever each
+microbatch's loss is a mean of per-row terms over equal counts, as the
+next-token losses are; not the MoE's aux loss), each gradient is
+redistributed to its parameter's placements (the data-axis reduction)
+and accumulated on the local shards, and AdamW updates the local shards
+in place.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable
 
+import functools
+
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from .optimizer import AdamWConfig, adamw_update, named_params
+from ..models.common import on_mesh
+from .optimizer import AdamWConfig, adamw_update, local, named_params
 from .schedule import warmup_cosine
 
 __all__ = ["TrainStepConfig", "make_train_step", "value_and_grad"]
@@ -37,14 +52,19 @@ class TrainStepConfig:
 
 
 def _split_batch(batch: dict, k: int) -> list[dict]:
-    """k microbatches: every leaf (B, ...) cut into k slices of B // k."""
+    """k microbatches: every leaf (B, ...) cut into k slices of B // k;
+    a DTensor leaf's local rows cut into k slices of its local rows."""
+    from torch.distributed.tensor import DTensor
+
     out = [{} for _ in range(k)]
     for name, x in batch.items():
-        if x.shape[0] % k:
-            raise ValueError(f"batch {x.shape[0]} not divisible by {k} "
+        rows = local(x)
+        if rows.shape[0] % k:
+            raise ValueError(f"batch {rows.shape[0]} not divisible by {k} "
                              f"microbatches")
-        for i, piece in enumerate(torch.chunk(x, k)):
-            out[i][name] = piece
+        for i, piece in enumerate(torch.chunk(rows, k)):
+            out[i][name] = piece if rows is x else DTensor.from_local(
+                piece, x.device_mesh, x.placements, run_check=False)
     return out
 
 
@@ -58,17 +78,40 @@ def _trainable(params) -> dict[str, torch.Tensor]:
     return named
 
 
-def _grad(loss: torch.Tensor, leaves: list) -> tuple:
+def _grad(loss: torch.Tensor, leaves: list) -> list:
     """d loss / d each leaf; zeros for a leaf the loss does not use (the
-    encoder's token embedding), as JAX gives."""
-    return torch.autograd.grad(loss, leaves, materialize_grads=True)
+    encoder's token embedding), as JAX gives.  A DTensor leaf's gradient
+    is redistributed to the leaf's placements (a partial sum over the
+    data axes is reduced)."""
+    from torch.distributed.tensor import DTensor
+
+    grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    return [g.redistribute(t.device_mesh, t.placements)
+            if isinstance(g, DTensor) else g for g, t in zip(grads, leaves)]
+
+
+def _full(loss: torch.Tensor) -> torch.Tensor:
+    """The loss as a plain tensor (a DTensor's full value)."""
+    from torch.distributed.tensor import DTensor
+
+    loss = loss.detach()
+    return loss.full_tensor() if isinstance(loss, DTensor) else loss
 
 
 def value_and_grad(loss_fn: Callable, params, batch: dict,
-                   cfg: TrainStepConfig):
+                   cfg: TrainStepConfig, rules=None):
     """(loss, name -> gradient) of ``loss_fn(params, batch)``, with the
     microbatching of ``cfg``: the gradients are f32 in the ``'grad'`` mode
-    with k > 1, else in each parameter's dtype, as the reference's."""
+    with k > 1, else in each parameter's dtype, as the reference's.  With
+    ``rules`` the call is ``loss_fn(params, batch, rules=rules)`` on
+    DTensors (see the module doc); the loss comes back a plain tensor."""
+    if rules is not None:
+        loss_fn = functools.partial(loss_fn, rules=rules)
+    with on_mesh(rules):
+        return _value_and_grad(loss_fn, params, batch, cfg)
+
+
+def _value_and_grad(loss_fn, params, batch, cfg):
     named = _trainable(params)
     names, leaves = list(named), list(named.values())
     k = cfg.microbatches
@@ -88,24 +131,26 @@ def value_and_grad(loss_fn: Callable, params, batch: dict,
         for b in _split_batch(batch, k):
             loss = loss_fn(params, b)
             for acc, g in zip(grads, _grad(loss, leaves)):
-                acc.add_(g)
-            loss_sum = loss_sum + loss.detach()
+                local(acc).add_(local(g))
+            loss_sum = loss_sum + _full(loss)
         inv = 1.0 / k
         loss = loss_sum * inv
         for g in grads:
-            g.mul_(inv)
+            local(g).mul_(inv)
     else:
         loss = loss_fn(params, batch)
         grads = _grad(loss, leaves)
-    return loss.detach(), dict(zip(names, grads))
+    return _full(loss), dict(zip(names, grads))
 
 
-def make_train_step(loss_fn: Callable, cfg: TrainStepConfig) -> Callable:
-    """loss_fn: (params, batch) -> f32 scalar.  The step turns the
-    parameters' gradients on."""
+def make_train_step(loss_fn: Callable, cfg: TrainStepConfig,
+                    rules=None) -> Callable:
+    """loss_fn: (params, batch) -> f32 scalar, or (params, batch,
+    rules=rules) on a mesh.  The step turns the parameters' gradients
+    on."""
 
     def train_step(params, opt_state, batch, step_idx):
-        loss, grads = value_and_grad(loss_fn, params, batch, cfg)
+        loss, grads = value_and_grad(loss_fn, params, batch, cfg, rules)
         lr = warmup_cosine(step_idx, peak_lr=cfg.peak_lr,
                            warmup_steps=cfg.warmup_steps,
                            total_steps=cfg.total_steps)

@@ -431,3 +431,22 @@ def test_telemetry_include_cost():
     assert bc["tc_ops"] == 1000 * 1000 * 32
     assert planner.plan(None, ExecSpec(backend="cuda")).telemetry(
         include_cost=True)["cost"] == {"error": "plan has no bound shape"}
+
+
+@pytest.mark.parametrize("layout", ["dense", "block-sparse"])
+def test_torch_plan_cost_names_no_kernel(layout):
+    """A ``torch`` plan launches no CUDA kernel, so its cost block names
+    none: it names its route (the stencil dense, the ring walk
+    block-sparse), holds no bound and says why."""
+    pts = torch.from_numpy(uniform_points(256, 2, seed=0))
+    pl = planner.as_plan(ExecSpec(backend="torch", layout=layout), pts)
+    launches0 = ops.launch_counts()
+    cost = pl.telemetry(include_cost=True)["cost"]
+    assert cost["kernels"] == {}
+    assert "bound_ms" not in cost
+    assert cost["route"] == ("stencil" if layout == "dense" else "ring")
+    assert "no CUDA kernel" in cost["note"]
+    names = {entry[0] for entry in kc.KERNELS.values()} | set(kc.KERNELS)
+    assert not any(name in json.dumps(cost) for name in names)
+    assert (cost["n"], cost["d"]) == (256, 2)
+    assert ops.launch_counts() == launches0

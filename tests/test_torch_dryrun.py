@@ -6,9 +6,15 @@ same reduced config, the per-layer part doubling with the layers, remat's
 recompute counted, and the CLI.  The gradients' counts are in
 ``tests/test_torch_dryrun_grad.py``."""
 import json
+import math
+import os
+import subprocess
+import sys
+import types
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
@@ -23,6 +29,8 @@ from repro_torch.launch import dryrun
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import transformer as ttfm
 from repro_torch.train.step import TrainStepConfig, value_and_grad
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # one architecture per family
 FAMILIES = {"dense": "gemma-2b", "vlm": "paligemma-3b",
@@ -190,9 +198,166 @@ def test_cell_records_and_memory(tmp_path):
     assert train["memory"]["alias_bytes"] == params_bytes * 7 + 4
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "pod"], ["--mesh", "multipod"],
-                                  ["--data-only"]])
-def test_meshes_across_cards_wait_for_9b(argv):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(argv + ["--arch", "gemma-2b", "--shape", "decode_32k"])
-    assert e.value.code != 0 and "9b" in str(e.value.code)
+def _local_bytes(shape, spec, sizes: dict, itemsize: int) -> int:
+    """Rank 0's bytes of a tensor of ``shape`` sharded by ``spec`` (each
+    dim over the product of its entry's axes, rank 0 taking the ceiling
+    share)."""
+    n = 1
+    for i, d in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        axes = () if e is None else ((e,) if isinstance(e, str) else e)
+        n *= -(-d // math.prod(sizes[a] for a in axes))
+    return n * itemsize
+
+
+def _ref_decode_argument_bytes(names, mesh_shape, data_only: bool) -> int:
+    """Per-device bytes of gemma-2b's decode_32k arguments: the
+    parameters by the reference's ``param_specs``, the cache by its
+    ``cache_specs`` with the batch axis by ``batch_spec``, and the
+    tokens by ``batch_spec``, on ``rules_for``'s rules."""
+    from jax.sharding import PartitionSpec
+    from repro.launch import mesh as rmesh
+
+    rc, shape = rconfigs.ARCHS["gemma-2b"], rconfigs.SHAPES["decode_32k"]
+    rules = rmesh.rules_for(types.SimpleNamespace(
+        axis_names=names, devices=np.empty(mesh_shape, np.int8)),
+        data_only=data_only)
+    sizes = dict(zip(names, mesh_shape))
+    m = rbuild(rc)
+    leaves = jax.tree.leaves(jax.eval_shape(m.init, jax.random.PRNGKey(0)))
+    specs = jax.tree.leaves(m.param_specs(rules),
+                            is_leaf=lambda x: isinstance(x, PartitionSpec))
+    total = sum(_local_bytes(a.shape, tuple(s), sizes, a.dtype.itemsize)
+                for a, s in zip(leaves, specs))
+    B = shape.global_batch
+    bs = tuple(rmesh.batch_spec(rules, B))
+    data = {rules.data, tuple(rules.data_axes), *rules.data_axes}
+    cache = jax.eval_shape(lambda: m.init_cache(B, shape.seq_len))
+    for a, s in zip(cache, m.cache_specs(rules)):
+        s = tuple(bs[0] if (tuple(e) if isinstance(e, (tuple, list))
+                            else e) in data else e for e in s)
+        total += _local_bytes(a.shape, s, sizes, a.dtype.itemsize)
+    tok = tconfigs.input_specs(tconfigs.ARCHS["gemma-2b"],
+                               tconfigs.SHAPES["decode_32k"])["tokens"]
+    return total + _local_bytes(tuple(tok.shape), bs, sizes,
+                                tok.element_size())
+
+
+MESH_ARGV = {"pod": (["--mesh", "pod"], "pod", 256,
+                     (("data", "model"), (16, 16), False)),
+             "multipod": (["--mesh", "multipod"], "multipod", 512,
+                          (("pod", "data", "model"), (2, 16, 16), False)),
+             "data-only": (["--data-only"], "pod", 256,
+                           (("data", "model"), (16, 16), True))}
+
+
+@pytest.mark.parametrize("case", list(MESH_ARGV))
+def test_meshes_across_cards(tmp_path, case):
+    """``--mesh pod``, ``--mesh multipod`` and ``--data-only`` trace
+    gemma-2b's decode_32k step as rank 0 of a fake process group of 256,
+    512 and 256 ranks (the CLI in a subprocess, so no group outlives
+    it): the record's ``devices``, its per-device ``argument_bytes``
+    equal to the reference's specs' division of the same tensors, the
+    collectives counted per device, and the torch release named."""
+    argv, mesh, devices, (names, shape, data_only) = MESH_ARGV[case]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv, "--arch",
+         "gemma-2b", "--shape", "decode_32k", "--out", str(tmp_path)],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    rec = json.loads((tmp_path / f"gemma-2b__decode_32k__{mesh}.json")
+                     .read_text())
+    assert (rec["mesh"], rec["devices"]) == (mesh, devices)
+    assert rec["variant"]["data_only"] is data_only
+    assert rec["memory"]["argument_bytes"] == _ref_decode_argument_bytes(
+        names, shape, data_only)
+    assert rec["collectives"]["total_bytes"] > 0
+    assert 0 < rec["cost"]["dot_flops"] < rec["cost"]["flops"]
+    assert rec["torch"] == torch.__version__
+
+
+_COMM_CHECK = """
+import json
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.launch import dryrun, mesh as lmesh
+
+comm = {}
+with dryrun.fake_group(256):
+    dmesh = lmesh.make_production_mesh()
+    mode = FakeTensorMode()
+    fn, args, updated = dryrun._spec_step(
+        ARCHS["gemma-2b"], SHAPES["decode_32k"], mode, 1, "grad", dmesh,
+        lmesh.rules_for(dmesh))
+
+    def counted(*a):
+        with CommDebugMode() as debug:
+            out = fn(*a)
+        comm.update((str(op), n) for op, n in debug.get_comm_counts().items())
+        return out
+
+    rec = dryrun.step_cost(counted, args, updated, mode, local=True)
+print(json.dumps({"counts": rec["cost"]["collectives"]["counts"],
+                  "comm": comm}))
+"""
+
+
+def _last_json_line(code: str) -> dict:
+    """Run ``code`` in a fresh interpreter (so no fake process group
+    outlives it) and parse the last line it prints."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_mesh_collectives_match_comm_debug_mode():
+    """The dry run's per-device collective counts on the pod mesh equal
+    ``CommDebugMode``'s count of DTensor's collectives in the same
+    trace."""
+    got = _last_json_line(_COMM_CHECK)
+    kinds = {"all_gather_into_tensor": "all-gather",
+             "all_reduce": "all-reduce",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "all_to_all_single": "all-to-all"}
+    assert got["counts"] and got["counts"] == {
+        kinds[op.split(".")[-1]]: n for op, n in got["comm"].items()}
+
+
+_POD_CELL = """
+import json
+from repro_torch.configs import ARCHS, reduce_config
+from repro_torch.launch import dryrun
+
+cfg = {cfg}
+rec = dryrun.run_cell({arch!r}, {shape!r}, "pod", microbatches=1,
+                      arch_override=cfg)
+print(json.dumps({{"devices": rec["devices"],
+                  "argument_bytes": rec["memory"]["argument_bytes"]}}))
+"""
+
+POD_CELLS = {
+    # 32 query heads over the 16-way model axis, 4 kv heads, which do
+    # not divide it: the GQA split needs the heads gathered first
+    # (``attention._groupable``)
+    "uneven-kv-groups": ("qwen3-moe-30b-a3b", "train_4k",
+                         'reduce_config(ARCHS["qwen3-moe-30b-a3b"])'
+                         '.replace(n_heads=32, n_kv_heads=4)'),
+    # a batch of 1 over 16 data ranks: ``constrain`` replicates it
+    "batch-of-one": ("h2o-danube-1.8b", "long_500k",
+                     'ARCHS["h2o-danube-1.8b"]'),
+}
+
+
+@pytest.mark.parametrize("case", list(POD_CELLS))
+def test_pod_mesh_traces(case):
+    """Layouts GSPMD takes as they lie and DTensor does not trace on the
+    pod mesh as rank 0 of 256."""
+    arch, shape, cfg = POD_CELLS[case]
+    got = _last_json_line(_POD_CELL.format(arch=arch, shape=shape, cfg=cfg))
+    assert got["devices"] == 256 and got["argument_bytes"] > 0

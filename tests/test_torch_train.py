@@ -411,7 +411,10 @@ def test_cli_losses_match_reference(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(SystemExit, match="9b"):
+    """A mesh of 2 needs a process group of 2 ranks: with no group the
+    world size is 1, and the message names both numbers."""
+    with pytest.raises(SystemExit, match=r"a mesh of 2 devices, but the "
+                       r"world size is 1"):
         train_cli.main(CLI + ["--device", "cpu", "--mesh-shape", "2", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
